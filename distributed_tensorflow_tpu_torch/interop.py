@@ -1,0 +1,123 @@
+"""Parameter conversion between the JAX package's flax trees and the port.
+
+The flax side is a nested dict of **numpy** arrays (``jax.tree.map(
+np.asarray, params)`` on the JAX side), so this module needs no JAX. The
+torch side is a :class:`~.models.bert.BertForPreTraining` ``state_dict``.
+
+Mappings:
+
+- ``Dense`` kernel ``[in, out]`` <-> ``Linear.weight`` ``[out, in]``;
+- ``DenseGeneral`` q/k/v kernels ``[H, heads, d]`` and biases ``[heads, d]``
+  <-> ``Linear`` ``[heads*d, H]`` / ``[heads*d]``;
+- the attention ``out`` kernel ``[heads, d, H]`` <-> ``Linear`` ``[H, heads*d]``
+  (its bias is the separate ``out_bias`` leaf, unchanged);
+- ``Embed.embedding`` <-> ``Embedding.weight``;
+- ``LayerNorm`` ``scale``/``bias`` <-> ``weight``/``bias``;
+- ``layer_<i>`` <-> ``layers.<i>``.
+
+Int8-packed leaves (``_q8``/``_q8_scale``) are refused until the int8 slice.
+bf16 numpy arrays (``ml_dtypes``) arrive as bf16 tensors; bf16 tensors leave
+as float32 arrays, which hold every bf16 value exactly.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+_EMBEDDINGS = {"word", "position", "token_type"}
+_NORMS = {"ln", "mlm_ln"}
+_HEAD_PROJ = {"query", "key", "value"}
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def _flatten(tree: dict, prefix: tuple = ()):
+    for key, val in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(val, dict):
+            yield from _flatten(val, path)
+        else:
+            yield path, val
+
+
+def bert_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """flax ``BertForPreTraining`` params (numpy leaves) -> torch state dict."""
+    out = {}
+    for path, leaf in _flatten(tree):
+        if any(p in ("_q8", "_q8_scale") for p in path):
+            raise NotImplementedError(
+                f"int8-packed leaf {'/'.join(path)}: quantized checkpoints "
+                "are ported with the int8 slice"
+            )
+        a = np.asarray(leaf)
+        names = [re.sub(r"^layer_(\d+)$", r"layers.\1", p) for p in path]
+        parent, name = (path[-2] if len(path) > 1 else ""), path[-1]
+        if name == "embedding":
+            names[-1] = "weight"
+        elif name == "scale":
+            names[-1] = "weight"
+        elif name == "kernel":
+            names[-1] = "weight"
+            if parent in _HEAD_PROJ:  # [H, heads, d] -> [heads*d, H]
+                a = a.reshape(a.shape[0], -1).T
+            elif parent == "out":     # [heads, d, H] -> [H, heads*d]
+                a = a.reshape(-1, a.shape[-1]).T
+            else:                     # [in, out] -> [out, in]
+                a = a.T
+        elif name == "bias" and parent in _HEAD_PROJ:  # [heads, d] -> [heads*d]
+            a = a.reshape(-1)
+        out[".".join(names)] = _to_tensor(np.ascontiguousarray(a))
+    return out
+
+
+def bert_params_to_flax(state_dict: dict, num_heads: int) -> dict:
+    """Inverse of :func:`bert_params_from_flax` (numpy leaves); needs the
+    head count to restore the ``DenseGeneral`` shapes."""
+    tree: dict = {}
+    for key, t in state_dict.items():
+        parts = key.split(".")
+        path, i = [], 0
+        while i < len(parts):
+            if parts[i] == "layers":
+                path.append(f"layer_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        a = _to_numpy(t)
+        parent = path[-2] if len(path) > 1 else ""
+        if path[-1] == "weight":
+            if parent in _EMBEDDINGS:
+                path[-1] = "embedding"
+            elif parent in _NORMS:
+                path[-1] = "scale"
+            else:
+                path[-1] = "kernel"
+                if parent in _HEAD_PROJ:  # [heads*d, H] -> [H, heads, d]
+                    a = a.T.reshape(a.shape[1], num_heads, -1)
+                elif parent == "out":     # [H, heads*d] -> [heads, d, H]
+                    a = a.T.reshape(num_heads, -1, a.shape[0])
+                else:
+                    a = a.T
+        elif path[-1] == "bias" and parent in _HEAD_PROJ:
+            a = a.reshape(num_heads, -1)
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return tree

@@ -1,5 +1,5 @@
-"""Observability for the port: serving metrics, SLOs, health, tracing,
-the flight recorder and device-memory accounting."""
+"""Observability for the port: serving and feed metrics, SLOs, health,
+tracing, the flight recorder and device-memory accounting."""
 
 from distributed_tensorflow_tpu_torch.obs.export import (  # noqa: F401
     PROM_CONTENT_TYPE,
@@ -21,6 +21,7 @@ from distributed_tensorflow_tpu_torch.obs.memory import (  # noqa: F401
 )
 from distributed_tensorflow_tpu_torch.obs.metrics import (  # noqa: F401
     Counter,
+    FeedMetrics,
     Gauge,
     Histogram,
     JsonlWriter,

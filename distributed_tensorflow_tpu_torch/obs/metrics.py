@@ -3,6 +3,9 @@
 Training side: TensorBoard scalars and append-only JSONL. Only rank 0
 writes; other ranks get no-op hooks, so call sites stay branch-free.
 
+Feed side: :class:`FeedMetrics`, the training loop's host-wait and the
+prefetch stage's assembly instruments.
+
 Serving side (serve/): thread-safe :class:`Counter` / :class:`Gauge` /
 :class:`Histogram` primitives and the :class:`ServeMetrics` bundle — the
 per-request latency histogram (p50/p99), queue-depth and batch-occupancy
@@ -228,6 +231,67 @@ class LabelledHistogram:
     def reset(self) -> None:
         with self._lock:
             self._hists.clear()
+
+
+class FeedMetrics:
+    """Feed-path observability bundle (``data/prefetch.py`` wires the
+    feeder side; ``train.fit`` wires the consumer side and surfaces a
+    summary at its log cadence).
+
+    - **feeder** (the prefetch thread, or the inline path when prefetch is
+      off): ``assembly`` histogram (seconds per batch of host assembly +
+      host-to-device copy), ``batches_assembled`` counter, ``queue_depth``
+      gauge.
+    - **consumer** (the training loop): ``observe_wait`` with the seconds it
+      blocked waiting for a batch. With prefetch on, host wait ~ 0 in steady
+      state; host wait ~ assembly means the run is feed-bound.
+
+    ``window()`` pops the per-log-window summary (mean host wait since the
+    last call + current queue depth).
+    """
+
+    def __init__(self):
+        self.host_wait = Histogram()       # s/step the consumer blocked on feed
+        self.assembly = Histogram()        # s/batch of assembly + device copy
+        self.queue_depth = Gauge()         # prefetch queue occupancy
+        self.batches_assembled = Counter()
+        self.host_wait_w = WindowedHistogram()
+        self._lock = threading.Lock()
+        self._win_wait = 0.0
+        self._win_steps = 0
+
+    def observe_wait(self, seconds: float) -> None:
+        """Consumer-side: record one blocking wait for a batch."""
+        self.host_wait.observe(seconds)
+        self.host_wait_w.observe(seconds)
+        with self._lock:
+            self._win_wait += float(seconds)
+            self._win_steps += 1
+
+    def window(self) -> dict:
+        """Pop the log-cadence summary (resets the window accumulators)."""
+        with self._lock:
+            wait, steps = self._win_wait, self._win_steps
+            self._win_wait, self._win_steps = 0.0, 0
+        return {
+            "host_wait_ms": (1e3 * wait / steps) if steps else 0.0,
+            "feed_queue_depth": self.queue_depth.value,
+        }
+
+    def snapshot(self) -> dict:
+        """Full-stream summary."""
+        return {
+            "host_wait_ms": {
+                k: (v * 1e3 if k != "count" else v)
+                for k, v in self.host_wait.summary().items()
+            },
+            "assembly_ms": {
+                k: (v * 1e3 if k != "count" else v)
+                for k, v in self.assembly.summary().items()
+            },
+            "queue_depth": self.queue_depth.value,
+            "batches_assembled": self.batches_assembled.value,
+        }
 
 
 class ServeMetrics:

@@ -9,7 +9,8 @@ wrappers call through :mod:`ctypes`; nothing here includes PyTorch's
 headers, which keeps a build to seconds.
 
 Nothing is compiled when a module is imported: the CPU tests import every
-module on hosts with no ``nvcc``.
+module on hosts with no ``nvcc``. :func:`load_libraries` starts one
+``nvcc`` per library, all at once.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -32,6 +34,7 @@ NVCC_FLAGS = (
 )
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: per library: {"path", "seconds" (0.0 when loaded from the cache), "log"}
 BUILD_INFO: dict[str, dict] = {}
@@ -52,8 +55,11 @@ def _nvcc() -> str:
 
 def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
     """Compile ``sources`` (file names under ``csrc/``) into ``lib<name>``
-    unless a build of the same sources exists, then load it (once)."""
+    unless a build of the same sources exists, then load it (once).
+    Builds of different libraries run concurrently."""
     with _LOCK:
+        name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
@@ -78,3 +84,12 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
         BUILD_INFO[name] = {"path": str(out), "seconds": seconds, "log": log}
         _LIBS[name] = lib
         return lib
+
+
+def load_libraries(specs: dict[str, list[str]]) -> dict[str, ctypes.CDLL]:
+    """:func:`load_library` for each ``name: sources`` entry, one ``nvcc``
+    per library, all started together."""
+    with ThreadPoolExecutor(max_workers=max(1, len(specs))) as pool:
+        futures = {name: pool.submit(load_library, name, srcs)
+                   for name, srcs in specs.items()}
+        return {name: f.result() for name, f in futures.items()}

@@ -1,23 +1,26 @@
-"""Flash attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels and their plain versions.
 
-Port of ``distributed_tensorflow_tpu/ops/flash_attention.py`` (forward half).
-Same layout ``[B, L, H, D]``, same key-padding mask ``[B, L]`` (True =
-attend), same results: f32 scores and accumulation, P cast to V's dtype
-before the PV product, fully masked query rows giving o = 0 and
-lse = -1e30, natural-log lse ``[B, H, L]``.
+Port of ``distributed_tensorflow_tpu/ops/flash_attention.py``. Same layout
+``[B, L, H, D]``, same key-padding mask ``[B, L]`` (True = attend), same
+results: f32 scores and accumulation, P cast to V's dtype before the PV
+product, fully masked query rows giving o = 0 and lse = -1e30,
+natural-log lse ``[B, H, L]``. The backward recomputes P from the saved lse
+in the base-2 domain and takes the lse cotangent of
+:func:`flash_attention_block` into delta, as ``_bwd_impl`` does.
 
 Dispatch is by the tensors' device and nothing else: CPU tensors run
-:func:`flash_attention_reference`, CUDA tensors launch the kernel in
-``csrc/flash_fwd.cu`` (built at first use, see :mod:`.build`) or raise.
+:func:`flash_attention_reference` and
+:func:`flash_attention_backward_reference`, CUDA tensors launch the kernels
+in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (built at first use, see
+:mod:`.build`) or raise.
 
-The TPU package split the forward into a ``[B*H, L, D]`` family and a flat
+The TPU package split each kernel into a ``[B*H, L, D]`` family and a flat
 ``[B, L, H*D]`` family to suit Mosaic's (8, 128) tiling; one kernel over the
 strided ``[B, L, H, D]`` layout serves both on Hopper. ``packing`` is still
 accepted and validated so callers keep their signature, and it never
 changes a result. ``block_q``/``block_k`` keep their meaning for the padding
-of the plain path; the kernel tiles by 64 and masks the ragged edge itself.
-
-Forward only: the backward kernels come with the training slice.
+of the plain path; the kernels tile by 64 and mask the ragged edge
+themselves, so neither direction pads on the card.
 """
 
 from __future__ import annotations
@@ -34,9 +37,9 @@ _DEFAULT_BLOCK_K = 512
 _PACKINGS = (None, "flat", "bh")
 _KERNEL_HEAD_DIMS = (32, 64, 128)
 
-#: Kernel launches since the last :func:`reset_launch_counts`; the wrapper
-#: adds one where it launches the kernel and nowhere else.
-LAUNCHES = {"flash_fwd": 0}
+#: Kernel launches since the last :func:`reset_launch_counts`; each wrapper
+#: adds one where it launches its kernel and nowhere else.
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -109,53 +112,148 @@ def flash_attention_reference(q, k, v, mask=None):
     return o, lse
 
 
-def _kernel_library():
-    from distributed_tensorflow_tpu_torch.ops.build import load_library
+_NEG_SCALED = torch.tensor(_NEG, dtype=torch.float32) * _LOG2E
 
-    lib = load_library("flash_fwd", ["flash_fwd.cu"])
-    if not getattr(lib, "_argtypes_set", False):
-        p = ctypes.c_void_p
-        lib.flash_fwd.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_float, p]
-        lib.flash_fwd.restype = ctypes.c_int
-        lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
-        lib.flash_fwd_error_string.restype = ctypes.c_char_p
-        lib._argtypes_set = True
-    return lib
+
+def _recompute_p(q, k, mask, lse):
+    """P ``[B, H, Lq, Lk]`` in f32 from the saved lse, in the base-2 domain.
+
+    Masked keys take the SCALED mask value: a fully masked row carries
+    lse = -1e30, and ``_NEG * _LOG2E - lse * _LOG2E`` must cancel to 0
+    exactly (plain -1e30 would leave +4e29 and exp2 of it inf).
+    """
+    b, l, h, d = q.shape
+    s = (d**-0.5 * _LOG2E) * torch.einsum("blhd,bkhd->bhlk", q.float(), k.float())
+    if mask is None:
+        keep = torch.ones((b, 1, 1, l), dtype=torch.float32, device=q.device)
+    else:
+        keep = mask.to(torch.float32).reshape(b, 1, 1, l)
+    s = torch.where(keep != 0, s, _NEG_SCALED.to(s.device))
+    return torch.exp2(s - (lse * _LOG2E)[..., None]) * keep
+
+
+def flash_bwd_dq_reference(q, k, v, mask, do, lse, delta):
+    """Plain dQ (``_bwd_dq_kernel``): dS = P * (dO V^T - delta), dS cast
+    to K's dtype, f32 sums, times scale at the end."""
+    p = _recompute_p(q, k, mask, lse)
+    dp = torch.einsum("blhd,bkhd->bhlk", do.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhlk,bkhd->blhd", ds.to(k.dtype).float(), k.float())
+    return (dq * q.shape[-1] ** -0.5).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, mask, do, lse, delta):
+    """Plain dK, dV (``_bwd_dkv_kernel``): dV = P^T dO with P cast to dO's
+    dtype, dK = dS^T Q with dS cast to Q's dtype, f32 sums; scale on dK
+    only."""
+    p = _recompute_p(q, k, mask, lse)
+    dv = torch.einsum("bhlk,blhd->bkhd", p.to(do.dtype).float(), do.float())
+    dp = torch.einsum("blhd,bkhd->bhlk", do.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    dk = torch.einsum("bhlk,blhd->bkhd", ds.to(q.dtype).float(), q.float())
+    return (dk * q.shape[-1] ** -0.5).to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_delta(o, do, dlse=None):
+    """delta = rowsum(dO * O) - dlse in f32, ``[B, H, L]`` (``_bwd_impl``
+    :273-275: the lse cotangent folds into delta)."""
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.contiguous()
+
+
+def flash_attention_backward_reference(q, k, v, mask, o, lse, do, dlse=None):
+    """Plain PyTorch backward: ``(dq, dk, dv)`` in the input dtypes.
+
+    ``_bwd_impl``'s arithmetic in torch ops: P recomputed from ``lse``
+    ``[B, H, L]``, delta = rowsum(dO * O) - dlse, dS = P * (dP - delta),
+    f32 accumulation, scale applied to dQ and dK.
+    """
+    delta = flash_bwd_delta(o, do, dlse)
+    dq = flash_bwd_dq_reference(q, k, v, mask, do, lse, delta)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, mask, do, lse, delta)
+    return dq, dk, dv
+
+
+_LIBS: dict = {}
+
+
+def _libraries() -> dict:
+    """The kernel libraries by name, built and bound on the first call and
+    cached after it (every launch goes through here)."""
+    if _LIBS:
+        return _LIBS
+    from distributed_tensorflow_tpu_torch.ops.build import load_libraries
+
+    libs = load_libraries({"flash_fwd": ["flash_fwd.cu"], "flash_bwd": ["flash_bwd.cu"]})
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    signatures = {
+        "flash_fwd": {"flash_fwd": [p] * 6 + [i] * 5 + [f, p]},
+        "flash_bwd": {
+            "flash_bwd_dq": [p] * 8 + [i] * 5 + [f, f, p],
+            "flash_bwd_dkv": [p] * 9 + [i] * 5 + [f, f, p],
+        },
+    }
+    for name, lib in libs.items():
+        for fn, argtypes in signatures[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    _LIBS.update(libs)
+    return _LIBS
 
 
 def build() -> None:
-    """Compile (or load the cached build of) the kernel library."""
-    _kernel_library()
+    """Compile (or load the cached builds of) the kernel libraries, one
+    ``nvcc`` per source, started together."""
+    _libraries()
+
+
+def _check_operands(fn: str, tensors: dict, mask, b: int, l: int) -> None:
+    """Raise unless every tensor is a contiguous, 16-byte aligned, bf16 or
+    fp32 ``[B, L, H, D]`` tensor of one dtype and shape on one CUDA device
+    with D in the kernels' head dims, and ``mask`` is None or a contiguous
+    bool ``[B, L]`` on that device."""
+    first = next(iter(tensors.values()))
+    if not all(x.is_cuda and x.device == first.device for x in tensors.values()):
+        raise ValueError(f"{fn}: {', '.join(tensors)} must be on one CUDA device")
+    if first.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{fn}: dtype {first.dtype} not in (bfloat16, float32)")
+    if any(x.dtype != first.dtype for x in tensors.values()):
+        raise TypeError(f"{fn}: {', '.join(tensors)} must share one dtype")
+    if first.dim() != 4 or any(x.shape != first.shape for x in tensors.values()):
+        raise ValueError(
+            f"{fn}: {', '.join(tensors)} must share a [B, L, H, D] shape, got "
+            + ", ".join(str(tuple(x.shape)) for x in tensors.values())
+        )
+    if first.shape[-1] not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {first.shape[-1]} not in {_KERNEL_HEAD_DIMS}")
+    for name, x in tensors.items():
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be contiguous and 16-byte aligned")
+    if mask is not None:
+        if mask.dtype != torch.bool or tuple(mask.shape) != (b, l):
+            raise ValueError(f"{fn}: mask must be bool [{b}, {l}]")
+        if mask.device != first.device or not mask.is_contiguous():
+            raise ValueError(f"{fn}: mask must be contiguous on q's device")
+
+
+def _raise_on(lib, prefix: str, rc: int) -> None:
+    if rc != 0:
+        msg = getattr(lib, f"{prefix}_error_string")(rc).decode()
+        raise RuntimeError(f"{prefix} launch failed: {msg}")
 
 
 def flash_fwd_cuda(q, k, v, mask=None):
-    """Launch the CUDA kernel: ``(o, lse)`` for contiguous ``[B, L, H, D]``
-    bf16 or fp32 tensors on one CUDA device. Raises on anything else."""
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_fwd_cuda: q, k, v must be on one CUDA device")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"flash_fwd_cuda: dtype {q.dtype} not in (bfloat16, float32)")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_fwd_cuda: q, k, v must share one dtype")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(
-            f"flash_fwd_cuda: q, k, v must share a [B, L, H, D] shape, got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
-        )
+    """Launch the forward kernel: ``(o, lse)`` for contiguous
+    ``[B, L, H, D]`` bf16 or fp32 tensors on one CUDA device. Raises on
+    anything else."""
     b, l, h, d = q.shape
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_fwd_cuda: head dim {d} not in {_KERNEL_HEAD_DIMS}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"flash_fwd_cuda: {name} must be contiguous and 16-byte aligned")
-    if mask is not None:
-        if mask.dtype != torch.bool or tuple(mask.shape) != (b, l):
-            raise ValueError(f"flash_fwd_cuda: mask must be bool [{b}, {l}]")
-        if mask.device != q.device or not mask.is_contiguous():
-            raise ValueError("flash_fwd_cuda: mask must be contiguous on q's device")
-    lib = _kernel_library()
+    _check_operands("flash_fwd_cuda", {"q": q, "k": k, "v": v}, mask, b, l)
+    lib = _libraries()["flash_fwd"]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     rc = lib.flash_fwd(
@@ -165,12 +263,67 @@ def flash_fwd_cuda(q, k, v, mask=None):
         int(q.dtype == torch.float32), float(d**-0.5 * _LOG2E),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_fwd launch failed: {lib.flash_fwd_error_string(rc).decode()}"
-        )
+    _raise_on(lib, "flash_fwd", rc)
     LAUNCHES["flash_fwd"] += 1
     return o, lse
+
+
+def _check_stats(fn: str, q, **stats) -> None:
+    b, l, h, _ = q.shape
+    for name, x in stats.items():
+        if (x.dtype != torch.float32 or tuple(x.shape) != (b, h, l)
+                or x.device != q.device or not x.is_contiguous()):
+            raise ValueError(f"{fn}: {name} must be contiguous f32 [{b}, {h}, {l}] on q's device")
+
+
+def _bwd_args(q, k, v, mask, do, lse, delta):
+    b, l, h, d = q.shape
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if mask is None else mask.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr())
+    tail = (b, l, h, d, int(q.dtype == torch.float32), float(d**-0.5 * _LOG2E),
+            float(d**-0.5), torch.cuda.current_stream(q.device).cuda_stream)
+    return pointers, tail
+
+
+def flash_bwd_dq_cuda(q, k, v, mask, do, lse, delta):
+    """Launch the dQ kernel (``_bwd_dq_kernel``'s counterpart)."""
+    _check_operands("flash_bwd_dq_cuda", {"q": q, "k": k, "v": v, "do": do},
+                    mask, *q.shape[:2])
+    _check_stats("flash_bwd_dq_cuda", q, lse=lse, delta=delta)
+    lib = _libraries()["flash_bwd"]
+    dq = torch.empty_like(q)
+    pointers, tail = _bwd_args(q, k, v, mask, do, lse, delta)
+    _raise_on(lib, "flash_bwd", lib.flash_bwd_dq(*pointers, dq.data_ptr(), *tail))
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, mask, do, lse, delta):
+    """Launch the dK/dV kernel (``_bwd_dkv_kernel``'s counterpart)."""
+    _check_operands("flash_bwd_dkv_cuda", {"q": q, "k": k, "v": v, "do": do},
+                    mask, *q.shape[:2])
+    _check_stats("flash_bwd_dkv_cuda", q, lse=lse, delta=delta)
+    lib = _libraries()["flash_bwd"]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    pointers, tail = _bwd_args(q, k, v, mask, do, lse, delta)
+    _raise_on(lib, "flash_bwd",
+              lib.flash_bwd_dkv(*pointers, dk.data_ptr(), dv.data_ptr(), *tail))
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_bwd_cuda(q, k, v, mask, o, lse, do, dlse=None):
+    """The backward on the card: ``(dq, dk, dv)``. delta is plain torch
+    here, as the JAX package computes it outside Pallas; then the dQ and
+    the dK/dV kernels. ``do`` is made contiguous (autograd may hand in a
+    strided one); everything else must be as the forward left it. Raises
+    on anything the kernels do not take."""
+    do = do.contiguous()
+    delta = flash_bwd_delta(o, do, dlse)
+    dq = flash_bwd_dq_cuda(q, k, v, mask, do, lse, delta)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, mask, do, lse, delta)
+    return dq, dk, dv
 
 
 def _pad_len(l: int, block_q: int, block_k: int) -> int:
@@ -198,14 +351,34 @@ def _forward(q, k, v, mask, l_pad: int):
     return o[:, :l], lse[..., :l]
 
 
-class _FlashForward(torch.autograd.Function):
+def _backward(q, k, v, mask, o, lse, do, dlse):
+    """Device dispatch of the backward, as :func:`_forward`. The plain path
+    needs no padding: padded keys are masked (P = 0) and padded query rows
+    get a zero cotangent, so both add exact zeros to every gradient."""
+    if q.is_cuda:
+        return flash_bwd_cuda(q, k, v, mask, o, lse, do, dlse)
+    return flash_attention_backward_reference(q, k, v, mask, o, lse, do, dlse)
+
+
+class _Flash(torch.autograd.Function):
+    """``(o, lse)`` with the flash backward; the counterpart of the JAX
+    package's ``custom_vjp``s. The lse cotangent (None when lse is unused,
+    as in :func:`flash_attention`) folds into delta."""
+
     @staticmethod
     def forward(ctx, q, k, v, mask, l_pad):
-        return _forward(q, k, v, mask, l_pad)
+        o, lse = _forward(q, k, v, mask, l_pad)
+        ctx.save_for_backward(q, k, v, mask, o, lse)
+        ctx.set_materialize_grads(False)
+        return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        raise NotImplementedError("flash backward: ported with the training slice")
+        q, k, v, mask, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = _backward(q, k, v, mask, o, lse, do, dlse)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_block(
@@ -216,13 +389,13 @@ def flash_attention_block(
 
     As in the JAX package, L must already fit both blocks (a ring shard):
     the blocks are fitted to L and a length with no multiple-of-8 divisor
-    raises.
+    raises. Differentiable in both outputs.
     """
     b, l, h, d = q.shape
     _fit_block(block_q, l)
     _fit_block(block_k, l)
     _check_packing(packing, h, d)
-    return _FlashForward.apply(q, k, v, mask, l)
+    return _Flash.apply(q, k, v, mask, l)
 
 
 def flash_attention(
@@ -236,5 +409,5 @@ def flash_attention(
     """
     b, l, h, d = q.shape
     _check_packing(packing, h, d)
-    o, _ = _FlashForward.apply(q, k, v, mask, _pad_len(l, block_q, block_k))
+    o, _ = _Flash.apply(q, k, v, mask, _pad_len(l, block_q, block_k))
     return o

@@ -2,8 +2,9 @@
 
 Inputs come from numpy and go through both; the JAX kernels run in Pallas
 interpret mode (off-TPU default), the port through its plain path (CPU
-tensors). fp32 throughout, atol 2e-5: both compute f32 scores and sums
-from the same values, so only summation order differs.
+tensors). fp32 throughout, atol 2e-5 for o and lse and 1e-4 for the
+gradients (sums over L of terms of order 1 with the same f32 rounding
+points on both sides, in another summation order).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from distributed_tensorflow_tpu_torch.parallel.ring_attention import dense_atten
 flash_mod = importlib.import_module("distributed_tensorflow_tpu_torch.ops.flash_attention")
 
 ATOL = 2e-5
+GRAD_ATOL = 1e-4
 
 
 def _qkv(seed, b, l, h, d):
@@ -143,17 +145,70 @@ def test_flash_packing_is_validated_and_result_free():
         flash_attention_block(*(_t(x) for x in _qkv(4, 1, 12, 2, 8)))
 
 
-def test_flash_backward_raises_until_training_slice():
-    q, k, v = (_t(x).requires_grad_() for x in _qkv(5, 1, 16, 2, 8))
-    out = flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+def _vjp_jax(jx, fn, args, cot):
+    """Cotangents of ``fn`` at ``args`` (jitted: the interpreted Pallas
+    kernels run faster compiled than op by op)."""
+    import jax
+
+    grads = jax.jit(lambda xs, ct: jax.vjp(fn, *xs)[1](ct))(
+        tuple(jx.jnp.asarray(a) for a in args), cot)
+    return [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize(
+    "h,d,l,bq,bk,packing",
+    [(2, 16, 32, 16, 16, "bh"), (4, 32, 32, 16, 16, "flat"),
+     (2, 16, 48, 32, 16, "bh"), (4, 32, 24, 16, 24, "flat")],
+    ids=["bh-2x16", "flat-4x32", "bh-ragged-48", "flat-ragged-24"],
+)
+def test_flash_grads_match_jax(jx, h, d, l, bq, bk, packing):
+    """dq, dk, dv through autograd of the plain backward against jax.vjp of
+    the Pallas kernels (interpret mode), both TPU families; batch row 1 is
+    fully masked and must give finite zero gradients."""
+    q, k, v = _qkv(8, 2, l, h, d)
+    m = _mask(2, l)
+    m[1] = False
+    do = np.random.default_rng(9).standard_normal((2, l, h, d)).astype(np.float32)
+    jnp = jx.jnp
+    ref = _vjp_jax(
+        jx, lambda a, b, c: jx.flash(a, b, c, jnp.asarray(m), block_q=bq, block_k=bk,
+                                     packing=packing), (q, k, v), jnp.asarray(do))
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    out = flash_attention(tq, tk, tv, _t(m), block_q=bq, block_k=bk, packing=packing)
+    grads = torch.autograd.grad(out, (tq, tk, tv), _t(do))
+    for g, r, name in zip(grads, ref, "qkv"):
+        assert torch.isfinite(g).all() and torch.all(g[1] == 0), name
+        np.testing.assert_allclose(g.numpy(), r, atol=GRAD_ATOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("packing", ["bh", "flat"])
+def test_flash_block_lse_cotangent_matches_jax(jx, packing):
+    """A loss on both outputs of flash_attention_block: the lse cotangent
+    folds into delta, as in _flash_block_bwd."""
+    q, k, v = _qkv(10, 2, 32, 4, 32)
+    m = _mask(2, 32)
+    rng = np.random.default_rng(11)
+    do = rng.standard_normal((2, 32, 4, 32)).astype(np.float32)
+    dlse = rng.standard_normal((2, 4, 32)).astype(np.float32)
+    jnp = jx.jnp
+    ref = _vjp_jax(
+        jx, lambda a, b, c: jx.block(a, b, c, jnp.asarray(m), block_q=16, block_k=16,
+                                     packing=packing), (q, k, v),
+        (jnp.asarray(do), jnp.asarray(dlse)))
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    o, lse = flash_attention_block(tq, tk, tv, _t(m), block_q=16, block_k=16, packing=packing)
+    grads = torch.autograd.grad((o, lse), (tq, tk, tv), (_t(do), _t(dlse)))
+    for g, r, name in zip(grads, ref, "qkv"):
+        np.testing.assert_allclose(g.numpy(), r, atol=GRAD_ATOL, err_msg=f"d{name}")
 
 
 def test_flash_cpu_path_never_counts_a_launch():
     flash_mod.reset_launch_counts()
     flash_attention(*(_t(x) for x in _qkv(6, 1, 16, 2, 8)))
     assert flash_mod.LAUNCHES["flash_fwd"] == 0
+    q, k, v = (_t(x).requires_grad_() for x in _qkv(6, 1, 16, 2, 8))
+    flash_attention(q, k, v).sum().backward()
+    assert flash_mod.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 @pytest.fixture()
@@ -198,3 +253,83 @@ def test_flash_kernel_runs_in_bert_forward(cuda_device):
     torch.cuda.synchronize()
     assert flash_mod.LAUNCHES["flash_fwd"] == 3
     assert torch.isfinite(logits.float()).all()
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 3e-2), (torch.float32, 1e-4)])
+def test_flash_bwd_kernels_match_plain_version(cuda_device, dtype, atol):
+    """The dQ and dK/dV kernels against the plain backward on the card, at
+    a ragged L = 300 with a padded row and a fully masked row, with and
+    without an lse cotangent. bf16 within 3e-2 (dS and P round to bf16 per
+    tile in the kernels, the grads are of order 1), fp32 within 1e-4; the
+    fully masked row gives exact zeros."""
+    q, k, v, do = (_t(x).to(cuda_device, dtype)
+                   for x in _qkv(12, 2, 300, 12, 64) + _qkv(13, 2, 300, 12, 64)[:1])
+    m = _t(_mask(2, 300)).to(cuda_device)
+    m[1] = False
+    o, lse = flash_mod.flash_fwd_cuda(q, k, v, m)
+    dlse = torch.randn(lse.shape, device=cuda_device)
+    for cot in (None, dlse):
+        before = dict(flash_mod.LAUNCHES)
+        got = flash_mod.flash_bwd_cuda(q, k, v, m, o, lse, do, cot)
+        assert flash_mod.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+        assert flash_mod.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+        ref = flash_mod.flash_attention_backward_reference(q, k, v, m, o, lse, do, cot)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert torch.isfinite(g.float()).all() and torch.all(g[1] == 0)
+            torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=0)
+
+
+def test_flash_bwd_kernels_run_in_bert_backward(cuda_device):
+    """At L >= 256 a training step's backward runs both kernels once per
+    layer."""
+    from distributed_tensorflow_tpu_torch.models.bert import (
+        BertConfig,
+        BertForPreTraining,
+    )
+
+    cfg = BertConfig(vocab_size=64, hidden_size=128, num_layers=3, num_heads=2,
+                     intermediate_size=256, max_position=256, dtype=torch.bfloat16)
+    model = BertForPreTraining(cfg, device=cuda_device)
+    ids = torch.randint(0, 64, (2, 256), device=cuda_device)
+    mask = torch.ones(2, 256, dtype=torch.bool, device=cuda_device)
+    flash_mod.reset_launch_counts()
+    logits, nsp = model(ids, mask, torch.zeros_like(ids))
+    (logits.float().square().mean() + nsp.square().mean()).backward()
+    torch.cuda.synchronize()
+    assert flash_mod.LAUNCHES == {"flash_fwd": 3, "flash_bwd_dq": 3, "flash_bwd_dkv": 3}
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+def test_flash_kernels_under_remat_redraw_the_same_dropout(cuda_device):
+    """With remat, each layer's recompute in the backward restores the CUDA
+    generator it started from: the kernels see the same dropout masks, so
+    the loss and gradients equal those of the run without remat."""
+    from distributed_tensorflow_tpu_torch.models.bert import (
+        BertConfig,
+        BertForPreTraining,
+        make_bert_pretraining_loss,
+    )
+
+    ids = torch.randint(4, 64, (2, 256), device=cuda_device)
+    batch = {"input_ids": ids, "attention_mask": torch.ones_like(ids, dtype=torch.bool),
+             "token_type_ids": torch.zeros_like(ids), "mlm_targets": ids,
+             "nsp_label": torch.zeros(2, dtype=torch.long, device=cuda_device)}
+    results = []
+    for remat in (False, True):
+        cfg = BertConfig(vocab_size=64, hidden_size=128, num_layers=2, num_heads=2,
+                         intermediate_size=256, max_position=256, dtype=torch.bfloat16,
+                         remat=remat)
+        model = BertForPreTraining(cfg, device=cuda_device)
+        params = dict(model.named_parameters())
+        flash_mod.reset_launch_counts()
+        loss, _ = make_bert_pretraining_loss(model)(
+            params, {}, batch, torch.Generator(cuda_device).manual_seed(3))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        assert flash_mod.LAUNCHES["flash_bwd_dq"] == 2
+        results.append((loss, grads))
+    (l0, g0), (l1, g1) = results
+    assert torch.equal(l0, l1)
+    for a, b in zip(g0, g1):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)

@@ -14,7 +14,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "distributed_tensorflow_
 
 def _port_files():
     files = sorted((ROOT / "distributed_tensorflow_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + sorted((ROOT / "scripts").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path):
@@ -71,3 +71,11 @@ def test_entry_points_default_to_the_card(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--config=bert_base", f"--ckpt-dir={tmp_path}", "--bert-layers=1",
               "--bert-hidden=24", "--bert-vocab=32", "--selftest=1"])
+    from distributed_tensorflow_tpu_torch.cli.train import main as train_main
+    from distributed_tensorflow_tpu_torch.train import make_rng
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_rng(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--config=bert_base", "--bert-layers=1", "--bert-hidden=24",
+                    "--bert-vocab=32", "--steps=1"])

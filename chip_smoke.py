@@ -4,16 +4,16 @@
 Phases (any failure exits non-zero before the result lines):
 
 1. build  — compile the port's CUDA kernels from ``csrc/`` (one nvcc per
-   source, started together, sm_90a) into ``build/kernels/``; print the
+   library, started together, sm_90a) into ``build/kernels/``; print the
    build seconds and ptxas' resource use.
 2. kernel — hold the flash-attention forward kernel to its plain PyTorch
    version on the card: bf16 at B in {1, 8} x L in {256, 512, 300} with
-   H=12, D=64, plus D=32, D=128 and an fp32 case; masks with padded and
-   fully masked rows. Tolerances: bf16 o within 1e-2 (P rounds to bf16 per
-   64-key tile in the kernel, once in the plain version), fp32 o within
-   1e-5, lse within 1e-4. Prints kernel/plain/library (SDPA, a yardstick
-   the port never calls) times and the card's bound, one JSON line per
-   shape.
+   H=12, D=64, plus D=32, D=128, an fp32 case and the BERT training cell
+   (B=24, L=512, no padding); masks with padded and fully masked rows.
+   Tolerances: bf16 o within 1e-2 (P rounds to bf16 per 64-key tile in the
+   kernel, once in the plain version), fp32 o within 1e-5, lse within
+   1e-4. Prints kernel/plain/library (SDPA, a yardstick the port never
+   calls) times and the card's bound, one JSON line per shape.
 3. kernel_bwd — hold the backward kernels (dQ, dK/dV) to the plain backward
    on the card, with and without an lse cotangent: bf16 at B in {1, 8, 24}
    x L in {256, 512, 300}, H=12, D=64, plus D=32, D=128 and an fp32 case,
@@ -23,7 +23,18 @@ Phases (any failure exits non-zero before the result lines):
    another order), fp32 within 1e-4. Prints per shape the backward's time
    (delta pass + both kernels) and each kernel's, the plain version's, the
    backward of SDPA with the same mask as a yardstick, and the bound.
-4. serve  — full-width BERT-base (the ``BertConfig()`` defaults: 12 layers,
+4. kernel_conv1x1 — the 1x1-conv dgrad kernel (both routes) against its
+   plain version at ResNet-50's 12 (M, K, N) shapes at b=128, the N=64
+   shape, a ragged M and an fp32 case: bf16 within one bf16 rounding step
+   of the plain value (2^-7 |ref| + 1e-3), fp32 within 1e-4. Prints kernel,
+   plain, library (``torch.matmul(g, w.t())``) and bound times.
+5. kernel_bn_bwd — the fused conv+BN backward kernels (reduce, apply dx,
+   apply dW) against their plain versions at the same 12 shapes, ReLU on
+   and off, a ragged M and fp32: s1, s2 within 1e-5 of the terms'
+   magnitudes summed, dx as the dgrad, dW within 1e-5 of its largest
+   entry (f32 sums over M in another order). No single PyTorch call
+   computes these, so no library time.
+6. serve  — full-width BERT-base (the ``BertConfig()`` defaults: 12 layers,
    hidden 768, 12 heads, FFN 3072, vocab 30522, 512 positions) in bf16
    with seeded random weights: save and restore through ``ckpt``, build
    ``BertInferenceEngine`` (buckets 128/256/512, tiers 1/2/4/8) behind
@@ -31,25 +42,41 @@ Phases (any failure exits non-zero before the result lines):
    the kernel ran 12 times per forward in buckets 256 and 512, that the
    answers agree with the same params run through plain attention on the
    card, and one HTTP ``/v1/mlm`` round trip. Then per-bucket latency.
-5. train  — the slice's main path: full-width BERT-base pretraining (MLM +
-   NSP) in bf16 over f32 params at L=512, 24 rows, ``SyntheticMLM`` data,
-   AdamW(1e-4, weight decay 0.01 off biases/LayerNorms) + global-norm clip
-   1.0, dropout 0.1 from an explicit CUDA generator, through
-   ``make_train_step`` + ``fit``. Checks: a finite loss every step; each
-   of flash_fwd, flash_bwd_dq and flash_bwd_dkv launched 12 times per
-   step; with dropout off, one step's gradients through the kernels agree
-   leaf by leaf with plain attention's: relative L2 error within 2e-2 over
-   the whole gradient and for the median leaf, and within 0.25 for every
-   leaf (bf16 activations round differently on the two paths; the pooler
-   and NSP leaves ride on one bf16 [CLS] vector per row and move most),
-   each against a floor of 1e-3 of the whole gradient's norm for the key
-   biases, whose exact gradient is zero; on one
-   fixed batch at a constant lr the loss falls over 10 steps. Then the
-   median ms per step, tokens/s and MFU against 989 TFLOP/s.
-6. train_cli — ``python -m distributed_tensorflow_tpu_torch.cli.train
+7. train  — full-width BERT-base pretraining (MLM + NSP) in bf16 over f32
+   params at L=512, 24 rows, ``SyntheticMLM`` data, AdamW(1e-4, weight
+   decay 0.01 off biases/LayerNorms) + global-norm clip 1.0, dropout 0.1
+   from an explicit CUDA generator, through ``make_train_step`` + ``fit``.
+   Checks: a finite loss every step; each of flash_fwd, flash_bwd_dq and
+   flash_bwd_dkv launched 12 times per step; with dropout off, one step's
+   gradients through the kernels agree leaf by leaf with plain attention's:
+   relative L2 error within 2e-2 over the whole gradient and for the median
+   leaf, and within 0.25 for every leaf (bf16 activations round differently
+   on the two paths; the pooler and NSP leaves ride on one bf16 [CLS]
+   vector per row and move most), each against a floor of 1e-3 of the
+   whole gradient's norm for the key biases, whose exact gradient is zero;
+   on one fixed batch at a constant lr the loss falls over 10 steps. Then
+   the median ms per step, tokens/s and MFU against 989 TFLOP/s.
+8. train_resnet50 — full-width ResNet-50 at 224x224, 128 images, bf16 over
+   f32 params, SGD 0.1 with momentum 0.9, synthetic class-template data
+   through ``device_batches`` + ``prefetch`` + ``make_train_step`` +
+   ``fit``, under each 1x1 backend. Checks: a finite loss every step; the
+   launches per step exactly 0 (``conv``), 29 ``pw_dgrad`` + 2
+   ``pw_dgrad_n64`` (``pallas``), 29 of each fused kernel (``fused``); on
+   the same params (the ``conv`` run's after its steps), batch and
+   batch_stats, ``pallas``' and ``fused``'s gradients against ``conv``'s
+   within 5e-2 relative L2 over the whole gradient and the median leaf and
+   0.5 for every leaf (against a floor of 1e-3 of the whole norm), and their
+   new batch_stats within 1e-2 (bf16 activations, dz and dW round at other
+   places on each path, through 53 BatchNorms); under ``fused`` the loss
+   on a fixed batch falls over 10 steps. Then ms per step, images/s, MFU
+   (3 x 4.09 GFLOP per image against 989 TFLOP/s) and peak memory.
+9. train_cli — ``python -m distributed_tensorflow_tpu_torch.cli.train
    --config bert_base`` (the preset at its own width: L=128, dense
    attention) for 3 steps with a checkpoint, then ``restore_serving_state``
    on it and one ``run_batch``.
+10. train_cli_image — ``cli.train --config imagenet_resnet50 --image-size 64
+   --global-batch 16 --steps 3`` with a checkpoint, then a ``Checkpointer``
+   restore that brings back the step and every BatchNorm running average.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs one card; without CUDA it exits 1.
@@ -127,13 +154,15 @@ def flash_bound(b, l, h, d, valid_keys, esize, fp32):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def phase_build(fm):
+def phase_build(*ops):
     from distributed_tensorflow_tpu_torch.ops import build as kbuild
 
     t0 = time.monotonic()
-    fm.build()
+    kbuild.load_libraries(kbuild.LIBRARIES)  # one nvcc per library, together
+    for op in ops:
+        op.build()  # bind the built libraries
     seconds = round(time.monotonic() - t0, 3)
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in kbuild.LIBRARIES:
         info = kbuild.BUILD_INFO[name]
         regs = [ln.strip() for ln in info["log"].splitlines()
                 if "registers" in ln or "Compiling entry" in ln]
@@ -145,14 +174,16 @@ def phase_build(fm):
 def phase_kernel(fm, torch):
     cases = [(b, l, 12, 64, torch.bfloat16) for b in (1, 8) for l in (256, 512, 300)]
     cases += [(2, 384, 24, 32, torch.bfloat16), (2, 512, 6, 128, torch.bfloat16),
-              (2, 256, 12, 64, torch.float32)]
+              (2, 256, 12, 64, torch.float32), (24, 512, 12, 64, torch.bfloat16)]
     gen = torch.Generator("cuda").manual_seed(SEED)
     rows, max_err = [], 0.0
     for b, l, h, d, dtype in cases:
         q, k, v = (torch.randn(b, l, h, d, device="cuda", dtype=dtype, generator=gen)
                    for _ in range(3))
         valid = torch.randint(l // 2, l + 1, (b,), generator=gen, device="cuda")
-        if b > 1:
+        if b == 24:
+            valid[:] = l  # the BERT training cell: no padding
+        elif b > 1:
             valid[-1] = 0  # a fully masked batch row
         mask = torch.arange(l, device="cuda")[None, :] < valid[:, None]
         o, lse = fm.flash_fwd_cuda(q, k, v, mask)
@@ -164,7 +195,7 @@ def phase_kernel(fm, torch):
         check(torch.isfinite(o.float()).all().item(), f"non-finite o at {(b, l, h, d)}")
         check(err <= (1e-5 if fp32 else 1e-2), f"o error {err} at {(b, l, h, d, dtype)}")
         check(lse_err <= 1e-4, f"lse error {lse_err} at {(b, l, h, d, dtype)}")
-        if b > 1:
+        if 1 < b < 24:
             check(torch.all(o[-1] == 0).item() and torch.all(lse[-1] == -1e30).item(),
                   "fully masked row must give o = 0 and lse = -1e30")
         sdpa_mask = mask[:, None, None, :]
@@ -284,6 +315,145 @@ def phase_kernel_bwd(fm, torch):
         "mbytes": 8 * 24 * 512 * 768 * 2 / 1e6,
         "bound_ms": bwd_bound(24, 512, 12, 64, [512] * 24, 2, False, 5, 8, 0)[0]}})
     return main_row, max_err
+
+
+def bound(nbytes: float, flops: float, peak_flops: float):
+    """Least time on an H100 SXM for ``nbytes`` moved once and ``flops`` at
+    ``peak_flops``: (ms, what bounds it)."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+# ResNet-50 at 224x224, 128 images: the (M, K, N) of the 1x1 units that
+# take the generic dgrad and the fused backward (29 units, 12 shapes), and
+# of the two that take the N = 64 dgrad.
+RESNET50_PW_SHAPES = [
+    (401408, 256, 128), (100352, 128, 512), (100352, 256, 512), (100352, 512, 128),
+    (100352, 512, 256), (25088, 256, 1024), (25088, 512, 1024), (25088, 1024, 256),
+    (25088, 1024, 512), (6272, 512, 2048), (6272, 1024, 2048), (6272, 2048, 512),
+]
+RESNET50_N64_SHAPE = (401408, 256, 64)
+
+
+def _close(got, ref, fp32: bool, torch) -> tuple[float, bool]:
+    """Max |got - ref| and whether every element is within tolerance: fp32
+    within 1e-4 (the same products summed in another order); bf16 within
+    one bf16 rounding step of the plain value (2^-7 |ref|, both round the
+    same f32 sum once) plus 1e-3 for sums near a rounding boundary."""
+    diff = (got.float() - ref.float()).abs()
+    tol = 1e-4 if fp32 else 2.0**-7 * ref.float().abs() + 1e-3
+    return diff.max().item(), bool(torch.all(diff <= tol).item())
+
+
+def phase_kernel_conv1x1(pc, torch):
+    """The 1x1-conv dgrad kernel (both routes) against its plain version."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 2)
+    bf16 = torch.bfloat16
+    cases = [(m, k, n, bf16, "pw_dgrad") for m, k, n in RESNET50_PW_SHAPES]
+    cases += [(*RESNET50_N64_SHAPE, bf16, "pw_dgrad_n64"), (25091, 1024, 256, bf16, "pw_dgrad"),
+              (6275, 512, 256, torch.float32, "pw_dgrad")]
+    rows = {}
+    for m, k, n, dtype, route in cases:
+        g = torch.randn(m, n, device="cuda", dtype=dtype, generator=gen)
+        w = (torch.randn(k, n, device="cuda", generator=gen) * n**-0.5).to(dtype)
+        fp32 = dtype == torch.float32
+        dx = pc.dgrad_cuda(g, w, route)
+        ref = pc.dgrad_reference(g, w)
+        torch.cuda.synchronize()
+        err, ok = _close(dx, ref, fp32, torch)
+        check(ok and torch.isfinite(dx.float()).all().item(),
+              f"pw dgrad error {err} at {(m, k, n, dtype)}")
+        esize = g.element_size()
+        bound_ms, bound_by = bound(esize * (m * n + k * n + m * k), 2.0 * m * k * n,
+                                   PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+        row = {"phase": "kernel_conv1x1", "route": route, "M": m, "K": k, "N": n,
+               "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
+               "kernel_ms": cuda_ms(lambda: pc.dgrad_cuda(g, w, route), 10),
+               "plain_ms": cuda_ms(lambda: pc.dgrad_reference(g, w), 3),
+               "library_ms": cuda_ms(lambda: torch.matmul(g, w.t()), 10),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(row)
+        rows[(m, k, n, row["dtype"], route)] = row
+        del g, w, dx, ref
+    return rows
+
+
+def phase_kernel_bn_bwd(fcb, torch):
+    """The fused conv+BN backward kernels (reduce, apply dx, apply dW)
+    against their plain versions, ReLU on and off."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 3)
+    bf16 = torch.bfloat16
+    cases = [(m, k, n, bf16) for m, k, n in RESNET50_PW_SHAPES]
+    cases += [(25091, 1024, 256, bf16), (6275, 512, 256, torch.float32)]
+    rows = {}
+    for m, k, n, dtype in cases:
+        fp32 = dtype == torch.float32
+        x = torch.randn(m, k, device="cuda", dtype=dtype, generator=gen)
+        w = (torch.randn(k, n, device="cuda", generator=gen) * k**-0.5).to(dtype)
+        z = torch.matmul(x, w)
+        da = torch.randn(m, n, device="cuda", dtype=dtype, generator=gen)
+        zf = z.float()
+        mean = zf.mean(0)
+        inv = torch.rsqrt(zf.square().mean(0) - mean.square() + 1e-5)
+        gamma = torch.rand(n, device="cuda", generator=gen) + 0.5
+        beta = torch.randn(n, device="cuda", generator=gen) * 0.5
+        errs = {"reduce": 0.0, "dx": 0.0, "dw": 0.0}
+        for relu in (True, False):
+            c0 = fcb._pack_consts(mean, inv, gamma, beta)
+            s1, s2 = fcb.bn_bwd_reduce_cuda(da, z, c0, relu)
+            r1, r2 = fcb.bn_bwd_reduce_reference(da, z, c0, relu)
+            # f32 sums of up to 401408 terms in two orders: within 1e-5 of
+            # the sum of the terms' magnitudes.
+            g, xh = fcb._g_xhat(da, z, c0, relu)
+            for got, ref, mag in ((s1, r1, g.abs().sum(0)), (s2, r2, (g * xh).abs().sum(0))):
+                e = (got - ref).abs()
+                check(torch.all(e <= 1e-5 * mag + 1e-6).item(),
+                      f"bn reduce error {e.max().item()} at {(m, k, n, dtype, relu)}")
+                errs["reduce"] = max(errs["reduce"], e.max().item())
+            del g, xh
+            consts = fcb._pack_consts(mean, inv, gamma, beta, r1 / m, r2 / m)
+            dx = fcb.bn_bwd_apply_dx_cuda(da, z, w, consts, relu)
+            rdx = fcb.bn_bwd_apply_dx_reference(da, z, w, consts, relu)
+            err, ok = _close(dx, rdx, fp32, torch)
+            check(ok, f"bn apply dx error {err} at {(m, k, n, dtype, relu)}")
+            errs["dx"] = max(errs["dx"], err)
+            dw = fcb.bn_bwd_apply_dw_cuda(da, z, x, consts, relu)
+            rdw = fcb.bn_bwd_apply_dw_reference(da, z, x, consts, relu)
+            torch.cuda.synchronize()
+            # Exact products (bf16 x bf16 fits f32), f32 sums over M in two
+            # orders: within 1e-5 of the largest |dW|.
+            e = (dw - rdw).abs().max().item()
+            check(e <= 1e-5 * rdw.abs().max().item() + 1e-5,
+                  f"bn apply dW error {e} at {(m, k, n, dtype, relu)}")
+            errs["dw"] = max(errs["dw"], e)
+        del dx, rdx, dw, rdw
+        es = x.element_size()
+        peak = PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS
+        c0 = fcb._pack_consts(mean, inv, gamma, beta)
+        # Elementwise work (x_hat, mask, products, sums: ~8 f32 operations
+        # per element) at the fp32 rate; the products at the tensor rate.
+        ew = 8.0 * m * n / PEAK_FP32_FLOPS * peak
+        row = {"phase": "kernel_bn_bwd", "M": m, "K": k, "N": n,
+               "dtype": str(dtype).removeprefix("torch."),
+               "max_abs_err": errs,
+               "reduce_ms": cuda_ms(lambda: fcb.bn_bwd_reduce_cuda(da, z, c0, True), 10),
+               "reduce_plain_ms": cuda_ms(lambda: fcb.bn_bwd_reduce_reference(da, z, c0, True), 3),
+               "dx_ms": cuda_ms(lambda: fcb.bn_bwd_apply_dx_cuda(da, z, w, consts, True), 10),
+               "dx_plain_ms": cuda_ms(
+                   lambda: fcb.bn_bwd_apply_dx_reference(da, z, w, consts, True), 3),
+               "dw_ms": cuda_ms(lambda: fcb.bn_bwd_apply_dw_cuda(da, z, x, consts, True), 10),
+               "dw_plain_ms": cuda_ms(
+                   lambda: fcb.bn_bwd_apply_dw_reference(da, z, x, consts, True), 3),
+               "library_ms": None}
+        for key, nbytes, flops in (
+                ("reduce", 2 * m * n * es + 8 * n, ew),
+                ("dx", (2 * m * n + k * n + m * k) * es, 2.0 * m * k * n + ew),
+                ("dw", (2 * m * n + m * k) * es + 4 * k * n, 2.0 * m * k * n + ew)):
+            row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound(nbytes, flops, peak)
+        emit(row)
+        rows[(m, k, n, row["dtype"])] = row
+        del x, w, z, da, zf
+    return rows
 
 
 def _grads(model, batch, torch):
@@ -414,6 +584,189 @@ def phase_train(fm, torch):
           "mfu_unsynced": flops / (free_ms / 1e3) / PEAK_BF16_FLOPS,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     return launches
+
+
+RESNET50_TRAIN_FLOPS_PER_IMAGE = 3 * 4.09e9  # bench.py: 3x the 4.09 GFLOP forward
+# Launches per ResNet-50 training step of each kernel under each backend.
+RESNET50_LAUNCHES = {
+    "conv": {},
+    "pallas": {"pw_dgrad": 29, "pw_dgrad_n64": 2},
+    "fused": {"bn_bwd_reduce": 29, "bn_bwd_apply_dx": 29, "bn_bwd_apply_dw": 29},
+}
+
+
+def _rel_errors(got: dict, ref: dict, torch):
+    """Relative L2 error of a dict of tensors against a reference: over the
+    whole dict, and per entry against a floor of 1e-3 of the whole
+    reference's norm (entries whose exact value is near zero)."""
+    total = torch.linalg.vector_norm(torch.stack([r.float().norm() for r in ref.values()])).item()
+    diff = torch.linalg.vector_norm(torch.stack(
+        [(got[n].float() - r.float()).norm() for n, r in ref.items()])).item()
+    per = {n: (got[n].float() - r.float()).norm().item() / max(r.float().norm().item(), 1e-3 * total)
+           for n, r in ref.items()}
+    return diff / total, per
+
+
+def phase_train_resnet50(pc, fcb, torch):
+    """ResNet-50 training on the card under each 1x1 backend."""
+    from distributed_tensorflow_tpu_torch.cli.train import PRESETS, _make_tx
+    from distributed_tensorflow_tpu_torch.data.loader import device_batches
+    from distributed_tensorflow_tpu_torch.data.prefetch import prefetch
+    from distributed_tensorflow_tpu_torch.data.synthetic import synthetic_image_classification
+    from distributed_tensorflow_tpu_torch.models import ResNet50
+    from distributed_tensorflow_tpu_torch.train import (
+        create_train_state,
+        fit,
+        make_rng,
+        make_train_step,
+    )
+    from distributed_tensorflow_tpu_torch.train.objectives import (
+        init_model,
+        make_classification_loss,
+    )
+
+    rows, hw, n_steps = 128, 224, 10
+    recipe = dataclasses.replace(PRESETS["imagenet_resnet50"], lr_schedule="constant",
+                                 learning_rate=0.1, momentum=0.9, optimizer="sgd")
+    t0 = time.monotonic()
+    data = synthetic_image_classification(4 * rows, (hw, hw, 3), 1000, seed=SEED)
+    data_s = time.monotonic() - t0
+
+    def build(backend):
+        model = ResNet50(dtype=torch.bfloat16, pw_backend=backend, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(SEED))
+        params, model_state = init_model(model)
+        tx, _ = _make_tx(recipe)
+        state = create_train_state(params, tx, model_state)
+        return model, state, make_train_step(make_classification_loss(model), tx)
+
+    def reset():
+        pc.reset_launch_counts()
+        fcb.reset_launch_counts()
+
+    def counts():
+        return {**pc.LAUNCHES, **fcb.LAUNCHES}
+
+    launches, results, trained = {}, {}, None
+    for backend in ("conv", "pallas", "fused"):
+        model, state, step = build(backend)
+        log = []
+        hook = lambda s, st, m: log.append((time.perf_counter(), m["loss"]))  # noqa: E731
+        batches = prefetch(device_batches(data, rows, device="cuda", seed=1), 2)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            # The main path, synchronised at every step by the loss fetch.
+            reset()
+            state, _ = fit(state, step, batches, num_steps=n_steps, rng=make_rng(SEED, "cuda"),
+                           log_every=1, hooks=(hook,))
+            torch.cuda.synchronize()
+            got = counts()
+        finally:
+            batches.close()
+        losses = [entry[1] for entry in log]
+        check(len(losses) == n_steps and all(np.isfinite(losses)), f"{backend} losses {losses}")
+        want = {k: v * n_steps for k, v in RESNET50_LAUNCHES[backend].items()}
+        check({k: v for k, v in got.items() if v} == want,
+              f"{backend}: launches {got} in {n_steps} steps, expected {want}")
+        launches[backend] = got
+        step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(log[1:], log[2:])]
+        med = statistics.median(step_ms)
+        flops = RESNET50_TRAIN_FLOPS_PER_IMAGE * rows
+        results[backend] = {
+            "losses": losses, "step_ms_median": med, "step_ms_min": min(step_ms),
+            "images_per_s": rows / (med / 1e3), "mfu": flops / (med / 1e3) / PEAK_BF16_FLOPS,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": got}
+        emit({"phase": "train_resnet50", "backend": backend, "rows": rows, "image": hw,
+              "steps": n_steps, **results[backend]})
+        if backend == "conv":
+            trained = ({k: v.detach().clone() for k, v in model.state_dict().items()},
+                       {k: v.clone() for k, v in state.model_state["batch_stats"].items()})
+        if backend == "fused":
+            # One fixed batch, lr 0.1 with momentum: the loss falls in 10 steps.
+            log.clear()
+            fixed = next(device_batches(data, rows, device="cuda", seed=2))
+            state, _ = fit(state, step, itertools.repeat(fixed), num_steps=state.step + 10,
+                           rng=make_rng(SEED, "cuda"), log_every=1, hooks=(hook,))
+            fixed_losses = [entry[1] for entry in log]
+            emit({"phase": "train_resnet50_fixed_batch", "backend": backend,
+                  "losses": fixed_losses})
+            check(fixed_losses[-1] < fixed_losses[0], f"fixed-batch losses {fixed_losses}")
+        del model, state, step
+        torch.cuda.empty_cache()
+
+    # The same params (the conv run's, after its steps: every block's
+    # zero-initialised final BN scale has moved, so every leaf has a
+    # gradient), batch_stats and batch through each backend.
+    batch = next(device_batches(data, rows, device="cuda", seed=3))
+    grads, stats = {}, {}
+    for backend in ("conv", "pallas", "fused"):
+        model = ResNet50(dtype=torch.bfloat16, pw_backend=backend, device="cuda")
+        model.load_state_dict(trained[0])
+        params = dict(model.named_parameters())
+        loss, (new_state, _) = make_classification_loss(model)(
+            params, {"batch_stats": trained[1]}, batch, None)
+        grads[backend] = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        stats[backend] = new_state["batch_stats"]
+        del model, params, loss
+    for backend in ("pallas", "fused"):
+        total, per = _rel_errors(grads[backend], grads["conv"], torch)
+        stat_total, _ = _rel_errors(stats[backend], stats["conv"], torch)
+        worst = max(per, key=per.get)
+        median = statistics.median(per.values())
+        emit({"phase": "train_resnet50_grad_check", "backend": backend, "leaves": len(per),
+              "rel_l2_err_total": total, "median_rel_l2_err": median,
+              "worst_leaf": {worst: per[worst]}, "batch_stats_rel_l2_err": stat_total})
+        # bf16 activations round at other places on each path (the fused
+        # unit's dz and dW round to bf16, the conv path's BN backward runs
+        # in f32 and its dgrad in cuDNN), through 53 BatchNorms.
+        check(total <= 5e-2 and median <= 5e-2 and per[worst] <= 0.5,
+              f"{backend} gradients differ from conv's: total {total}, median {median}, "
+              f"worst {worst} {per[worst]}")
+        check(stat_total <= 1e-2, f"{backend} batch_stats differ from conv's: {stat_total}")
+    del grads, stats, trained
+    torch.cuda.empty_cache()
+    emit({"phase": "train_resnet50_setup", "data_seconds": data_s})
+    return launches, results
+
+
+def phase_train_cli_image(torch):
+    """``cli.train --config imagenet_resnet50`` at 64x64 for 3 steps with a
+    checkpoint, then a ``Checkpointer`` restore of step and batch_stats."""
+    from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
+    from distributed_tensorflow_tpu_torch.cli.train import PRESETS, _make_tx
+    from distributed_tensorflow_tpu_torch.models import ResNet50
+    from distributed_tensorflow_tpu_torch.train import create_train_state
+    from distributed_tensorflow_tpu_torch.train.objectives import init_model
+
+    ckpt_dir = ROOT / "build" / "chip_smoke_image"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, (str(ROOT), env.get("PYTHONPATH"))))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.cli.train",
+         "--config", "imagenet_resnet50", "--image-size", "64", "--global-batch", "16",
+         "--steps", "3", "--lr", "0.05", "--log-every", "1", "--ckpt-dir", str(ckpt_dir)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+    )
+    seconds = time.monotonic() - t0
+    check(proc.returncode == 0, f"cli.train exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    steps = [ln for ln in proc.stderr.splitlines() if "train.loop: step" in ln]
+    check(len(steps) == 3 and all("loss=nan" not in ln for ln in steps), f"log: {steps}")
+    model = ResNet50(dtype=torch.bfloat16, device="cuda")
+    params, model_state = init_model(model)
+    tx, _ = _make_tx(PRESETS["imagenet_resnet50"])
+    state = create_train_state(params, tx, model_state)
+    state, step = Checkpointer(ckpt_dir).restore_latest(state)
+    stats = state.model_state["batch_stats"]
+    check(step == 3 and state.step == 3, f"restored step {step}")
+    check(stats.keys() == model_state["batch_stats"].keys()
+          and all(t.is_cuda and torch.isfinite(t).all().item() for t in stats.values()),
+          "restored batch_stats")
+    moved = sum(int(not torch.equal(stats[k], model_state["batch_stats"][k])) for k in stats)
+    check(moved == len(stats), f"only {moved} of {len(stats)} running averages moved")
+    emit({"phase": "train_cli_image", "seconds": seconds, "last_log": steps[-1].split(": ", 1)[-1],
+          "restored_step": step, "batch_stats": len(stats)})
 
 
 def _payloads(vocab: int):
@@ -587,6 +940,20 @@ def phase_train_cli(torch):
           "score": out["score"]})
 
 
+def _step_record(rows: list, counts: list, field: str) -> dict:
+    """One kernel's times per ResNet-50 training step: each shape's row
+    (``rows``, one per shape) weighted by its launches per step
+    (``counts``). ``field`` prefixes the row's keys (``""`` for the dgrad
+    rows' ``kernel_ms``)."""
+    def total(key):
+        return sum(n * r[key] for r, n in zip(rows, counts))
+
+    widest = max(rows, key=lambda r: r[f"{field}bound_ms"])
+    return {"ms": total(f"{field}ms" if field else "kernel_ms"),
+            "plain_ms": total(f"{field}plain_ms"), "bound_ms": total(f"{field}bound_ms"),
+            "bound_by": widest[f"{field}bound_by"]}
+
+
 def main() -> int:
     import torch
 
@@ -594,21 +961,32 @@ def main() -> int:
         print("chip_smoke: CUDA is not available on this host", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    # The plain versions' f32 products stay full f32 (no TF32), and so do
+    # the f32 convolutions of any reference run here.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     fm = importlib.import_module("distributed_tensorflow_tpu_torch.ops.flash_attention")
+    pc = importlib.import_module("distributed_tensorflow_tpu_torch.ops.pointwise_conv")
+    fcb = importlib.import_module("distributed_tensorflow_tpu_torch.ops.fused_conv_bn")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     t_start = time.monotonic()
     try:
-        phase_build(fm)
+        phase_build(fm, pc, fcb)
         fwd_row, fwd_err = phase_kernel(fm, torch)
         bwd_row, bwd_err = phase_kernel_bwd(fm, torch)
+        pw_rows = phase_kernel_conv1x1(pc, torch)
+        bn_rows = phase_kernel_bn_bwd(fcb, torch)
         phase_serve(fm, torch)
         torch.cuda.empty_cache()
         launches = phase_train(fm, torch)
         torch.cuda.empty_cache()
+        image_launches, _ = phase_train_resnet50(pc, fcb, torch)
+        torch.cuda.empty_cache()
         phase_train_cli(torch)
+        phase_train_cli_image(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -631,6 +1009,34 @@ def main() -> int:
             "ms": bwd_row[f"{key}_ms"], "plain_ms": bwd_row[key]["plain_ms"],
             "bound_ms": bwd_row[key]["bound_ms"], "bound_by": bwd_row[key]["bound_by"],
             "library_ms": bwd_row[key]["library_ms"],
+        })
+    # The 1x1 kernels' numbers are per ResNet-50 step (b=128): each
+    # shape's time times its launches per step, summed.
+    units = (1, 4, 1, 3, 1, 6, 1, 5, 1, 3, 1, 2)
+    cell = "ResNet-50 b=128 224x224, per training step (launches x time, summed)"
+    pw_ref = "distributed_tensorflow_tpu/ops/pointwise_conv.py:"
+    for name, line, shapes, counts in (
+            ("pw_dgrad", "74", RESNET50_PW_SHAPES, units),
+            ("pw_dgrad_n64", "202", [RESNET50_N64_SHAPE], (2,))):
+        sel = [pw_rows[(*sh, "bfloat16", name)] for sh in shapes]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + "pointwise_conv.cu",
+            "replaces": pw_ref + line, "launches": image_launches["pallas"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in pw_rows.values()
+                               if r["route"] == name),
+            **_step_record(sel, counts, ""),
+            "library_ms": sum(n * r["library_ms"] for r, n in zip(sel, counts)), "cell": cell,
+        })
+    bn_ref = "distributed_tensorflow_tpu/ops/fused_conv_bn.py:"
+    sel = [bn_rows[(*sh, "bfloat16")] for sh in RESNET50_PW_SHAPES]
+    for name, part, line in (("bn_bwd_reduce", "reduce", "126"),
+                             ("bn_bwd_apply_dx", "dx", "136"),
+                             ("bn_bwd_apply_dw", "dw", "136")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + "fused_conv_bn.cu",
+            "replaces": bn_ref + line, "launches": image_launches["fused"][name],
+            "max_abs_err": max(r["max_abs_err"][part] for r in bn_rows.values()),
+            **_step_record(sel, units, f"{part}_"), "library_ms": None, "cell": cell,
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

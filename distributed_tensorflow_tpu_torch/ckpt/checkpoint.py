@@ -50,14 +50,18 @@ def _write(directory: Path, step: int, blob: dict) -> Path:
     return path
 
 
-def _to_cpu(tree):
+def _to_device(tree, device):
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
+        return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_cpu(v) for v in tree)
+        return type(tree)(_to_device(v, device) for v in tree)
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
+        return tree.detach().to(device)
     return tree
+
+
+def _to_cpu(tree):
+    return _to_device(tree, "cpu")
 
 
 def save(directory: str | Path, step: int, state_dict: dict) -> Path:
@@ -121,9 +125,11 @@ class Checkpointer:
 
     def restore_latest(self, state, *, generator: torch.Generator | None = None):
         """Load the newest checkpoint into ``state`` in place (parameters,
-        optimizer state, stale ring, step) and, when both exist, the saved
-        generator state into ``generator``. Returns ``(state, step)``;
-        ``(state, 0)`` untouched when there is no checkpoint."""
+        optimizer state, stale ring, step), its ``model_state`` (BatchNorm
+        running statistics) onto the parameters' device, and, when both
+        exist, the saved generator state into ``generator``. Returns
+        ``(state, step)``; ``(state, 0)`` untouched when there is no
+        checkpoint."""
         step = self.latest_step()
         if step is None:
             return state, 0
@@ -135,7 +141,8 @@ class Checkpointer:
             for name, buf in (state.grad_buffer or {}).items():
                 buf.copy_(blob["grad_buffer"][name])
         state.opt_state.load_state_dict(blob["opt_state"])
-        state.model_state = blob["model_state"]
+        device = next(iter(state.params.values())).device
+        state.model_state = _to_device(blob["model_state"], device)
         state.buffer_index = blob["buffer_index"]
         state.step = int(blob["step"])
         if generator is not None and blob.get("generator") is not None:

@@ -1,15 +1,21 @@
-"""``python -m distributed_tensorflow_tpu_torch.cli.train --config bert_base``.
+"""``python -m distributed_tensorflow_tpu_torch.cli.train --config <preset>``.
 
-Port of the JAX package's ``cli/train.py`` for the BERT pretraining
-workload (MLM + NSP, synchronous or K-stale data parallelism) on one
-process, on the card by default (``--device cpu`` runs on the CPU). The
-optimizer recipe keeps the JAX names: :func:`make_lr_schedule`,
+Port of the JAX package's ``cli/train.py`` on one process, on the card by
+default (``--device cpu`` runs on the CPU), for the presets ``bert_base``
+(MLM + NSP pretraining), ``mnist_lenet``, ``cifar_resnet20`` and
+``imagenet_resnet50`` (image classification with BatchNorm statistics in
+the train state), under synchronous or K-stale data parallelism. The
+optimizer recipes keep the JAX names: :func:`make_lr_schedule`,
 :func:`_decay_mask` and :func:`_make_tx`.
 
-The other presets (the image workloads and the causal LM) and the flags of
-the paths not ported yet are refused with a message naming the slice that
-brings them. Data is the seeded synthetic Markov-chain MLM stream; the real
-text corpus (``--data-dir``) comes with a later slice.
+Data is seeded and synthetic: the Markov-chain MLM stream, and class-template
+images through the numpy feed (no augmentation; the JAX CLI falls back to
+the same feed when its native pipeline cannot be built). The other presets
+and the flags of the paths not ported yet (real-data readers among them,
+``--data-dir``) are refused with a message naming the slice that brings
+them. The JAX CLI trains ResNet-50 with plain convolutions, so this one
+has no ``pw_backend`` flag either; ``ResNet50(pw_backend=...)`` selects the
+kernels.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ class WorkloadConfig:
     global_batch: int
     num_steps: int
     learning_rate: float
+    momentum: float = 0.9
+    optimizer: str = "sgd"  # "sgd" | "adam" | "adamw"
     weight_decay: float = 0.0  # adamw decoupled weight decay
     clip_norm: float = 0.0  # > 0: global-norm gradient clipping in the step
     grad_accum: int = 1  # > 1: micro-slice gradient accumulation in the step
@@ -46,6 +54,8 @@ class WorkloadConfig:
     bert_layers: int = 0  # > 0: override encoder depth (smoke runs)
     bert_hidden: int = 0  # > 0: override hidden size (intermediate = 4x)
     bert_vocab: int = 0  # > 0: override vocab size (smoke runs)
+    image_size: int = 0  # > 0: override the image presets' square geometry
+    dataset: str = ""  # dataset name for data.readers.load_dataset
     log_every: int = 50
 
 
@@ -98,18 +108,33 @@ def _decay_mask(params: dict[str, torch.Tensor]) -> dict[str, bool]:
 
 
 def _make_tx(cfg: WorkloadConfig):
-    """``(tx, schedule)`` for the BERT recipe: ``torch.optim.AdamW`` with
-    two parameter groups (weight decay on the :func:`_decay_mask` leaves,
-    none elsewhere) computes optax's ``adamw`` (b1 0.9, b2 0.999, eps 1e-8,
-    decay added to the Adam direction before the learning rate scales it).
+    """``(tx, schedule)`` for ``cfg.optimizer``, each the torch optimizer that
+    computes optax's:
+
+    - ``"adamw"`` (BERT): ``torch.optim.AdamW`` with two parameter groups
+      (weight decay on the :func:`_decay_mask` leaves, none elsewhere) is
+      optax's ``adamw`` (b1 0.9, b2 0.999, eps 1e-8, decay added to the Adam
+      direction before the learning rate scales it);
+    - ``"adam"``: ``torch.optim.Adam`` with the same constants;
+    - ``"sgd"``: ``torch.optim.SGD(momentum=cfg.momentum, dampening=0,
+      nesterov=False)`` is ``optax.sgd(momentum=...)`` from the first step
+      (the trace starts at the first gradient), and plain SGD at momentum 0.
+
     Clipping is not here: the train step applies it
-    (``make_train_step(clip_norm=...)``). SGD and Adam, the image presets'
-    optimizers, come with the image slice."""
+    (``make_train_step(clip_norm=...)``)."""
     from distributed_tensorflow_tpu_torch.train.state import Transform
 
     schedule = make_lr_schedule(cfg)
+    if cfg.optimizer not in ("sgd", "adam", "adamw"):
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
     def make(params: dict[str, torch.Tensor]) -> torch.optim.Optimizer:
+        if cfg.optimizer == "sgd":
+            return torch.optim.SGD(list(params.values()), lr=schedule(0),
+                                   momentum=cfg.momentum, dampening=0.0, nesterov=False)
+        if cfg.optimizer == "adam":
+            return torch.optim.Adam(list(params.values()), lr=schedule(0),
+                                    betas=(0.9, 0.999), eps=1e-8)
         mask = _decay_mask(params)
         groups = [
             {"params": [p for n, p in params.items() if mask[n]],
@@ -171,7 +196,109 @@ def _build_bert_workload(cfg_kwargs: dict):
     return build
 
 
+def _build_image_workload(model_factory, image_shape, num_classes, n_examples=4096):
+    """``model_factory(shape, device)`` builds the model on the device
+    (seeded init, the JAX package's ``jax.random.key(0)`` counterpart)."""
+
+    def build(cfg: WorkloadConfig):
+        from distributed_tensorflow_tpu_torch.data.loader import device_batches
+        from distributed_tensorflow_tpu_torch.data.readers import load_dataset
+        from distributed_tensorflow_tpu_torch.train.objectives import (
+            init_model,
+            make_classification_loss,
+            make_classification_metrics,
+        )
+
+        shape = image_shape
+        if cfg.image_size:
+            shape = (cfg.image_size, cfg.image_size, image_shape[-1])
+
+        def make(device):
+            net = model_factory(shape, device)
+            params, model_state = init_model(net)
+
+            def load(split):
+                return load_dataset(
+                    cfg.dataset or "synthetic", None, split=split,
+                    fallback_examples=max(n_examples, cfg.global_batch),
+                    image_shape=shape, num_classes=num_classes,
+                    seed=0 if split == "train" else 1,
+                )
+
+            ds = load("train")
+            logger.info("image feed: numpy device_batches, no augmentation (the native "
+                        "pipeline comes with a later slice)")
+            eval_ds_box: list = []  # the val split loads on the first eval pass
+
+            def eval_batches(n_batches: int) -> Iterator[dict]:
+                if not eval_ds_box:
+                    eval_ds_box.append(load("val"))
+                it = device_batches(eval_ds_box[0], cfg.global_batch, device=device, seed=101)
+                for _ in range(n_batches):
+                    yield next(it)
+
+            return {
+                "params": params,
+                "model_state": model_state,
+                "model": net,
+                "image_shape": shape,
+                "loss_fn": make_classification_loss(net),
+                "batches": lambda start_step=0: device_batches(
+                    ds, cfg.global_batch, device=device, seed=1, start_step=start_step),
+                "metric_fn": make_classification_metrics(net),
+                "eval_batches": eval_batches,
+            }
+
+        return make
+
+    return build
+
+
+def _lenet(shape, device):
+    from distributed_tensorflow_tpu_torch.models import LeNet5
+
+    return LeNet5(device=device)
+
+
+def _resnet20(shape, device):
+    from distributed_tensorflow_tpu_torch.models import ResNet20
+
+    return ResNet20(device=device, in_channels=shape[-1])
+
+
+def _resnet50(shape, device):
+    from distributed_tensorflow_tpu_torch.models import ResNet50
+
+    return ResNet50(dtype=torch.bfloat16, device=device, in_channels=shape[-1])
+
+
 PRESETS = {
+    "mnist_lenet": WorkloadConfig(
+        name="mnist_lenet",
+        build=_build_image_workload(_lenet, (28, 28, 1), 10),
+        global_batch=128,
+        num_steps=1000,
+        learning_rate=0.05,
+        dataset="mnist",
+    ),
+    "cifar_resnet20": WorkloadConfig(
+        name="cifar_resnet20",
+        build=_build_image_workload(_resnet20, (32, 32, 3), 10),
+        global_batch=256,
+        num_steps=2000,
+        learning_rate=0.1,
+        lr_schedule="piecewise",
+        dataset="cifar10",
+    ),
+    "imagenet_resnet50": WorkloadConfig(
+        name="imagenet_resnet50",
+        build=_build_image_workload(_resnet50, (224, 224, 3), 1000, n_examples=8192),
+        global_batch=256,
+        num_steps=5000,
+        learning_rate=0.4,  # linear-scaling rule for large global batch
+        lr_schedule="warmup_cosine",
+        dataset="imagenet",
+    ),
     "bert_base": WorkloadConfig(
         name="bert_base",
         build=_build_bert_workload(
@@ -183,6 +310,7 @@ PRESETS = {
         # The canonical BERT pretraining recipe: AdamW with decoupled weight
         # decay (masked off LayerNorm scales and all biases) + global-norm
         # clipping at 1.0 inside the step.
+        optimizer="adamw",
         weight_decay=0.01,
         clip_norm=1.0,
         lr_schedule="warmup_cosine",
@@ -192,18 +320,17 @@ PRESETS = {
 
 # Presets of the JAX package that later slices bring.
 _UNPORTED_PRESETS = {
-    "mnist_lenet": "the image slice",
-    "cifar_resnet20": "the image slice",
-    "imagenet_resnet50": "the image slice",
-    "imagenet_inception_async": "the image slice",
+    "imagenet_inception_async": "the Inception-v3 slice",
     "lm_base": "the causal-LM slice",
 }
 
 # Flags of the JAX CLI that this slice's path does not read, with why.
 _UNPORTED_FLAGS = {
-    **dict.fromkeys(("--image-size", "--no-native-input", "--device-pool"),
-                    "comes with the image slice"),
-    "--data-dir": "comes with the real-text data slice (TextCorpusMLM)",
+    **dict.fromkeys(("--no-native-input", "--device-pool"),
+                    "the native input pipeline and HBM batch pools come with a later "
+                    "image slice; the feed is the numpy one"),
+    "--data-dir": ("the real-data readers come with later slices (TextCorpusMLM for "
+                   "bert_base; the MNIST/CIFAR/ImageFolder readers for the image presets)"),
     **dict.fromkeys(("--seq-parallel", "--sp-impl", "--tensor-parallel", "--moe-experts",
                      "--moe-dispatch", "--moe-topk", "--pipeline-parallel",
                      "--pipeline-microbatches", "--expert-parallel"),
@@ -288,12 +415,14 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
 
 
 def make_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="BERT pretraining on one CUDA card (or the CPU)")
+    p = argparse.ArgumentParser(description="Training on one CUDA card (or the CPU)")
     p.add_argument("--config", required=True, help=f"workload preset; ported: {sorted(PRESETS)}")
     p.add_argument("--device", default="cuda",
                    help="training device: cuda (default; fails without a card) or cpu")
     p.add_argument("--steps", type=int, default=0, help="override num_steps")
     p.add_argument("--global-batch", type=int, default=0)
+    p.add_argument("--image-size", type=int, default=0,
+                   help="override the image presets' square input size")
     p.add_argument("--grad-accum", type=int, default=0,
                    help="average the gradients of N micro-slices of each batch in the step")
     p.add_argument("--remat", action="store_true",
@@ -343,6 +472,7 @@ def main(argv: list[str] | None = None) -> int:
     for flag, field in (("steps", "num_steps"), ("global_batch", "global_batch"),
                         ("grad_accum", "grad_accum"), ("bert_layers", "bert_layers"),
                         ("bert_hidden", "bert_hidden"), ("bert_vocab", "bert_vocab"),
+                        ("image_size", "image_size"),
                         ("lr", "learning_rate"), ("lr_schedule", "lr_schedule"),
                         ("log_every", "log_every")):
         if getattr(args, flag):

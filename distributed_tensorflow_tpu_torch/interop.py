@@ -2,9 +2,12 @@
 
 The flax side is a nested dict of **numpy** arrays (``jax.tree.map(
 np.asarray, params)`` on the JAX side), so this module needs no JAX. The
-torch side is a :class:`~.models.bert.BertForPreTraining` ``state_dict``.
+torch side is a :class:`~.models.bert.BertForPreTraining` ``state_dict``
+(:func:`bert_params_from_flax`) or an image model's ``state_dict`` and
+``batch_stats`` (:func:`resnet_params_from_flax`, for ResNet-20/50 and
+LeNet-5).
 
-Mappings:
+BERT mappings:
 
 - ``Dense`` kernel ``[in, out]`` <-> ``Linear.weight`` ``[out, in]``;
 - ``DenseGeneral`` q/k/v kernels ``[H, heads, d]`` and biases ``[heads, d]``
@@ -59,11 +62,7 @@ def bert_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     """flax ``BertForPreTraining`` params (numpy leaves) -> torch state dict."""
     out = {}
     for path, leaf in _flatten(tree):
-        if any(p in ("_q8", "_q8_scale") for p in path):
-            raise NotImplementedError(
-                f"int8-packed leaf {'/'.join(path)}: quantized checkpoints "
-                "are ported with the int8 slice"
-            )
+        _refuse_quantized(path)
         a = np.asarray(leaf)
         names = [re.sub(r"^layer_(\d+)$", r"layers.\1", p) for p in path]
         parent, name = (path[-2] if len(path) > 1 else ""), path[-1]
@@ -121,3 +120,68 @@ def bert_params_to_flax(state_dict: dict, num_heads: int) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(a)
     return tree
+
+
+def _refuse_quantized(path) -> None:
+    if any(p in ("_q8", "_q8_scale") for p in path):
+        raise NotImplementedError(
+            f"int8-packed leaf {'/'.join(path)}: quantized checkpoints are ported "
+            "with the int8 slice"
+        )
+
+
+def resnet_params_from_flax(params: dict, batch_stats: dict | None = None):
+    """flax image-model params and ``batch_stats`` (numpy leaves; ResNet-20,
+    ResNet-50 and LeNet-5 trees) -> ``(state_dict, batch_stats)`` of the
+    port's models.
+
+    Conv kernels HWIO ``[kh, kw, in, out]`` -> ``weight`` OIHW (the stem's
+    ``[7, 7, 3, F]`` stays a 7x7 leaf); Dense ``[in, out]`` -> ``weight``
+    ``[out, in]``; BatchNorm ``scale`` -> ``weight``; biases unchanged;
+    ``batch_stats`` ``mean``/``var`` -> ``"<module path>.mean"``/``".var"``.
+    Module names are the flax ones, joined by dots.
+    """
+    out = {}
+    for path, leaf in _flatten(params):
+        _refuse_quantized(path)
+        a = np.asarray(leaf)
+        name = path[-1]
+        if name == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            name = "weight"
+        elif name == "scale":
+            name = "weight"
+        out[".".join(path[:-1] + (name,))] = _to_tensor(np.ascontiguousarray(a))
+    stats = {".".join(path): _to_tensor(np.asarray(leaf))
+             for path, leaf in _flatten(batch_stats or {})}
+    return out, stats
+
+
+def resnet_params_to_flax(state_dict: dict, batch_stats: dict | None = None):
+    """Inverse of :func:`resnet_params_from_flax`: ``(params, batch_stats)``
+    flax trees of numpy arrays. Leaves are told apart by rank: a 4-D
+    ``weight`` is a conv kernel, a 2-D one a Dense kernel, a 1-D one a
+    BatchNorm scale."""
+
+    def nest(flat: dict, rename) -> dict:
+        tree: dict = {}
+        for key, t in flat.items():
+            path = key.split(".")
+            a = _to_numpy(t)
+            path[-1], a = rename(path[-1], a)
+            node = tree
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[path[-1]] = np.ascontiguousarray(a)
+        return tree
+
+    def leaf(name, a):
+        if name != "weight":
+            return name, a
+        if a.ndim == 4:
+            return "kernel", a.transpose(2, 3, 1, 0)
+        if a.ndim == 2:
+            return "kernel", a.T
+        return "scale", a
+
+    return nest(state_dict, leaf), nest(batch_stats or {}, lambda name, a: (name, a))

@@ -1,8 +1,15 @@
-"""Models of the port: BERT for masked-LM serving."""
+"""Models of the port: BERT for masked-LM serving and pretraining, and the
+image classifiers (LeNet-5, ResNet-20, ResNet-50)."""
 
 from distributed_tensorflow_tpu_torch.models.bert import (  # noqa: F401
     BertConfig,
     BertForPreTraining,
     BertModel,
     bert_base,
+)
+from distributed_tensorflow_tpu_torch.models.lenet import LeNet5  # noqa: F401
+from distributed_tensorflow_tpu_torch.models.resnet import (  # noqa: F401
+    ResNet,
+    ResNet20,
+    ResNet50,
 )

@@ -10,7 +10,8 @@ headers, which keeps a build to seconds.
 
 Nothing is compiled when a module is imported: the CPU tests import every
 module on hosts with no ``nvcc``. :func:`load_libraries` starts one
-``nvcc`` per library, all at once.
+``nvcc`` per library, all at once; ``load_libraries(LIBRARIES)`` builds
+them all.
 """
 
 from __future__ import annotations
@@ -32,6 +33,15 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+#: Every kernel library of the port: name -> its sources under ``csrc/``
+#: (which may include the headers there).
+LIBRARIES = {
+    "flash_fwd": ["flash_fwd.cu"],
+    "flash_bwd": ["flash_bwd.cu"],
+    "pointwise_conv": ["pointwise_conv.cu"],
+    "fused_conv_bn": ["fused_conv_bn.cu"],
+}
 
 _LOCK = threading.Lock()
 _NAME_LOCKS: dict[str, threading.Lock] = {}
@@ -65,7 +75,7 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
             return lib
         paths = [CSRC / s for s in sources]
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in paths:
+        for p in paths + sorted(CSRC.glob("*.cuh")):
             h.update(p.read_bytes())
         out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
         seconds, log = 0.0, ""

@@ -184,9 +184,9 @@ def _libraries() -> dict:
     cached after it (every launch goes through here)."""
     if _LIBS:
         return _LIBS
-    from distributed_tensorflow_tpu_torch.ops.build import load_libraries
+    from distributed_tensorflow_tpu_torch.ops.build import LIBRARIES, load_libraries
 
-    libs = load_libraries({"flash_fwd": ["flash_fwd.cu"], "flash_bwd": ["flash_bwd.cu"]})
+    libs = load_libraries({name: LIBRARIES[name] for name in ("flash_fwd", "flash_bwd")})
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
         "flash_fwd": {"flash_fwd": [p] * 6 + [i] * 5 + [f, p]},

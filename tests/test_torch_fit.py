@@ -161,9 +161,9 @@ def test_train_cli_bert_base_on_cpu_then_serve(tmp_path):
 
 @pytest.mark.parametrize(
     "argv,message",
-    [(["--config", "imagenet_resnet50"], "image slice"),
+    [(["--config", "imagenet_inception_async"], "Inception-v3 slice"),
      (["--config", "bert_base", "--tensor-parallel", "2"], "model-parallel slice"),
-     (["--config", "bert_base", "--data-dir", "/x"], "real-text data slice")],
+     (["--config", "bert_base", "--data-dir", "/x"], "TextCorpusMLM for bert_base")],
     ids=["preset", "parallel-flag", "data-dir"],
 )
 def test_train_cli_refuses_unported_paths(argv, message, capsys):

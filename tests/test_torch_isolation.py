@@ -79,3 +79,15 @@ def test_entry_points_default_to_the_card(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_main(["--config=bert_base", "--bert-layers=1", "--bert-hidden=24",
                     "--bert-vocab=32", "--steps=1"])
+    from distributed_tensorflow_tpu_torch.data.loader import device_batches
+    from distributed_tensorflow_tpu_torch.data.synthetic import synthetic_image_classification
+    from distributed_tensorflow_tpu_torch.models import LeNet5, ResNet20, ResNet50
+
+    for model in (LeNet5, ResNet20, ResNet50):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            model()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        next(device_batches(synthetic_image_classification(4, (2, 2, 1), 2), 2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--config=cifar_resnet20", "--image-size=8", "--global-batch=8",
+                    "--steps=1"])

@@ -28,13 +28,23 @@ Phases (any failure exits non-zero before the result lines):
    shape, a ragged M and an fp32 case: bf16 within one bf16 rounding step
    of the plain value (2^-7 |ref| + 1e-3), fp32 within 1e-4. Prints kernel,
    plain, library (``torch.matmul(g, w.t())``) and bound times.
-5. kernel_bn_bwd — the fused conv+BN backward kernels (reduce, apply dx,
-   apply dW) against their plain versions at the same 12 shapes, ReLU on
-   and off, a ragged M and fp32: s1, s2 within 1e-5 of the terms'
-   magnitudes summed, dx as the dgrad, dW within 1e-5 of its largest
-   entry (f32 sums over M in another order). No single PyTorch call
-   computes these, so no library time.
-6. serve  — full-width BERT-base (the ``BertConfig()`` defaults: 12 layers,
+5. kernel_wgrad — the 1x1-conv wgrad kernel against its plain version at
+   the same 12 shapes, the N=64 shape, ``scripts/torch_pw_bench.py``'s 9
+   shapes, a ragged M and an fp32 case: f32 dW within 1e-5 of its largest
+   |entry| (exact products summed over M in another order). Prints kernel,
+   plain, library (an f32-out ``torch.mm``) and bound times.
+6. kernel_bn_bwd — the fused conv+BN backward kernels (reduce, apply dx,
+   apply dW) against their plain versions at ResNet-50's 12 shapes (ReLU on
+   and off, a ragged M and fp32) and at Inception-v3's 12 (ReLU on, bf16,
+   and fp32 at N=160; N = 160, 192, 320 and 448 end partway through the
+   kernels' column tiles): s1, s2 within 1e-5 of the terms' magnitudes
+   summed, dx as the dgrad, dW within 1e-5 of its largest entry (f32 sums
+   over M in another order). No single PyTorch call computes these, so no
+   library time.
+7. pw_bench — ``python3 scripts/torch_pw_bench.py --shapes all --check``,
+   the entry point that runs the wgrad kernel: its exit code, its numerics
+   lines and its launch counters against the launches it made.
+8. serve  — full-width BERT-base (the ``BertConfig()`` defaults: 12 layers,
    hidden 768, 12 heads, FFN 3072, vocab 30522, 512 positions) in bf16
    with seeded random weights: save and restore through ``ckpt``, build
    ``BertInferenceEngine`` (buckets 128/256/512, tiers 1/2/4/8) behind
@@ -42,7 +52,7 @@ Phases (any failure exits non-zero before the result lines):
    the kernel ran 12 times per forward in buckets 256 and 512, that the
    answers agree with the same params run through plain attention on the
    card, and one HTTP ``/v1/mlm`` round trip. Then per-bucket latency.
-7. train  — full-width BERT-base pretraining (MLM + NSP) in bf16 over f32
+9. train  — full-width BERT-base pretraining (MLM + NSP) in bf16 over f32
    params at L=512, 24 rows, ``SyntheticMLM`` data, AdamW(1e-4, weight
    decay 0.01 off biases/LayerNorms) + global-norm clip 1.0, dropout 0.1
    from an explicit CUDA generator, through ``make_train_step`` + ``fit``.
@@ -56,12 +66,13 @@ Phases (any failure exits non-zero before the result lines):
    whole gradient's norm for the key biases, whose exact gradient is zero;
    on one fixed batch at a constant lr the loss falls over 10 steps. Then
    the median ms per step, tokens/s and MFU against 989 TFLOP/s.
-8. train_resnet50 — full-width ResNet-50 at 224x224, 128 images, bf16 over
+10. train_resnet50 — full-width ResNet-50 at 224x224, 128 images, bf16 over
    f32 params, SGD 0.1 with momentum 0.9, synthetic class-template data
    through ``device_batches`` + ``prefetch`` + ``make_train_step`` +
    ``fit``, under each 1x1 backend. Checks: a finite loss every step; the
    launches per step exactly 0 (``conv``), 29 ``pw_dgrad`` + 2
-   ``pw_dgrad_n64`` (``pallas``), 29 of each fused kernel (``fused``); on
+   ``pw_dgrad_n64`` and no ``pw_wgrad`` (``pallas``: dW stays a plain
+   product, as in the JAX VJP), 29 of each fused kernel (``fused``); on
    the same params (the ``conv`` run's after its steps), batch and
    batch_stats, ``pallas``' and ``fused``'s gradients against ``conv``'s
    within 5e-2 relative L2 over the whole gradient and the median leaf and
@@ -69,14 +80,32 @@ Phases (any failure exits non-zero before the result lines):
    new batch_stats within 1e-2 (bf16 activations, dz and dW round at other
    places on each path, through 53 BatchNorms); under ``fused`` the loss
    on a fixed batch falls over 10 steps. Then ms per step, images/s, MFU
-   (3 x 4.09 GFLOP per image against 989 TFLOP/s) and peak memory.
-9. train_cli — ``python -m distributed_tensorflow_tpu_torch.cli.train
+   (3 x the forward's FLOPs per image, counted from the model's layers by
+   ``models/flops.py`` at 2 FLOPs a multiply-add, against 989 TFLOP/s) and
+   peak memory.
+11. train_inception — full-width Inception-v3 at 299x299 with the aux head,
+   128 images (``bench.py``'s per-card batch for ResNet-50), bf16 over f32
+   params, the ``imagenet_inception_async`` recipe (plain SGD 0.05 at a
+   constant rate, K = 4 stale gradients), synthetic class-template data
+   through ``device_batches`` + ``prefetch`` + ``make_train_step`` +
+   ``fit``, with ``fused=False`` and ``fused=True``. Checks: a finite loss
+   every step; exactly 27 launches a step of each fused kernel under
+   ``fused=True`` and none under ``fused=False``; on the same params, batch
+   and batch_stats with dropout off and no stale ring, the fused gradients
+   against the plain ones (ResNet-50's tolerances); on one fixed batch from
+   a fresh K = 4 ring (its first 4 steps apply zeros) the loss after 14
+   steps below the first step's. Then ms per step, images/s, MFU and peak
+   memory.
+12. train_cli — ``python -m distributed_tensorflow_tpu_torch.cli.train
    --config bert_base`` (the preset at its own width: L=128, dense
    attention) for 3 steps with a checkpoint, then ``restore_serving_state``
    on it and one ``run_batch``.
-10. train_cli_image — ``cli.train --config imagenet_resnet50 --image-size 64
+13. train_cli_image — ``cli.train --config imagenet_resnet50 --image-size 64
    --global-batch 16 --steps 3`` with a checkpoint, then a ``Checkpointer``
    restore that brings back the step and every BatchNorm running average.
+14. train_cli_inception — the same for ``--config imagenet_inception_async
+   --image-size 75`` (no aux head below 299x299): the restore also brings
+   back the K = 4 stale ring, on the card.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs one card; without CUDA it exits 1.
@@ -333,6 +362,21 @@ RESNET50_PW_SHAPES = [
     (25088, 1024, 512), (6272, 512, 2048), (6272, 1024, 2048), (6272, 2048, 512),
 ]
 RESNET50_N64_SHAPE = (401408, 256, 64)
+# The 9 (M, K, N) of scripts/torch_pw_bench.py (its SHAPES at b=128).
+PW_BENCH_SHAPES = [
+    (401408, 256, 64), (401408, 64, 256), (401408, 64, 64), (100352, 512, 128),
+    (100352, 128, 512), (25088, 1024, 256), (25088, 256, 1024), (6272, 2048, 512),
+    (6272, 512, 2048),
+]
+# Inception-v3 at 299x299, 128 images, fused=True: the (M, K, N) of the 27
+# units that take the fused backward and their launches per step (the four
+# C blocks and D on the 17x17 grid, the two E blocks on 8x8, the aux head's
+# 1x1 conv on 5x5).
+INCEPTION_FUSED_UNITS = {
+    (36992, 768, 128): 2, (36992, 768, 160): 4, (36992, 768, 192): 12,
+    **{(8192, k, n): 1 for k in (1280, 2048) for n in (192, 320, 384, 448)},
+    (3200, 768, 128): 1,
+}
 
 
 def _close(got, ref, fp32: bool, torch) -> tuple[float, bool]:
@@ -378,15 +422,91 @@ def phase_kernel_conv1x1(pc, torch):
     return rows
 
 
-def phase_kernel_bn_bwd(fcb, torch):
-    """The fused conv+BN backward kernels (reduce, apply dx, apply dW)
-    against their plain versions, ReLU on and off."""
-    gen = torch.Generator("cuda").manual_seed(SEED + 3)
+def _wgrad_library(torch, x2, g):
+    """One PyTorch call computing the wgrad (a yardstick the port never
+    calls): an f32-out ``torch.mm`` where this torch's takes ``out_dtype``,
+    else the bf16-out ``torch.matmul``; and its label."""
+    try:
+        torch.mm(x2.t(), g, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):  # no out_dtype in this torch, or not for these
+        return ((lambda: torch.matmul(x2.t(), g)),
+                f"torch.matmul(x2.t(), g) -> {str(x2.dtype).removeprefix('torch.')}")
+    return (lambda: torch.mm(x2.t(), g, out_dtype=torch.float32)), "torch.mm(out_dtype=f32)"
+
+
+def phase_kernel_wgrad(pc, torch):
+    """The 1x1-conv wgrad kernel against its plain version: f32 dW from
+    exact products (bf16 x bf16 fits f32) summed over M in another order,
+    within 1e-5 of the largest |dW|."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 4)
     bf16 = torch.bfloat16
-    cases = [(m, k, n, bf16) for m, k, n in RESNET50_PW_SHAPES]
+    shapes = list(dict.fromkeys(RESNET50_PW_SHAPES + [RESNET50_N64_SHAPE] + PW_BENCH_SHAPES))
+    cases = [(m, k, n, bf16) for m, k, n in shapes]
     cases += [(25091, 1024, 256, bf16), (6275, 512, 256, torch.float32)]
     rows = {}
     for m, k, n, dtype in cases:
+        x2 = torch.randn(m, k, device="cuda", dtype=dtype, generator=gen)
+        g = torch.randn(m, n, device="cuda", dtype=dtype, generator=gen)
+        fp32 = dtype == torch.float32
+        dw = pc.wgrad_cuda(x2, g)
+        ref = pc.wgrad_reference(x2, g)
+        torch.cuda.synchronize()
+        err = (dw - ref).abs().max().item()
+        check(dw.dtype == torch.float32 and torch.isfinite(dw).all().item()
+              and err <= 1e-5 * ref.abs().max().item(),
+              f"pw wgrad error {err} (max |dW| {ref.abs().max().item()}) at {(m, k, n, dtype)}")
+        es = x2.element_size()
+        bound_ms, bound_by = bound(es * (m * k + m * n) + 4 * k * n, 2.0 * m * k * n,
+                                   PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+        library, label = _wgrad_library(torch, x2, g)
+        row = {"phase": "kernel_wgrad", "M": m, "K": k, "N": n,
+               "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
+               "kernel_ms": cuda_ms(lambda: pc.wgrad_cuda(x2, g), 10),
+               "plain_ms": cuda_ms(lambda: pc.wgrad_reference(x2, g), 3),
+               "library_ms": cuda_ms(library, 10), "library": label,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(row)
+        rows[(m, k, n, row["dtype"])] = row
+        del x2, g, dw, ref
+    return rows
+
+
+def phase_pw_bench(torch):
+    """``scripts/torch_pw_bench.py --shapes all --check``: the entry point
+    that runs the wgrad kernel. Fails on a non-zero exit, a numerics line
+    out of tolerance, or launch counters that disagree with the launches
+    the script made."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, (str(ROOT), env.get("PYTHONPATH"))))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "torch_pw_bench.py"), "--shapes", "all",
+         "--check"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.monotonic() - t0
+    check(proc.returncode == 0,
+          f"torch_pw_bench exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    checks = [ln for ln in lines if ln.get("check") == "numerics"]
+    timed = [ln for ln in lines if "kernel" in ln]
+    check(len(checks) == 9 and all(c["max_abs_err_dw"] <= 1e-5 * c["range_dw"] for c in checks),
+          f"pw_bench numerics: {checks}")
+    check(len(timed) == 18, f"pw_bench timed {len(timed)} rows, expected 9 shapes x 2 kernels")
+    counts = lines[-1]
+    check(counts["launches"] == counts["made"] and counts["launches"]["pw_wgrad"] > 0,
+          f"pw_bench launches {counts}")
+    for row in timed:
+        emit({"phase": "pw_bench", **row})
+    emit({"phase": "pw_bench", "seconds": seconds, **counts,
+          "max_abs_err_dw": max(c["max_abs_err_dw"] for c in checks)})
+    return counts["launches"], [r for r in timed if r["kernel"] == "pw_wgrad"]
+
+
+def phase_kernel_bn_bwd(fcb, torch, cases, cell: str):
+    """The fused conv+BN backward kernels (reduce, apply dx, apply dW)
+    against their plain versions; ``cases`` are (M, K, N, dtype, relus)."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 3)
+    rows = {}
+    for m, k, n, dtype, relus in cases:
         fp32 = dtype == torch.float32
         x = torch.randn(m, k, device="cuda", dtype=dtype, generator=gen)
         w = (torch.randn(k, n, device="cuda", generator=gen) * k**-0.5).to(dtype)
@@ -398,7 +518,7 @@ def phase_kernel_bn_bwd(fcb, torch):
         gamma = torch.rand(n, device="cuda", generator=gen) + 0.5
         beta = torch.randn(n, device="cuda", generator=gen) * 0.5
         errs = {"reduce": 0.0, "dx": 0.0, "dw": 0.0}
-        for relu in (True, False):
+        for relu in relus:
             c0 = fcb._pack_consts(mean, inv, gamma, beta)
             s1, s2 = fcb.bn_bwd_reduce_cuda(da, z, c0, relu)
             r1, r2 = fcb.bn_bwd_reduce_reference(da, z, c0, relu)
@@ -433,7 +553,7 @@ def phase_kernel_bn_bwd(fcb, torch):
         # Elementwise work (x_hat, mask, products, sums: ~8 f32 operations
         # per element) at the fp32 rate; the products at the tensor rate.
         ew = 8.0 * m * n / PEAK_FP32_FLOPS * peak
-        row = {"phase": "kernel_bn_bwd", "M": m, "K": k, "N": n,
+        row = {"phase": "kernel_bn_bwd", "cell": cell, "M": m, "K": k, "N": n,
                "dtype": str(dtype).removeprefix("torch."),
                "max_abs_err": errs,
                "reduce_ms": cuda_ms(lambda: fcb.bn_bwd_reduce_cuda(da, z, c0, True), 10),
@@ -586,7 +706,6 @@ def phase_train(fm, torch):
     return launches
 
 
-RESNET50_TRAIN_FLOPS_PER_IMAGE = 3 * 4.09e9  # bench.py: 3x the 4.09 GFLOP forward
 # Launches per ResNet-50 training step of each kernel under each backend.
 RESNET50_LAUNCHES = {
     "conv": {},
@@ -625,12 +744,15 @@ def phase_train_resnet50(pc, fcb, torch):
         make_classification_loss,
     )
 
+    from distributed_tensorflow_tpu_torch.models.flops import train_flops_per_image
+
     rows, hw, n_steps = 128, 224, 10
     recipe = dataclasses.replace(PRESETS["imagenet_resnet50"], lr_schedule="constant",
                                  learning_rate=0.1, momentum=0.9, optimizer="sgd")
     t0 = time.monotonic()
     data = synthetic_image_classification(4 * rows, (hw, hw, 3), 1000, seed=SEED)
     data_s = time.monotonic() - t0
+    flops = train_flops_per_image(ResNet50(device="cuda"), (hw, hw, 3)) * rows
 
     def build(backend):
         model = ResNet50(dtype=torch.bfloat16, pw_backend=backend, device="cuda",
@@ -671,7 +793,6 @@ def phase_train_resnet50(pc, fcb, torch):
         launches[backend] = got
         step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(log[1:], log[2:])]
         med = statistics.median(step_ms)
-        flops = RESNET50_TRAIN_FLOPS_PER_IMAGE * rows
         results[backend] = {
             "losses": losses, "step_ms_median": med, "step_ms_min": min(step_ms),
             "images_per_s": rows / (med / 1e3), "mfu": flops / (med / 1e3) / PEAK_BF16_FLOPS,
@@ -725,8 +846,187 @@ def phase_train_resnet50(pc, fcb, torch):
         check(stat_total <= 1e-2, f"{backend} batch_stats differ from conv's: {stat_total}")
     del grads, stats, trained
     torch.cuda.empty_cache()
-    emit({"phase": "train_resnet50_setup", "data_seconds": data_s})
+    emit({"phase": "train_resnet50_setup", "data_seconds": data_s,
+          "train_gflop_per_image": flops / rows / 1e9})
     return launches, results
+
+
+def phase_train_inception(fcb, pc, torch):
+    """Inception-v3 training on the card, plain and fused, under the
+    ``imagenet_inception_async`` recipe (K = 4 stale gradients)."""
+    from distributed_tensorflow_tpu_torch.cli.train import PRESETS, _make_tx
+    from distributed_tensorflow_tpu_torch.data.loader import device_batches
+    from distributed_tensorflow_tpu_torch.data.prefetch import prefetch
+    from distributed_tensorflow_tpu_torch.data.synthetic import synthetic_image_classification
+    from distributed_tensorflow_tpu_torch.models import InceptionV3
+    from distributed_tensorflow_tpu_torch.models.flops import train_flops_per_image
+    from distributed_tensorflow_tpu_torch.train import (
+        create_train_state,
+        fit,
+        make_rng,
+        make_train_step,
+    )
+    from distributed_tensorflow_tpu_torch.train.objectives import (
+        init_model,
+        make_classification_loss,
+    )
+
+    # 128 images per card: bench.py's per-card batch for ResNet-50.
+    rows, hw, n_steps = 128, 299, 8
+    recipe = dataclasses.replace(PRESETS["imagenet_inception_async"], lr_schedule="constant")
+    k = recipe.staleness
+    t0 = time.monotonic()
+    data = synthetic_image_classification(2 * rows, (hw, hw, 3), 1000, seed=SEED)
+    data_s = time.monotonic() - t0
+    flops = train_flops_per_image(InceptionV3(device="cuda"), (hw, hw, 3)) * rows
+    per_step = {"bn_bwd_reduce": 27, "bn_bwd_apply_dx": 27, "bn_bwd_apply_dw": 27}
+    check(sum(INCEPTION_FUSED_UNITS.values()) == 27, "Inception's fused units")
+
+    def build(fused, dropout_rate=0.5):
+        model = InceptionV3(dtype=torch.bfloat16, fused=fused, dropout_rate=dropout_rate,
+                            device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
+        params, model_state = init_model(model)
+        tx, _ = _make_tx(recipe)
+        state = create_train_state(params, tx, model_state, staleness=k)
+        step = make_train_step(make_classification_loss(model), tx, mode="stale", staleness=k)
+        return model, state, step
+
+    def counts():
+        return {**pc.LAUNCHES, **fcb.LAUNCHES}
+
+    launches, results, trained = {}, {}, None
+    for fused in (False, True):
+        model, state, step = build(fused)
+        log = []
+        hook = lambda s, st, m: log.append((time.perf_counter(), m["loss"]))  # noqa: E731
+        batches = prefetch(device_batches(data, rows, device="cuda", seed=1), 2)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            # The main path, synchronised at every step by the loss fetch.
+            pc.reset_launch_counts()
+            fcb.reset_launch_counts()
+            state, _ = fit(state, step, batches, num_steps=n_steps, rng=make_rng(SEED, "cuda"),
+                           log_every=1, hooks=(hook,))
+            torch.cuda.synchronize()
+            got = counts()
+        finally:
+            batches.close()
+        name = "fused" if fused else "plain"
+        losses = [entry[1] for entry in log]
+        check(len(losses) == n_steps and all(np.isfinite(losses)), f"{name} losses {losses}")
+        want = {kk: v * n_steps for kk, v in per_step.items()} if fused else {}
+        check({kk: v for kk, v in got.items() if v} == want,
+              f"inception {name}: launches {got} in {n_steps} steps, expected {want}")
+        launches[name] = got
+        step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(log[1:], log[2:])]
+        med = statistics.median(step_ms)
+        results[name] = {
+            "losses": losses, "step_ms_median": med, "step_ms_min": min(step_ms),
+            "images_per_s": rows / (med / 1e3), "mfu": flops / (med / 1e3) / PEAK_BF16_FLOPS,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": got}
+        emit({"phase": "train_inception", "fused": fused, "rows": rows, "image": hw,
+              "staleness": k, "steps": n_steps, **results[name]})
+        if not fused:
+            trained = ({kk: v.detach().clone() for kk, v in model.state_dict().items()},
+                       {kk: v.clone() for kk, v in state.model_state["batch_stats"].items()})
+        else:
+            # One fixed batch under K = 4 staleness from a fresh ring: the
+            # first 4 steps apply the zero ring, then the loss falls.
+            tx, _ = _make_tx(recipe)
+            state = create_train_state(dict(model.named_parameters()), tx, state.model_state,
+                                       staleness=k)
+            log.clear()
+            fixed = next(device_batches(data, rows, device="cuda", seed=2))
+            state, _ = fit(state, step, itertools.repeat(fixed), num_steps=14,
+                           rng=make_rng(SEED, "cuda"), log_every=1, hooks=(hook,))
+            fixed_losses = [entry[1] for entry in log]
+            emit({"phase": "train_inception_fixed_batch", "fused": fused, "staleness": k,
+                  "losses": fixed_losses})
+            check(len(fixed_losses) == 14 and fixed_losses[-1] < fixed_losses[0],
+                  f"fixed-batch losses under staleness {k}: {fixed_losses}")
+        del model, state, step
+        torch.cuda.empty_cache()
+
+    # The same params (the plain run's, after its steps), batch_stats and
+    # batch, dropout off, no stale ring: fused gradients against plain ones.
+    batch = next(device_batches(data, rows, device="cuda", seed=3))
+    grads, stats = {}, {}
+    for fused in (False, True):
+        model = InceptionV3(dtype=torch.bfloat16, fused=fused, dropout_rate=0.0, device="cuda")
+        model.load_state_dict(trained[0])
+        params = dict(model.named_parameters())
+        loss, (new_state, _) = make_classification_loss(model)(
+            params, {"batch_stats": trained[1]}, batch, None)
+        grads[fused] = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        stats[fused] = new_state["batch_stats"]
+        del model, params, loss
+    total, per = _rel_errors(grads[True], grads[False], torch)
+    stat_total, _ = _rel_errors(stats[True], stats[False], torch)
+    worst = max(per, key=per.get)
+    median = statistics.median(per.values())
+    emit({"phase": "train_inception_grad_check", "leaves": len(per),
+          "rel_l2_err_total": total, "median_rel_l2_err": median,
+          "worst_leaf": {worst: per[worst]}, "batch_stats_rel_l2_err": stat_total})
+    # bf16 activations, dz and dW round at other places on the two paths,
+    # through 95 BatchNorms (ResNet-50's tolerances).
+    check(total <= 5e-2 and median <= 5e-2 and per[worst] <= 0.5,
+          f"fused gradients differ from plain ones: total {total}, median {median}, "
+          f"worst {worst} {per[worst]}")
+    check(stat_total <= 1e-2, f"fused batch_stats differ from plain ones: {stat_total}")
+    del grads, stats, trained
+    torch.cuda.empty_cache()
+    emit({"phase": "train_inception_setup", "data_seconds": data_s,
+          "train_gflop_per_image": flops / rows / 1e9})
+    return launches, results
+
+
+def phase_train_cli_inception(torch):
+    """``cli.train --config imagenet_inception_async`` at 75x75 for 3 steps
+    with a checkpoint, then a ``Checkpointer`` restore of the step, the
+    stale ring and every BatchNorm running average, on the card."""
+    from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
+    from distributed_tensorflow_tpu_torch.cli.train import PRESETS, _make_tx
+    from distributed_tensorflow_tpu_torch.models import InceptionV3
+    from distributed_tensorflow_tpu_torch.train import create_train_state
+    from distributed_tensorflow_tpu_torch.train.objectives import init_model
+
+    ckpt_dir = ROOT / "build" / "chip_smoke_inception"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, (str(ROOT), env.get("PYTHONPATH"))))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.cli.train",
+         "--config", "imagenet_inception_async", "--image-size", "75", "--global-batch", "16",
+         "--steps", "3", "--log-every", "1", "--ckpt-dir", str(ckpt_dir)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+    )
+    seconds = time.monotonic() - t0
+    check(proc.returncode == 0, f"cli.train exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    steps = [ln for ln in proc.stderr.splitlines() if "train.loop: step" in ln]
+    check(len(steps) == 3 and all("loss=nan" not in ln and "staleness=4" in ln for ln in steps),
+          f"log: {steps}")
+    preset = PRESETS["imagenet_inception_async"]
+    model = InceptionV3(dtype=torch.bfloat16, aux_logits=False, device="cuda")
+    params, model_state = init_model(model)
+    tx, _ = _make_tx(preset)
+    state = create_train_state(params, tx, model_state, staleness=preset.staleness)
+    state, step = Checkpointer(ckpt_dir).restore_latest(state)
+    stats = state.model_state["batch_stats"]
+    ring = state.grad_buffer
+    check(step == 3 and state.step == 3 and state.buffer_index == 3, f"restored step {step}")
+    check(ring.keys() == params.keys()
+          and all(v.is_cuda and v.shape[0] == preset.staleness for v in ring.values())
+          and any(torch.any(v[:3] != 0).item() for v in ring.values()),
+          "restored stale ring")
+    check(stats.keys() == model_state["batch_stats"].keys()
+          and all(t.is_cuda and torch.isfinite(t).all().item() for t in stats.values()),
+          "restored batch_stats")
+    moved = sum(int(not torch.equal(stats[kk], model_state["batch_stats"][kk])) for kk in stats)
+    check(moved == len(stats), f"only {moved} of {len(stats)} running averages moved")
+    emit({"phase": "train_cli_inception", "seconds": seconds,
+          "last_log": steps[-1].split(": ", 1)[-1], "restored_step": step,
+          "ring_depth": preset.staleness, "batch_stats": len(stats)})
 
 
 def phase_train_cli_image(torch):
@@ -978,15 +1278,28 @@ def main() -> int:
         fwd_row, fwd_err = phase_kernel(fm, torch)
         bwd_row, bwd_err = phase_kernel_bwd(fm, torch)
         pw_rows = phase_kernel_conv1x1(pc, torch)
-        bn_rows = phase_kernel_bn_bwd(fcb, torch)
+        wgrad_rows = phase_kernel_wgrad(pc, torch)
+        bf16 = torch.bfloat16
+        bn_rows = phase_kernel_bn_bwd(
+            fcb, torch, [(m, k, n, bf16, (True, False)) for m, k, n in RESNET50_PW_SHAPES]
+            + [(25091, 1024, 256, bf16, (True, False)),
+               (6275, 512, 256, torch.float32, (True, False))], "resnet50")
+        inception_bn_rows = phase_kernel_bn_bwd(
+            fcb, torch, [(m, k, n, bf16, (True,)) for m, k, n in INCEPTION_FUSED_UNITS]
+            + [(36992, 768, 160, torch.float32, (True,))], "inception_v3")
+        torch.cuda.empty_cache()
+        bench_launches, bench_rows = phase_pw_bench(torch)
         phase_serve(fm, torch)
         torch.cuda.empty_cache()
         launches = phase_train(fm, torch)
         torch.cuda.empty_cache()
         image_launches, _ = phase_train_resnet50(pc, fcb, torch)
         torch.cuda.empty_cache()
+        inception_launches, _ = phase_train_inception(fcb, pc, torch)
+        torch.cuda.empty_cache()
         phase_train_cli(torch)
         phase_train_cli_image(torch)
+        phase_train_cli_inception(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1038,6 +1351,28 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"][part] for r in bn_rows.values()),
             **_step_record(sel, units, f"{part}_"), "library_ms": None, "cell": cell,
         })
+    # The wgrad's only path is the bench: its 9 shapes, one call each,
+    # summed; plain and error from kernel_wgrad at the same shapes.
+    sel = [wgrad_rows[(*sh, "bfloat16")] for sh in PW_BENCH_SHAPES]
+    kernels.append({
+        "name": "pw_wgrad", "route": "cuda", "source": src + "pointwise_conv.cu",
+        "replaces": pw_ref + "85", "launches": bench_launches["pw_wgrad"],
+        "max_abs_err": max(r["max_abs_err"] for r in wgrad_rows.values()),
+        "ms": sum(r["ms"] for r in bench_rows),
+        "plain_ms": sum(r["plain_ms"] for r in sel),
+        "bound_ms": sum(r["bound_ms"] for r in sel),
+        "bound_by": max(sel, key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": sum(r["library_ms"] for r in bench_rows),
+        "library": bench_rows[0]["library"],
+        "cell": "scripts/torch_pw_bench.py --shapes all: 9 ResNet-50 shapes at b=128, "
+                "one call each, summed"})
+    # Inception-v3's fused units per training step, for PERF.md.
+    sel = [inception_bn_rows[(*sh, "bfloat16")] for sh in INCEPTION_FUSED_UNITS]
+    counts = list(INCEPTION_FUSED_UNITS.values())
+    emit({"phase": "inception_fused_per_step", "launches": inception_launches["fused"],
+          **{name: _step_record(sel, counts, f"{part}_")
+             for name, part in (("bn_bwd_reduce", "reduce"), ("bn_bwd_apply_dx", "dx"),
+                                ("bn_bwd_apply_dw", "dw"))}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

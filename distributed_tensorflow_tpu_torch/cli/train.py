@@ -2,9 +2,11 @@
 
 Port of the JAX package's ``cli/train.py`` on one process, on the card by
 default (``--device cpu`` runs on the CPU), for the presets ``bert_base``
-(MLM + NSP pretraining), ``mnist_lenet``, ``cifar_resnet20`` and
-``imagenet_resnet50`` (image classification with BatchNorm statistics in
-the train state), under synchronous or K-stale data parallelism. The
+(MLM + NSP pretraining), ``mnist_lenet``, ``cifar_resnet20``,
+``imagenet_resnet50`` and ``imagenet_inception_async`` (image
+classification with BatchNorm statistics in the train state; the last
+under K = 4 stale gradients), under synchronous or K-stale data
+parallelism. The
 optimizer recipes keep the JAX names: :func:`make_lr_schedule`,
 :func:`_decay_mask` and :func:`_make_tx`.
 
@@ -13,8 +15,9 @@ images through the numpy feed (no augmentation; the JAX CLI falls back to
 the same feed when its native pipeline cannot be built). The other presets
 and the flags of the paths not ported yet (real-data readers among them,
 ``--data-dir``) are refused with a message naming the slice that brings
-them. The JAX CLI trains ResNet-50 with plain convolutions, so this one
-has no ``pw_backend`` flag either; ``ResNet50(pw_backend=...)`` selects the
+them. The JAX CLI trains ResNet-50 and Inception-v3 with plain
+convolutions, so this one has no ``pw_backend`` or ``fused`` flag either;
+``ResNet50(pw_backend=...)`` and ``InceptionV3(fused=True)`` select the
 kernels.
 """
 
@@ -272,6 +275,15 @@ def _resnet50(shape, device):
     return ResNet50(dtype=torch.bfloat16, device=device, in_channels=shape[-1])
 
 
+def _inception(shape, device):
+    from distributed_tensorflow_tpu_torch.models import InceptionV3
+
+    # The aux classifier on at the canonical 299x299 geometry (main + 0.3 x
+    # aux); smaller inputs cannot feed its 5x5 VALID conv.
+    return InceptionV3(dtype=torch.bfloat16, aux_logits=shape[0] >= 299, device=device,
+                       in_channels=shape[-1])
+
+
 PRESETS = {
     "mnist_lenet": WorkloadConfig(
         name="mnist_lenet",
@@ -299,6 +311,18 @@ PRESETS = {
         lr_schedule="warmup_cosine",
         dataset="imagenet",
     ),
+    "imagenet_inception_async": WorkloadConfig(
+        name="imagenet_inception_async",
+        build=_build_image_workload(_inception, (299, 299, 3), 1000, n_examples=8192),
+        global_batch=256,
+        num_steps=5000,
+        learning_rate=0.05,
+        momentum=0.0,
+        lr_schedule="warmup_cosine",
+        mode="stale",
+        staleness=4,
+        dataset="imagenet",
+    ),
     "bert_base": WorkloadConfig(
         name="bert_base",
         build=_build_bert_workload(
@@ -320,7 +344,6 @@ PRESETS = {
 
 # Presets of the JAX package that later slices bring.
 _UNPORTED_PRESETS = {
-    "imagenet_inception_async": "the Inception-v3 slice",
     "lm_base": "the causal-LM slice",
 }
 

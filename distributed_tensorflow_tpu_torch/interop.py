@@ -132,10 +132,10 @@ def _refuse_quantized(path) -> None:
 
 def resnet_params_from_flax(params: dict, batch_stats: dict | None = None):
     """flax image-model params and ``batch_stats`` (numpy leaves; ResNet-20,
-    ResNet-50 and LeNet-5 trees) -> ``(state_dict, batch_stats)`` of the
-    port's models.
+    ResNet-50, Inception-v3 and LeNet-5 trees) -> ``(state_dict,
+    batch_stats)`` of the port's models.
 
-    Conv kernels HWIO ``[kh, kw, in, out]`` -> ``weight`` OIHW (the stem's
+    Conv kernels HWIO ``[kh, kw, in, out]`` (any kh, kw) -> ``weight`` OIHW (the stem's
     ``[7, 7, 3, F]`` stays a 7x7 leaf); Dense ``[in, out]`` -> ``weight``
     ``[out, in]``; BatchNorm ``scale`` -> ``weight``; biases unchanged;
     ``batch_stats`` ``mean``/``var`` -> ``"<module path>.mean"``/``".var"``.
@@ -185,3 +185,8 @@ def resnet_params_to_flax(state_dict: dict, batch_stats: dict | None = None):
         return "scale", a
 
     return nest(state_dict, leaf), nest(batch_stats or {}, lambda name, a: (name, a))
+
+
+# The walkers map every image model's tree, not only ResNet's.
+image_params_from_flax = resnet_params_from_flax
+image_params_to_flax = resnet_params_to_flax

@@ -1,5 +1,5 @@
 """Models of the port: BERT for masked-LM serving and pretraining, and the
-image classifiers (LeNet-5, ResNet-20, ResNet-50)."""
+image classifiers (LeNet-5, ResNet-20, ResNet-50, Inception-v3)."""
 
 from distributed_tensorflow_tpu_torch.models.bert import (  # noqa: F401
     BertConfig,
@@ -7,6 +7,7 @@ from distributed_tensorflow_tpu_torch.models.bert import (  # noqa: F401
     BertModel,
     bert_base,
 )
+from distributed_tensorflow_tpu_torch.models.inception import InceptionV3  # noqa: F401
 from distributed_tensorflow_tpu_torch.models.lenet import LeNet5  # noqa: F401
 from distributed_tensorflow_tpu_torch.models.resnet import (  # noqa: F401
     ResNet,

@@ -85,13 +85,15 @@ def conv2d_nhwc(x, weight, stride: int = 1, padding="SAME", bias=None):
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv(features, (k, k), use_bias=False)``: ``weight``
-    ``[out, in, k, k]``, He-normal."""
+    """flax ``nn.Conv(features, (kh, kw), use_bias=False)``: ``weight``
+    ``[out, in, kh, kw]``, He-normal. ``kernel`` is ``k`` (square) or
+    ``(kh, kw)``."""
 
-    def __init__(self, cin: int, features: int, kernel: int, strides: int = 1,
-                 padding="SAME"):
+    def __init__(self, cin: int, features: int, kernel: int | tuple[int, int],
+                 strides: int = 1, padding="SAME"):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(features, cin, kernel, kernel))
+        kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
+        self.weight = nn.Parameter(torch.empty(features, cin, kh, kw))
         self.strides = strides
         self.padding = padding
 

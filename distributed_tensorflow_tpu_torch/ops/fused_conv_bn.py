@@ -41,6 +41,8 @@ import os
 
 import torch
 
+from distributed_tensorflow_tpu_torch.ops.pointwise_conv import check_operands, rows_per_split
+
 _MAX_KN = 4096
 _TILE_BYTES = 2 * 1024 * 1024
 # Blocks to aim for in a split pass on the H100's 132 SMs: eight waves of
@@ -154,8 +156,6 @@ def build() -> None:
 
 
 def _check(fn: str, tensors: dict, consts) -> torch.dtype:
-    from distributed_tensorflow_tpu_torch.ops.pointwise_conv import check_operands
-
     dtype = check_operands(fn, tensors)
     n = tensors["da"].shape[1]
     if tensors["z"].shape != tensors["da"].shape:
@@ -174,21 +174,12 @@ def _launch(lib, fn: str, *args) -> None:
     LAUNCHES[fn] += 1
 
 
-def _rows_per_split(m: int, tiles: int, target: int) -> int:
-    """M rows per block of a split pass: enough splits that the pass has
-    about ``target`` blocks with ``tiles`` blocks per split, at least 256
-    rows each, a multiple of 32."""
-    splits = max(1, min(-(-target // tiles), m // 256))
-    rows = -(-m // splits)
-    return -(-rows // 32) * 32
-
-
 def bn_bwd_reduce_cuda(da2, z2, consts, relu: bool):
     """Launch the reduce kernel: ``(s1, s2)`` f32 ``[N]``, its partials
     summed here."""
     dtype = _check("bn_bwd_reduce_cuda", {"da": da2, "z": z2}, consts)
     m, n = da2.shape
-    rows = _rows_per_split(m, -(-n // 64), _REDUCE_BLOCKS)
+    rows = rows_per_split(m, -(-n // 64), _REDUCE_BLOCKS)
     part = torch.empty((-(-m // rows), 2, n), dtype=torch.float32, device=da2.device)
     _launch(_library(), "bn_bwd_reduce", da2.data_ptr(), z2.data_ptr(), consts.data_ptr(),
             part.data_ptr(), m, n, rows, int(dtype == torch.float32), int(relu),
@@ -219,7 +210,7 @@ def bn_bwd_apply_dw_cuda(da2, z2, x2, consts, relu: bool):
     k = x2.shape[1]
     if x2.shape[0] != m:
         raise ValueError(f"bn_bwd_apply_dw_cuda: x {tuple(x2.shape)} is not [{m}, K]")
-    rows = _rows_per_split(m, -(-k // 128) * -(-n // 128), _DW_BLOCKS)
+    rows = rows_per_split(m, -(-k // 128) * -(-n // 128), _DW_BLOCKS)
     part = torch.empty((-(-m // rows), k, n), dtype=torch.float32, device=da2.device)
     _launch(_library(), "bn_bwd_apply_dw", da2.data_ptr(), z2.data_ptr(), x2.data_ptr(),
             consts.data_ptr(), part.data_ptr(), m, k, n, rows, int(dtype == torch.float32),

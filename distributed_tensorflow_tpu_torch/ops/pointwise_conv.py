@@ -1,15 +1,21 @@
-"""1x1 convolution with a hand-written dgrad kernel: the ResNet-50 hot path.
+"""1x1 convolution with hand-written backward kernels: the ResNet-50 hot path.
 
 Port of ``distributed_tensorflow_tpu/ops/pointwise_conv.py``. Same
-functions, signatures and results: the forward ``y = x2 @ w`` and the
-weight gradient ``dw = x2^T @ g`` stay plain matrix products
-(``torch.matmul``; XLA computed both outside Pallas), and the input
-gradient ``dx = g @ w^T`` is a kernel, ``csrc/pointwise_conv.cu``, behind a
-``torch.autograd.Function`` in place of the JAX ``custom_vjp``s.
+functions, signatures and results: the forward ``y = x2 @ w`` and, inside
+the autograd Functions, the weight gradient ``dw = x2^T @ g`` stay plain
+matrix products (``torch.matmul``; the JAX VJPs compute dW with a plain
+dot on purpose), and the input gradient ``dx = g @ w^T`` is a kernel,
+``csrc/pointwise_conv.cu``, behind a ``torch.autograd.Function`` in place
+of the JAX ``custom_vjp``s.
+
+The weight-gradient kernel of the JAX package (``_wgrad_pallas``) is
+ported as :func:`wgrad`, also in ``csrc/pointwise_conv.cu``; like the JAX
+one, only the standalone bench (``scripts/torch_pw_bench.py``) calls it.
 
 Dispatch is by the tensors' device and nothing else: for CPU tensors the
-dgrad is :func:`dgrad_reference`, for CUDA tensors the kernel (built at
-first use, see :mod:`.build`) or an exception.
+plain versions (:func:`dgrad_reference`, :func:`wgrad_reference`), for CUDA
+tensors the kernels (built at first use, see :mod:`.build`) or an
+exception.
 
 The JAX package flattened activations in H,W,B,C order and gave N = 64 a
 kernel of its own in the ``[H*W, C, B]`` view: both were XLA:TPU layout
@@ -28,10 +34,14 @@ import torch
 
 _MAX_TILE_M = 1024
 _MAX_KN = 4096
+# Blocks to aim for in the split-M weight-gradient pass on the H100's 132
+# SMs: two waves (the f32 partials cost a write and a read of
+# [splits, K, N] each).
+_WGRAD_BLOCKS = 264
 
 #: Kernel launches since the last :func:`reset_launch_counts`; each wrapper
 #: adds one where it launches its kernel and nowhere else.
-LAUNCHES = {"pw_dgrad": 0, "pw_dgrad_n64": 0}
+LAUNCHES = {"pw_dgrad": 0, "pw_dgrad_n64": 0, "pw_wgrad": 0}
 
 
 def reset_launch_counts() -> None:
@@ -58,6 +68,20 @@ def dgrad_reference(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(g.float(), w.float().t()).to(g.dtype)
 
 
+def wgrad_reference(x2: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain wgrad: ``x2 [M, K]^T @ g [M, N]`` in f32, ``[K, N]``."""
+    return x2.float().t() @ g.float()
+
+
+def rows_per_split(m: int, tiles: int, target: int) -> int:
+    """M rows per block of a split-M pass: enough splits that the pass has
+    about ``target`` blocks with ``tiles`` blocks per split, at least 256
+    rows each, a multiple of 32."""
+    splits = max(1, min(-(-target // tiles), m // 256))
+    rows = -(-m // splits)
+    return -(-rows // 32) * 32
+
+
 _LIBS: dict = {}
 
 
@@ -70,6 +94,8 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pw_dgrad.argtypes = [p] * 3 + [i] * 4 + [p]
         lib.pw_dgrad.restype = ctypes.c_int
+        lib.pw_wgrad.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.pw_wgrad.restype = ctypes.c_int
         lib.pointwise_conv_error_string.argtypes = [ctypes.c_int]
         lib.pointwise_conv_error_string.restype = ctypes.c_char_p
         _LIBS["pointwise_conv"] = lib
@@ -121,6 +147,42 @@ def dgrad_cuda(g: torch.Tensor, w: torch.Tensor, route: str = "pw_dgrad") -> tor
     return dx
 
 
+def wgrad_cuda(x2: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch the wgrad kernel for contiguous ``x2 [M, K]`` and ``g [M, N]``
+    (bf16 or fp32, K and N multiples of 8, any M) on one CUDA device:
+    ``dW [K, N]`` in f32, the partials over M ranges summed by the kernel's
+    second pass."""
+    dtype = check_operands("wgrad_cuda", {"x2": x2, "g": g})
+    (m, k), n = x2.shape, g.shape[1]
+    if g.shape[0] != m:
+        raise ValueError(f"wgrad_cuda: x2 {tuple(x2.shape)} and g {tuple(g.shape)} disagree on M")
+    lib = _library()
+    rows = rows_per_split(m, -(-k // 128) * -(-n // 128), _WGRAD_BLOCKS)
+    splits = -(-m // rows)
+    dw = torch.empty((k, n), dtype=torch.float32, device=x2.device)
+    part = (torch.empty((splits, k, n), dtype=torch.float32, device=x2.device)
+            if splits > 1 else None)
+    rc = lib.pw_wgrad(x2.data_ptr(), g.data_ptr(), 0 if part is None else part.data_ptr(),
+                      dw.data_ptr(), m, k, n, rows, int(dtype == torch.float32),
+                      torch.cuda.current_stream(x2.device).cuda_stream)
+    if rc != 0:
+        msg = lib.pointwise_conv_error_string(rc).decode()
+        raise RuntimeError(f"pw_wgrad launch failed: {msg}")
+    LAUNCHES["pw_wgrad"] += 1
+    return dw
+
+
+def wgrad(x2: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``_wgrad_pallas``'s counterpart: ``dW = x2^T @ g`` in f32 for
+    ``x2 [M, K]`` and ``g [M, N]``. The kernel for CUDA tensors, the plain
+    version for CPU ones."""
+    if x2.is_cuda:
+        return wgrad_cuda(x2.contiguous(), g.contiguous())
+    if x2.device.type != "cpu":
+        raise ValueError(f"pointwise wgrad runs on cuda or cpu, not {x2.device}")
+    return wgrad_reference(x2, g)
+
+
 def _dgrad(g: torch.Tensor, w: torch.Tensor, route: str) -> torch.Tensor:
     """Device dispatch: the kernel for CUDA tensors, the plain version for
     CPU ones."""
@@ -132,7 +194,8 @@ def _dgrad(g: torch.Tensor, w: torch.Tensor, route: str) -> torch.Tensor:
 
 
 class _PwMatmul(torch.autograd.Function):
-    """``x2 @ w`` with the dgrad kernel in its backward (``_pw_matmul``)."""
+    """``x2 @ w`` with the dgrad kernel in its backward (``_pw_matmul``); dW
+    stays a plain product, as in the JAX VJP."""
 
     @staticmethod
     def forward(ctx, x2, w):

@@ -1,7 +1,8 @@
 """Classification objectives over the port's image models (port of
 ``train/objectives.py``).
 
-Models with BatchNorm (:class:`~..models.resnet.ResNet`) take and return
+Models with BatchNorm (:class:`~..models.resnet.ResNet`,
+:class:`~..models.inception.InceptionV3`) take and return
 their running statistics, ``model(x, batch_stats, train=...) -> (out,
 new_batch_stats)``, and keep them in the train state's ``model_state`` as
 ``{"batch_stats": {...}}``, as flax keeps its mutable collection; models
@@ -11,19 +12,20 @@ empty ``model_state``.
 
 from __future__ import annotations
 
+import inspect
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
 
-def _apply(model, model_state: dict, images, train: bool):
+def _apply(model, model_state: dict, images, train: bool, **kwargs):
     """``(out, new_model_state)``: the forward, with the model's mutable
     statistics threaded through when it has them."""
     if "batch_stats" in model_state:
-        out, stats = model(images, model_state["batch_stats"], train=train)
+        out, stats = model(images, model_state["batch_stats"], train=train, **kwargs)
         return out, {**model_state, "batch_stats": stats}
-    return model(images, train=train), model_state
+    return model(images, train=train, **kwargs), model_state
 
 
 def make_classification_loss(model, *, label_smoothing: float = 0.0, aux_weight: float = 0.3):
@@ -35,9 +37,11 @@ def make_classification_loss(model, *, label_smoothing: float = 0.0, aux_weight:
     ``label_smoothing``); a model whose train-mode output is ``(logits,
     aux_logits)`` adds ``aux_weight`` x the aux cross-entropy. ``params``
     are ``model``'s own parameters (the train state holds them by
-    reference), so the forward reads them through ``model``; the image
-    models draw no randomness, so ``generator`` is unused.
+    reference), so the forward reads them through ``model``. A model whose
+    forward takes a ``generator`` (Inception-v3's dropout) is given the
+    step's; the others draw no randomness and are not.
     """
+    takes_generator = "generator" in inspect.signature(model.forward).parameters
 
     def ce(logits, labels):
         n = logits.shape[-1]
@@ -47,8 +51,9 @@ def make_classification_loss(model, *, label_smoothing: float = 0.0, aux_weight:
         return -(onehot * F.log_softmax(logits.float(), dim=-1)).sum(-1).mean()
 
     def loss_fn(params, model_state, batch, generator):
-        del params, generator
-        out, new_state = _apply(model, model_state, batch["image"], True)
+        del params
+        kwargs = {"generator": generator} if takes_generator else {}
+        out, new_state = _apply(model, model_state, batch["image"], True, **kwargs)
         logits, aux = out if isinstance(out, tuple) else (out, None)
         labels = batch["label"]
         loss = ce(logits, labels)

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Where a ResNet-50 training step spends its time on one CUDA card.
+"""Where an image model's training step spends its time on one CUDA card.
 
-The PyTorch port's counterpart of ``scripts/mfu_sweep.py`` for one card:
-ResNet-50 at 224x224 in bf16 over f32 params (seeded random weights), SGD
-0.1 with momentum 0.9 through ``make_train_step``, a fixed batch of
-``N(0, 1)`` images per batch size, and for each ``--batches`` size, after
-``--warmup`` steps:
+The PyTorch port's counterpart of ``scripts/mfu_sweep.py`` for one card,
+for ResNet-50 at 224x224 (``--model resnet50``, SGD 0.1 with momentum 0.9)
+or Inception-v3 at 299x299 with the aux head (``--model inception``, the
+``imagenet_inception_async`` recipe: plain SGD 0.05, K = 4 stale
+gradients, dropout 0.5), in bf16 over f32 params (seeded random weights)
+through ``make_train_step``, a fixed batch of ``N(0, 1)`` images per batch
+size, and for each ``--batches`` size, after ``--warmup`` steps:
 
 - ``wall_ms``: host clock per step ending in a synchronise (median of
-  ``--iters``), images/s and MFU against 989 TFLOP/s at 3 x 4.09 GFLOP per
-  image (``bench.py``);
+  ``--iters``), images/s and MFU against 989 TFLOP/s at 3 x the forward's
+  FLOPs per image, counted from the model's layers
+  (``models/flops.py``, 2 FLOPs a multiply-add);
 - ``device_ms``: summed CUDA kernel time per step from ``torch.profiler``,
   and ``busy_share`` = device_ms / wall_ms;
 - the device time of the port's 1x1 kernels (``pw_dgrad``, ``bn_reduce``,
@@ -23,6 +26,7 @@ profiler first runs in it. Prints one JSON line per batch size; needs a
 card::
 
     python3 scripts/torch_resnet_profile.py --pw-backend fused [--batches 128]
+    python3 scripts/torch_resnet_profile.py --model inception [--fused]
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ from torch.profiler import ProfilerActivity
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from distributed_tensorflow_tpu_torch.cli.train import PRESETS, _make_tx  # noqa: E402
-from distributed_tensorflow_tpu_torch.models import ResNet50  # noqa: E402
+from distributed_tensorflow_tpu_torch.models import InceptionV3, ResNet50  # noqa: E402
+from distributed_tensorflow_tpu_torch.models.flops import train_flops_per_image  # noqa: E402
 from distributed_tensorflow_tpu_torch.train import (  # noqa: E402
     create_train_state,
     make_rng,
@@ -51,7 +56,6 @@ from distributed_tensorflow_tpu_torch.train.objectives import (  # noqa: E402
     make_classification_loss,
 )
 
-FLOPS_PER_IMAGE = 3 * 4.09e9
 PEAK_BF16_FLOPS = 989e12
 PORT_KERNELS = ("pw_dgrad", "bn_reduce", "bn_apply_dx", "bn_apply_dw")
 
@@ -78,26 +82,39 @@ def _kernel_times(prof) -> dict[str, float]:
     return out
 
 
-def profile(backend: str, args) -> list[dict]:
+def _setup(args):
+    """``(model, backend label, image size, recipe, staleness)``."""
+    import dataclasses
+
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    if args.model == "inception":
+        model = InceptionV3(dtype=torch.bfloat16, fused=args.fused, device="cuda", generator=gen)
+        recipe = dataclasses.replace(PRESETS["imagenet_inception_async"], lr_schedule="constant")
+        return model, "fused" if args.fused else "plain", 299, recipe, recipe.staleness
+    model = ResNet50(dtype=torch.bfloat16, pw_backend=args.pw_backend, device="cuda",
+                     generator=gen)
+    recipe = dataclasses.replace(PRESETS["imagenet_resnet50"], lr_schedule="constant",
+                                 learning_rate=0.1, momentum=0.9, optimizer="sgd")
+    return model, args.pw_backend, 224, recipe, 0
+
+
+def profile(args) -> list[dict]:
     """Wall times for every batch size first, then a profiler window per
     size: one backend per process, and no wall clock taken after a profiler
     window (a finished window can leave callbacks that slow the host)."""
-    import dataclasses
-
-    model = ResNet50(dtype=torch.bfloat16, pw_backend=backend, device="cuda",
-                     generator=torch.Generator("cuda").manual_seed(args.seed))
+    model, backend, hw, recipe, staleness = _setup(args)
+    flops_per_image = train_flops_per_image(model, (hw, hw, 3))
     params, model_state = init_model(model)
-    recipe = dataclasses.replace(PRESETS["imagenet_resnet50"], lr_schedule="constant",
-                                 learning_rate=0.1, momentum=0.9, optimizer="sgd")
     tx, _ = _make_tx(recipe)
-    state = create_train_state(params, tx, model_state)
-    step = make_train_step(make_classification_loss(model), tx)
+    state = create_train_state(params, tx, model_state, staleness=staleness)
+    step = make_train_step(make_classification_loss(model), tx,
+                           mode="stale" if staleness else "sync", staleness=staleness)
     gen = torch.Generator("cuda").manual_seed(args.seed)
     rng = make_rng(args.seed, "cuda")
     batches, walls, peaks = {}, {}, {}
     for rows in args.batches:
         batches[rows] = {
-            "image": torch.randn(rows, 224, 224, 3, device="cuda", generator=gen),
+            "image": torch.randn(rows, hw, hw, 3, device="cuda", generator=gen),
             "label": torch.randint(0, 1000, (rows,), device="cuda", generator=gen,
                                    dtype=torch.int32)}
         torch.cuda.reset_peak_memory_stats()
@@ -127,9 +144,11 @@ def profile(backend: str, args) -> list[dict]:
                 for name in PORT_KERNELS}
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:args.top]
         out.append({
-            "backend": backend, "rows": rows, "wall_ms": wall_ms,
+            "model": args.model, "backend": backend, "rows": rows, "image": hw,
+            "wall_ms": wall_ms,
             "wall_ms_min": min(walls[rows]), "images_per_s": rows / (wall_ms / 1e3),
-            "mfu": FLOPS_PER_IMAGE * rows / (wall_ms / 1e3) / PEAK_BF16_FLOPS,
+            "train_gflop_per_image": flops_per_image / 1e9,
+            "mfu": flops_per_image * rows / (wall_ms / 1e3) / PEAK_BF16_FLOPS,
             "device_ms": device_ms, "busy_share": device_ms / wall_ms if wall_ms else None,
             "port_kernels_ms": port,
             "port_kernels_share": sum(port.values()) / device_ms if device_ms else None,
@@ -149,8 +168,11 @@ def profile(backend: str, args) -> list[dict]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="resnet50", choices=["resnet50", "inception"])
     ap.add_argument("--pw-backend", default="conv", choices=["conv", "pallas", "fused"],
-                    help="1x1 path of the bottleneck blocks")
+                    help="ResNet-50: 1x1 path of the bottleneck blocks")
+    ap.add_argument("--fused", action="store_true",
+                    help="Inception-v3: the fused conv+BN backward on the 1x1 units")
     ap.add_argument("--batches", type=int, nargs="+", default=[128])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=3)
@@ -160,7 +182,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_resnet_profile: needs a CUDA card", file=sys.stderr)
         return 1
-    for row in profile(args.pw_backend, args):
+    for row in profile(args):
         print(json.dumps(row), flush=True)
     return 0
 

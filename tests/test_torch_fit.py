@@ -161,7 +161,7 @@ def test_train_cli_bert_base_on_cpu_then_serve(tmp_path):
 
 @pytest.mark.parametrize(
     "argv,message",
-    [(["--config", "imagenet_inception_async"], "Inception-v3 slice"),
+    [(["--config", "lm_base"], "causal-LM slice"),
      (["--config", "bert_base", "--tensor-parallel", "2"], "model-parallel slice"),
      (["--config", "bert_base", "--data-dir", "/x"], "TextCorpusMLM for bert_base")],
     ids=["preset", "parallel-flag", "data-dir"],

@@ -13,6 +13,7 @@ the stream exactly.
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import jax
 import numpy as np
@@ -169,8 +170,52 @@ def test_image_cli_trains_checkpoints_and_resumes(tmp_path, caplog):
         assert torch.equal(state.model_state["batch_stats"][k], v)
 
 
+def test_inception_async_preset_trains_stale_on_cpu(tmp_path, caplog, monkeypatch):
+    """``--config imagenet_inception_async`` at 75x75 (no aux head below
+    299x299), 4 images, 2 steps on the CPU: finite losses, and the saved
+    state carries the K = 4 stale ring (every leaf's gradient 4 deep, the
+    next slot 2) and the BatchNorm statistics. The preset's 8192 synthetic
+    images are cut to 16 here (host memory), and nothing else."""
+    from distributed_tensorflow_tpu_torch.data import readers
+
+    preset = cli.PRESETS["imagenet_inception_async"]
+    assert (preset.mode, preset.staleness, preset.momentum, preset.learning_rate) == (
+        "stale", 4, 0.0, 0.05)
+    load = readers.load_dataset
+    asked = []
+
+    def small(*args, fallback_examples, **kwargs):
+        asked.append(fallback_examples)
+        return load(*args, fallback_examples=16, **kwargs)
+
+    monkeypatch.setattr(readers, "load_dataset", small)
+    args = ["--config=imagenet_inception_async", "--device=cpu", "--image-size=75",
+            "--global-batch=4", "--steps=2", "--log-every=1", f"--ckpt-dir={tmp_path}"]
+    # One intra-op thread: as fast alone (~5 s), and under 15 s beside five
+    # other test workers, where the default threads oversubscribed the
+    # cores and the bf16 convolutions took 105 s.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with caplog.at_level("INFO"):
+            assert cli.main(args) == 0
+    finally:
+        torch.set_num_threads(threads)
+    assert asked == [8192]
+    losses = [float(v) for v in re.findall(r"step \d+: .*?\bloss=(\S+)", caplog.text)]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    blob = torch.load(tmp_path / "step_00000002.pt", weights_only=True)
+    ring = blob["grad_buffer"]
+    assert blob["buffer_index"] == 2
+    assert "head.weight" in ring and not any(k.startswith("aux.") for k in ring)
+    assert all(v.shape[0] == 4 for v in ring.values())
+    assert not torch.any(ring["head.weight"][2:]).item()  # slots 2-3 not written yet
+    stats = blob["model_state"]["batch_stats"]
+    assert "InceptionE_1.BasicConv_8.BatchNorm_0.mean" in stats
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--config=imagenet_inception_async"], "Inception-v3 slice"),
+    (["--config=imagenet_resnet50", "--device-pool"], "HBM batch pools"),
     (["--config=cifar_resnet20", "--data-dir=/nonexistent"], "MNIST/CIFAR/ImageFolder"),
 ])
 def test_image_cli_refusals(argv, match, capsys):

@@ -37,6 +37,10 @@ def _imported_roots(path: Path):
 def test_port_imports_nothing_of_jax():
     files = _port_files()
     assert len(files) > 20 and all(f.exists() for f in files)
+    for name in ("distributed_tensorflow_tpu_torch/models/inception.py",
+                 "distributed_tensorflow_tpu_torch/models/flops.py",
+                 "scripts/torch_pw_bench.py"):
+        assert ROOT / name in files
     bad = [
         f"{f.relative_to(ROOT)}:{line} imports {root}"
         for f in files
@@ -81,9 +85,9 @@ def test_entry_points_default_to_the_card(no_cuda, tmp_path):
                     "--bert-vocab=32", "--steps=1"])
     from distributed_tensorflow_tpu_torch.data.loader import device_batches
     from distributed_tensorflow_tpu_torch.data.synthetic import synthetic_image_classification
-    from distributed_tensorflow_tpu_torch.models import LeNet5, ResNet20, ResNet50
+    from distributed_tensorflow_tpu_torch.models import InceptionV3, LeNet5, ResNet20, ResNet50
 
-    for model in (LeNet5, ResNet20, ResNet50):
+    for model in (LeNet5, ResNet20, ResNet50, InceptionV3):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             model()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -91,3 +95,14 @@ def test_entry_points_default_to_the_card(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_main(["--config=cifar_resnet20", "--image-size=8", "--global-batch=8",
                     "--steps=1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--config=imagenet_inception_async", "--image-size=75",
+                    "--global-batch=4", "--steps=1"])
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_pw_bench", ROOT / "scripts" / "torch_pw_bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.main(["--shapes=stage1"])

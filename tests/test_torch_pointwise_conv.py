@@ -1,10 +1,11 @@
-"""Port parity: the 1x1-conv ops with the dgrad kernel against the JAX package.
+"""Port parity: the 1x1-conv ops with the dgrad kernel, and the wgrad
+kernel's plain version, against the JAX package.
 
-Inputs come from numpy and go through both; the JAX dgrad kernels run in
-Pallas interpret mode (off-TPU default), the port through its plain dgrad
-(CPU tensors). f32 throughout: values and gradients within 1e-5, as the JAX
+Inputs come from numpy and go through both; the JAX kernels run in Pallas
+interpret mode (off-TPU default), the port through its plain versions (CPU
+tensors). f32 for the ops: values and gradients within 1e-5, as the JAX
 package holds its own Pallas gradients against a plain dot
-(``tests/test_pointwise_conv.py``). JAX is imported inside the tests so
+(``tests/test_pointwise_conv.py``); bf16 in, f32 out for the wgrad. JAX is imported inside the tests so
 that the card-only tests also run where JAX is not installed.
 """
 
@@ -89,6 +90,33 @@ def test_pointwise_conv_n64_matches_jax():
     _close(dw, dw_ref)
 
 
+@pytest.fixture(scope="module")
+def jax_wgrad():
+    """The JAX package's wgrad kernel in Pallas interpret mode, jitted."""
+    import jax
+
+    jpc = importlib.import_module("distributed_tensorflow_tpu.ops.pointwise_conv")
+    return jax.jit(lambda x2, g: jpc._wgrad_pallas(x2, g, interpret=True))
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 128, 128), (2048, 128, 256)])
+def test_wgrad_reference_matches_jax_pallas_wgrad(jax_wgrad, m, k, n):
+    """bf16 inputs, f32 ``[K, N]`` out. (2048, 128, 256) runs the JAX
+    kernel over two 1024-row tiles, summed across its sequential grid; the
+    plain version sums all M at once. bf16 x bf16 products are exact in
+    f32, so only the order of the f32 sums differs: within 1e-5 of the
+    largest |dW|."""
+    import jax.numpy as jnp
+
+    x, g = _arrays(m + n, (m, k), (m, n))
+    ref = np.asarray(jax_wgrad(jnp.asarray(x, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)))
+    assert ref.dtype == np.float32
+    for fn in (pc.wgrad_reference, pc.wgrad):
+        dw = fn(torch.from_numpy(x).bfloat16(), torch.from_numpy(g).bfloat16())
+        assert dw.dtype == torch.float32 and dw.shape == (k, n)
+        np.testing.assert_allclose(dw.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
@@ -123,6 +151,22 @@ def test_dgrad_kernel_runs_in_backward(cuda_device):
     pc.reset_launch_counts()
     pc.pointwise_matmul(x, w).float().sum().backward()
     torch.cuda.synchronize()
-    assert pc.LAUNCHES == {"pw_dgrad": 1, "pw_dgrad_n64": 0}
+    assert pc.LAUNCHES == {"pw_dgrad": 1, "pw_dgrad_n64": 0, "pw_wgrad": 0}
     with pytest.raises(TypeError):
         pc.dgrad_cuda(x.detach().half(), w.detach().half())
+
+
+@pytest.mark.parametrize("m,k,n", [(25091, 256, 128), (4099, 64, 256)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wgrad_kernel_matches_plain_version(cuda_device, m, k, n, dtype):
+    """The wgrad kernel against its plain version on the card (ragged M,
+    several M splits): f32 out, exact products summed over M in another
+    order, within 1e-5 of the largest |dW|."""
+    x2, g = (torch.from_numpy(a).to(cuda_device, dtype) for a in _arrays(4, (m, k), (m, n)))
+    before = pc.LAUNCHES["pw_wgrad"]
+    dw = pc.wgrad(x2, g)
+    assert pc.LAUNCHES["pw_wgrad"] == before + 1
+    ref = pc.wgrad_reference(x2, g)
+    torch.cuda.synchronize()
+    assert dw.dtype == torch.float32
+    assert (dw - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()

@@ -230,3 +230,22 @@ def test_tiny_resnet_matches_jax(reference, backend, monkeypatch):
         _close(p.detach(), stepped[name])
     for k in ref_new:
         _close(state.model_state["batch_stats"][k], ref_new[k])
+
+
+def test_train_flops_count_every_conv_and_dense():
+    """``train_flops_per_image`` against the formula it documents, summed
+    by hand from each conv's output grid: 3 x (2 x H_out x W_out x kh x kw
+    x C_in x C_out per conv, 2 x in x out for the head)."""
+    from distributed_tensorflow_tpu_torch.models.flops import train_flops_per_image
+    from distributed_tensorflow_tpu_torch.models.resnet import Conv
+
+    model = ResNet20(device="cpu")
+    grids = []
+    hooks = [m.register_forward_hook(lambda m, i, out: grids.append((m, out.shape)))
+             for m in model.modules() if isinstance(m, Conv)]
+    flops = train_flops_per_image(model, (8, 8, 3))
+    for h in hooks:
+        h.remove()
+    forward = sum(2 * s[1] * s[2] * m.weight.numel() for m, s in grids)
+    forward += 2 * model.head.weight.numel()
+    assert len(grids) == 21 and flops == 3 * forward

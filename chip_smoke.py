@@ -5,24 +5,33 @@ Phases (any failure exits non-zero before the result lines):
 
 1. build  — compile the port's CUDA kernels from ``csrc/`` (one nvcc per
    library, started together, sm_90a) into ``build/kernels/``; print the
-   build seconds and ptxas' resource use.
+   build seconds, ptxas' resource use and spills, and the flash kernels'
+   dynamic shared memory and resident blocks per SM at D=64 bf16 (the
+   card's occupancy calculator).
 2. kernel — hold the flash-attention forward kernel to its plain PyTorch
    version on the card: bf16 at B in {1, 8} x L in {256, 512, 300} with
    H=12, D=64, plus D=32, D=128, an fp32 case and the BERT training cell
-   (B=24, L=512, no padding); masks with padded and fully masked rows.
-   Tolerances: bf16 o within 1e-2 (P rounds to bf16 per 64-key tile in the
-   kernel, once in the plain version), fp32 o within 1e-5, lse within
-   1e-4. Prints kernel/plain/library (SDPA, a yardstick the port never
-   calls) times and the card's bound, one JSON line per shape.
+   (B=24, L=512, no padding); masks with padded and fully masked rows
+   (exact zeros, lse = -1e30). Every bf16 case is also run and timed under
+   both q tiles (64 and 128 rows a block), and 24 ring shapes are checked
+   under both: L in {17, 64, 65, 129, 300, 512} at B=1, H=2 (a grid
+   smaller than the SM count) and at B=2 (a fully masked row) for D in
+   {32, 64, 128}. Tolerances: bf16 o within 1e-2 (P rounds to bf16 per
+   64-key tile in the kernel, once in the plain version), fp32 o within
+   1e-5, lse within 1e-4. Prints kernel/plain/library (SDPA, a yardstick
+   the port never calls) times and the card's bound, one JSON line per
+   shape.
 3. kernel_bwd — hold the backward kernels (dQ, dK/dV) to the plain backward
    on the card, with and without an lse cotangent: bf16 at B in {1, 8, 24}
-   x L in {256, 512, 300}, H=12, D=64, plus D=32, D=128 and an fp32 case,
-   with padded rows and one fully masked row (which must give exact zero
-   gradients). Tolerances: bf16 within 3e-2 (the gradients are of order 1;
-   P and dS round to bf16 per tile in both, from f32 products summed in
+   x L in {256, 512, 300}, H=12, D=64, with padded rows and one fully
+   masked row (which must give exact zero gradients), the unpadded BERT
+   training cell (B=24, L=512), D=32, D=128, an fp32 case, and the 24 ring
+   shapes. Tolerances: bf16 within 3e-2 (the gradients are of order 1; P
+   and dS round to bf16 per tile in both, from f32 products summed in
    another order), fp32 within 1e-4. Prints per shape the backward's time
    (delta pass + both kernels) and each kernel's, the plain version's, the
-   backward of SDPA with the same mask as a yardstick, and the bound.
+   backward of SDPA with the same mask as a yardstick, and the bound; per
+   kernel at B=24, L=512 padded and unpadded.
 4. kernel_conv1x1 — the 1x1-conv dgrad kernel (both routes) against its
    plain version at ResNet-50's 12 (M, K, N) shapes at b=128, the N=64
    shape, a ragged M and an fp32 case: bf16 within one bf16 rounding step
@@ -183,21 +192,62 @@ def flash_bound(b, l, h, d, valid_keys, esize, fp32):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def phase_build(*ops):
+def phase_build(fm, *ops):
     from distributed_tensorflow_tpu_torch.ops import build as kbuild
 
     t0 = time.monotonic()
     kbuild.load_libraries(kbuild.LIBRARIES)  # one nvcc per library, together
-    for op in ops:
+    for op in (fm, *ops):
         op.build()  # bind the built libraries
     seconds = round(time.monotonic() - t0, 3)
     for name in kbuild.LIBRARIES:
         info = kbuild.BUILD_INFO[name]
         regs = [ln.strip() for ln in info["log"].splitlines()
-                if "registers" in ln or "Compiling entry" in ln]
+                if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
         emit({"phase": "build", "library": Path(info["path"]).name,
               "nvcc_seconds": round(info["seconds"], 3), "seconds": seconds,
               "ptxas": regs})
+    occupancy = {name: {"smem_bytes": smem, "blocks_per_sm": blocks}
+                 for name, (smem, blocks) in fm.occupancy().items()}
+    emit({"phase": "build", "occupancy_bf16_d64": occupancy})
+    return occupancy
+
+
+def _masked_inputs(torch, gen, b, l, h, d, dtype, n, pad):
+    """``n`` random [B, L, H, D] tensors and a key mask: with ``pad`` each
+    batch row keeps a random prefix of at least L/2 keys and the last row
+    (when B > 1) none at all; without, every key."""
+    xs = [torch.randn(b, l, h, d, device="cuda", dtype=dtype, generator=gen) for _ in range(n)]
+    valid = torch.randint(l // 2, l + 1, (b,), generator=gen, device="cuda")
+    if not pad:
+        valid[:] = l
+    elif b > 1:
+        valid[-1] = 0  # a fully masked batch row
+    mask = torch.arange(l, device="cuda")[None, :] < valid[:, None]
+    return xs, valid, mask
+
+
+# Shapes the forward's tiling and copy ring put at risk, checked but not
+# timed: ragged L (17, 65, 129, 300), one K/V tile (64), a grid smaller than
+# the SM count (B=1, H=2), every head dim, a fully masked row (B=2), each
+# under both q tiles.
+RING_SHAPES = ([(1, l, 2, 64) for l in (17, 64, 65, 129, 300, 512)]
+               + [(2, l, 2, d) for d in (32, 64, 128) for l in (17, 64, 65, 129, 300, 512)])
+
+
+def _check_fwd(fm, torch, o, lse, q, k, v, mask, b, l, h, d, dtype, fully_masked):
+    ro, rlse = fm.flash_attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    err = (o.float() - ro.float()).abs().max().item()
+    lse_err = (lse - rlse).abs().max().item()
+    fp32 = dtype == torch.float32
+    check(torch.isfinite(o.float()).all().item(), f"non-finite o at {(b, l, h, d)}")
+    check(err <= (1e-5 if fp32 else 1e-2), f"o error {err} at {(b, l, h, d, dtype)}")
+    check(lse_err <= 1e-4, f"lse error {lse_err} at {(b, l, h, d, dtype)}")
+    if fully_masked:
+        check(torch.all(o[-1] == 0).item() and torch.all(lse[-1] == -1e30).item(),
+              f"fully masked row must give o = 0 and lse = -1e30 at {(b, l, h, d)}")
+    return err, lse_err
 
 
 def phase_kernel(fm, torch):
@@ -207,26 +257,11 @@ def phase_kernel(fm, torch):
     gen = torch.Generator("cuda").manual_seed(SEED)
     rows, max_err = [], 0.0
     for b, l, h, d, dtype in cases:
-        q, k, v = (torch.randn(b, l, h, d, device="cuda", dtype=dtype, generator=gen)
-                   for _ in range(3))
-        valid = torch.randint(l // 2, l + 1, (b,), generator=gen, device="cuda")
-        if b == 24:
-            valid[:] = l  # the BERT training cell: no padding
-        elif b > 1:
-            valid[-1] = 0  # a fully masked batch row
-        mask = torch.arange(l, device="cuda")[None, :] < valid[:, None]
+        (q, k, v), valid, mask = _masked_inputs(torch, gen, b, l, h, d, dtype, 3, b != 24)
         o, lse = fm.flash_fwd_cuda(q, k, v, mask)
-        ro, rlse = fm.flash_attention_reference(q, k, v, mask)
-        torch.cuda.synchronize()
-        err = (o.float() - ro.float()).abs().max().item()
-        lse_err = (lse - rlse).abs().max().item()
+        err, lse_err = _check_fwd(fm, torch, o, lse, q, k, v, mask, b, l, h, d, dtype,
+                                  1 < b < 24)
         fp32 = dtype == torch.float32
-        check(torch.isfinite(o.float()).all().item(), f"non-finite o at {(b, l, h, d)}")
-        check(err <= (1e-5 if fp32 else 1e-2), f"o error {err} at {(b, l, h, d, dtype)}")
-        check(lse_err <= 1e-4, f"lse error {lse_err} at {(b, l, h, d, dtype)}")
-        if 1 < b < 24:
-            check(torch.all(o[-1] == 0).item() and torch.all(lse[-1] == -1e30).item(),
-                  "fully masked row must give o = 0 and lse = -1e30")
         sdpa_mask = mask[:, None, None, :]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         kernel_ms = cuda_ms(lambda: fm.flash_fwd_cuda(q, k, v, mask), 20)
@@ -240,16 +275,33 @@ def phase_kernel(fm, torch):
                "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
                "lse_err": lse_err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        if not fp32:
+            # The same call under each q tile the launcher can pick.
+            for tile in (64, 128):
+                got = fm.flash_fwd_cuda(q, k, v, mask, q_tile=tile)
+                _check_fwd(fm, torch, *got, q, k, v, mask, b, l, h, d, dtype, 1 < b < 24)
+                row[f"kernel_ms_q{tile}"] = cuda_ms(
+                    lambda tile=tile: fm.flash_fwd_cuda(q, k, v, mask, q_tile=tile), 20)
         emit(row)
         rows.append(row)
         max_err = max(max_err, err)
+    ring_err = 0.0
+    for b, l, h, d in RING_SHAPES:
+        (q, k, v), _, mask = _masked_inputs(torch, gen, b, l, h, d, torch.bfloat16, 3, True)
+        for tile in (64, 128):
+            o, lse = fm.flash_fwd_cuda(q, k, v, mask, q_tile=tile)
+            err, _ = _check_fwd(fm, torch, o, lse, q, k, v, mask, b, l, h, d, torch.bfloat16,
+                                b > 1)
+            ring_err = max(ring_err, err)
+    emit({"phase": "kernel", "ring_shapes": len(RING_SHAPES), "q_tiles": [64, 128],
+          "max_abs_err": ring_err})
     emit({"phase": "kernel", "source_note_bound": {
-        "cell": "tier 8, L=512, H=12, D=64, bf16, no padding",
-        "gflop": 4 * 8 * 12 * 512**2 * 64 / 1e9,
-        "mbytes": 4 * 8 * 512 * 768 * 2 / 1e6,
-        "bound_ms": flash_bound(8, 512, 12, 64, [512] * 8, 2, False)[0]}})
+        "cell": "B=24, L=512, H=12, D=64, bf16, no padding",
+        "gflop": 4 * 24 * 12 * 512**2 * 64 / 1e9,
+        "mbytes": 4 * 24 * 512 * 768 * 2 / 1e6,
+        "bound_ms": flash_bound(24, 512, 12, 64, [512] * 24, 2, False)[0]}})
     main_row = next(r for r in rows if (r["B"], r["L"], r["dtype"]) == (8, 512, "bfloat16"))
-    return main_row, max_err
+    return main_row, max(max_err, ring_err)
 
 
 def bwd_bound(b, l, h, d, valid_keys, esize, fp32, products, tensors, stats):
@@ -277,37 +329,44 @@ def _sdpa_backward_ms(torch, q, k, v, mask, do):
             for name, inputs in (("all", (qt, kt, vt)), ("q", (qt,)), ("kv", (kt, vt)))}
 
 
+def _check_bwd(fm, torch, q, k, v, mask, o, lse, do, dlse, shape, dtype, fully_masked):
+    """Both backward kernels against the plain backward, with and without
+    the lse cotangent; the worst error of dq and of dk/dv."""
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    err = {"dq": 0.0, "dkv": 0.0}
+    for cot in (None, dlse):
+        got = fm.flash_bwd_cuda(q, k, v, mask, o, lse, do, cot)
+        ref = fm.flash_attention_backward_reference(q, k, v, mask, o, lse, do, cot)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            check(torch.isfinite(g.float()).all().item(), f"non-finite {name} at {shape}")
+            e = (g.float() - r.float()).abs().max().item()
+            check(e <= tol, f"{name} error {e} at {shape, dtype}, dlse={cot is not None}")
+            if fully_masked:
+                check(torch.all(g[-1] == 0).item(),
+                      f"fully masked row must give zero {name} at {shape}")
+            key = "dq" if name == "dq" else "dkv"
+            err[key] = max(err[key], e)
+    return err
+
+
 def phase_kernel_bwd(fm, torch):
     bf16 = torch.bfloat16
-    cases = [(b, l, 12, 64, bf16) for b in (1, 8, 24) for l in (256, 512, 300)]
-    cases += [(2, 384, 24, 32, bf16), (2, 512, 6, 128, bf16), (2, 256, 12, 64, torch.float32)]
+    # (B, L, H, D, dtype, padded): the padded cases draw random valid prefixes
+    # and one fully masked row; (24, 512) unpadded is the BERT training cell.
+    cases = [(b, l, 12, 64, bf16, True) for b in (1, 8, 24) for l in (256, 512, 300)]
+    cases += [(24, 512, 12, 64, bf16, False)]
+    cases += [(2, 384, 24, 32, bf16, True), (2, 512, 6, 128, bf16, True),
+              (2, 256, 12, 64, torch.float32, True)]
     gen = torch.Generator("cuda").manual_seed(SEED + 1)
     main_row, max_err = None, {"dq": 0.0, "dkv": 0.0}
-    for b, l, h, d, dtype in cases:
-        q, k, v, do = (torch.randn(b, l, h, d, device="cuda", dtype=dtype, generator=gen)
-                       for _ in range(4))
-        valid = torch.randint(l // 2, l + 1, (b,), generator=gen, device="cuda")
-        if b > 1:
-            valid[-1] = 0  # a fully masked batch row
-        mask = torch.arange(l, device="cuda")[None, :] < valid[:, None]
+    for b, l, h, d, dtype, pad in cases:
+        (q, k, v, do), valid, mask = _masked_inputs(torch, gen, b, l, h, d, dtype, 4, pad)
         o, lse = fm.flash_fwd_cuda(q, k, v, mask)
         dlse = torch.randn(lse.shape, device="cuda", generator=gen)
         fp32 = dtype == torch.float32
-        tol = 1e-4 if fp32 else 3e-2
-        err = {"dq": 0.0, "dkv": 0.0}
-        for cot in (None, dlse):
-            got = fm.flash_bwd_cuda(q, k, v, mask, o, lse, do, cot)
-            ref = fm.flash_attention_backward_reference(q, k, v, mask, o, lse, do, cot)
-            torch.cuda.synchronize()
-            for name, g, r in zip(("dq", "dk", "dv"), got, ref):
-                check(torch.isfinite(g.float()).all().item(), f"non-finite {name} at {(b, l, h, d)}")
-                e = (g.float() - r.float()).abs().max().item()
-                check(e <= tol, f"{name} error {e} at {(b, l, h, d, dtype)}, dlse={cot is not None}")
-                if b > 1:
-                    check(torch.all(g[-1] == 0).item(),
-                          f"fully masked row must give zero {name}")
-                key = "dq" if name == "dq" else "dkv"
-                err[key] = max(err[key], e)
+        err = _check_bwd(fm, torch, q, k, v, mask, o, lse, do, dlse, (b, l, h, d), dtype,
+                         pad and b > 1)
         delta = fm.flash_bwd_delta(o, do)
         args = (q, k, v, mask, do, lse, delta)
         esize = q.element_size()
@@ -315,7 +374,7 @@ def phase_kernel_bwd(fm, torch):
         bound_ms, bound_by = bwd_bound(b, l, h, d, keys, esize, fp32, 5, 8, 1)
         library = _sdpa_backward_ms(torch, q, k, v, mask, do)
         row = {"phase": "kernel_bwd", "B": b, "L": l, "H": h, "D": d,
-               "dtype": str(dtype).removeprefix("torch."),
+               "dtype": str(dtype).removeprefix("torch."), "padded": pad,
                "max_abs_err_dq": err["dq"], "max_abs_err_dkv": err["dkv"],
                "kernel_ms": cuda_ms(lambda: fm.flash_bwd_cuda(q, k, v, mask, o, lse, do), 10),
                "dq_ms": cuda_ms(lambda: fm.flash_bwd_dq_cuda(*args), 10),
@@ -324,8 +383,9 @@ def phase_kernel_bwd(fm, torch):
                    lambda: fm.flash_attention_backward_reference(q, k, v, mask, o, lse, do), 3),
                "library_ms": library["all"], "bound_ms": bound_ms, "bound_by": bound_by}
         if (b, l, dtype) == (24, 512, bf16):
-            # Per kernel, at the training cell: its own plain version, the
-            # SDPA backward of just its outputs, and its own bound.
+            # Per kernel, at the training cell and its padded twin: its own
+            # plain version, the SDPA backward of just its outputs, and its
+            # own bound over this run's valid keys.
             row["dq"] = {"plain_ms": cuda_ms(lambda: fm.flash_bwd_dq_reference(*args), 3),
                          "library_ms": library["q"],
                          **dict(zip(("bound_ms", "bound_by"),
@@ -334,16 +394,27 @@ def phase_kernel_bwd(fm, torch):
                           "library_ms": library["kv"],
                           **dict(zip(("bound_ms", "bound_by"),
                                      bwd_bound(b, l, h, d, keys, esize, fp32, 4, 6, 2)))}
-            main_row = row
+            if not pad:
+                main_row = row
         emit(row)
         for key in max_err:
             max_err[key] = max(max_err[key], err[key])
+    ring_err = {"dq": 0.0, "dkv": 0.0}
+    for b, l, h, d in RING_SHAPES:
+        (q, k, v, do), _, mask = _masked_inputs(torch, gen, b, l, h, d, bf16, 4, True)
+        o, lse = fm.flash_fwd_cuda(q, k, v, mask)
+        dlse = torch.randn(lse.shape, device="cuda", generator=gen)
+        err = _check_bwd(fm, torch, q, k, v, mask, o, lse, do, dlse, (b, l, h, d), bf16, b > 1)
+        for key in ring_err:
+            ring_err[key] = max(ring_err[key], err[key])
+    emit({"phase": "kernel_bwd", "ring_shapes": len(RING_SHAPES),
+          "max_abs_err_dq": ring_err["dq"], "max_abs_err_dkv": ring_err["dkv"]})
     emit({"phase": "kernel_bwd", "source_note_bound": {
         "cell": "B=24, L=512, H=12, D=64, bf16, no padding",
-        "gflop": 10 * 24 * 12 * 512**2 * 64 / 1e9,
-        "mbytes": 8 * 24 * 512 * 768 * 2 / 1e6,
-        "bound_ms": bwd_bound(24, 512, 12, 64, [512] * 24, 2, False, 5, 8, 0)[0]}})
-    return main_row, max_err
+        "dkv_gflop": 8 * 24 * 12 * 512**2 * 64 / 1e9,
+        "dkv_bound_ms": bwd_bound(24, 512, 12, 64, [512] * 24, 2, False, 4, 6, 2)[0],
+        "dq_bound_ms": bwd_bound(24, 512, 12, 64, [512] * 24, 2, False, 3, 5, 2)[0]}})
+    return main_row, {key: max(max_err[key], ring_err[key]) for key in max_err}
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -1274,7 +1345,7 @@ def main() -> int:
     ).stdout.strip().splitlines()
     t_start = time.monotonic()
     try:
-        phase_build(fm, pc, fcb)
+        occupancy = phase_build(fm, pc, fcb)
         fwd_row, fwd_err = phase_kernel(fm, torch)
         bwd_row, bwd_err = phase_kernel_bwd(fm, torch)
         pw_rows = phase_kernel_conv1x1(pc, torch)
@@ -1314,6 +1385,8 @@ def main() -> int:
         "ms": fwd_row["kernel_ms"], "plain_ms": fwd_row["plain_ms"],
         "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
         "library_ms": fwd_row["library_ms"],
+        "blocks_per_sm": {tile: occupancy[f"flash_fwd_{tile}"]["blocks_per_sm"]
+                          for tile in ("q64", "q128")},
     }]
     for name, key, line in (("flash_bwd_dq", "dq", "490"), ("flash_bwd_dkv", "dkv", "559")):
         kernels.append({
@@ -1322,6 +1395,7 @@ def main() -> int:
             "ms": bwd_row[f"{key}_ms"], "plain_ms": bwd_row[key]["plain_ms"],
             "bound_ms": bwd_row[key]["bound_ms"], "bound_by": bwd_row[key]["bound_by"],
             "library_ms": bwd_row[key]["library_ms"],
+            "blocks_per_sm": occupancy[name]["blocks_per_sm"],
         })
     # The 1x1 kernels' numbers are per ResNet-50 step (b=128): each
     # shape's time times its launches per step, summed.

@@ -19,7 +19,8 @@ The TPU package split each kernel into a ``[B*H, L, D]`` family and a flat
 strided ``[B, L, H, D]`` layout serves both on Hopper. ``packing`` is still
 accepted and validated so callers keep their signature, and it never
 changes a result. ``block_q``/``block_k`` keep their meaning for the padding
-of the plain path; the kernels tile by 64 and mask the ragged edge
+of the plain path; the kernels tile by 64 (the forward's bf16 kernel by 64
+or 128 query rows, see :func:`flash_fwd_cuda`) and mask the ragged edge
 themselves, so neither direction pads on the card.
 """
 
@@ -188,11 +189,14 @@ def _libraries() -> dict:
 
     libs = load_libraries({name: LIBRARIES[name] for name in ("flash_fwd", "flash_bwd")})
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ip = ctypes.POINTER(ctypes.c_int)
     signatures = {
-        "flash_fwd": {"flash_fwd": [p] * 6 + [i] * 5 + [f, p]},
+        "flash_fwd": {"flash_fwd": [p] * 6 + [i] * 6 + [f, p],
+                      "flash_fwd_occupancy": [i, ip, ip]},
         "flash_bwd": {
             "flash_bwd_dq": [p] * 8 + [i] * 5 + [f, f, p],
             "flash_bwd_dkv": [p] * 9 + [i] * 5 + [f, f, p],
+            "flash_bwd_occupancy": [i, ip, ip],
         },
     }
     for name, lib in libs.items():
@@ -247,11 +251,18 @@ def _raise_on(lib, prefix: str, rc: int) -> None:
         raise RuntimeError(f"{prefix} launch failed: {msg}")
 
 
-def flash_fwd_cuda(q, k, v, mask=None):
+_Q_TILES = (None, 64, 128)
+
+
+def flash_fwd_cuda(q, k, v, mask=None, *, q_tile=None):
     """Launch the forward kernel: ``(o, lse)`` for contiguous
     ``[B, L, H, D]`` bf16 or fp32 tensors on one CUDA device. Raises on
-    anything else."""
+    anything else. ``q_tile`` fixes the bf16 kernel's query rows per block
+    (64 or 128); None lets the launcher pick by grid size. It never changes
+    a result."""
     b, l, h, d = q.shape
+    if q_tile not in _Q_TILES:
+        raise ValueError(f"flash_fwd_cuda: q_tile must be one of {_Q_TILES}, got {q_tile!r}")
     _check_operands("flash_fwd_cuda", {"q": q, "k": k, "v": v}, mask, b, l)
     lib = _libraries()["flash_fwd"]
     o = torch.empty_like(q)
@@ -260,12 +271,31 @@ def flash_fwd_cuda(q, k, v, mask=None):
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, l, h, d,
-        int(q.dtype == torch.float32), float(d**-0.5 * _LOG2E),
+        int(q.dtype == torch.float32), q_tile or 0, float(d**-0.5 * _LOG2E),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(lib, "flash_fwd", rc)
     LAUNCHES["flash_fwd"] += 1
     return o, lse
+
+
+def occupancy() -> dict:
+    """Dynamic shared memory (bytes) and resident blocks per SM of each
+    bf16 kernel at D = 64, as the card's occupancy calculator reports them:
+    ``{"flash_fwd_q64": (smem, blocks), "flash_fwd_q128": ...,
+    "flash_bwd_dq": ..., "flash_bwd_dkv": ...}``."""
+    libs = _libraries()
+    queries = {"flash_fwd_q64": ("flash_fwd", "flash_fwd_occupancy", 64),
+               "flash_fwd_q128": ("flash_fwd", "flash_fwd_occupancy", 128),
+               "flash_bwd_dq": ("flash_bwd", "flash_bwd_occupancy", 0),
+               "flash_bwd_dkv": ("flash_bwd", "flash_bwd_occupancy", 1)}
+    out = {}
+    for key, (lib_name, fn, arg) in queries.items():
+        smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        lib = libs[lib_name]
+        _raise_on(lib, lib_name, getattr(lib, fn)(arg, ctypes.byref(smem), ctypes.byref(blocks)))
+        out[key] = (smem.value, blocks.value)
+    return out
 
 
 def _check_stats(fn: str, q, **stats) -> None:

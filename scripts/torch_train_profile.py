@@ -108,7 +108,7 @@ def main(argv=None) -> int:
     device_ms = per_step(sum(kernels.values()))
     wall_ms = statistics.median(walls)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    flash = {name: per_step(sum(v for k, v in kernels.items() if f"{name}_kernel" in k))
+    flash = {name: per_step(sum(v for k, v in kernels.items() if f"::{name}_" in k))
              for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     print(json.dumps({
         "rows": args.rows, "seq": args.seq, "wall_ms": wall_ms, "wall_ms_min": min(walls),

@@ -211,6 +211,14 @@ def test_flash_cpu_path_never_counts_a_launch():
     assert flash_mod.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
+def test_flash_fwd_cuda_rejects_unknown_q_tile():
+    """The forward kernel's tile option takes 64, 128 or None (the
+    launcher's choice), and says so before touching a card."""
+    q, k, v = (_t(x) for x in _qkv(6, 1, 16, 2, 8))
+    with pytest.raises(ValueError, match="q_tile must be one of"):
+        flash_mod.flash_fwd_cuda(q, k, v, q_tile=96)
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
@@ -333,3 +341,70 @@ def test_flash_kernels_under_remat_redraw_the_same_dropout(cuda_device):
     assert torch.equal(l0, l1)
     for a, b in zip(g0, g1):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+
+
+# Shapes the kernels' tiling and copy ring put at risk: ragged L (17, 65,
+# 129, 300), one tile (64), several (512), a grid smaller than the SM count
+# (B=1, H=2), every head dim; B=2 carries a fully masked row.
+RING_CASES = ([(1, l, 2, 64) for l in (17, 64, 65, 129, 300, 512)]
+              + [(2, l, 2, d) for d in (32, 64, 128) for l in (17, 65, 129, 512)])
+
+
+def _ring_inputs(device, dtype, b, l, h, d, n, seed):
+    xs = [_t(x).to(device, dtype) for x in _qkv(seed, b, l, h, d) + _qkv(seed + 1, b, l, h, d)]
+    m = _mask(b, l)
+    if b > 1:
+        m[1] = False  # a fully masked batch row
+    return xs[:n], _t(m).to(device)
+
+
+@pytest.mark.parametrize("q_tile", [64, 128])
+@pytest.mark.parametrize("b,l,h,d", RING_CASES)
+def test_flash_kernel_ring_shapes_match_plain_version(cuda_device, b, l, h, d, q_tile):
+    """The forward kernel under each q tile against its plain version in
+    bf16 (o within 1e-2, lse within 1e-3); a fully masked row gives exact
+    zeros and lse = -1e30."""
+    (q, k, v), m = _ring_inputs(cuda_device, torch.bfloat16, b, l, h, d, 3, 20)
+    o, lse = flash_mod.flash_fwd_cuda(q, k, v, m, q_tile=q_tile)
+    o_ref, lse_ref = flash_attention_reference(q, k, v, m)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    if b > 1:
+        assert torch.all(o[1] == 0) and torch.all(lse[1] == -1e30)
+
+
+@pytest.mark.parametrize("b,l,h,d", RING_CASES)
+def test_flash_bwd_kernels_ring_shapes_match_plain_version(cuda_device, b, l, h, d):
+    """Both backward kernels against the plain backward in bf16 (3e-2),
+    with and without the lse cotangent; a fully masked row gives exact zero
+    gradients."""
+    (q, k, v, do), m = _ring_inputs(cuda_device, torch.bfloat16, b, l, h, d, 4, 22)
+    o, lse = flash_mod.flash_fwd_cuda(q, k, v, m)
+    dlse = torch.randn(lse.shape, device=cuda_device)
+    for cot in (None, dlse):
+        got = flash_mod.flash_bwd_cuda(q, k, v, m, o, lse, do, cot)
+        ref = flash_mod.flash_attention_backward_reference(q, k, v, m, o, lse, do, cot)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert torch.isfinite(g.float()).all()
+            torch.testing.assert_close(g.float(), r.float(), atol=3e-2, rtol=0)
+            if b > 1:
+                assert torch.all(g[1] == 0)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_kernels_fp32_head_dims_match_plain_version(cuda_device, d):
+    """The fp32 forward and backward kernels at every head dim, ragged
+    L = 65, within 1e-4 of the plain versions, the lse cotangent included."""
+    (q, k, v, do), m = _ring_inputs(cuda_device, torch.float32, 2, 65, 2, d, 4, 24)
+    o, lse = flash_mod.flash_fwd_cuda(q, k, v, m)
+    o_ref, lse_ref = flash_attention_reference(q, k, v, m)
+    dlse = torch.randn(lse.shape, device=cuda_device)
+    got = flash_mod.flash_bwd_cuda(q, k, v, m, o, lse, do, dlse)
+    ref = flash_mod.flash_attention_backward_reference(q, k, v, m, o, lse, do, dlse)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, o_ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=0)

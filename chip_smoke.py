@@ -5,9 +5,10 @@ Phases (any failure exits non-zero before the result lines):
 
 1. build  — compile the port's CUDA kernels from ``csrc/`` (one nvcc per
    library, started together, sm_90a) into ``build/kernels/``; print the
-   build seconds, ptxas' resource use and spills, and the flash kernels'
-   dynamic shared memory and resident blocks per SM at D=64 bf16 (the
-   card's occupancy calculator).
+   build seconds, ptxas' resource use and spills (the 1x1 GEMMs' ``_sm90``
+   kernels must not spill), and the dynamic shared memory and resident
+   blocks per SM of the bf16 flash kernels at D=64 and of the 1x1 GEMMs
+   (the card's occupancy calculator).
 2. kernel — hold the flash-attention forward kernel to its plain PyTorch
    version on the card: bf16 at B in {1, 8} x L in {256, 512, 300} with
    H=12, D=64, plus D=32, D=128, an fp32 case and the BERT training cell
@@ -34,14 +35,21 @@ Phases (any failure exits non-zero before the result lines):
    kernel at B=24, L=512 padded and unpadded.
 4. kernel_conv1x1 — the 1x1-conv dgrad kernel (both routes) against its
    plain version at ResNet-50's 12 (M, K, N) shapes at b=128, the N=64
-   shape, a ragged M and an fp32 case: bf16 within one bf16 rounding step
-   of the plain value (2^-7 |ref| + 1e-3), fp32 within 1e-4. Prints kernel,
-   plain, library (``torch.matmul(g, w.t())``) and bound times.
+   shape, a ragged M and an fp32 case, timed, and at ``PW_RISK_SHAPES``
+   in bf16 and fp32, checked only: bf16 within one bf16 rounding step of
+   the plain value (2^-7 |ref| + 1e-3), fp32 within 1e-4. Prints per shape
+   the kernel's time per back-to-back call (``kernel_ms``, the method of
+   every other phase) and its device time (``kernel_graph_ms``: the calls
+   replayed from a CUDA graph, no host time; ``graph_ms`` of
+   ``scripts/torch_pw_bench.py``, whose shape tables these phases use),
+   the plain version's, the library's (``torch.matmul(g, w.t())``, by both
+   methods) and the bound.
 5. kernel_wgrad — the 1x1-conv wgrad kernel against its plain version at
    the same 12 shapes, the N=64 shape, ``scripts/torch_pw_bench.py``'s 9
-   shapes, a ragged M and an fp32 case: f32 dW within 1e-5 of its largest
-   |entry| (exact products summed over M in another order). Prints kernel,
-   plain, library (an f32-out ``torch.mm``) and bound times.
+   shapes, a ragged M and an fp32 case, timed, and at the risk shapes and
+   (4099, 64, 256), checked only: f32 dW within 1e-5 of its largest |entry|
+   (exact products summed over M in another order). Prints the same times
+   (library: an f32-out ``torch.mm``) and the number of M ranges.
 6. kernel_bn_bwd — the fused conv+BN backward kernels (reduce, apply dx,
    apply dW) against their plain versions at ResNet-50's 12 shapes (ReLU on
    and off, a ragged M and fp32) and at Inception-v3's 12 (ReLU on, bf16,
@@ -124,6 +132,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import importlib.util
 import itertools
 import json
 import os
@@ -192,12 +201,30 @@ def flash_bound(b, l, h, d, valid_keys, esize, fp32):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def phase_build(fm, *ops):
+def ptxas_entries(log: str) -> dict:
+    """ptxas' ``-v`` lines per kernel: ``{entry: {"registers", "spill_stores",
+    "spill_loads"}}`` (entry = the mangled name)."""
+    out, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            out[entry] = {}
+        elif entry and "spill stores" in ln:
+            words = ln.replace(",", "").split()
+            out[entry]["spill_stores"] = int(words[words.index("spill") - 2])
+            out[entry]["spill_loads"] = int(words[words.index("loads") - 3])
+        elif entry and "Used" in ln and "registers" in ln:
+            words = ln.split()
+            out[entry]["registers"] = int(words[words.index("registers,") - 1])
+    return out
+
+
+def phase_build(fm, pc, fcb):
     from distributed_tensorflow_tpu_torch.ops import build as kbuild
 
     t0 = time.monotonic()
     kbuild.load_libraries(kbuild.LIBRARIES)  # one nvcc per library, together
-    for op in (fm, *ops):
+    for op in (fm, pc, fcb):
         op.build()  # bind the built libraries
     seconds = round(time.monotonic() - t0, 3)
     for name in kbuild.LIBRARIES:
@@ -207,9 +234,17 @@ def phase_build(fm, *ops):
         emit({"phase": "build", "library": Path(info["path"]).name,
               "nvcc_seconds": round(info["seconds"], 3), "seconds": seconds,
               "ptxas": regs})
+    # The 1x1 GEMMs' registers and spills, which their design counts on.
+    gemm = {entry: rec for entry, rec in
+            ptxas_entries(kbuild.BUILD_INFO["pointwise_conv"]["log"]).items()
+            if "_sm90" in entry}
+    check(len(gemm) == 3 and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+                                 for r in gemm.values()),
+          f"pointwise_conv sm90 kernels: ptxas {gemm}")
+    emit({"phase": "build", "pointwise_conv_sm90_ptxas": gemm})
     occupancy = {name: {"smem_bytes": smem, "blocks_per_sm": blocks}
-                 for name, (smem, blocks) in fm.occupancy().items()}
-    emit({"phase": "build", "occupancy_bf16_d64": occupancy})
+                 for name, (smem, blocks) in {**fm.occupancy(), **pc.occupancy()}.items()}
+    emit({"phase": "build", "occupancy_bf16": occupancy})
     return occupancy
 
 
@@ -424,21 +459,26 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-# ResNet-50 at 224x224, 128 images: the (M, K, N) of the 1x1 units that
-# take the generic dgrad and the fused backward (29 units, 12 shapes), and
-# of the two that take the N = 64 dgrad.
-RESNET50_PW_SHAPES = [
-    (401408, 256, 128), (100352, 128, 512), (100352, 256, 512), (100352, 512, 128),
-    (100352, 512, 256), (25088, 256, 1024), (25088, 512, 1024), (25088, 1024, 256),
-    (25088, 1024, 512), (6272, 512, 2048), (6272, 1024, 2048), (6272, 2048, 512),
-]
-RESNET50_N64_SHAPE = (401408, 256, 64)
-# The 9 (M, K, N) of scripts/torch_pw_bench.py (its SHAPES at b=128).
-PW_BENCH_SHAPES = [
-    (401408, 256, 64), (401408, 64, 256), (401408, 64, 64), (100352, 512, 128),
-    (100352, 128, 512), (25088, 1024, 256), (25088, 256, 1024), (6272, 2048, 512),
-    (6272, 512, 2048),
-]
+def load_pw_bench():
+    """``scripts/torch_pw_bench.py`` as a module: the timers and the shape
+    tables that the 1x1 phases share with it."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_pw_bench", ROOT / "scripts" / "torch_pw_bench.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def pw_tables(pwb) -> tuple[dict, dict, list]:
+    """The bench's 1x1 shape tables as (M, K, N): ResNet-50 at 224x224, 128
+    images, the units a step that take the generic dgrad and the fused
+    backward (29 units, 12 shapes), those that take the N = 64 dgrad (2),
+    and the bench's own 9 shapes."""
+    r50 = {pwb.mkn(*sh): units for sh, units in pwb.RESNET50.items()}
+    n64 = {pwb.mkn(*sh): units for sh, units in pwb.RESNET50_N64.items()}
+    return r50, n64, [pwb.mkn(*sh) for group in pwb.SHAPES.values() for sh in group]
+
+
 # Inception-v3 at 299x299, 128 images, fused=True: the (M, K, N) of the 27
 # units that take the fused backward and their launches per step (the four
 # C blocks and D on the 17x17 grid, the two E blocks on 8x8, the aux head's
@@ -448,6 +488,15 @@ INCEPTION_FUSED_UNITS = {
     **{(8192, k, n): 1 for k in (1280, 2048) for n in (192, 320, 384, 448)},
     (3200, 768, 128): 1,
 }
+
+
+# Shapes the 1x1 GEMMs' tiling and copy ring put at risk, checked but not
+# timed: M below one tile and M not a multiple of 64, K = N = 8, N not a
+# multiple of 64 (a chunk partly zero-filled), fewer output tiles than SMs
+# (dgrad at (1000, 256, 128); wgrad's dW tiles at (6272, 512, 2048)), and a
+# wgrad that takes one M range (6272, 1024, 2048); each in bf16 and fp32.
+PW_RISK_SHAPES = [(17, 256, 128), (25091, 256, 128), (17, 8, 8), (4099, 256, 200),
+                  (1000, 256, 128), (6272, 512, 2048), (6272, 1024, 2048)]
 
 
 def _close(got, ref, fp32: bool, torch) -> tuple[float, bool]:
@@ -460,15 +509,18 @@ def _close(got, ref, fp32: bool, torch) -> tuple[float, bool]:
     return diff.max().item(), bool(torch.all(diff <= tol).item())
 
 
-def phase_kernel_conv1x1(pc, torch):
-    """The 1x1-conv dgrad kernel (both routes) against its plain version."""
+def phase_kernel_conv1x1(pc, pwb, torch, r50, n64):
+    """The 1x1-conv dgrad kernel (both routes) against its plain version at
+    the ResNet-50 shapes (``r50``, ``n64``); the risk shapes checked only."""
     gen = torch.Generator("cuda").manual_seed(SEED + 2)
-    bf16 = torch.bfloat16
-    cases = [(m, k, n, bf16, "pw_dgrad") for m, k, n in RESNET50_PW_SHAPES]
-    cases += [(*RESNET50_N64_SHAPE, bf16, "pw_dgrad_n64"), (25091, 1024, 256, bf16, "pw_dgrad"),
-              (6275, 512, 256, torch.float32, "pw_dgrad")]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(m, k, n, bf16, "pw_dgrad", True) for m, k, n in r50]
+    cases += [(m, k, n, bf16, "pw_dgrad_n64", True) for m, k, n in n64]
+    cases += [(25091, 1024, 256, bf16, "pw_dgrad", True),
+              (6275, 512, 256, f32, "pw_dgrad", True)]
+    cases += [(m, k, n, dt, "pw_dgrad", False) for m, k, n in PW_RISK_SHAPES for dt in (bf16, f32)]
     rows = {}
-    for m, k, n, dtype, route in cases:
+    for m, k, n, dtype, route, timed in cases:
         g = torch.randn(m, n, device="cuda", dtype=dtype, generator=gen)
         w = (torch.randn(k, n, device="cuda", generator=gen) * n**-0.5).to(dtype)
         fp32 = dtype == torch.float32
@@ -478,17 +530,21 @@ def phase_kernel_conv1x1(pc, torch):
         err, ok = _close(dx, ref, fp32, torch)
         check(ok and torch.isfinite(dx.float()).all().item(),
               f"pw dgrad error {err} at {(m, k, n, dtype)}")
-        esize = g.element_size()
-        bound_ms, bound_by = bound(esize * (m * n + k * n + m * k), 2.0 * m * k * n,
-                                   PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
         row = {"phase": "kernel_conv1x1", "route": route, "M": m, "K": k, "N": n,
-               "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
-               "kernel_ms": cuda_ms(lambda: pc.dgrad_cuda(g, w, route), 10),
-               "plain_ms": cuda_ms(lambda: pc.dgrad_reference(g, w), 3),
-               "library_ms": cuda_ms(lambda: torch.matmul(g, w.t()), 10),
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err}
+        if timed:
+            esize = g.element_size()
+            bound_ms, bound_by = bound(esize * (m * n + k * n + m * k), 2.0 * m * k * n,
+                                       PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+            row.update({
+                "kernel_ms": cuda_ms(lambda: pc.dgrad_cuda(g, w, route), 10),
+                "kernel_graph_ms": pwb.graph_ms(lambda: pc.dgrad_cuda(g, w, route), 10, 2),
+                "plain_ms": cuda_ms(lambda: pc.dgrad_reference(g, w), 3),
+                "library_ms": cuda_ms(lambda: torch.matmul(g, w.t()), 10),
+                "library_graph_ms": pwb.graph_ms(lambda: torch.matmul(g, w.t()), 10, 2),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+            rows[(m, k, n, row["dtype"], route)] = row
         emit(row)
-        rows[(m, k, n, row["dtype"], route)] = row
         del g, w, dx, ref
     return rows
 
@@ -505,17 +561,19 @@ def _wgrad_library(torch, x2, g):
     return (lambda: torch.mm(x2.t(), g, out_dtype=torch.float32)), "torch.mm(out_dtype=f32)"
 
 
-def phase_kernel_wgrad(pc, torch):
-    """The 1x1-conv wgrad kernel against its plain version: f32 dW from
-    exact products (bf16 x bf16 fits f32) summed over M in another order,
-    within 1e-5 of the largest |dW|."""
+def phase_kernel_wgrad(pc, pwb, torch, shapes):
+    """The 1x1-conv wgrad kernel against its plain version at ``shapes``
+    (M, K, N): f32 dW from exact products (bf16 x bf16 fits f32) summed
+    over M in another order, within 1e-5 of the largest |dW|; the risk
+    shapes checked only."""
     gen = torch.Generator("cuda").manual_seed(SEED + 4)
-    bf16 = torch.bfloat16
-    shapes = list(dict.fromkeys(RESNET50_PW_SHAPES + [RESNET50_N64_SHAPE] + PW_BENCH_SHAPES))
-    cases = [(m, k, n, bf16) for m, k, n in shapes]
-    cases += [(25091, 1024, 256, bf16), (6275, 512, 256, torch.float32)]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(m, k, n, bf16, True) for m, k, n in shapes]
+    cases += [(25091, 1024, 256, bf16, True), (6275, 512, 256, f32, True)]
+    cases += [(m, k, n, dt, False) for m, k, n in PW_RISK_SHAPES + [(4099, 64, 256)]
+              for dt in (bf16, f32)]
     rows = {}
-    for m, k, n, dtype in cases:
+    for m, k, n, dtype, timed in cases:
         x2 = torch.randn(m, k, device="cuda", dtype=dtype, generator=gen)
         g = torch.randn(m, n, device="cuda", dtype=dtype, generator=gen)
         fp32 = dtype == torch.float32
@@ -526,18 +584,25 @@ def phase_kernel_wgrad(pc, torch):
         check(dw.dtype == torch.float32 and torch.isfinite(dw).all().item()
               and err <= 1e-5 * ref.abs().max().item(),
               f"pw wgrad error {err} (max |dW| {ref.abs().max().item()}) at {(m, k, n, dtype)}")
-        es = x2.element_size()
-        bound_ms, bound_by = bound(es * (m * k + m * n) + 4 * k * n, 2.0 * m * k * n,
-                                   PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
-        library, label = _wgrad_library(torch, x2, g)
+        rows_per_split = pc.wgrad_rows_per_split(
+            m, k, n, torch.cuda.get_device_properties(x2.device).multi_processor_count)
         row = {"phase": "kernel_wgrad", "M": m, "K": k, "N": n,
                "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
-               "kernel_ms": cuda_ms(lambda: pc.wgrad_cuda(x2, g), 10),
-               "plain_ms": cuda_ms(lambda: pc.wgrad_reference(x2, g), 3),
-               "library_ms": cuda_ms(library, 10), "library": label,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "splits": -(-m // rows_per_split)}
+        if timed:
+            es = x2.element_size()
+            bound_ms, bound_by = bound(es * (m * k + m * n) + 4 * k * n, 2.0 * m * k * n,
+                                       PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+            library, label = _wgrad_library(torch, x2, g)
+            row.update({
+                "kernel_ms": cuda_ms(lambda: pc.wgrad_cuda(x2, g), 10),
+                "kernel_graph_ms": pwb.graph_ms(lambda: pc.wgrad_cuda(x2, g), 10, 2),
+                "plain_ms": cuda_ms(lambda: pc.wgrad_reference(x2, g), 3),
+                "library_ms": cuda_ms(library, 10), "library": label,
+                "library_graph_ms": pwb.graph_ms(library, 10, 2),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+            rows[(m, k, n, row["dtype"])] = row
         emit(row)
-        rows[(m, k, n, row["dtype"])] = row
         del x2, g, dw, ref
     return rows
 
@@ -1339,6 +1404,8 @@ def main() -> int:
     fm = importlib.import_module("distributed_tensorflow_tpu_torch.ops.flash_attention")
     pc = importlib.import_module("distributed_tensorflow_tpu_torch.ops.pointwise_conv")
     fcb = importlib.import_module("distributed_tensorflow_tpu_torch.ops.fused_conv_bn")
+    pwb = load_pw_bench()
+    r50, n64, bench_shapes = pw_tables(pwb)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -1348,11 +1415,12 @@ def main() -> int:
         occupancy = phase_build(fm, pc, fcb)
         fwd_row, fwd_err = phase_kernel(fm, torch)
         bwd_row, bwd_err = phase_kernel_bwd(fm, torch)
-        pw_rows = phase_kernel_conv1x1(pc, torch)
-        wgrad_rows = phase_kernel_wgrad(pc, torch)
+        pw_rows = phase_kernel_conv1x1(pc, pwb, torch, r50, n64)
+        wgrad_rows = phase_kernel_wgrad(pc, pwb, torch,
+                                        list(dict.fromkeys([*r50, *n64, *bench_shapes])))
         bf16 = torch.bfloat16
         bn_rows = phase_kernel_bn_bwd(
-            fcb, torch, [(m, k, n, bf16, (True, False)) for m, k, n in RESNET50_PW_SHAPES]
+            fcb, torch, [(m, k, n, bf16, (True, False)) for m, k, n in r50]
             + [(25091, 1024, 256, bf16, (True, False)),
                (6275, 512, 256, torch.float32, (True, False))], "resnet50")
         inception_bn_rows = phase_kernel_bn_bwd(
@@ -1398,24 +1466,30 @@ def main() -> int:
             "blocks_per_sm": occupancy[name]["blocks_per_sm"],
         })
     # The 1x1 kernels' numbers are per ResNet-50 step (b=128): each
-    # shape's time times its launches per step, summed.
-    units = (1, 4, 1, 3, 1, 6, 1, 5, 1, 3, 1, 2)
+    # shape's time times its launches per step, summed. ``ms`` and
+    # ``library_ms`` are times per call, as every other row's;
+    # ``graph_ms`` and ``library_graph_ms`` the device times of the same
+    # calls replayed from a CUDA graph.
     cell = "ResNet-50 b=128 224x224, per training step (launches x time, summed)"
     pw_ref = "distributed_tensorflow_tpu/ops/pointwise_conv.py:"
-    for name, line, shapes, counts in (
-            ("pw_dgrad", "74", RESNET50_PW_SHAPES, units),
-            ("pw_dgrad_n64", "202", [RESNET50_N64_SHAPE], (2,))):
-        sel = [pw_rows[(*sh, "bfloat16", name)] for sh in shapes]
+    for name, line, table in (("pw_dgrad", "74", r50), ("pw_dgrad_n64", "202", n64)):
+        sel = [pw_rows[(*sh, "bfloat16", name)] for sh in table]
+        counts = list(table.values())
         kernels.append({
             "name": name, "route": "cuda", "source": src + "pointwise_conv.cu",
             "replaces": pw_ref + line, "launches": image_launches["pallas"][name],
             "max_abs_err": max(r["max_abs_err"] for r in pw_rows.values()
                                if r["route"] == name),
             **_step_record(sel, counts, ""),
-            "library_ms": sum(n * r["library_ms"] for r, n in zip(sel, counts)), "cell": cell,
+            "library_ms": sum(n * r["library_ms"] for r, n in zip(sel, counts)),
+            "graph_ms": sum(n * r["kernel_graph_ms"] for r, n in zip(sel, counts)),
+            "library_graph_ms": sum(n * r["library_graph_ms"] for r, n in zip(sel, counts)),
+            "cell": cell,
+            "blocks_per_sm": occupancy["pw_dgrad"]["blocks_per_sm"],
         })
     bn_ref = "distributed_tensorflow_tpu/ops/fused_conv_bn.py:"
-    sel = [bn_rows[(*sh, "bfloat16")] for sh in RESNET50_PW_SHAPES]
+    sel = [bn_rows[(*sh, "bfloat16")] for sh in r50]
+    units = list(r50.values())
     for name, part, line in (("bn_bwd_reduce", "reduce", "126"),
                              ("bn_bwd_apply_dx", "dx", "136"),
                              ("bn_bwd_apply_dw", "dw", "136")):
@@ -1427,7 +1501,7 @@ def main() -> int:
         })
     # The wgrad's only path is the bench: its 9 shapes, one call each,
     # summed; plain and error from kernel_wgrad at the same shapes.
-    sel = [wgrad_rows[(*sh, "bfloat16")] for sh in PW_BENCH_SHAPES]
+    sel = [wgrad_rows[(*sh, "bfloat16")] for sh in bench_shapes]
     kernels.append({
         "name": "pw_wgrad", "route": "cuda", "source": src + "pointwise_conv.cu",
         "replaces": pw_ref + "85", "launches": bench_launches["pw_wgrad"],
@@ -1438,6 +1512,10 @@ def main() -> int:
         "bound_by": max(sel, key=lambda r: r["bound_ms"])["bound_by"],
         "library_ms": sum(r["library_ms"] for r in bench_rows),
         "library": bench_rows[0]["library"],
+        "graph_ms": sum(r["kernel_graph_ms"] for r in sel),
+        "library_graph_ms": sum(r["library_graph_ms"] for r in sel),
+        "blocks_per_sm": {key.removeprefix("pw_wgrad_"): rec["blocks_per_sm"]
+                          for key, rec in occupancy.items() if key.startswith("pw_wgrad_")},
         "cell": "scripts/torch_pw_bench.py --shapes all: 9 ResNet-50 shapes at b=128, "
                 "one call each, summed"})
     # Inception-v3's fused units per training step, for PERF.md.

@@ -50,18 +50,21 @@ def _write(directory: Path, step: int, blob: dict) -> Path:
     return path
 
 
-def _to_device(tree, device):
+def _to_device(tree, device, copy: bool = False):
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
+        return {k: _to_device(v, device, copy) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, device) for v in tree)
+        return type(tree)(_to_device(v, device, copy) for v in tree)
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to(device)
+        return tree.detach().to(device, copy=copy)
     return tree
 
 
 def _to_cpu(tree):
-    return _to_device(tree, "cpu")
+    """A CPU copy of ``tree`` that shares no storage with it. ``.to("cpu")``
+    alone returns a CPU tensor itself, which the next in-place step would
+    then change under the writer thread."""
+    return _to_device(tree, "cpu", copy=True)
 
 
 def save(directory: str | Path, step: int, state_dict: dict) -> Path:

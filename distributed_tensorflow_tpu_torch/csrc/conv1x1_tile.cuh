@@ -1,5 +1,7 @@
-// Block-tile matrix product shared by the 1x1-conv backward kernels
-// (pointwise_conv.cu, fused_conv_bn.cu) on Hopper (sm_90a).
+// Block-tile matrix product of the fused conv+BN backward kernels
+// (fused_conv_bn.cu, bf16 and fp32) and of the fp32 path of the 1x1-conv
+// backward (pointwise_conv.cu, whose bf16 path is the `wgmma` design of
+// sm90_gemm.cuh) on Hopper (sm_90a).
 //
 // One block of 8 warps computes a 128 x 128 tile of C = A B, f32 sums,
 // looping over the reduction dimension in chunks of kBR. Each chunk of A

@@ -46,7 +46,8 @@ LIBRARIES = {
 _LOCK = threading.Lock()
 _NAME_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
-#: per library: {"path", "seconds" (0.0 when loaded from the cache), "log"}
+#: per library: {"path", "seconds" (0.0 when loaded from the cache), "log"
+#: (nvcc's output, ptxas' ``-v`` lines included, also for a cached load)}
 BUILD_INFO: dict[str, dict] = {}
 
 
@@ -78,7 +79,10 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
         for p in paths + sorted(CSRC.glob("*.cuh")):
             h.update(p.read_bytes())
         out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+        log_file = out.with_suffix(".log")  # nvcc's output, kept for a cached load
         seconds, log = 0.0, ""
+        if out.exists() and log_file.exists():
+            log = log_file.read_text()
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -89,6 +93,7 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            log_file.write_text(log)
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         BUILD_INFO[name] = {"path": str(out), "seconds": seconds, "log": log}

@@ -29,15 +29,17 @@ itself takes any M.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 _MAX_TILE_M = 1024
 _MAX_KN = 4096
-# Blocks to aim for in the split-M weight-gradient pass on the H100's 132
-# SMs: two waves (the f32 partials cost a write and a read of
-# [splits, K, N] each).
-_WGRAD_BLOCKS = 264
+# The bf16 wgrad kernel's geometry (csrc/pointwise_conv.cu): M rows per
+# chunk of its copy ring, dW columns per block, and dW rows per block
+# (64 where K <= 64, else 128).
+_WGRAD_CHUNK = 64
+_WGRAD_TILE_N = 128
 
 #: Kernel launches since the last :func:`reset_launch_counts`; each wrapper
 #: adds one where it launches its kernel and nowhere else.
@@ -82,6 +84,22 @@ def rows_per_split(m: int, tiles: int, target: int) -> int:
     return -(-rows // 32) * 32
 
 
+def wgrad_rows_per_split(m: int, k: int, n: int, sms: int) -> int:
+    """M rows per block of the wgrad kernel, a multiple of its 64-row
+    chunk: as many M ranges as fill one wave of ``sms`` blocks with the
+    shape's dW tiles, and one range where the tiles alone fill the wave.
+    More ranges would add waves and f32 partials without adding SMs."""
+    tiles = -(-k // (64 if k <= 64 else 128)) * -(-n // _WGRAD_TILE_N)
+    chunks = -(-m // _WGRAD_CHUNK)
+    splits = min(chunks, max(1, sms // tiles))
+    return -(-chunks // splits) * _WGRAD_CHUNK
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 _LIBS: dict = {}
 
 
@@ -96,6 +114,8 @@ def _library():
         lib.pw_dgrad.restype = ctypes.c_int
         lib.pw_wgrad.argtypes = [p] * 4 + [i] * 5 + [p]
         lib.pw_wgrad.restype = ctypes.c_int
+        lib.pointwise_conv_occupancy.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.pointwise_conv_occupancy.restype = ctypes.c_int
         lib.pointwise_conv_error_string.argtypes = [ctypes.c_int]
         lib.pointwise_conv_error_string.restype = ctypes.c_char_p
         _LIBS["pointwise_conv"] = lib
@@ -105,6 +125,24 @@ def _library():
 def build() -> None:
     """Compile (or load the cached build of) the kernel library."""
     _library()
+
+
+def occupancy() -> dict:
+    """Dynamic shared memory (bytes) and resident blocks per SM of each
+    bf16 kernel, as the card's occupancy calculator reports them:
+    ``{"pw_dgrad": (smem, blocks), "pw_wgrad_128x128": ...,
+    "pw_wgrad_64x128": ...}``, the wgrad kernel once per shape of its dW
+    tile (rows x columns; 64 rows where K <= 64)."""
+    lib = _library()
+    out = {}
+    for key, which in (("pw_dgrad", 0), ("pw_wgrad_128x128", 1), ("pw_wgrad_64x128", 2)):
+        smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        rc = lib.pointwise_conv_occupancy(which, ctypes.byref(smem), ctypes.byref(blocks))
+        if rc != 0:
+            msg = lib.pointwise_conv_error_string(rc).decode()
+            raise RuntimeError(f"pointwise_conv_occupancy({which}) failed: {msg}")
+        out[key] = (smem.value, blocks.value)
+    return out
 
 
 def check_operands(fn: str, tensors: dict) -> torch.dtype:
@@ -150,14 +188,15 @@ def dgrad_cuda(g: torch.Tensor, w: torch.Tensor, route: str = "pw_dgrad") -> tor
 def wgrad_cuda(x2: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Launch the wgrad kernel for contiguous ``x2 [M, K]`` and ``g [M, N]``
     (bf16 or fp32, K and N multiples of 8, any M) on one CUDA device:
-    ``dW [K, N]`` in f32, the partials over M ranges summed by the kernel's
-    second pass."""
+    ``dW [K, N]`` in f32, the partials over the M ranges that
+    :func:`wgrad_rows_per_split` chooses summed by the kernel's second
+    pass."""
     dtype = check_operands("wgrad_cuda", {"x2": x2, "g": g})
     (m, k), n = x2.shape, g.shape[1]
     if g.shape[0] != m:
         raise ValueError(f"wgrad_cuda: x2 {tuple(x2.shape)} and g {tuple(g.shape)} disagree on M")
     lib = _library()
-    rows = rows_per_split(m, -(-k // 128) * -(-n // 128), _WGRAD_BLOCKS)
+    rows = wgrad_rows_per_split(m, k, n, _sm_count(x2.device))
     splits = -(-m // rows)
     dw = torch.empty((k, n), dtype=torch.float32, device=x2.device)
     part = (torch.empty((splits, k, n), dtype=torch.float32, device=x2.device)

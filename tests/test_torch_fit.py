@@ -110,6 +110,43 @@ def test_fit_checkpoint_resume_gives_the_same_next_loss(tmp_path):
     model.load_state_dict(params)
 
 
+def test_checkpointer_save_snapshots_cpu_state_before_it_changes(tmp_path, monkeypatch):
+    """``Checkpointer.save`` on a CPU state writes that step's values even
+    when the step after it updates the params, the stale ring and the
+    BatchNorm statistics in place before the writer thread runs. The writer
+    is held until the state has changed, so a snapshot that shares storage
+    with the live tensors fails every time, not only when it loses a race."""
+    import threading
+
+    from distributed_tensorflow_tpu_torch.cli.train import PRESETS, _make_tx
+    from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
+    from distributed_tensorflow_tpu_torch.ckpt import checkpoint as ck
+
+    tx, _ = _make_tx(PRESETS["bert_base"])
+    state = create_train_state({"w": torch.zeros(512, 1024)}, tx,
+                               {"mean": torch.zeros(1024)}, staleness=1)
+    release = threading.Event()
+    write = ck._write
+
+    def held_write(*args):
+        assert release.wait(30), "the test never released the writer"
+        return write(*args)
+
+    monkeypatch.setattr(ck, "_write", held_write)
+    with Checkpointer(tmp_path / "ck") as ckpt:
+        ckpt.save(0, state)
+        with torch.no_grad():
+            for t in (state.params["w"], state.grad_buffer["w"], state.model_state["mean"]):
+                t.add_(1)
+        release.set()
+        ckpt.wait()
+    blob = torch.load(ck._step_path(tmp_path / "ck", 0), weights_only=True)
+    assert torch.equal(blob["params"]["w"], torch.zeros(512, 1024))
+    assert torch.equal(blob["grad_buffer"]["w"], torch.zeros(1, 512, 1024))
+    assert torch.equal(blob["model_state"]["mean"], torch.zeros(1024))
+    assert torch.equal(state.params["w"], torch.ones(512, 1024))
+
+
 @pytest.mark.parametrize("policy", ["abort", "skip"])
 def test_fit_nonfinite_loss_guard(policy):
     from distributed_tensorflow_tpu_torch.obs.flightrec import FlightRecorder

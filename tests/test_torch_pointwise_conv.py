@@ -117,6 +117,68 @@ def test_wgrad_reference_matches_jax_pallas_wgrad(jax_wgrad, m, k, n):
         np.testing.assert_allclose(dw.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
 
 
+# (M, K, N) of chip_smoke.py's timed wgrad cases: ResNet-50's 12 dgrad
+# shapes at b=128, the N = 64 unit, the bench's two K = 64 shapes, a ragged
+# M and its fp32 case.
+_WGRAD_SHAPES = [
+    (401408, 256, 128), (100352, 128, 512), (100352, 256, 512), (100352, 512, 128),
+    (100352, 512, 256), (25088, 256, 1024), (25088, 512, 1024), (25088, 1024, 256),
+    (25088, 1024, 512), (6272, 512, 2048), (6272, 1024, 2048), (6272, 2048, 512),
+    (401408, 256, 64), (401408, 64, 256), (401408, 64, 64), (25091, 1024, 256),
+    (6275, 512, 256),
+]
+_RAGGED = [(17, 8, 8), (1, 64, 64), (63, 128, 128), (65, 256, 200), (4099, 256, 200),
+           (1000, 64, 8), (777777, 64, 64), (12345, 2048, 2048)]
+
+
+def _wgrad_tiles(k: int, n: int) -> int:
+    """dW tiles of the wgrad kernel: 64 or 128 rows (K <= 64 or not) by 128
+    columns."""
+    return -(-k // (64 if k <= 64 else 128)) * -(-n // 128)
+
+
+@pytest.mark.parametrize("m,k,n", _WGRAD_SHAPES + _RAGGED)
+def test_wgrad_split_plan_covers_every_row_once(m, k, n):
+    """The M ranges of the wgrad plan: whole 64-row chunks, consecutive and
+    non-empty, together exactly [0, M), at most 65535 of them (the grid's
+    z limit)."""
+    rows = pc.wgrad_rows_per_split(m, k, n, 132)
+    splits = -(-m // rows)
+    assert rows % 64 == 0 and 1 <= splits <= 65535
+    bounds = [(z * rows, min(m, (z + 1) * rows)) for z in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == m
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+
+
+@pytest.mark.parametrize("m,k,n", _WGRAD_SHAPES + _RAGGED)
+def test_wgrad_split_plan_fills_one_wave(m, k, n):
+    """The blocks of the wgrad plan fill at most one wave of the H100's 132
+    SMs, where a second wave would add time and f32 partials without
+    adding SMs: one range where the dW tiles alone leave no room for a
+    second; otherwise ranges one 64-row chunk shorter would overflow the
+    wave, unless every range is already a single chunk."""
+    rows = pc.wgrad_rows_per_split(m, k, n, 132)
+    splits, tiles, chunks = -(-m // rows), _wgrad_tiles(k, n), -(-m // 64)
+    if 2 * tiles > 132:
+        assert splits == 1
+    else:
+        assert tiles * splits <= 132
+        assert rows == 64 or tiles * -(-chunks // (rows // 64 - 1)) > 132
+
+
+@pytest.mark.parametrize("m,k,n,expect", [
+    (6272, 2048, 2048, 1), (6272, 1024, 2048, 1), (12345, 2048, 2048, 1),
+    (6272, 512, 2048, 2), (6272, 2048, 512, 2), (401408, 64, 64, 131),
+])
+def test_wgrad_split_plan_at_known_shapes(m, k, n, expect):
+    """One range where 128 or more dW tiles fill a wave of 132 SMs, 2 at
+    the stage-4 shapes (64 tiles: 2 x 4 MB of partials against half the
+    rows a block), one full wave at (401408, 64, 64) (a single tile)."""
+    rows = pc.wgrad_rows_per_split(m, k, n, 132)
+    assert -(-m // rows) == expect
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
@@ -124,8 +186,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("m,k,n,route", [(1000, 256, 128, "pw_dgrad"),
-                                          (4099, 128, 64, "pw_dgrad_n64")])
+@pytest.mark.parametrize("m,k,n,route", [
+    (1000, 256, 128, "pw_dgrad"), (4099, 128, 64, "pw_dgrad_n64"),
+    # The tiling and copy ring's risks: M below one tile, M not a multiple
+    # of 64, K = N = 8, N not a multiple of 64, fewer output tiles than SMs
+    # (1000, 256, 128: 16) and the stage-4 shape at M = 6272.
+    (17, 256, 128, "pw_dgrad"), (25091, 256, 128, "pw_dgrad"), (17, 8, 8, "pw_dgrad"),
+    (4099, 256, 200, "pw_dgrad"), (6272, 512, 2048, "pw_dgrad"),
+])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_dgrad_kernel_matches_plain_version(cuda_device, m, k, n, route, dtype):
     """The kernel against its plain version on the card (M = 4099 ragged):
@@ -156,12 +224,20 @@ def test_dgrad_kernel_runs_in_backward(cuda_device):
         pc.dgrad_cuda(x.detach().half(), w.detach().half())
 
 
-@pytest.mark.parametrize("m,k,n", [(25091, 256, 128), (4099, 64, 256)])
+@pytest.mark.parametrize("m,k,n", [
+    (25091, 256, 128), (4099, 64, 256),
+    # M below one chunk, K = N = 8, N not a multiple of 64, fewer dW tiles
+    # than SMs (6272, 512, 2048: 64 tiles, 2 ranges), one M range (6272,
+    # 1024, 2048), and both K = 64 bench shapes (64-row tiles, 66 and 131
+    # ranges).
+    (17, 256, 128), (17, 8, 8), (4099, 256, 200), (6272, 512, 2048), (6272, 1024, 2048),
+    (401408, 64, 256), (401408, 64, 64),
+])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_wgrad_kernel_matches_plain_version(cuda_device, m, k, n, dtype):
     """The wgrad kernel against its plain version on the card (ragged M,
-    several M splits): f32 out, exact products summed over M in another
-    order, within 1e-5 of the largest |dW|."""
+    one or several M ranges): f32 out, exact products summed over M in
+    another order, within 1e-5 of the largest |dW|."""
     x2, g = (torch.from_numpy(a).to(cuda_device, dtype) for a in _arrays(4, (m, k), (m, n)))
     before = pc.LAUNCHES["pw_wgrad"]
     dw = pc.wgrad(x2, g)

@@ -6,9 +6,11 @@ Phases (any failure exits non-zero before the result lines):
 1. build  — compile the port's CUDA kernels from ``csrc/`` (one nvcc per
    library, started together, sm_90a) into ``build/kernels/``; print the
    build seconds, ptxas' resource use and spills (the 1x1 GEMMs' ``_sm90``
-   kernels must not spill), and the dynamic shared memory and resident
-   blocks per SM of the bf16 flash kernels at D=64 and of the 1x1 GEMMs
-   (the card's occupancy calculator).
+   kernels, the three ``flash_bwd_dq_sm90`` and the four
+   ``bn_apply_dw_kernel_sm90`` instances must not spill), and the dynamic
+   shared memory and resident blocks per SM of the bf16 flash kernels at
+   D=64 (the forward under each q tile), of the 1x1 GEMMs and of the
+   fused dW kernel (the card's occupancy calculator).
 2. kernel — hold the flash-attention forward kernel to its plain PyTorch
    version on the card: bf16 at B in {1, 8} x L in {256, 512, 300} with
    H=12, D=64, plus D=32, D=128, an fp32 case and the BERT training cell
@@ -27,12 +29,14 @@ Phases (any failure exits non-zero before the result lines):
    x L in {256, 512, 300}, H=12, D=64, with padded rows and one fully
    masked row (which must give exact zero gradients), the unpadded BERT
    training cell (B=24, L=512), D=32, D=128, an fp32 case, and the 24 ring
-   shapes. Tolerances: bf16 within 3e-2 (the gradients are of order 1; P
-   and dS round to bf16 per tile in both, from f32 products summed in
-   another order), fp32 within 1e-4. Prints per shape the backward's time
-   (delta pass + both kernels) and each kernel's, the plain version's, the
-   backward of SDPA with the same mask as a yardstick, and the bound; per
-   kernel at B=24, L=512 padded and unpadded.
+   shapes. Tolerances: bf16 within 3e-2
+   (the gradients are of order 1; P and dS round to bf16 per tile in both,
+   from f32 products summed in another order), fp32 within 1e-4. Prints
+   per shape the backward's time (delta pass + both kernels) and each
+   kernel's, the plain version's, the backward of SDPA
+   with the same mask as a yardstick, and the bound; per kernel at B=24,
+   L=512 padded and unpadded and at D=128, with each kernel's device time
+   from a replayed CUDA graph.
 4. kernel_conv1x1 — the 1x1-conv dgrad kernel (both routes) against its
    plain version at ResNet-50's 12 (M, K, N) shapes at b=128, the N=64
    shape, a ragged M and an fp32 case, timed, and at ``PW_RISK_SHAPES``
@@ -54,9 +58,12 @@ Phases (any failure exits non-zero before the result lines):
    apply dW) against their plain versions at ResNet-50's 12 shapes (ReLU on
    and off, a ragged M and fp32) and at Inception-v3's 12 (ReLU on, bf16,
    and fp32 at N=160; N = 160, 192, 320 and 448 end partway through the
-   kernels' column tiles): s1, s2 within 1e-5 of the terms' magnitudes
-   summed, dx as the dgrad, dW within 1e-5 of its largest entry (f32 sums
-   over M in another order). No single PyTorch call computes these, so no
+   kernels' column tiles), timed, and at ``BN_RISK_SHAPES`` (from
+   ``scripts/torch_pw_bench.py``) in bf16 and fp32, checked only: s1, s2
+   within 1e-5 of the terms' magnitudes summed, dx as the dgrad, dW within
+   1e-5 of its largest entry (f32 sums over M in another order) and
+   bitwise equal across two runs. dW is also timed as device time from a
+   replayed CUDA graph. No single PyTorch call computes these, so no
    library time.
 7. pw_bench — ``python3 scripts/torch_pw_bench.py --shapes all --check``,
    the entry point that runs the wgrad kernel: its exit code, its numerics
@@ -234,16 +241,21 @@ def phase_build(fm, pc, fcb):
         emit({"phase": "build", "library": Path(info["path"]).name,
               "nvcc_seconds": round(info["seconds"], 3), "seconds": seconds,
               "ptxas": regs})
-    # The 1x1 GEMMs' registers and spills, which their design counts on.
-    gemm = {entry: rec for entry, rec in
-            ptxas_entries(kbuild.BUILD_INFO["pointwise_conv"]["log"]).items()
-            if "_sm90" in entry}
-    check(len(gemm) == 3 and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
-                                 for r in gemm.values()),
-          f"pointwise_conv sm90 kernels: ptxas {gemm}")
-    emit({"phase": "build", "pointwise_conv_sm90_ptxas": gemm})
+    # Registers and spills of the kernels whose designs count on none: the
+    # 1x1 GEMMs (3 entries), the dQ kernel (3 head dims) and the fused dW
+    # kernel (ReLU on and off x 128- and 256-row tiles).
+    for lib, key, count in (("pointwise_conv", "_sm90", 3), ("flash_bwd", "flash_bwd_dq_sm90", 3),
+                            ("fused_conv_bn", "bn_apply_dw_kernel_sm90", 4)):
+        entries = {entry: rec for entry, rec in
+                   ptxas_entries(kbuild.BUILD_INFO[lib]["log"]).items() if key in entry}
+        check(len(entries) == count
+              and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+                      for r in entries.values()),
+              f"{lib} sm90 kernels: ptxas {entries}")
+        emit({"phase": "build", f"{lib}_sm90_ptxas": entries})
     occupancy = {name: {"smem_bytes": smem, "blocks_per_sm": blocks}
-                 for name, (smem, blocks) in {**fm.occupancy(), **pc.occupancy()}.items()}
+                 for name, (smem, blocks) in {**fm.occupancy(), **pc.occupancy(),
+                                              **fcb.occupancy()}.items()}
     emit({"phase": "build", "occupancy_bf16": occupancy})
     return occupancy
 
@@ -385,7 +397,7 @@ def _check_bwd(fm, torch, q, k, v, mask, o, lse, do, dlse, shape, dtype, fully_m
     return err
 
 
-def phase_kernel_bwd(fm, torch):
+def phase_kernel_bwd(fm, pwb, torch):
     bf16 = torch.bfloat16
     # (B, L, H, D, dtype, padded): the padded cases draw random valid prefixes
     # and one fully masked row; (24, 512) unpadded is the BERT training cell.
@@ -417,16 +429,20 @@ def phase_kernel_bwd(fm, torch):
                "plain_ms": cuda_ms(
                    lambda: fm.flash_attention_backward_reference(q, k, v, mask, o, lse, do), 3),
                "library_ms": library["all"], "bound_ms": bound_ms, "bound_by": bound_by}
-        if (b, l, dtype) == (24, 512, bf16):
-            # Per kernel, at the training cell and its padded twin: its own
-            # plain version, the SDPA backward of just its outputs, and its
-            # own bound over this run's valid keys.
+        if (b, l, dtype) == (24, 512, bf16) or d == 128:
+            # Per kernel, at the training cell, its padded twin and D=128:
+            # its own plain version, the SDPA backward of just its outputs
+            # (dq alone is in effect SDPA's whole backward, which computes
+            # all three in one pass), its device time from a replayed CUDA
+            # graph, and its own bound over this run's valid keys.
             row["dq"] = {"plain_ms": cuda_ms(lambda: fm.flash_bwd_dq_reference(*args), 3),
-                         "library_ms": library["q"],
+                         "library_ms": library["q"], "library_all_ms": library["all"],
+                         "graph_ms": pwb.graph_ms(lambda: fm.flash_bwd_dq_cuda(*args), 10, 2),
                          **dict(zip(("bound_ms", "bound_by"),
                                     bwd_bound(b, l, h, d, keys, esize, fp32, 3, 5, 2)))}
             row["dkv"] = {"plain_ms": cuda_ms(lambda: fm.flash_bwd_dkv_reference(*args), 3),
                           "library_ms": library["kv"],
+                          "graph_ms": pwb.graph_ms(lambda: fm.flash_bwd_dkv_cuda(*args), 10, 2),
                           **dict(zip(("bound_ms", "bound_by"),
                                      bwd_bound(b, l, h, d, keys, esize, fp32, 4, 6, 2)))}
             if not pad:
@@ -469,25 +485,17 @@ def load_pw_bench():
     return module
 
 
-def pw_tables(pwb) -> tuple[dict, dict, list]:
+def pw_tables(pwb) -> tuple[dict, dict, list, dict]:
     """The bench's 1x1 shape tables as (M, K, N): ResNet-50 at 224x224, 128
     images, the units a step that take the generic dgrad and the fused
     backward (29 units, 12 shapes), those that take the N = 64 dgrad (2),
-    and the bench's own 9 shapes."""
+    the bench's own 9 shapes, and Inception-v3's fused units at 299x299,
+    128 images (27 units, 12 shapes)."""
     r50 = {pwb.mkn(*sh): units for sh, units in pwb.RESNET50.items()}
     n64 = {pwb.mkn(*sh): units for sh, units in pwb.RESNET50_N64.items()}
-    return r50, n64, [pwb.mkn(*sh) for group in pwb.SHAPES.values() for sh in group]
-
-
-# Inception-v3 at 299x299, 128 images, fused=True: the (M, K, N) of the 27
-# units that take the fused backward and their launches per step (the four
-# C blocks and D on the 17x17 grid, the two E blocks on 8x8, the aux head's
-# 1x1 conv on 5x5).
-INCEPTION_FUSED_UNITS = {
-    (36992, 768, 128): 2, (36992, 768, 160): 4, (36992, 768, 192): 12,
-    **{(8192, k, n): 1 for k in (1280, 2048) for n in (192, 320, 384, 448)},
-    (3200, 768, 128): 1,
-}
+    inception = {pwb.mkn(*sh): units for sh, units in pwb.INCEPTION_FUSED.items()}
+    return (r50, n64, [pwb.mkn(*sh) for group in pwb.SHAPES.values() for sh in group],
+            inception)
 
 
 # Shapes the 1x1 GEMMs' tiling and copy ring put at risk, checked but not
@@ -637,12 +645,13 @@ def phase_pw_bench(torch):
     return counts["launches"], [r for r in timed if r["kernel"] == "pw_wgrad"]
 
 
-def phase_kernel_bn_bwd(fcb, torch, cases, cell: str):
+def phase_kernel_bn_bwd(fcb, pwb, torch, cases, cell: str):
     """The fused conv+BN backward kernels (reduce, apply dx, apply dW)
-    against their plain versions; ``cases`` are (M, K, N, dtype, relus)."""
+    against their plain versions; ``cases`` are (M, K, N, dtype, relus,
+    timed). Every dW is also computed twice and must repeat bit for bit."""
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
     rows = {}
-    for m, k, n, dtype, relus in cases:
+    for m, k, n, dtype, relus, timed in cases:
         fp32 = dtype == torch.float32
         x = torch.randn(m, k, device="cuda", dtype=dtype, generator=gen)
         w = (torch.randn(k, n, device="cuda", generator=gen) * k**-0.5).to(dtype)
@@ -681,8 +690,17 @@ def phase_kernel_bn_bwd(fcb, torch, cases, cell: str):
             e = (dw - rdw).abs().max().item()
             check(e <= 1e-5 * rdw.abs().max().item() + 1e-5,
                   f"bn apply dW error {e} at {(m, k, n, dtype, relu)}")
+            again = fcb.bn_bwd_apply_dw_cuda(da, z, x, consts, relu)
+            torch.cuda.synchronize()
+            check(torch.equal(dw.view(torch.int32), again.view(torch.int32)),
+                  f"bn apply dW differs between two runs at {(m, k, n, dtype, relu)}")
             errs["dw"] = max(errs["dw"], e)
-        del dx, rdx, dw, rdw
+        del dx, rdx, dw, rdw, again
+        if not timed:
+            emit({"phase": "kernel_bn_bwd", "cell": "risk", "M": m, "K": k, "N": n,
+                  "dtype": str(dtype).removeprefix("torch."), "max_abs_err": errs})
+            del x, w, z, da, zf
+            continue
         es = x.element_size()
         peak = PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS
         c0 = fcb._pack_consts(mean, inv, gamma, beta)
@@ -698,6 +716,8 @@ def phase_kernel_bn_bwd(fcb, torch, cases, cell: str):
                "dx_plain_ms": cuda_ms(
                    lambda: fcb.bn_bwd_apply_dx_reference(da, z, w, consts, True), 3),
                "dw_ms": cuda_ms(lambda: fcb.bn_bwd_apply_dw_cuda(da, z, x, consts, True), 10),
+               "dw_graph_ms": pwb.graph_ms(
+                   lambda: fcb.bn_bwd_apply_dw_cuda(da, z, x, consts, True), 10, 2),
                "dw_plain_ms": cuda_ms(
                    lambda: fcb.bn_bwd_apply_dw_reference(da, z, x, consts, True), 3),
                "library_ms": None}
@@ -987,7 +1007,7 @@ def phase_train_resnet50(pc, fcb, torch):
     return launches, results
 
 
-def phase_train_inception(fcb, pc, torch):
+def phase_train_inception(fcb, pc, torch, inception):
     """Inception-v3 training on the card, plain and fused, under the
     ``imagenet_inception_async`` recipe (K = 4 stale gradients)."""
     from distributed_tensorflow_tpu_torch.cli.train import PRESETS, _make_tx
@@ -1016,7 +1036,7 @@ def phase_train_inception(fcb, pc, torch):
     data_s = time.monotonic() - t0
     flops = train_flops_per_image(InceptionV3(device="cuda"), (hw, hw, 3)) * rows
     per_step = {"bn_bwd_reduce": 27, "bn_bwd_apply_dx": 27, "bn_bwd_apply_dw": 27}
-    check(sum(INCEPTION_FUSED_UNITS.values()) == 27, "Inception's fused units")
+    check(sum(inception.values()) == 27, "Inception's fused units")
 
     def build(fused, dropout_rate=0.5):
         model = InceptionV3(dtype=torch.bfloat16, fused=fused, dropout_rate=dropout_rate,
@@ -1405,7 +1425,7 @@ def main() -> int:
     pc = importlib.import_module("distributed_tensorflow_tpu_torch.ops.pointwise_conv")
     fcb = importlib.import_module("distributed_tensorflow_tpu_torch.ops.fused_conv_bn")
     pwb = load_pw_bench()
-    r50, n64, bench_shapes = pw_tables(pwb)
+    r50, n64, bench_shapes, inception = pw_tables(pwb)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -1414,18 +1434,20 @@ def main() -> int:
     try:
         occupancy = phase_build(fm, pc, fcb)
         fwd_row, fwd_err = phase_kernel(fm, torch)
-        bwd_row, bwd_err = phase_kernel_bwd(fm, torch)
+        bwd_row, bwd_err = phase_kernel_bwd(fm, pwb, torch)
         pw_rows = phase_kernel_conv1x1(pc, pwb, torch, r50, n64)
         wgrad_rows = phase_kernel_wgrad(pc, pwb, torch,
                                         list(dict.fromkeys([*r50, *n64, *bench_shapes])))
         bf16 = torch.bfloat16
+        both = (True, False)
         bn_rows = phase_kernel_bn_bwd(
-            fcb, torch, [(m, k, n, bf16, (True, False)) for m, k, n in r50]
-            + [(25091, 1024, 256, bf16, (True, False)),
-               (6275, 512, 256, torch.float32, (True, False))], "resnet50")
+            fcb, pwb, torch, [(m, k, n, bf16, both, True) for m, k, n in r50]
+            + [(25091, 1024, 256, bf16, both, True), (6275, 512, 256, torch.float32, both, True)]
+            + [(m, k, n, dt, both, False) for m, k, n in pwb.BN_RISK_SHAPES
+               for dt in (bf16, torch.float32)], "resnet50")
         inception_bn_rows = phase_kernel_bn_bwd(
-            fcb, torch, [(m, k, n, bf16, (True,)) for m, k, n in INCEPTION_FUSED_UNITS]
-            + [(36992, 768, 160, torch.float32, (True,))], "inception_v3")
+            fcb, pwb, torch, [(m, k, n, bf16, (True,), True) for m, k, n in inception]
+            + [(36992, 768, 160, torch.float32, (True,), True)], "inception_v3")
         torch.cuda.empty_cache()
         bench_launches, bench_rows = phase_pw_bench(torch)
         phase_serve(fm, torch)
@@ -1434,7 +1456,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         image_launches, _ = phase_train_resnet50(pc, fcb, torch)
         torch.cuda.empty_cache()
-        inception_launches, _ = phase_train_inception(fcb, pc, torch)
+        inception_launches, _ = phase_train_inception(fcb, pc, torch, inception)
         torch.cuda.empty_cache()
         phase_train_cli(torch)
         phase_train_cli_image(torch)
@@ -1462,9 +1484,11 @@ def main() -> int:
             "replaces": ref + line, "launches": launches[name], "max_abs_err": bwd_err[key],
             "ms": bwd_row[f"{key}_ms"], "plain_ms": bwd_row[key]["plain_ms"],
             "bound_ms": bwd_row[key]["bound_ms"], "bound_by": bwd_row[key]["bound_by"],
-            "library_ms": bwd_row[key]["library_ms"],
+            "library_ms": bwd_row[key]["library_ms"], "graph_ms": bwd_row[key]["graph_ms"],
             "blocks_per_sm": occupancy[name]["blocks_per_sm"],
         })
+    # dQ: SDPA's whole backward beside its dq-only yardstick.
+    kernels[1]["library_all_ms"] = bwd_row["dq"]["library_all_ms"]
     # The 1x1 kernels' numbers are per ResNet-50 step (b=128): each
     # shape's time times its launches per step, summed. ``ms`` and
     # ``library_ms`` are times per call, as every other row's;
@@ -1499,6 +1523,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"][part] for r in bn_rows.values()),
             **_step_record(sel, units, f"{part}_"), "library_ms": None, "cell": cell,
         })
+    kernels[-1].update({"graph_ms": sum(n * r["dw_graph_ms"] for r, n in zip(sel, units)),
+                        "blocks_per_sm": occupancy["bn_bwd_apply_dw"]["blocks_per_sm"]})
     # The wgrad's only path is the bench: its 9 shapes, one call each,
     # summed; plain and error from kernel_wgrad at the same shapes.
     sel = [wgrad_rows[(*sh, "bfloat16")] for sh in bench_shapes]
@@ -1519,12 +1545,13 @@ def main() -> int:
         "cell": "scripts/torch_pw_bench.py --shapes all: 9 ResNet-50 shapes at b=128, "
                 "one call each, summed"})
     # Inception-v3's fused units per training step, for PERF.md.
-    sel = [inception_bn_rows[(*sh, "bfloat16")] for sh in INCEPTION_FUSED_UNITS]
-    counts = list(INCEPTION_FUSED_UNITS.values())
+    sel = [inception_bn_rows[(*sh, "bfloat16")] for sh in inception]
+    counts = list(inception.values())
     emit({"phase": "inception_fused_per_step", "launches": inception_launches["fused"],
           **{name: _step_record(sel, counts, f"{part}_")
              for name, part in (("bn_bwd_reduce", "reduce"), ("bn_bwd_apply_dx", "dx"),
-                                ("bn_bwd_apply_dw", "dw"))}})
+                                ("bn_bwd_apply_dw", "dw"))},
+          "bn_bwd_apply_dw_graph_ms": sum(n * r["dw_graph_ms"] for r, n in zip(sel, counts))})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

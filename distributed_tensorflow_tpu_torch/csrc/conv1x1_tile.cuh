@@ -279,4 +279,35 @@ __device__ __forceinline__ void store8(OutT* dst, int64_t ld, int rows, int cols
   }
 }
 
+// dst[i] = sum over s of part[s][i] (n4 float4 vectors a split), in order
+// of s, four floats a thread: the fixed-order second pass of the split-M
+// weight gradients (pointwise_conv.cu's wgrad, fused_conv_bn.cu's dW). No
+// atomics, so every run gives the same bits.
+static __global__ void sum_splits_kernel(const float4* __restrict__ part,
+                                         float4* __restrict__ dst, int64_t n4, int splits) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n4;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    float4 s = part[i];
+    for (int z = 1; z < splits; ++z) {
+      const float4 p = part[z * n4 + i];
+      s.x += p.x;
+      s.y += p.y;
+      s.z += p.z;
+      s.w += p.w;
+    }
+    dst[i] = s;
+  }
+}
+
+// Launch sum_splits_kernel over `elems` floats (a multiple of 4) a split.
+static inline cudaError_t sum_splits(const float* part, float* dst, int64_t elems, int splits,
+                                     cudaStream_t stream) {
+  const int64_t n4 = elems / 4;
+  const int64_t want = (n4 + 255) / 256;
+  const int blocks = (int)(want < 132 * 8 ? want : 132 * 8);
+  sum_splits_kernel<<<blocks, 256, 0, stream>>>(reinterpret_cast<const float4*>(part),
+                                                reinterpret_cast<float4*>(dst), n4, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace conv1x1

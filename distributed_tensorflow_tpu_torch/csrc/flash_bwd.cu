@@ -30,6 +30,26 @@
 // atomics are needed, and a loop inside the block replaces the TPU's
 // sequential grid.
 //
+// dQ, bf16 (`flash_bwd_dq_sm90<D>`), on the skeleton of the forward's
+// `flash_fwd_sm90`: one warpgroup of 128 threads per (64-row q tile, head,
+// batch). (Two warpgroups on a 128-row q tile, one resident block per SM,
+// were slower at every timed shape than three 64-row blocks.) Q and
+// dO are copied once into swizzled tiles; each thread reads lse * log2 e
+// and delta of its two accumulator rows into registers. K, V and the 64-key mask stream through the
+// forward's two-stage `cp.async` ring (one `mbarrier` per stage that both
+// fills and frees it). Per K/V tile: S = Q K^T and dP = dO V^T by `wgmma`
+// m64n64k16 from shared memory, all operands K-major; P = exp2(S scale_log2
+// - lse log2 e) * mask and dS = P (dP - delta) in f32 registers; dS goes to
+// bf16 in registers and is the register A operand of dQ += dS K (K read
+// MN-major, n = one 64- or 32-column swizzle atom per `wgmma`, so D = 128
+// takes two n64 halves). S, dP, dS and the dQ sum never touch shared
+// memory, and nothing synchronises the block between the products. The
+// epilogue scales dQ, stages it through the warpgroup's Q tile and stores
+// 16-byte vectors, rows past L not written. Rows past L read zero Q and
+// dO, so their dS is zero (lse and delta read as 0 there), and a row's dQ
+// depends on its own dS alone. Registers at D = 128: S, dP and dQ take 32 +
+// 32 + 64 floats.
+//
 // dK/dV, bf16 (`flash_bwd_dkv_sm90`): one warpgroup of 128 threads per
 // (64-key tile, head, batch), looping over q tiles of 64 rows (32 at
 // D = 128, which keeps dK, dV, S^T and dP^T under 255 registers). The
@@ -50,13 +70,12 @@
 // registers a thread: 3 resident blocks per SM on an H100 (the old design:
 // 125,696 B, one).
 //
-// dQ (`flash_bwd_dq_kernel`, both dtypes) and dK/dV in fp32
-// (`flash_bwd_dkv_kernel`): one block of 4 warps per 64-row tile, the
-// current tiles, the f32 S and dP tiles, P and dS and the f32 accumulators
-// in dynamic shared memory (bf16 dQ at D = 64: 97 KB; up to 225 KB for fp32
-// dK/dV at D = 128), bf16 products through WMMA 16x16x16, fp32 on FMA.
-// Resident blocks per SM of both bf16 kernels are read at run time by
-// flash_bwd_occupancy (printed by chip_smoke.py).
+// fp32 (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`): scalar FMA, one
+// block of 4 warps per 64-row tile, the current tiles, the f32 S and dP
+// tiles (P and dS written over them) and the f32 accumulators in dynamic
+// shared memory (up to 225 KB for dK/dV at D = 128). Resident blocks per SM
+// of the bf16 kernels are read at run time by flash_bwd_occupancy (printed
+// by chip_smoke.py).
 //
 // Bounds at the training cell (B = 24, L = 512, H = 12, D = 64, bf16, no
 // padding) on an H100 SXM:
@@ -68,211 +87,129 @@
 // accumulators round-tripping through 125,696 B of shared memory: one block
 // per SM) took 1.31 ms there, 17.5 waves of one block's serial latency;
 // this one 0.143 ms (chip_smoke.py, H100 80GB HBM3 at 700 W; SDPA's
-// backward of dK and dV alone 0.383 ms).
+// backward of dK and dV alone 0.383 ms). The first dQ design (the same
+// WMMA round trips through 97 KB of shared memory, two blocks per SM) took
+// 0.607 ms there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "sm90_flash.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kBQ = 64;  // query rows per tile
 constexpr int kBK = 64;  // keys per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 16;  // one WMMA row strip
+constexpr int kRowsPerWarp = 16;
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T>
-struct Pads {
-  static constexpr bool kF32 = std::is_same<T, float>::value;
-  // bf16 rows carry a 16-byte pad against bank conflicts; with it every
-  // member size stays a multiple of 32 bytes and every WMMA pointer is
-  // 256-bit aligned. The fp32 FMA path drops the pads so that the D = 128
-  // dK/dV tiles fit in the 227 KB a block may use.
-  static constexpr int kT = kF32 ? 0 : 8;  // elements of T
-  static constexpr int kF = kF32 ? 0 : 4;  // floats
-};
+// ---------------------------------------------------------------------------
+// fp32: scalar FMA through shared memory
+// ---------------------------------------------------------------------------
 
-// dQ block: Q and dO tiles, the current K/V tile, S, dP, dS, the dQ sum.
-template <typename T, int D>
+// dQ block: Q and dO tiles, the current K/V tile, S, dP (dS written over
+// it), the dQ sum.
+template <int D>
 struct SmemDq {
-  using P = Pads<T>;
-  static constexpr int kLdT = D + P::kT;    // q, do, k, v rows (T)
-  static constexpr int kLdS = kBK + P::kF;  // s, dp rows (floats)
-  static constexpr int kLdP = kBK + P::kT;  // ds rows (T); fp32 aliases dp
-  static constexpr int kLdA = D + P::kF;    // accumulator rows (floats)
-  T q[kBQ * kLdT];
-  T dout[kBQ * kLdT];
-  T k[kBK * kLdT];
-  T v[kBK * kLdT];
-  float s[kBQ * kLdS];
-  float dp[kBQ * kLdS];
-  T ds_store[P::kF32 ? 32 / sizeof(T) : kBQ * kLdP];
-  float acc[kBQ * kLdA];
+  float q[kBQ * D];
+  float dout[kBQ * D];
+  float k[kBK * D];
+  float v[kBK * D];
+  float s[kBQ * kBK];
+  float dp[kBQ * kBK];
+  float acc[kBQ * D];
   float lse2[kBQ];   // lse * log2 e per q row
   float delta[kBQ];
   float kmask[kBK];
-  __device__ T* ds() {
-    if constexpr (P::kF32) return reinterpret_cast<T*>(dp); else return ds_store;
-  }
 };
 
-// dK/dV block of the fp32 kernel: the resident K/V tile, the current Q/dO
-// tile, S, dP, P, dS and both sums.
-template <typename T, int D>
+// dK/dV block: the resident K/V tile, the current Q/dO tile, S and dP (P
+// and dS written over them) and both sums.
+template <int D>
 struct SmemDkv {
-  using P = Pads<T>;
-  static constexpr int kLdT = D + P::kT;
-  static constexpr int kLdS = kBK + P::kF;
-  static constexpr int kLdP = kBK + P::kT;  // p, ds rows (T); fp32 aliases s, dp
-  static constexpr int kLdA = D + P::kF;
-  T k[kBK * kLdT];
-  T v[kBK * kLdT];
-  T q[kBQ * kLdT];
-  T dout[kBQ * kLdT];
-  float s[kBQ * kLdS];
-  float dp[kBQ * kLdS];
-  T p_store[P::kF32 ? 32 / sizeof(T) : kBQ * kLdP];
-  T ds_store[P::kF32 ? 32 / sizeof(T) : kBQ * kLdP];
-  float dk[kBK * kLdA];
-  float dv[kBK * kLdA];
+  float k[kBK * D];
+  float v[kBK * D];
+  float q[kBQ * D];
+  float dout[kBQ * D];
+  float s[kBQ * kBK];
+  float dp[kBQ * kBK];
+  float dk[kBK * D];
+  float dv[kBK * D];
   float lse2[kBQ];
   float delta[kBQ];
   float kmask[kBK];
-  __device__ T* p() {
-    if constexpr (P::kF32) return reinterpret_cast<T*>(s); else return p_store;
-  }
-  __device__ T* ds() {
-    if constexpr (P::kF32) return reinterpret_cast<T*>(dp); else return ds_store;
-  }
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Copy rows [row0, row0 + 64) of one head into shared memory (row stride
-// LD) in 16-byte vectors, zero-filling rows at or past `rows_valid`.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int row0,
+// D) in 16-byte vectors, zero-filling rows at or past `rows_valid`.
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int row0,
                                           int rows_valid, int64_t row_stride) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;
+  constexpr int kChunks = D / 4;
   for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
     const int r = i / kChunks;
-    const int c = (i % kChunks) * kVec;
+    const int c = (i % kChunks) * 4;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows_valid) {
       val = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * row_stride + c);
     }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+    *reinterpret_cast<uint4*>(dst + r * D + c) = val;
   }
 }
 
-// out[r0:r0+16, 0:64] = A[r0:r0+16, 0:D] . B[0:64, 0:D]^T, in f32.
-template <typename T, int D>
-__device__ __forceinline__ void mma_abt(float* out, int ldo, const T* a, int lda, const T* b,
-                                        int ldb, int r0, int lane) {
-  if constexpr (!Pads<T>::kF32) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[D / 16];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::load_matrix_sync(fa[kk], a + r0 * lda + kk * 16, lda);
-    }
-#pragma unroll
-    for (int n = 0; n < 64 / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        // B^T as a column-major operand: element (d, j) sits at b[j][d].
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, b + (n * 16) * ldb + kk * 16, ldb);
-        wmma::mma_sync(c, fa[kk], fb, c);
-      }
-      wmma::store_matrix_sync(out + r0 * ldo + n * 16, c, ldo, wmma::mem_row_major);
-    }
-  } else {
-    for (int idx = lane; idx < kRowsPerWarp * 64; idx += 32) {
-      const int r = r0 + idx / 64;
-      const int c = idx % 64;
-      const T* ar = a + r * lda;
-      const T* br = b + c * ldb;
-      float acc = 0.f;
+// out[r0:r0+16, 0:64] = A[r0:r0+16, 0:D] . B[0:64, 0:D]^T.
+template <int D>
+__device__ __forceinline__ void mma_abt(float* out, const float* a, const float* b, int r0,
+                                        int lane) {
+  for (int idx = lane; idx < kRowsPerWarp * 64; idx += 32) {
+    const int r = r0 + idx / 64;
+    const int c = idx % 64;
+    const float* ar = a + r * D;
+    const float* br = b + c * D;
+    float acc = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < D; ++d) acc = fmaf(to_float(ar[d]), to_float(br[d]), acc);
-      out[r * ldo + c] = acc;
-    }
+    for (int d = 0; d < D; ++d) acc = fmaf(ar[d], br[d], acc);
+    out[r * kBK + c] = acc;
   }
 }
 
 // acc[r0:r0+16, 0:D] += A[r0:r0+16, 0:64] . B[0:64, 0:D].
-template <typename T, int D>
-__device__ __forceinline__ void mma_acc_ab(float* acc, int ldacc, const T* a, int lda,
-                                           const T* b, int ldb, int r0, int lane) {
-  if constexpr (!Pads<T>::kF32) {
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::load_matrix_sync(c, acc + r0 * ldacc + n * 16, ldacc, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < 64 / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, a + r0 * lda + kk * 16, lda);
-        wmma::load_matrix_sync(fb, b + (kk * 16) * ldb + n * 16, ldb);
-        wmma::mma_sync(c, fa, fb, c);
-      }
-      wmma::store_matrix_sync(acc + r0 * ldacc + n * 16, c, ldacc, wmma::mem_row_major);
-    }
-  } else {
-    for (int idx = lane; idx < kRowsPerWarp * D; idx += 32) {
-      const int r = r0 + idx / D;
-      const int d = idx % D;
-      float sum = acc[r * ldacc + d];
-#pragma unroll 8
-      for (int c = 0; c < 64; ++c) sum = fmaf(to_float(a[r * lda + c]), to_float(b[c * ldb + d]), sum);
-      acc[r * ldacc + d] = sum;
-    }
-  }
-}
-
-// acc[r0:r0+16, 0:D] += A[0:64, r0:r0+16]^T . B[0:64, 0:D] (the fp32 dK/dV
-// kernel's products).
-template <typename T, int D>
-__device__ __forceinline__ void mma_acc_atb(float* acc, int ldacc, const T* a, int lda,
-                                            const T* b, int ldb, int r0, int lane) {
+template <int D>
+__device__ __forceinline__ void mma_acc_ab(float* acc, const float* a, const float* b, int r0,
+                                           int lane) {
   for (int idx = lane; idx < kRowsPerWarp * D; idx += 32) {
     const int r = r0 + idx / D;
     const int d = idx % D;
-    float sum = acc[r * ldacc + d];
+    float sum = acc[r * D + d];
 #pragma unroll 8
-    for (int c = 0; c < 64; ++c) sum = fmaf(to_float(a[c * lda + r]), to_float(b[c * ldb + d]), sum);
-    acc[r * ldacc + d] = sum;
+    for (int c = 0; c < 64; ++c) sum = fmaf(a[r * kBK + c], b[c * D + d], sum);
+    acc[r * D + d] = sum;
   }
 }
 
-// P and dS for this warp's 16 q rows from the f32 S and dP tiles, two lanes
-// per row, 32 keys each. `p_out` may be null (the dQ kernel needs only dS);
-// in the fp32 path p_out/ds_out alias s/dp and are written in place.
-template <typename T>
-__device__ __forceinline__ void p_and_ds(const float* s, const float* dp, int lds, T* p_out,
-                                         T* ds_out, int ldp, const float* lse2,
+// acc[r0:r0+16, 0:D] += A[0:64, r0:r0+16]^T . B[0:64, 0:D] (the dK/dV
+// kernel's products).
+template <int D>
+__device__ __forceinline__ void mma_acc_atb(float* acc, const float* a, const float* b, int r0,
+                                            int lane) {
+  for (int idx = lane; idx < kRowsPerWarp * D; idx += 32) {
+    const int r = r0 + idx / D;
+    const int d = idx % D;
+    float sum = acc[r * D + d];
+#pragma unroll 8
+    for (int c = 0; c < 64; ++c) sum = fmaf(a[c * kBK + r], b[c * D + d], sum);
+    acc[r * D + d] = sum;
+  }
+}
+
+// P and dS for this warp's 16 q rows, written over the S and dP tiles, two
+// lanes per row, 32 keys each. `with_p` = false leaves S as it is (the dQ
+// kernel needs only dS).
+__device__ __forceinline__ void p_and_ds(float* s, float* dp, bool with_p, const float* lse2,
                                          const float* delta, const float* kmask,
                                          int rows_valid, int r0, int lane, float scale_log2) {
   const int row = r0 + (lane >> 1);
@@ -285,11 +222,11 @@ __device__ __forceinline__ void p_and_ds(const float* s, const float* dp, int ld
   for (int i = 0; i < 32; ++i) {
     const int c = c0 + i;
     const float km = kmask[c];
-    const float sv = km != 0.f ? __fmul_rn(s[row * lds + c], scale_log2) : neg_scaled;
+    const float sv = km != 0.f ? __fmul_rn(s[row * kBK + c], scale_log2) : neg_scaled;
     const float p = valid ? exp2f(__fsub_rn(sv, l2)) * km : 0.f;
-    const float ds = p * (dp[row * lds + c] - dl);
-    if (p_out != nullptr) p_out[row * ldp + c] = from_float<T>(p);
-    ds_out[row * ldp + c] = from_float<T>(ds);
+    const float ds = p * (dp[row * kBK + c] - dl);
+    if (with_p) s[row * kBK + c] = p;
+    dp[row * kBK + c] = ds;
   }
 }
 
@@ -319,27 +256,27 @@ __device__ __forceinline__ void load_key_mask(float* kmask, const uint8_t* __res
 
 // Rows [0, 16) of this warp's accumulator strip, times `mul`, to global
 // rows row0 + r0 + i (< L), two lanes per row.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, const float* acc, int ldacc,
-                                           int row0, int r0, int lane, int L,
-                                           int64_t row_stride, float mul) {
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float* acc, int row0,
+                                           int r0, int lane, int L, int64_t row_stride,
+                                           float mul) {
   const int row = r0 + (lane >> 1);
   if (row0 + row >= L) return;
-  const float* ar = acc + row * ldacc;
-  T* g = dst + (int64_t)(row0 + row) * row_stride;
+  const float* ar = acc + row * D;
+  float* g = dst + (int64_t)(row0 + row) * row_stride;
   const int d0 = (lane & 1) * (D / 2);
 #pragma unroll 8
-  for (int d = d0; d < d0 + D / 2; ++d) g[d] = from_float<T>(ar[d] * mul);
+  for (int d = d0; d < d0 + D / 2; ++d) g[d] = ar[d] * mul;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                        const T* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq, int L, int H,
+    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                        const float* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, float* __restrict__ dq, int L, int H,
                         float scale_log2, float scale) {
-  using S = SmemDq<T, D>;
+  using S = SmemDq<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   S& sm = *reinterpret_cast<S*>(smem_raw);
 
@@ -353,40 +290,39 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t head_base = (int64_t)b * L * row_stride + (int64_t)h * D;
   const int q_valid = min(kBQ, L - q0);
 
-  load_rows<T, D, S::kLdT>(sm.q, q + head_base, q0, q_valid, row_stride);
-  load_rows<T, D, S::kLdT>(sm.dout, dout + head_base, q0, q_valid, row_stride);
+  load_rows<D>(sm.q, q + head_base, q0, q_valid, row_stride);
+  load_rows<D>(sm.dout, dout + head_base, q0, q_valid, row_stride);
   load_row_stats(sm.lse2, sm.delta, lse, delta, ((int64_t)b * H + h) * L, q0, q_valid);
-  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) sm.acc[(i / D) * S::kLdA + i % D] = 0.f;
+  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) sm.acc[i] = 0.f;
 
   const int n_tiles = (L + kBK - 1) / kBK;
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kBK;
     const int k_valid = min(kBK, L - k0);
     __syncthreads();  // the previous K/V tile is consumed
-    load_rows<T, D, S::kLdT>(sm.k, k + head_base, k0, k_valid, row_stride);
-    load_rows<T, D, S::kLdT>(sm.v, v + head_base, k0, k_valid, row_stride);
+    load_rows<D>(sm.k, k + head_base, k0, k_valid, row_stride);
+    load_rows<D>(sm.v, v + head_base, k0, k_valid, row_stride);
     load_key_mask(sm.kmask, mask, b, L, k0, k_valid);
     __syncthreads();
-    mma_abt<T, D>(sm.s, S::kLdS, sm.q, S::kLdT, sm.k, S::kLdT, r0, lane);
-    mma_abt<T, D>(sm.dp, S::kLdS, sm.dout, S::kLdT, sm.v, S::kLdT, r0, lane);
+    mma_abt<D>(sm.s, sm.q, sm.k, r0, lane);
+    mma_abt<D>(sm.dp, sm.dout, sm.v, r0, lane);
     __syncwarp();
-    p_and_ds<T>(sm.s, sm.dp, S::kLdS, nullptr, sm.ds(), S::kLdP, sm.lse2, sm.delta, sm.kmask,
-                q_valid, r0, lane, scale_log2);
+    p_and_ds(sm.s, sm.dp, false, sm.lse2, sm.delta, sm.kmask, q_valid, r0, lane, scale_log2);
     __syncwarp();
-    mma_acc_ab<T, D>(sm.acc, S::kLdA, sm.ds(), S::kLdP, sm.k, S::kLdT, r0, lane);
+    mma_acc_ab<D>(sm.acc, sm.dp, sm.k, r0, lane);
   }
   __syncwarp();
-  store_rows<T, D>(dq + head_base, sm.acc, S::kLdA, q0, r0, lane, L, row_stride, scale);
+  store_rows<D>(dq + head_base, sm.acc, q0, r0, lane, L, row_stride, scale);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                         const T* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int L, int H, float scale_log2, float scale) {
-  using S = SmemDkv<T, D>;
+    flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                         const float* __restrict__ dout, const float* __restrict__ lse,
+                         const float* __restrict__ delta, float* __restrict__ dk,
+                         float* __restrict__ dv, int L, int H, float scale_log2, float scale) {
+  using S = SmemDkv<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   S& sm = *reinterpret_cast<S*>(smem_raw);
 
@@ -401,12 +337,12 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t stat_base = ((int64_t)b * H + h) * L;
   const int k_valid = min(kBK, L - k0);
 
-  load_rows<T, D, S::kLdT>(sm.k, k + head_base, k0, k_valid, row_stride);
-  load_rows<T, D, S::kLdT>(sm.v, v + head_base, k0, k_valid, row_stride);
+  load_rows<D>(sm.k, k + head_base, k0, k_valid, row_stride);
+  load_rows<D>(sm.v, v + head_base, k0, k_valid, row_stride);
   load_key_mask(sm.kmask, mask, b, L, k0, k_valid);
   for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
-    sm.dk[(i / D) * S::kLdA + i % D] = 0.f;
-    sm.dv[(i / D) * S::kLdA + i % D] = 0.f;
+    sm.dk[i] = 0.f;
+    sm.dv[i] = 0.f;
   }
 
   const int n_tiles = (L + kBQ - 1) / kBQ;
@@ -414,31 +350,221 @@ __global__ void __launch_bounds__(kThreads)
     const int q0 = i * kBQ;
     const int q_valid = min(kBQ, L - q0);
     __syncthreads();  // the previous Q/dO tile, P and dS are consumed
-    load_rows<T, D, S::kLdT>(sm.q, q + head_base, q0, q_valid, row_stride);
-    load_rows<T, D, S::kLdT>(sm.dout, dout + head_base, q0, q_valid, row_stride);
+    load_rows<D>(sm.q, q + head_base, q0, q_valid, row_stride);
+    load_rows<D>(sm.dout, dout + head_base, q0, q_valid, row_stride);
     load_row_stats(sm.lse2, sm.delta, lse, delta, stat_base, q0, q_valid);
     __syncthreads();
     // This warp's 16 q rows against the block's 64 keys.
-    mma_abt<T, D>(sm.s, S::kLdS, sm.q, S::kLdT, sm.k, S::kLdT, r0, lane);
-    mma_abt<T, D>(sm.dp, S::kLdS, sm.dout, S::kLdT, sm.v, S::kLdT, r0, lane);
+    mma_abt<D>(sm.s, sm.q, sm.k, r0, lane);
+    mma_abt<D>(sm.dp, sm.dout, sm.v, r0, lane);
     __syncwarp();
-    p_and_ds<T>(sm.s, sm.dp, S::kLdS, sm.p(), sm.ds(), S::kLdP, sm.lse2, sm.delta, sm.kmask,
-                q_valid, r0, lane, scale_log2);
+    p_and_ds(sm.s, sm.dp, true, sm.lse2, sm.delta, sm.kmask, q_valid, r0, lane, scale_log2);
     __syncthreads();  // every q row's P and dS are in place
     // This warp's 16 keys over the tile's 64 q rows.
-    mma_acc_atb<T, D>(sm.dv, S::kLdA, sm.p(), S::kLdP, sm.dout, S::kLdT, r0, lane);
-    mma_acc_atb<T, D>(sm.dk, S::kLdA, sm.ds(), S::kLdP, sm.q, S::kLdT, r0, lane);
+    mma_acc_atb<D>(sm.dv, sm.s, sm.dout, r0, lane);
+    mma_acc_atb<D>(sm.dk, sm.dp, sm.q, r0, lane);
   }
   __syncwarp();
-  store_rows<T, D>(dk + head_base, sm.dk, S::kLdA, k0, r0, lane, L, row_stride, scale);
-  store_rows<T, D>(dv + head_base, sm.dv, S::kLdA, k0, r0, lane, L, row_stride, 1.f);
+  store_rows<D>(dk + head_base, sm.dk, k0, r0, lane, L, row_stride, scale);
+  store_rows<D>(dv + head_base, sm.dv, k0, r0, lane, L, row_stride, 1.f);
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV, bf16: wgmma, register-resident P^T/dS^T/dK/dV, cp.async ring
+// bf16: wgmma, register-resident tiles, cp.async ring
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
+
+// Key mask of keys [k0, k0 + 64) of batch row b into shared memory: 1
+// where the key exists and the padding mask (null = all valid) keeps it.
+__device__ __forceinline__ void store_key_mask(float* kmask, const uint8_t* __restrict__ mask,
+                                               int b, int L, int k0, int tid) {
+  if (tid < kBK) {
+    const int key = k0 + tid;
+    const bool ok = key < L && (mask == nullptr || mask[(int64_t)b * L + key] != 0);
+    kmask[tid] = ok ? 1.f : 0.f;
+  }
+}
+
+// Shared-memory map of the bf16 dQ block (byte offsets from a 1024-byte
+// aligned base).
+template <int D>
+struct DqSmem {
+  using T = sm90::Tile<D>;
+  static constexpr int kTile = T::template bytes<64>();
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + kTile;
+  static constexpr int kK = kDO + kTile;            // 2 stages
+  static constexpr int kV = kK + 2 * kTile;         // 2 stages
+  static constexpr int kMask = kV + 2 * kTile;      // 2 x 64 floats
+  static constexpr int kBar = kMask + 2 * kBK * 4;  // 2 mbarriers
+  static constexpr int kBytes = kBar + 2 * 8;
+  static constexpr int kAlloc = kBytes + 1024;      // room to align the base
+};
+
+template <int D>
+__global__ void __launch_bounds__(128, D == 128 ? 2 : 3)
+    flash_bwd_dq_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                      const bf16* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dq, int L, int H,
+                      float scale_log2, float scale) {
+  using S = DqSmem<D>;
+  using T = sm90::Tile<D>;
+  constexpr int kNT = 128;
+  constexpr int kN = T::kAtomCols / 2;  // dQ accumulator floats per atom
+  extern __shared__ __align__(1024) unsigned char smem_dq[];
+  const uint32_t raw = sm90::smem_u32(smem_dq);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_dq + (base - raw);
+  float* kmask = reinterpret_cast<float*>(smem + S::kMask);
+  const uint32_t bar = base + S::kBar;
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int wrow = tid / 32 * 16;  // the warp's first row
+  const int q0 = blockIdx.x * 64;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int64_t row_stride = (int64_t)H * D;
+  const int64_t head_base = (int64_t)b * L * row_stride + (int64_t)h * D;
+  const int64_t stat_base = ((int64_t)b * H + h) * L;
+  const uint32_t q_tile = base + S::kQ;
+  const uint32_t do_tile = base + S::kDO;
+
+  if (tid == 0) {
+    sm90::mbar_init(bar, kNT);
+    sm90::mbar_init(bar + 8, kNT);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Prologue: Q, dO, the first K/V tile and mask.
+  sm90::copy_tile<D, 64, kNT>(q_tile, q + head_base, q0, L, row_stride, tid);
+  sm90::copy_tile<D, 64, kNT>(do_tile, dout + head_base, q0, L, row_stride, tid);
+  sm90::copy_tile<D, 64, kNT>(base + S::kK, k + head_base, 0, L, row_stride, tid);
+  sm90::copy_tile<D, 64, kNT>(base + S::kV, v + head_base, 0, L, row_stride, tid);
+  store_key_mask(kmask, mask, b, L, 0, tid);
+  sm90::cp_async_commit();
+
+  // lse * log2 e and delta of this thread's rows wrow + lane/4 (+ 8); 0
+  // past L.
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wrow + lane / 4 + 8 * r;
+    const bool ok = row < L;
+    lse2[r] = ok ? __fmul_rn(lse[stat_base + row], kLog2e) : 0.f;
+    dlt[r] = ok ? delta[stat_base + row] : 0.f;
+  }
+  const float neg_scaled = __fmul_rn(kNeg, kLog2e);
+
+  float acc[T::kAtoms][kN];
+#pragma unroll
+  for (int a = 0; a < T::kAtoms; ++a) {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) acc[a][i] = 0.f;
+  }
+
+  const int n_tiles = (L + kBK - 1) / kBK;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    // Tile j is in place once every thread's copies of it have landed.
+    sm90::cp_async_wait_all();
+    sm90::fence_proxy_async();
+    sm90::mbar_arrive(bar + 8 * st);
+    sm90::mbar_wait(bar + 8 * st, (j >> 1) & 1);
+    if (j + 1 < n_tiles) {  // the other stage was freed by the arrivals above
+      const int k1 = (j + 1) * kBK;
+      sm90::copy_tile<D, 64, kNT>(base + S::kK + (st ^ 1) * S::kTile, k + head_base, k1, L,
+                                  row_stride, tid);
+      sm90::copy_tile<D, 64, kNT>(base + S::kV + (st ^ 1) * S::kTile, v + head_base, k1, L,
+                                  row_stride, tid);
+      store_key_mask(kmask + (st ^ 1) * kBK, mask, b, L, k1, tid);
+      sm90::cp_async_commit();
+    }
+    const uint32_t k_tile = base + S::kK + st * S::kTile;
+    const uint32_t v_tile = base + S::kV + st * S::kTile;
+    const float* km = kmask + st * kBK;
+
+    // S = Q K^T and dP = dO V^T for the block's 64 rows.
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = 0.f;
+      dp[i] = 0.f;
+    }
+    __syncwarp();
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      sm90::wgmma_ss(s, T::template desc_k<64>(q_tile, kk), T::template desc_k<64>(k_tile, kk),
+                     1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      sm90::wgmma_ss(dp, T::template desc_k<64>(do_tile, kk),
+                     T::template desc_k<64>(v_tile, kk), 1);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+
+    // P and dS in registers: element i sits in row (i / 2) % 2 of this
+    // thread's two and in column acc_col(lane, i) of the tile.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      const float m = km[sm90::acc_col(lane, i)];
+      const float sv = m != 0.f ? __fmul_rn(s[i], scale_log2) : neg_scaled;
+      const float p = exp2f(__fsub_rn(sv, lse2[r])) * m;
+      dp[i] = p * (dp[i] - dlt[r]);
+    }
+    uint32_t dsa[4][4];
+    sm90::to_a_operand(dp, dsa);
+
+    // dQ += dS K, dS (bf16) from registers, K MN-major from the stage.
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+      for (int a = 0; a < T::kAtoms; ++a) {
+        sm90::wgmma_rs(acc[a], dsa[kk], T::template desc_mn<64>(k_tile, a, kk));
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+#pragma unroll
+    for (int a = 0; a < T::kAtoms; ++a) sm90::fence_regs(acc[a]);
+    sm90::fence_regs(dsa);
+  }
+
+  // Epilogue: dQ * scale to bf16, staged in the Q tile.
+  unsigned char* stage = smem + S::kQ;
+  __syncthreads();  // every warp's last product has read Q
+#pragma unroll
+  for (int a = 0; a < T::kAtoms; ++a) {
+#pragma unroll
+    for (int i = 0; i < kN; i += 2) {
+      const int r = wrow + sm90::acc_row(lane, i);
+      const int c = a * T::kAtomCols + sm90::acc_col(lane, i);
+      *reinterpret_cast<__nv_bfloat162*>(stage + T::template offset<64>(r, c)) =
+          __floats2bfloat162_rn(acc[a][i] * scale, acc[a][i + 1] * scale);
+    }
+  }
+  __syncthreads();
+  constexpr int kPerRow = D / 8;
+  for (int i = tid; i < 64 * kPerRow; i += 128) {
+    const int r = i / kPerRow;
+    const int c = (i % kPerRow) * 8;
+    const int row = q0 + r;
+    if (row < L) {
+      *reinterpret_cast<uint4*>(dq + head_base + (int64_t)row * row_stride + c) =
+          *reinterpret_cast<const uint4*>(stage + T::template offset<64>(r, c));
+    }
+  }
+}
 
 // Shared-memory map of the bf16 dK/dV block (byte offsets from a 1024-byte
 // aligned base).
@@ -670,19 +796,42 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a) {
-  constexpr int smem = (int)sizeof(SmemDq<T, D>);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int D>
+cudaError_t set_smem_dq_sm90() {
+  return cudaFuncSetAttribute(flash_bwd_dq_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              DqSmem<D>::kAlloc);
+}
+
+template <int D>
+cudaError_t launch_dq_sm90(const Args& a) {
+  cudaError_t err = set_smem_dq_sm90<D>();
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.L + kBQ - 1) / kBQ, a.H, a.B);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.dout),
+  const dim3 grid((a.L + 63) / 64, a.H, a.B);
+  flash_bwd_dq_sm90<D><<<grid, 128, DqSmem<D>::kAlloc, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const uint8_t*>(a.mask), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.out0), a.L, a.H, a.scale_log2, a.scale);
+      static_cast<bf16*>(a.out0), a.L, a.H, a.scale_log2, a.scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(int is_f32, const Args& a) {
+  if (is_f32) {
+    constexpr int smem = (int)sizeof(SmemDq<D>);
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.L + kBQ - 1) / kBQ, a.H, a.B);
+    flash_bwd_dq_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const uint8_t*>(a.mask),
+        static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<float*>(a.out0), a.L, a.H,
+        a.scale_log2, a.scale);
+    return cudaGetLastError();
+  }
+  return launch_dq_sm90<D>(a);
 }
 
 template <int D>
@@ -691,10 +840,10 @@ cudaError_t set_smem_dkv_sm90() {
                               DkvSmem<D>::kAlloc);
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a) {
+template <int D>
+cudaError_t launch_dkv(int is_f32, const Args& a) {
   const dim3 grid((a.L + kBK - 1) / kBK, a.H, a.B);
-  if constexpr (std::is_same<T, bf16>::value) {
+  if (!is_f32) {
     cudaError_t err = set_smem_dkv_sm90<D>();
     if (err != cudaSuccess) return err;
     flash_bwd_dkv_sm90<D><<<grid, 128, DkvSmem<D>::kAlloc, a.stream>>>(
@@ -704,27 +853,18 @@ cudaError_t launch_dkv(const Args& a) {
         static_cast<const float*>(a.delta), static_cast<bf16*>(a.out0),
         static_cast<bf16*>(a.out1), a.L, a.H, a.scale_log2, a.scale);
   } else {
-    constexpr int smem = (int)sizeof(SmemDkv<T, D>);
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
+    constexpr int smem = (int)sizeof(SmemDkv<D>);
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.L, a.H, a.scale_log2, a.scale);
+    flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const uint8_t*>(a.mask),
+        static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<float*>(a.out0),
+        static_cast<float*>(a.out1), a.L, a.H, a.scale_log2, a.scale);
   }
   return cudaGetLastError();
-}
-
-template <bool kDq, typename T>
-cudaError_t dispatch_d(int D, const Args& a) {
-  switch (D) {
-    case 32: return kDq ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
-    case 64: return kDq ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-    case 128: return kDq ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 template <bool kDq>
@@ -734,7 +874,12 @@ int dispatch(const void* q, const void* k, const void* v, const void* mask, cons
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, mask, dout, lse, delta, out0, out1, B, L, H, scale_log2, scale,
                static_cast<cudaStream_t>(stream)};
-  return (int)(is_f32 ? dispatch_d<kDq, float>(D, a) : dispatch_d<kDq, __nv_bfloat16>(D, a));
+  switch (D) {
+    case 32: return (int)(kDq ? launch_dq<32>(is_f32, a) : launch_dkv<32>(is_f32, a));
+    case 64: return (int)(kDq ? launch_dq<64>(is_f32, a) : launch_dkv<64>(is_f32, a));
+    case 128: return (int)(kDq ? launch_dq<128>(is_f32, a) : launch_dkv<128>(is_f32, a));
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -760,16 +905,15 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
 }
 
 // Dynamic shared memory and resident blocks per SM of the bf16 kernels at
-// D = 64: kernel 0 is dQ, 1 is dK/dV. Returns a cudaError_t.
+// D = 64: kernel 0 is dQ, 1 dK/dV. Returns a cudaError_t.
 extern "C" int flash_bwd_occupancy(int kernel, int* smem_bytes, int* blocks_per_sm) {
   cudaError_t err;
   if (kernel == 0) {
-    *smem_bytes = (int)sizeof(SmemDq<bf16, 64>);
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<bf16, 64>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_bytes);
+    *smem_bytes = DqSmem<64>::kAlloc;
+    err = set_smem_dq_sm90<64>();
     if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks_per_sm, flash_bwd_dq_kernel<bf16, 64>, kThreads, *smem_bytes);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, flash_bwd_dq_sm90<64>,
+                                                          128, *smem_bytes);
     }
   } else if (kernel == 1) {
     *smem_bytes = DkvSmem<64>::kAlloc;

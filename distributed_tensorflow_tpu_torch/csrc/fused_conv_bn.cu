@@ -24,31 +24,89 @@
 //   bn_apply_dx_kernel one block per 128 x 128 tile of dx, dz recomputed
 //                     from dA, z and the constants for each chunk of N it
 //                     reduces over;
-//   bn_apply_dw_kernel one block per (128 x 128 tile of dW, M range): the
-//                     TPU carried dW across its sequential grid; here each
-//                     block loops over its M range and writes an f32
-//                     partial, summed by the wrapper. No atomics, so the
-//                     result is the same in every run.
+//   bn_apply_dw_kernel_sm90 (bf16) and bn_apply_dw_kernel (fp32) one block
+//                     per (tile of dW, M range): the TPU carried
+//                     dW across its sequential grid; here each block loops
+//                     over its M range and writes an f32 partial, which a
+//                     second kernel (conv1x1_tile.cuh `sum_splits_kernel`)
+//                     adds in a fixed order. No atomics, so the result is
+//                     the same in every run.
 // dz never goes to device memory: each block makes the tile it multiplies
 // in registers and shared memory, which is what the TPU kernel was for.
+//
+// bf16 dW design (`bn_apply_dw_kernel_sm90`, on pointwise_conv.cu's
+// `pw_wgrad_kernel_sm90` and sm90_gemm.cuh): one producer thread and two
+// consumer warpgroups over a ring of Tensor Memory Accelerator (TMA)
+// copies; a block owns 128 KT rows of dW (of K) by 128 columns (of N),
+// KT = 2 where K > 128, else 1 (the host's choice, ops/fused_conv_bn.py
+// `_dw_tile_rows`, passed as tile_rows). A stage holds 64 rows of M: the x2 chunk
+// (128 KT columns of K) and the dA and z chunks (128 columns of N), each in
+// 64-column boxes in the 128-byte swizzle; four stages of 48 KB (KT = 1) or
+// three of 64 KB (KT = 2). The consumers turn dA
+// and z into the bf16 dz chunk in place over dA's slot: each of the 256
+// threads owns 8 columns (their six constants held in registers for the
+// block's life) and 4 rows of the chunk, and `dz_of` rounds each step in
+// the plain version's order, so dz is bitwise the plain version's. dz is
+// zero at rows past the block's M range and at columns past N (the
+// constants are never read there; TMA zero-fills dA and z past M and N,
+// but dz of a zero row is gamma inv (-s1/M + mu inv s2/M), not zero). Then
+// `fence.proxy.async` and a named barrier over the 256 consumer threads,
+// since both warpgroups read the whole chunk; then `wgmma` m64n128k16 with
+// x2 as the MN-major A operand and dz as the MN-major B operand, exactly
+// as in wgrad, KT products a warpgroup (64 KT rows of dW). Chunk c + 1's dz
+// is made while chunk c's products are in flight. Making dz costs more
+// than moving the chunk (below), so KT = 2 makes each dz element serve
+// twice the rows of dW; its 128 accumulator floats a thread fit because
+// the producer warpgroup gives its registers up (`setmaxnreg`: 40 for the
+// producer, 232 for the consumers). The split over M is per shape (ops/fused_conv_bn.py
+// `dw_rows_per_split`, the wgrad's one-wave rule in whole 64-row chunks
+// over these tiles): as many M ranges as fill one wave of the SMs with the
+// shape's dW tiles,
+// one where the tiles alone fill it; with one range the kernel writes dW
+// itself. A range is a whole number of chunks except the last, which ends
+// at M, so no range reads another's rows. Shared memory 197,696 B (KT =
+// 1) or 197,680 B (KT = 2), one block per SM; no spills (chip_smoke.py
+// prints ptxas' count). The fp32 path keeps the first design below (exact
+// f32 products by scalar FMA).
+//
+// Precision: `wgmma` sums in f32 but its error grows with the products an
+// accumulator takes; at (6272, 1024, 2048), where one M range fills the
+// wave, 128-row tiles summed 392 k-steps a range and came within a few
+// percent of the plain version's 1e-5 x max |dW| tolerance (over it for one
+// input in an exploratory sweep). 256-row tiles halve the tiles, so that
+// shape takes two ranges; scripts/torch_bwd_bench.py's `bn_dw_precision`
+// part measures the margin.
+//
+// Where its time goes (exploratory timings on the H100, 128-row tiles):
+// with dz's arithmetic removed, a chunk takes what the copies alone take;
+// making dz (once per 128 KT columns of K: nine rounded f32 steps and a
+// compare an element) adds to that instead of hiding under it. Dropping the proxy
+// fence, the barrier or the dz store (timing only) each moved it a few
+// percent; 32-row chunks over eight stages were slower, and so, at every
+// shape, was a variant that made dz^T in registers (`ldmatrix.trans`) as
+// the register A operand of dW^T = dz^T x2, with no dz store and no
+// barrier.
 //
 // Bound on an H100 SXM at ResNet-50's shapes (b = 128, bf16): the reduce
 // pass reads dA and z (2 * M * N * 2 bytes; 206 MB at (401408, 256, 128),
 // 61 us); apply reads dA, z, x and W and writes dx and dW, for 4 M K N
 // operations: bytes bound at every shape but the deepest
 // (6272, 2048, 512), where 26 GFLOP take 26 us and 36 MB move in 11 us.
-// This first version recomputes dz once per 128 columns of K in both apply
-// kernels (from L2: the K tiles of one M strip run side by side), and its
-// dW partials cost one more write and read of [splits, K, N] f32. The apply
-// kernels are capped at 128 registers a thread for two blocks an SM: the
-// loop waits on the global loads of dA and z each chunk, and one block of
-// 8 warps leaves the SM idle meanwhile.
+// Both apply kernels recompute dz once per tile of K (from L2: the K tiles
+// of one M strip run side by side), and split dW's partials cost one
+// more write and read of [splits, K, N] f32. The dx kernel and the fp32 dW
+// kernel (the first design, on conv1x1_tile.cuh's BlockGemm) are capped at
+// 128 registers a thread for two blocks an SM: the loop waits on the
+// global loads of dA and z each chunk, and one block of 8 warps leaves the
+// SM idle meanwhile.
 
 #include "conv1x1_tile.cuh"
+#include "sm90_gemm.cuh"
 
 namespace {
 
 using namespace conv1x1;
+using bf16 = __nv_bfloat16;
 
 template <bool kRelu>
 __device__ __forceinline__ float dz_of(float da, float z, float mu, float inv, float gamma,
@@ -241,6 +299,201 @@ __global__ void __launch_bounds__(kThreads, 2)
   G::run(smem, opa, opb, me > mb ? (me - mb + kBR - 1) / kBR : 0, store);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dW: wgmma from a TMA ring, dz made in shared memory
+// ---------------------------------------------------------------------------
+
+// dW's shared-memory map for 128 KT rows of dW (byte offsets from a
+// 1024-byte aligned base).
+template <int KT>
+struct DwSmem {
+  static constexpr int kStages = KT == 1 ? 4 : 3;
+  static constexpr int kBox = 64 * 64 * 2;  // 64 rows x 64 bf16 columns
+  static constexpr int kX = 0;               // x2: 2 KT boxes, 128 KT columns of K
+  static constexpr int kDA = 2 * KT * kBox;  // dA: two boxes of N; dz is made over it
+  static constexpr int kZ = kDA + 2 * kBox;  // z: two boxes of N
+  static constexpr int kStage = kZ + 2 * kBox;
+  static constexpr int kBar = kStages * kStage;
+  static constexpr int kAlloc = kBar + 2 * kStages * 8 + 1024;
+};
+
+// Named barrier over the two consumer warpgroups (threads 128..383).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+template <bool kRelu, int KT>
+__global__ void __launch_bounds__(384, 1)
+    bn_apply_dw_kernel_sm90(const __grid_constant__ CUtensorMap map_x,
+                            const __grid_constant__ CUtensorMap map_da,
+                            const __grid_constant__ CUtensorMap map_z,
+                            const float* __restrict__ consts, float* __restrict__ out, int M,
+                            int K, int N, int rows_per_split) {
+  using S = DwSmem<KT>;
+  constexpr int kStages = S::kStages;
+  using Ring = sm90::Ring<kStages>;
+  using TA = sm90::Tile<128>;  // a stage's operands: 64-column atoms, 8 KB apart
+  extern __shared__ __align__(1024) unsigned char smem_dw[];
+  const uint32_t raw = sm90::smem_u32(smem_dw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_dw + (base - raw);
+  const Ring ring(base + S::kBar);
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  if (tid == 0) ring.init(256);
+  __syncthreads();
+
+  const int n0 = blockIdx.x * 128;
+  const int k0 = blockIdx.y * 128 * KT;
+  const int mb = blockIdx.z * rows_per_split;
+  const int me = min(M, mb + rows_per_split);
+  const int chunks = (me - mb + 63) / 64;
+  if (wg == 0) {
+    if constexpr (KT == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // Producer (one thread): rows [mb + 64 c, + 64) of x2 (columns k0..)
+    // and of dA and z (columns n0..), one box per 64 columns. A box that
+    // starts past K or N is not copied: its x2 atom meets only dW rows
+    // that are never stored, and dz is zero past N without reading dA.
+    if (tid == 0) {
+      const int ax = min(2 * KT, (K - k0 + 63) / 64);
+      const int an = min(2, (N - n0 + 63) / 64);
+      for (int c = 0; c < chunks; ++c) {
+        const uint32_t bar = ring.acquire(c, (ax + 2 * an) * S::kBox);
+        const uint32_t st = base + (c % kStages) * S::kStage;
+        const int row = mb + 64 * c;
+        for (int a = 0; a < ax; ++a) {
+          sm90::tma_load_2d(st + S::kX + a * S::kBox, &map_x, k0 + 64 * a, row, bar);
+        }
+        for (int a = 0; a < an; ++a) {
+          sm90::tma_load_2d(st + S::kDA + a * S::kBox, &map_da, n0 + 64 * a, row, bar);
+          sm90::tma_load_2d(st + S::kZ + a * S::kBox, &map_z, n0 + 64 * a, row, bar);
+        }
+      }
+    }
+    return;
+  }
+
+  if constexpr (KT == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  // Consumers. Thread ct makes dz at columns [c8, c8 + 8) of the chunk
+  // (its six per-channel constants in registers) and rows ct / 16 + 16 u.
+  const int cw = wg - 1;
+  const int ct = tid - 128;
+  const int lane = tid % 32;
+  const int wrow = (tid % 128) / 32 * 16;
+  const int c8 = 8 * (ct % 16);
+  const bool col_ok = n0 + c8 < N;
+  float kc[6][8];
+#pragma unroll
+  for (int q = 0; q < 6; ++q) {
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const float4 f = col_ok ? __ldg(reinterpret_cast<const float4*>(consts + q * N + n0 + c8) + v)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      kc[q][4 * v] = f.x;
+      kc[q][4 * v + 1] = f.y;
+      kc[q][4 * v + 2] = f.z;
+      kc[q][4 * v + 3] = f.w;
+    }
+  }
+  // dz of chunk c over dA's slot of its stage; zero past the range and N.
+  auto make_dz = [&](int c) {
+    unsigned char* da_s = smem + (c % kStages) * S::kStage + S::kDA;
+    const unsigned char* z_s = smem + (c % kStages) * S::kStage + S::kZ;
+    const int row0 = mb + 64 * c;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = ct / 16 + 16 * u;
+      const uint32_t off = TA::offset<64>(r, c8);
+      uint4 res = make_uint4(0u, 0u, 0u, 0u);
+      if (col_ok && row0 + r < me) {
+        const uint4 a4 = *reinterpret_cast<const uint4*>(da_s + off);
+        const uint4 z4 = *reinterpret_cast<const uint4*>(z_s + off);
+        const bf16* a = reinterpret_cast<const bf16*>(&a4);
+        const bf16* z = reinterpret_cast<const bf16*>(&z4);
+        bf16* d = reinterpret_cast<bf16*>(&res);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          d[e] = from_float<bf16>(dz_of<kRelu>(to_float(a[e]), to_float(z[e]), kc[0][e], kc[1][e],
+                                               kc[2][e], kc[3][e], kc[4][e], kc[5][e]));
+        }
+      }
+      *reinterpret_cast<uint4*>(da_s + off) = res;
+    }
+  };
+
+  float acc[KT][64];
+#pragma unroll
+  for (int h = 0; h < KT; ++h) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+  }
+  ring.wait(0);
+  make_dz(0);
+  sm90::fence_proxy_async();  // dz, written by this thread, to the async proxy of `wgmma`
+  consumers_sync();           // every thread's part of chunk 0's dz is in place
+  for (int c = 0; c < chunks; ++c) {
+    const uint32_t st = base + (c % kStages) * S::kStage;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < KT; ++h) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        sm90::wgmma_m64n128<1, 1>(acc[h], TA::desc_mn<64>(st + S::kX, KT * cw + h, kk),
+                                  sm90::desc_mn_wide<64>(st + S::kDA, kk), c > 0 || kk > 0);
+      }
+    }
+    sm90::wgmma_commit();
+    // The next chunk's dz is made while this chunk's products run.
+    if (c + 1 < chunks) {
+      ring.wait(c + 1);
+      make_dz(c + 1);
+      sm90::fence_proxy_async();
+    }
+    sm90::wgmma_wait<0>();
+    ring.release(c);
+    if (c + 1 < chunks) consumers_sync();
+  }
+#pragma unroll
+  for (int h = 0; h < KT; ++h) sm90::fence_regs(acc[h]);
+  // f32 pairs straight from the accumulators: a quad of threads writes 32
+  // contiguous bytes of a row.
+  out += (int64_t)blockIdx.z * K * N;
+#pragma unroll
+  for (int h = 0; h < KT; ++h) {
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int row = k0 + 64 * (KT * cw + h) + wrow + sm90::acc_row(lane, i);
+      const int col = n0 + sm90::acc_col(lane, i);
+      if (row < K && col < N) {
+        *reinterpret_cast<float2*>(out + (int64_t)row * N + col) =
+            make_float2(acc[h][i], acc[h][i + 1]);
+      }
+    }
+  }
+}
+
+template <class Kernel>
+cudaError_t set_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <bool kRelu, int KT>
+cudaError_t launch_dw_sm90(const void* da, const void* z, const void* x, const float* consts,
+                           float* out, int M, int K, int N, int rows_per_split, int splits,
+                           cudaStream_t s) {
+  cudaError_t err = set_smem(bn_apply_dw_kernel_sm90<kRelu, KT>, DwSmem<KT>::kAlloc);
+  if (err != cudaSuccess) return err;
+  CUtensorMap map_x, map_da, map_z;
+  err = sm90::make_tmap_2d(&map_x, x, M, K, 64);
+  if (err == cudaSuccess) err = sm90::make_tmap_2d(&map_da, da, M, N, 64);
+  if (err == cudaSuccess) err = sm90::make_tmap_2d(&map_z, z, M, N, 64);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + 127) / 128, (K + 128 * KT - 1) / (128 * KT), splits);
+  bn_apply_dw_kernel_sm90<kRelu, KT><<<grid, 384, DwSmem<KT>::kAlloc, s>>>(
+      map_x, map_da, map_z, consts, out, M, K, N, rows_per_split);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t reduce(const void* da, const void* z, const float* consts, float* part, int M, int N,
                    int rows_per_split, bool relu, cudaStream_t s) {
@@ -252,23 +505,31 @@ cudaError_t reduce(const void* da, const void* z, const float* consts, float* pa
 }
 
 template <typename T>
-cudaError_t apply(const void* da, const void* z, const void* x, const void* w,
-                  const float* consts, void* dx, float* dw_part, int M, int K, int N,
-                  int rows_per_split, bool relu, cudaStream_t s) {
-  const T* da_ = static_cast<const T*>(da);
-  const T* z_ = static_cast<const T*>(z);
-  if (dx != nullptr) {
-    const dim3 grid((K + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-    auto kernel = relu ? bn_apply_dx_kernel<T, true> : bn_apply_dx_kernel<T, false>;
-    kernel<<<grid, kThreads, 0, s>>>(da_, z_, static_cast<const T*>(w), consts,
-                                     static_cast<T*>(dx), M, K, N);
-  } else {
-    const dim3 grid((N + kBN - 1) / kBN, (K + kBM - 1) / kBM,
-                    (M + rows_per_split - 1) / rows_per_split);
-    auto kernel = relu ? bn_apply_dw_kernel<T, true> : bn_apply_dw_kernel<T, false>;
-    kernel<<<grid, kThreads, 0, s>>>(da_, z_, static_cast<const T*>(x), consts, dw_part, M, K,
-                                     N, rows_per_split);
+cudaError_t apply_dx(const void* da, const void* z, const void* w, const float* consts, void* dx,
+                     int M, int K, int N, bool relu, cudaStream_t s) {
+  const dim3 grid((K + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  auto kernel = relu ? bn_apply_dx_kernel<T, true> : bn_apply_dx_kernel<T, false>;
+  kernel<<<grid, kThreads, 0, s>>>(static_cast<const T*>(da), static_cast<const T*>(z),
+                                   static_cast<const T*>(w), consts, static_cast<T*>(dx), M, K,
+                                   N);
+  return cudaGetLastError();
+}
+
+// dW partials of every M range into out ([splits, K, N], or dW with one
+// range): the bf16 kernel or the fp32 one.
+cudaError_t apply_dw(const void* da, const void* z, const void* x, const float* consts,
+                     float* out, int M, int K, int N, int rows_per_split, int tile_rows,
+                     int splits, int is_f32, bool relu, cudaStream_t s) {
+  if (!is_f32) {
+    auto launch = tile_rows == 256 ? (relu ? launch_dw_sm90<true, 2> : launch_dw_sm90<false, 2>)
+                                   : (relu ? launch_dw_sm90<true, 1> : launch_dw_sm90<false, 1>);
+    return launch(da, z, x, consts, out, M, K, N, rows_per_split, splits, s);
   }
+  const dim3 grid((N + kBN - 1) / kBN, (K + kBM - 1) / kBM, splits);
+  auto kernel = relu ? bn_apply_dw_kernel<float, true> : bn_apply_dw_kernel<float, false>;
+  kernel<<<grid, kThreads, 0, s>>>(static_cast<const float*>(da), static_cast<const float*>(z),
+                                   static_cast<const float*>(x), consts, out, M, K, N,
+                                   rows_per_split);
   return cudaGetLastError();
 }
 
@@ -295,25 +556,42 @@ extern "C" int bn_bwd_apply_dx(const void* da, const void* z, const void* w, con
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(consts);
-  return (int)(is_f32 ? apply<float>(da, z, nullptr, w, c, dx, nullptr, M, K, N, 0, relu, s)
-                      : apply<__nv_bfloat16>(da, z, nullptr, w, c, dx, nullptr, M, K, N, 0,
-                                             relu, s));
+  return (int)(is_f32 ? apply_dx<float>(da, z, w, c, dx, M, K, N, relu, s)
+                      : apply_dx<__nv_bfloat16>(da, z, w, c, dx, M, K, N, relu, s));
 }
 
-// dW partials [ceil(M / rows_per_split), K, N] f32.
+// dW [K, N] f32 from dA, z [M, N] and x [M, K]; part holds the
+// [ceil(M / rows_per_split), K, N] f32 partials (unused, may be null, with
+// one split), summed into dW in a fixed order. tile_rows: rows of dW (of
+// K) a block of the bf16 kernel owns, 128 or 256 (planned by
+// ops/fused_conv_bn.py; fp32 ignores it).
 extern "C" int bn_bwd_apply_dw(const void* da, const void* z, const void* x, const void* consts,
-                               void* part, int M, int K, int N, int rows_per_split, int is_f32,
-                               int relu, void* stream) {
-  if (bad_shape(M, N) || K <= 0 || K % 8 || rows_per_split <= 0 ||
-      (M + rows_per_split - 1) / rows_per_split > 65535 || (K + kBM - 1) / kBM > 65535)
+                               void* part, void* dw, int M, int K, int N, int rows_per_split,
+                               int tile_rows, int is_f32, int relu, void* stream) {
+  if (bad_shape(M, N) || K <= 0 || K % 8 || rows_per_split <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int splits = (M + rows_per_split - 1) / rows_per_split;
+  if (splits > 65535 || (K + kBM - 1) / kBM > 65535 || (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // bf16: each range a whole number of the kernel's 64-row chunks.
+  if (!is_f32 && ((splits > 1 && rows_per_split % 64) || (tile_rows != 128 && tile_rows != 256)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* c = static_cast<const float*>(consts);
-  float* p = static_cast<float*>(part);
-  return (int)(is_f32 ? apply<float>(da, z, x, nullptr, c, nullptr, p, M, K, N, rows_per_split,
-                                     relu, s)
-                      : apply<__nv_bfloat16>(da, z, x, nullptr, c, nullptr, p, M, K, N,
-                                             rows_per_split, relu, s));
+  float* out = static_cast<float*>(splits > 1 ? part : dw);
+  cudaError_t err = apply_dw(da, z, x, static_cast<const float*>(consts), out, M, K, N,
+                             rows_per_split, tile_rows, splits, is_f32, relu, s);
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return (int)sum_splits(out, static_cast<float*>(dw), (int64_t)K * N, splits, s);
+}
+
+// Dynamic shared memory (bytes) and resident blocks per SM of the bf16 dW
+// kernel with 256-row tiles. Returns a cudaError_t.
+extern "C" int fused_conv_bn_occupancy(int* smem_bytes, int* blocks_per_sm) {
+  *smem_bytes = DwSmem<2>::kAlloc;
+  cudaError_t err = set_smem(bn_apply_dw_kernel_sm90<true, 2>, *smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, bn_apply_dw_kernel_sm90<true, 2>, 384, *smem_bytes);
 }
 
 extern "C" const char* fused_conv_bn_error_string(int code) {

@@ -10,8 +10,9 @@
 //     two routes apart);
 //   pw_wgrad: `_wgrad_kernel` (:85). The TPU kernel carried dW across a
 //     sequential grid over M tiles; blocks here run in no order, so the sum
-//     over M is split into ranges whose f32 partials a second kernel adds in
-//     a fixed order. No atomics: every run gives the same dW.
+//     over M is split into ranges whose f32 partials a second kernel
+//     (conv1x1_tile.cuh `sum_splits_kernel`) adds in a fixed order. No
+//     atomics: every run gives the same dW.
 //
 // Semantics: f32 sums of bf16 (or fp32) products; dx in g's dtype, as the
 // TPU kernel's dot_general with preferred_element_type=f32 followed by
@@ -380,23 +381,6 @@ __global__ void __launch_bounds__(kThreads)
   G::run(smem, opa, opb, me > mb ? (me - mb + kBR - 1) / kBR : 0, store);
 }
 
-// dw[i] = sum over s of part[s][i], in order of s, four floats a thread.
-__global__ void pw_wgrad_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dw,
-                                    int64_t n4, int splits) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n4;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    float4 s = part[i];
-    for (int z = 1; z < splits; ++z) {
-      const float4 p = part[z * n4 + i];
-      s.x += p.x;
-      s.y += p.y;
-      s.z += p.z;
-      s.w += p.w;
-    }
-    dw[i] = s;
-  }
-}
-
 cudaError_t launch_dgrad(const void* g, const void* w, void* dx, int M, int K, int N, int is_f32,
                          cudaStream_t stream) {
   if (!is_f32) return launch_dgrad_sm90(g, w, dx, M, K, N, stream);
@@ -424,11 +408,7 @@ cudaError_t launch_wgrad(const void* x, const void* g, float* part, float* dw, i
     err = launch_wgrad_sm90<2>(x, g, out, M, K, N, rows_per_split, splits, stream);
   }
   if (err != cudaSuccess || splits == 1) return err;
-  const int64_t n4 = (int64_t)K * N / 4;
-  const int blocks = (int)std::min<int64_t>((n4 + 255) / 256, 132 * 8);
-  pw_wgrad_sum_kernel<<<blocks, 256, 0, stream>>>(reinterpret_cast<const float4*>(part),
-                                                  reinterpret_cast<float4*>(dw), n4, splits);
-  return cudaGetLastError();
+  return sum_splits(part, dw, (int64_t)K * N, splits, stream);
 }
 
 }  // namespace

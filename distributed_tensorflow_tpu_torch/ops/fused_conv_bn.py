@@ -41,15 +41,35 @@ import os
 
 import torch
 
-from distributed_tensorflow_tpu_torch.ops.pointwise_conv import check_operands, rows_per_split
+from distributed_tensorflow_tpu_torch.ops.pointwise_conv import (
+    check_operands,
+    one_wave_rows,
+    rows_per_split,
+    sm_count,
+)
 
 _MAX_KN = 4096
 _TILE_BYTES = 2 * 1024 * 1024
 # Blocks to aim for in a split pass on the H100's 132 SMs: eight waves of
-# the light reduce blocks, two of the product blocks (whose f32 partials
-# cost a write and a read of [splits, K, N] each).
+# the light reduce blocks, two of the fp32 dW kernel's product blocks
+# (whose f32 partials cost a write and a read of [splits, K, N] each).
 _REDUCE_BLOCKS = 1056
 _DW_BLOCKS = 264
+# The bf16 dW kernel's dW tile (csrc/fused_conv_bn.cu): _dw_tile_rows(K)
+# rows of K by 128 columns of N.
+_DW_TILE_N = 128
+# The most M rows one of its M ranges takes: 256 `wgmma` k-steps into one
+# f32 accumulator, whose error grows with the steps it sums (csrc notes).
+# No ResNet-50 or Inception-v3 shape plans a longer range.
+_DW_MAX_RANGE_ROWS = 4096
+
+
+def _dw_tile_rows(k: int) -> int:
+    """Rows of dW (of K) a block of the bf16 dW kernel owns; the kernel
+    takes what this returns (256 where K > 128: its dz serves two 64-wide
+    x2 slices per warpgroup)."""
+    return 256 if k > 128 else 128
+
 
 #: Kernel launches since the last :func:`reset_launch_counts`; each wrapper
 #: adds one where it launches its kernel and nowhere else.
@@ -137,10 +157,12 @@ def _library():
 
         lib = load_libraries({"fused_conv_bn": LIBRARIES["fused_conv_bn"]})["fused_conv_bn"]
         p, i = ctypes.c_void_p, ctypes.c_int
+        ip = ctypes.POINTER(i)
         for fn, argtypes in (
             ("bn_bwd_reduce", [p] * 4 + [i] * 5 + [p]),
             ("bn_bwd_apply_dx", [p] * 5 + [i] * 5 + [p]),
-            ("bn_bwd_apply_dw", [p] * 5 + [i] * 6 + [p]),
+            ("bn_bwd_apply_dw", [p] * 6 + [i] * 7 + [p]),
+            ("fused_conv_bn_occupancy", [ip, ip]),
         ):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
@@ -153,6 +175,27 @@ def _library():
 def build() -> None:
     """Compile (or load the cached build of) the kernel library."""
     _library()
+
+
+def occupancy() -> dict:
+    """Dynamic shared memory (bytes) and resident blocks per SM of the bf16
+    dW kernel, as the card's occupancy calculator reports them:
+    ``{"bn_bwd_apply_dw": (smem, blocks)}``."""
+    lib = _library()
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.fused_conv_bn_occupancy(ctypes.byref(smem), ctypes.byref(blocks))
+    if rc != 0:
+        msg = lib.fused_conv_bn_error_string(rc).decode()
+        raise RuntimeError(f"fused_conv_bn_occupancy failed: {msg}")
+    return {"bn_bwd_apply_dw": (smem.value, blocks.value)}
+
+
+def dw_rows_per_split(m: int, k: int, n: int, sms: int) -> int:
+    """M rows per block of the bf16 dW kernel: the wgrad's one-wave rule
+    (:func:`one_wave_rows`) over its dW tiles (256 or 128 rows by 128
+    columns), in whole 64-row chunks, at most ``_DW_MAX_RANGE_ROWS``."""
+    tiles = -(-k // _dw_tile_rows(k)) * -(-n // _DW_TILE_N)
+    return min(one_wave_rows(m, tiles, sms), _DW_MAX_RANGE_ROWS)
 
 
 def _check(fn: str, tensors: dict, consts) -> torch.dtype:
@@ -203,19 +246,28 @@ def bn_bwd_apply_dx_cuda(da2, z2, w2, consts, relu: bool):
 
 
 def bn_bwd_apply_dw_cuda(da2, z2, x2, consts, relu: bool):
-    """Launch the dW kernel of the apply pass: ``[K, N]`` f32, its
-    partials over M ranges summed here."""
+    """Launch the dW kernel of the apply pass: ``[K, N]`` f32. Its partials
+    over M ranges (bf16: :func:`dw_rows_per_split`; fp32: two waves of the
+    first design's blocks) are summed on the card in a fixed order, so two
+    runs give the same bits."""
     dtype = _check("bn_bwd_apply_dw_cuda", {"da": da2, "z": z2, "x": x2}, consts)
     m, n = da2.shape
     k = x2.shape[1]
     if x2.shape[0] != m:
         raise ValueError(f"bn_bwd_apply_dw_cuda: x {tuple(x2.shape)} is not [{m}, K]")
-    rows = rows_per_split(m, -(-k // 128) * -(-n // 128), _DW_BLOCKS)
-    part = torch.empty((-(-m // rows), k, n), dtype=torch.float32, device=da2.device)
+    fp32 = dtype == torch.float32
+    rows = (rows_per_split(m, -(-k // 128) * -(-n // 128), _DW_BLOCKS) if fp32
+            else dw_rows_per_split(m, k, n, sm_count(da2.device)))
+    tile_rows = 0 if fp32 else _dw_tile_rows(k)
+    splits = -(-m // rows)
+    dw = torch.empty((k, n), dtype=torch.float32, device=da2.device)
+    part = (torch.empty((splits, k, n), dtype=torch.float32, device=da2.device)
+            if splits > 1 else None)
     _launch(_library(), "bn_bwd_apply_dw", da2.data_ptr(), z2.data_ptr(), x2.data_ptr(),
-            consts.data_ptr(), part.data_ptr(), m, k, n, rows, int(dtype == torch.float32),
-            int(relu), torch.cuda.current_stream(da2.device).cuda_stream)
-    return part[0] if part.shape[0] == 1 else part.sum(0)
+            consts.data_ptr(), 0 if part is None else part.data_ptr(), dw.data_ptr(), m, k, n,
+            rows, tile_rows, int(fp32), int(relu),
+            torch.cuda.current_stream(da2.device).cuda_stream)
+    return dw
 
 
 def _bn_bwd(da2, z2, x2, w2, mean, inv, gamma, beta, relu: bool):

@@ -84,19 +84,27 @@ def rows_per_split(m: int, tiles: int, target: int) -> int:
     return -(-rows // 32) * 32
 
 
-def wgrad_rows_per_split(m: int, k: int, n: int, sms: int) -> int:
-    """M rows per block of the wgrad kernel, a multiple of its 64-row
-    chunk: as many M ranges as fill one wave of ``sms`` blocks with the
-    shape's dW tiles, and one range where the tiles alone fill the wave.
-    More ranges would add waves and f32 partials without adding SMs."""
-    tiles = -(-k // (64 if k <= 64 else 128)) * -(-n // _WGRAD_TILE_N)
+def one_wave_rows(m: int, tiles: int, sms: int) -> int:
+    """M rows per block of a split-M weight gradient whose blocks each own
+    one of ``tiles`` dW tiles and one M range, a multiple of the 64-row
+    chunk of the kernels' copy rings: as many M ranges as fill one wave of
+    ``sms`` blocks with the tiles, and one range where the tiles alone fill
+    the wave. More ranges would add waves and f32 partials without adding
+    SMs."""
     chunks = -(-m // _WGRAD_CHUNK)
     splits = min(chunks, max(1, sms // tiles))
     return -(-chunks // splits) * _WGRAD_CHUNK
 
 
+def wgrad_rows_per_split(m: int, k: int, n: int, sms: int) -> int:
+    """M rows per block of the wgrad kernel: :func:`one_wave_rows` with its
+    dW tiles of 64 (K <= 64) or 128 rows by 128 columns."""
+    return one_wave_rows(m, -(-k // (64 if k <= 64 else 128)) * -(-n // _WGRAD_TILE_N), sms)
+
+
 @functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (the split plans' wave)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -196,7 +204,7 @@ def wgrad_cuda(x2: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if g.shape[0] != m:
         raise ValueError(f"wgrad_cuda: x2 {tuple(x2.shape)} and g {tuple(g.shape)} disagree on M")
     lib = _library()
-    rows = wgrad_rows_per_split(m, k, n, _sm_count(x2.device))
+    rows = wgrad_rows_per_split(m, k, n, sm_count(x2.device))
     splits = -(-m // rows)
     dw = torch.empty((k, n), dtype=torch.float32, device=x2.device)
     part = (torch.empty((splits, k, n), dtype=torch.float32, device=x2.device)

@@ -95,6 +95,27 @@ RESNET50 = {
     (128, 7, 512, 2048): 3, (128, 7, 1024, 2048): 1, (128, 7, 2048, 512): 2,
 }
 RESNET50_N64 = {(128, 56, 256, 64): 2}
+# (B, HW, K, N) -> units a step: the 1x1 units of the Inception-v3 step at
+# 299x299, 128 images, fused=True, that take the fused conv+BN backward (27
+# units, 12 shapes: the four C blocks and D on the 17x17 grid, the two E
+# blocks on 8x8, the aux head's 1x1 conv on 5x5). chip_smoke.py and
+# torch_bwd_bench.py time the fused kernels by this table.
+INCEPTION_FUSED = {
+    (128, 17, 768, 128): 2, (128, 17, 768, 160): 4, (128, 17, 768, 192): 12,
+    **{(128, 8, k, n): 1 for k in (1280, 2048) for n in (192, 320, 384, 448)},
+    (128, 5, 768, 128): 1,
+}
+# (M, K, N) that the fused dW kernel's tiling and copy ring put at risk,
+# checked but not timed (chip_smoke.py and the card tests of
+# tests/test_torch_fused_conv_bn.py): M below one chunk and M not a multiple
+# of 64 (dz zeroed past M), N = 160 and 200 (a dz chunk partly past N,
+# whose constants are never read), K = 8 (one x2 box, mostly past K,
+# 128-row tiles), fewer dW tiles than SMs (6272, 512, 2048: 32 tiles, 4 M
+# ranges), a single M range (3136, 2048, 2048: 128 tiles) and ranges cut by
+# the 4096-row cap (6272, 2048, 2048).
+BN_RISK_SHAPES = [(17, 256, 128), (25091, 256, 128), (4099, 256, 160), (4099, 256, 200),
+                  (1000, 8, 128), (17, 8, 8), (6272, 512, 2048), (3136, 2048, 2048),
+                  (6272, 2048, 2048)]
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores
 WARMUP, ITERS = 3, 20

@@ -16,7 +16,8 @@ size, and for each ``--batches`` size, after ``--warmup`` steps:
 - ``device_ms``: summed CUDA kernel time per step from ``torch.profiler``,
   and ``busy_share`` = device_ms / wall_ms;
 - the device time of the port's 1x1 kernels (``pw_dgrad``, ``bn_reduce``,
-  ``bn_apply_dx``, ``bn_apply_dw``) and the kernels that take the most time;
+  ``bn_apply_dx``, ``bn_apply_dw``; the kernel functions the profiler names
+  behind each) and the kernels that take the most time;
 - ``host_op_ms``: the host time spent inside PyTorch operators per step
   (their self CPU time; the Python around them is the rest of the wall),
   and the operators that take the most of it.
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import sys
 import time
@@ -142,6 +144,10 @@ def profile(args) -> list[dict]:
         wall_ms = statistics.median(walls[rows])
         port = {name: per_step(sum(v for k, v in kernels.items() if f"{name}_kernel" in k))
                 for name in PORT_KERNELS}
+        # The kernel functions behind each sum, as the profiler names them.
+        functions = {name: sorted({m.group(1) for k in kernels if f"{name}_kernel" in k
+                                   for m in [re.search(r"::(\w+)[<(]", k)] if m})
+                     for name in PORT_KERNELS}
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:args.top]
         out.append({
             "model": args.model, "backend": backend, "rows": rows, "image": hw,
@@ -150,7 +156,7 @@ def profile(args) -> list[dict]:
             "train_gflop_per_image": flops_per_image / 1e9,
             "mfu": flops_per_image * rows / (wall_ms / 1e3) / PEAK_BF16_FLOPS,
             "device_ms": device_ms, "busy_share": device_ms / wall_ms if wall_ms else None,
-            "port_kernels_ms": port,
+            "port_kernels_ms": port, "port_kernel_functions": functions,
             "port_kernels_share": sum(port.values()) / device_ms if device_ms else None,
             "kernels_per_step": sum(
                 e.count for e in prof.key_averages()

@@ -11,8 +11,9 @@ steps after ``--warmup``:
 - ``wall_ms``: host clock per step ending in a synchronise (median);
 - ``device_ms``: summed CUDA kernel time per step from ``torch.profiler``,
   and ``busy_share`` = device_ms / wall_ms;
-- the device time of the three flash kernels, and the kernels that take
-  the most device time.
+- the device time of the three flash kernels (and the kernel functions
+  the profiler names behind each), and the kernels that take the most
+  device time.
 
 Prints one JSON line; needs a card::
 
@@ -24,6 +25,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import sys
 import time
@@ -108,12 +110,18 @@ def main(argv=None) -> int:
     device_ms = per_step(sum(kernels.values()))
     wall_ms = statistics.median(walls)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     flash = {name: per_step(sum(v for k, v in kernels.items() if f"::{name}_" in k))
-             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+             for name in names}
+    # The kernel functions behind each sum, as the profiler names them.
+    functions = {name: sorted({m.group(1) for k in kernels if f"::{name}_" in k
+                               for m in [re.search(r"::(\w+)[<(]", k)] if m})
+                 for name in names}
     print(json.dumps({
         "rows": args.rows, "seq": args.seq, "wall_ms": wall_ms, "wall_ms_min": min(walls),
         "device_ms": device_ms, "busy_share": device_ms / wall_ms if wall_ms else None,
         "flash_ms": flash, "flash_share": sum(flash.values()) / device_ms if device_ms else None,
+        "flash_kernel_functions": functions,
         "kernels_per_step": sum(
             e.count for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA

@@ -158,13 +158,15 @@ def _vjp_jax(jx, fn, args, cot):
 @pytest.mark.parametrize(
     "h,d,l,bq,bk,packing",
     [(2, 16, 32, 16, 16, "bh"), (4, 32, 32, 16, 16, "flat"),
-     (2, 16, 48, 32, 16, "bh"), (4, 32, 24, 16, 24, "flat")],
-    ids=["bh-2x16", "flat-4x32", "bh-ragged-48", "flat-ragged-24"],
+     (2, 16, 48, 32, 16, "bh"), (4, 32, 24, 16, 24, "flat"),
+     (2, 64, 24, 8, 8, "flat"), (1, 128, 16, 8, 16, "bh")],
+    ids=["bh-2x16", "flat-4x32", "bh-ragged-48", "flat-ragged-24", "flat-2x64", "bh-1x128"],
 )
 def test_flash_grads_match_jax(jx, h, d, l, bq, bk, packing):
     """dq, dk, dv through autograd of the plain backward against jax.vjp of
-    the Pallas kernels (interpret mode), both TPU families; batch row 1 is
-    fully masked and must give finite zero gradients."""
+    the Pallas kernels (interpret mode), both TPU families, at the card
+    kernels' head dims too (64 on the BERT path, 128); batch row 1 is fully
+    masked and must give finite zero gradients."""
     q, k, v = _qkv(8, 2, l, h, d)
     m = _mask(2, l)
     m[1] = False

@@ -13,6 +13,8 @@ card-only tests also run where JAX is not installed.
 from __future__ import annotations
 
 import importlib
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +23,19 @@ import torch
 from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
 
 B, H, W, K, N = 4, 4, 8, 128, 128
+
+
+def _load_pw_bench():
+    """``scripts/torch_pw_bench.py``, which holds the shape tables of the
+    fused kernels' main paths and their risk shapes."""
+    path = Path(__file__).resolve().parents[1] / "scripts" / "torch_pw_bench.py"
+    spec = importlib.util.spec_from_file_location("torch_pw_bench", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_PWB = _load_pw_bench()
 
 
 def _inputs(seed):
@@ -77,6 +92,94 @@ def test_fused_supported_matches_jax(monkeypatch):
     with pytest.raises(ValueError, match="fused_supported"):
         t = torch.zeros(1, 2, 2, 64)
         fcb.conv1x1_bn_act(t, torch.zeros(64, 64), torch.ones(64), torch.zeros(64), relu=True)
+
+
+def _bn_apply_inputs(seed, m, k, n, relu_scale=1.0):
+    """dA, z, x, W and the packed [8, N] constants of an apply pass, from
+    numpy, with the batch statistics and s1/M, s2/M of the plain reduce."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * k**-0.5).astype(np.float32)
+    da = rng.standard_normal((m, n)).astype(np.float32)
+    z = x @ w
+    mean = z.mean(0)
+    inv = 1.0 / np.sqrt((z * z).mean(0) - mean * mean + 1e-5)
+    gamma = (rng.random(n) + 0.5).astype(np.float32)
+    beta = (rng.standard_normal(n) * 0.5).astype(np.float32)
+    return x, w, da, z.astype(np.float32), [a.astype(np.float32) for a in (mean, inv, gamma, beta)]
+
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_bn_bwd_apply_dw_reference_matches_jax(relu):
+    """The plain dW of the apply pass against the dW of the JAX package's
+    ``_bn_bwd_apply`` (Pallas interpret mode) at a ragged M (208: no whole
+    number of the card kernel's 64-row chunks) and N = 160 (Inception's,
+    partway through a 128-column tile), with the ReLU mask on and off. f32
+    operands: the same dz from the same f32 steps, summed over M in
+    another order, within 1e-5 of the largest |dW|."""
+    import jax.numpy as jnp
+
+    from distributed_tensorflow_tpu.ops import fused_conv_bn as jfcb
+
+    m, k, n = 208, 128, 160
+    x, w, da, z, stats = _bn_apply_inputs(30 + relu, m, k, n)
+    c0 = fcb._pack_consts(*(torch.from_numpy(a) for a in stats))
+    s1, s2 = fcb.bn_bwd_reduce_reference(torch.from_numpy(da), torch.from_numpy(z), c0, relu)
+    consts = fcb._pack_consts(*(torch.from_numpy(a) for a in stats), s1 / m, s2 / m)
+    _, ref = jfcb._bn_bwd_apply(jnp.asarray(da), jnp.asarray(z), jnp.asarray(x), jnp.asarray(w),
+                                jnp.asarray(consts.numpy()), relu, True)
+    ref = np.asarray(ref)
+    dw = fcb.bn_bwd_apply_dw_reference(torch.from_numpy(da), torch.from_numpy(z),
+                                       torch.from_numpy(x), consts, relu)
+    assert dw.dtype == torch.float32 and dw.shape == (k, n)
+    np.testing.assert_allclose(dw.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+# (M, K, N) of the bf16 dW kernel's main paths: ResNet-50's 12 fused unit
+# shapes and its N = 64 unit at b=128, Inception-v3's 12 at 299x299, 128
+# images; then ragged and small shapes and the card tests' risk shapes.
+_RESNET50_SHAPES = [_PWB.mkn(*sh) for sh in (*_PWB.RESNET50, *_PWB.RESNET50_N64)]
+_INCEPTION_SHAPES = [_PWB.mkn(*sh) for sh in _PWB.INCEPTION_FUSED]
+_RAGGED_SHAPES = [(1, 128, 128), (63, 128, 128), (65, 256, 200), (208, 128, 160),
+                  (777777, 128, 128), (12345, 4096, 4096)]
+_DW_PLAN_SHAPES = list(dict.fromkeys(_RESNET50_SHAPES + _INCEPTION_SHAPES + _RAGGED_SHAPES
+                                     + _PWB.BN_RISK_SHAPES))
+
+
+@pytest.mark.parametrize("m,k,n", _DW_PLAN_SHAPES)
+def test_bn_dw_split_plan_covers_every_row_once(m, k, n):
+    """The M ranges of the bf16 dW kernel: whole 64-row chunks, consecutive
+    and non-empty, together exactly [0, M), so no range reads another's
+    rows; at most 65535 of them (the grid's z limit)."""
+    rows = fcb.dw_rows_per_split(m, k, n, 132)
+    splits = -(-m // rows)
+    assert rows % 64 == 0 and 1 <= splits <= 65535
+    bounds = [(z * rows, min(m, (z + 1) * rows)) for z in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == m
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+
+
+@pytest.mark.parametrize("m,k,n", _DW_PLAN_SHAPES)
+def test_bn_dw_split_plan_fills_one_wave(m, k, n):
+    """The blocks of the bf16 dW kernel (one per dW tile, 256 rows of K
+    where K > 128 else 128 by 128 columns, and M range) fill at most one
+    wave of the H100's 132 SMs: one range where the tiles alone leave no
+    room for a second; otherwise ranges one 64-row chunk shorter would
+    overflow the wave, unless every range is already a single chunk. A
+    range takes at most 4096 rows (the accumulators' precision), which
+    alone may add splits."""
+    rows = fcb.dw_rows_per_split(m, k, n, 132)
+    tile_rows = fcb._dw_tile_rows(k)
+    splits, tiles, chunks = -(-m // rows), -(-k // tile_rows) * -(-n // 128), -(-m // 64)
+    assert rows <= 4096  # the range cap, which may add splits past one wave
+    if rows == 4096:
+        assert m > 4096
+    elif 2 * tiles > 132:
+        assert splits == 1
+    else:
+        assert tiles * splits <= 132
+        assert rows == 64 or tiles * -(-chunks // (rows // 64 - 1)) > 132
 
 
 @pytest.fixture()
@@ -136,3 +239,55 @@ def test_fused_unit_launches_each_kernel_once(cuda_device):
     assert fcb.LAUNCHES == {"bn_bwd_reduce": 1, "bn_bwd_apply_dx": 1, "bn_bwd_apply_dw": 1}
     for got, ref in zip(grads[str(cuda_device)], grads["cpu"]):
         torch.testing.assert_close(got, ref, atol=2e-4, rtol=0)
+
+
+def _card_apply_inputs(device, dtype, m, k, n, seed):
+    x, w, da, z, stats = _bn_apply_inputs(seed, m, k, n)
+    x_t, da_t = (torch.from_numpy(a).to(device, dtype) for a in (x, da))
+    z_t = torch.matmul(x_t, torch.from_numpy(w).to(device, dtype))
+    zf = z_t.float()
+    mean = zf.mean(0)
+    inv = torch.rsqrt(zf.square().mean(0) - mean.square() + 1e-5)
+    gamma, beta = (torch.from_numpy(a).to(device) for a in stats[2:])
+    return x_t, da_t, z_t, (mean, inv, gamma, beta)
+
+
+@pytest.mark.parametrize("m,k,n", _PWB.BN_RISK_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("relu", [True, False])
+def test_bn_apply_dw_kernel_risk_shapes_match_plain_version(cuda_device, m, k, n, dtype, relu):
+    """The dW kernel against its plain version at the risk shapes: f32 dW,
+    exact products summed over M in another order, within 1e-5 of the
+    largest |dW|; two runs give the same bits (fixed-order sums, no
+    atomics)."""
+    x, da, z, stats = _card_apply_inputs(cuda_device, dtype, m, k, n, m + k + n)
+    c0 = fcb._pack_consts(*stats)
+    r1, r2 = fcb.bn_bwd_reduce_reference(da, z, c0, relu)
+    consts = fcb._pack_consts(*stats, r1 / m, r2 / m)
+    before = fcb.LAUNCHES["bn_bwd_apply_dw"]
+    dw = fcb.bn_bwd_apply_dw_cuda(da, z, x, consts, relu)
+    again = fcb.bn_bwd_apply_dw_cuda(da, z, x, consts, relu)
+    assert fcb.LAUNCHES["bn_bwd_apply_dw"] == before + 2
+    ref = fcb.bn_bwd_apply_dw_reference(da, z, x, consts, relu)
+    torch.cuda.synchronize()
+    assert dw.dtype == torch.float32 and torch.isfinite(dw).all()
+    assert (dw - ref).abs().max() <= 1e-5 * ref.abs().max() + 1e-5
+    assert torch.equal(dw.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("m,n", [(2048, 160), (1000, 200)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_bn_apply_dw_kernel_dz_is_the_plain_versions(cuda_device, m, n, relu):
+    """With x2 the identity (M = K), dW = x2^T dz is dz itself, every other
+    term an exact zero: the kernel's dz, ReLU mask and bf16 rounding
+    included, equals the plain version's bit for bit, over several M
+    ranges (2048: 4 ranges) and a ragged one (1000)."""
+    _, da, z, stats = _card_apply_inputs(cuda_device, torch.bfloat16, m, m, n, m + n)
+    x = torch.eye(m, device=cuda_device, dtype=torch.bfloat16)
+    c0 = fcb._pack_consts(*stats)
+    r1, r2 = fcb.bn_bwd_reduce_reference(da, z, c0, relu)
+    consts = fcb._pack_consts(*stats, r1 / m, r2 / m)
+    dw = fcb.bn_bwd_apply_dw_cuda(da, z, x, consts, relu)
+    dz = fcb._dz(da, z, consts, relu, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, dz.float())

@@ -6,11 +6,13 @@ Phases (any failure exits non-zero before the result lines):
 1. build  — compile the port's CUDA kernels from ``csrc/`` (one nvcc per
    library, started together, sm_90a) into ``build/kernels/``; print the
    build seconds, ptxas' resource use and spills (the 1x1 GEMMs' ``_sm90``
-   kernels, the three ``flash_bwd_dq_sm90`` and the four
-   ``bn_apply_dw_kernel_sm90`` instances must not spill), and the dynamic
-   shared memory and resident blocks per SM of the bf16 flash kernels at
-   D=64 (the forward under each q tile), of the 1x1 GEMMs and of the
-   fused dW kernel (the card's occupancy calculator).
+   kernels, the three ``flash_bwd_dq_sm90``, the four
+   ``bn_apply_dw_kernel_sm90``, the four ``bn_apply_dx_strip_sm90``, the
+   four ``bn_apply_dx_panel_sm90`` and the four ``bn_reduce_kernel_sm90``
+   instances must not spill), and the dynamic shared memory and resident
+   blocks per SM of the bf16 flash kernels at D=64 (the forward under each
+   q tile), of the 1x1 GEMMs and of the fused kernels (the card's
+   occupancy calculator).
 2. kernel — hold the flash-attention forward kernel to its plain PyTorch
    version on the card: bf16 at B in {1, 8} x L in {256, 512, 300} with
    H=12, D=64, plus D=32, D=128, an fp32 case and the BERT training cell
@@ -55,16 +57,23 @@ Phases (any failure exits non-zero before the result lines):
    (exact products summed over M in another order). Prints the same times
    (library: an f32-out ``torch.mm``) and the number of M ranges.
 6. kernel_bn_bwd — the fused conv+BN backward kernels (reduce, apply dx,
-   apply dW) against their plain versions at ResNet-50's 12 shapes (ReLU on
-   and off, a ragged M and fp32) and at Inception-v3's 12 (ReLU on, bf16,
-   and fp32 at N=160; N = 160, 192, 320 and 448 end partway through the
-   kernels' column tiles), timed, and at ``BN_RISK_SHAPES`` (from
+   apply dW) against their plain versions at ResNet-50's 12 shapes and
+   Inception-v3's 12 (N = 160, 192, 320 and 448 end partway through the
+   kernels' column tiles) in bf16, timed with ReLU on, and in fp32, each
+   with ReLU on and off, plus a ragged M; and at ``BN_RISK_SHAPES`` (from
    ``scripts/torch_pw_bench.py``) in bf16 and fp32, checked only: s1, s2
-   within 1e-5 of the terms' magnitudes summed, dx as the dgrad, dW within
-   1e-5 of its largest entry (f32 sums over M in another order) and
-   bitwise equal across two runs. dW is also timed as device time from a
-   replayed CUDA graph. No single PyTorch call computes these, so no
-   library time.
+   within 1e-5 of the terms' magnitudes summed and bitwise equal across
+   two runs, the constants' rows 4-5 that the reduce writes bitwise equal
+   to the CPU path's ``s / m`` (with the count of elements where the
+   card's own ``s / m`` differs from it), dx as the dgrad, dW within 1e-5
+   of its largest entry (f32 sums over M in another order) and bitwise
+   equal across two runs. With K = N and W the identity, the dx kernels'
+   output must equal the plain dz bit for bit (strip and panel kernels).
+   Each kernel is also timed as device time from a replayed CUDA graph;
+   dx beside the product alone (``torch.matmul(dz, w.t())`` of a dz made
+   ahead, the library column) and beside dz made in device memory by the
+   plain code followed by ``pw_dgrad_cuda`` (the composite). No single
+   PyTorch call computes the reduce or dW, so no library time.
 7. pw_bench — ``python3 scripts/torch_pw_bench.py --shapes all --check``,
    the entry point that runs the wgrad kernel: its exit code, its numerics
    lines and its launch counters against the launches it made.
@@ -242,22 +251,29 @@ def phase_build(fm, pc, fcb):
               "nvcc_seconds": round(info["seconds"], 3), "seconds": seconds,
               "ptxas": regs})
     # Registers and spills of the kernels whose designs count on none: the
-    # 1x1 GEMMs (3 entries), the dQ kernel (3 head dims) and the fused dW
-    # kernel (ReLU on and off x 128- and 256-row tiles).
+    # 1x1 GEMMs (3 entries), the dQ kernel (3 head dims), the fused dW
+    # kernel (ReLU on and off x 128- and 256-row tiles), the dx strip
+    # kernel (ReLU x dz up to N = 256 and 512), the dx panel kernel (ReLU x
+    # 256 and 512 columns of K) and the reduce (bf16 and fp32 x ReLU).
+    ptxas = {}
     for lib, key, count in (("pointwise_conv", "_sm90", 3), ("flash_bwd", "flash_bwd_dq_sm90", 3),
-                            ("fused_conv_bn", "bn_apply_dw_kernel_sm90", 4)):
+                            ("fused_conv_bn", "bn_apply_dw_kernel_sm90", 4),
+                            ("fused_conv_bn", "bn_apply_dx_strip_sm90", 4),
+                            ("fused_conv_bn", "bn_apply_dx_panel_sm90", 4),
+                            ("fused_conv_bn", "bn_reduce_kernel_sm90", 4)):
         entries = {entry: rec for entry, rec in
                    ptxas_entries(kbuild.BUILD_INFO[lib]["log"]).items() if key in entry}
         check(len(entries) == count
               and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
                       for r in entries.values()),
-              f"{lib} sm90 kernels: ptxas {entries}")
-        emit({"phase": "build", f"{lib}_sm90_ptxas": entries})
+              f"{lib} {key} kernels: ptxas {entries}")
+        emit({"phase": "build", f"{key}_ptxas": entries})
+        ptxas[key] = entries
     occupancy = {name: {"smem_bytes": smem, "blocks_per_sm": blocks}
                  for name, (smem, blocks) in {**fm.occupancy(), **pc.occupancy(),
                                               **fcb.occupancy()}.items()}
     emit({"phase": "build", "occupancy_bf16": occupancy})
-    return occupancy
+    return occupancy, ptxas
 
 
 def _masked_inputs(torch, gen, b, l, h, d, dtype, n, pad):
@@ -645,10 +661,11 @@ def phase_pw_bench(torch):
     return counts["launches"], [r for r in timed if r["kernel"] == "pw_wgrad"]
 
 
-def phase_kernel_bn_bwd(fcb, pwb, torch, cases, cell: str):
+def phase_kernel_bn_bwd(fcb, pc, pwb, torch, cases, cell: str):
     """The fused conv+BN backward kernels (reduce, apply dx, apply dW)
     against their plain versions; ``cases`` are (M, K, N, dtype, relus,
-    timed). Every dW is also computed twice and must repeat bit for bit."""
+    timed). The reduce and every dW run twice and must repeat bit for bit;
+    the constants the reduce writes must be the CPU path's ``s / m``."""
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
     rows = {}
     for m, k, n, dtype, relus, timed in cases:
@@ -663,10 +680,22 @@ def phase_kernel_bn_bwd(fcb, pwb, torch, cases, cell: str):
         gamma = torch.rand(n, device="cuda", generator=gen) + 0.5
         beta = torch.randn(n, device="cuda", generator=gen) * 0.5
         errs = {"reduce": 0.0, "dx": 0.0, "dw": 0.0}
+        card_division_differs = 0
         for relu in relus:
             c0 = fcb._pack_consts(mean, inv, gamma, beta)
-            s1, s2 = fcb.bn_bwd_reduce_cuda(da, z, c0, relu)
+            s1, s2 = fcb.bn_bwd_reduce_cuda(da, z, c0, relu, write_consts=True)
+            t1, t2 = fcb.bn_bwd_reduce_cuda(da, z, c0, relu)
             r1, r2 = fcb.bn_bwd_reduce_reference(da, z, c0, relu)
+            torch.cuda.synchronize()
+            check(torch.equal(s1.view(torch.int32), t1.view(torch.int32))
+                  and torch.equal(s2.view(torch.int32), t2.view(torch.int32)),
+                  f"bn reduce differs between two runs at {(m, k, n, dtype, relu)}")
+            # The constants the apply kernels read: the CPU path's division.
+            s1c, s2c = s1.cpu(), s2.cpu()
+            check(torch.equal(c0[4].cpu(), s1c / m) and torch.equal(c0[5].cpu(), s2c / m),
+                  f"bn reduce constants are not s / m at {(m, k, n, dtype, relu)}")
+            card_division_differs += int(((s1 / m).cpu() != s1c / m).sum().item()
+                                         + ((s2 / m).cpu() != s2c / m).sum().item())
             # f32 sums of up to 401408 terms in two orders: within 1e-5 of
             # the sum of the terms' magnitudes.
             g, xh = fcb._g_xhat(da, z, c0, relu)
@@ -696,30 +725,37 @@ def phase_kernel_bn_bwd(fcb, pwb, torch, cases, cell: str):
                   f"bn apply dW differs between two runs at {(m, k, n, dtype, relu)}")
             errs["dw"] = max(errs["dw"], e)
         del dx, rdx, dw, rdw, again
+        label = {"phase": "kernel_bn_bwd", "cell": cell, "M": m, "K": k, "N": n,
+                 "dtype": str(dtype).removeprefix("torch."), "relu": list(relus),
+                 "max_abs_err": errs, "card_division_differs": card_division_differs}
         if not timed:
-            emit({"phase": "kernel_bn_bwd", "cell": "risk", "M": m, "K": k, "N": n,
-                  "dtype": str(dtype).removeprefix("torch."), "max_abs_err": errs})
+            emit(label)
             del x, w, z, da, zf
             continue
         es = x.element_size()
         peak = PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS
         c0 = fcb._pack_consts(mean, inv, gamma, beta)
+        dz = fcb._dz(da, z, consts, True, dtype)
+
+        def timed_pair(key, fn, plain=None):
+            out = {f"{key}_ms": cuda_ms(fn, 10), f"{key}_graph_ms": pwb.graph_ms(fn, 10, 2)}
+            if plain is not None:
+                out[f"{key}_plain_ms"] = cuda_ms(plain, 3)
+            return out
+
         # Elementwise work (x_hat, mask, products, sums: ~8 f32 operations
         # per element) at the fp32 rate; the products at the tensor rate.
         ew = 8.0 * m * n / PEAK_FP32_FLOPS * peak
-        row = {"phase": "kernel_bn_bwd", "cell": cell, "M": m, "K": k, "N": n,
-               "dtype": str(dtype).removeprefix("torch."),
-               "max_abs_err": errs,
-               "reduce_ms": cuda_ms(lambda: fcb.bn_bwd_reduce_cuda(da, z, c0, True), 10),
-               "reduce_plain_ms": cuda_ms(lambda: fcb.bn_bwd_reduce_reference(da, z, c0, True), 3),
-               "dx_ms": cuda_ms(lambda: fcb.bn_bwd_apply_dx_cuda(da, z, w, consts, True), 10),
-               "dx_plain_ms": cuda_ms(
-                   lambda: fcb.bn_bwd_apply_dx_reference(da, z, w, consts, True), 3),
-               "dw_ms": cuda_ms(lambda: fcb.bn_bwd_apply_dw_cuda(da, z, x, consts, True), 10),
-               "dw_graph_ms": pwb.graph_ms(
-                   lambda: fcb.bn_bwd_apply_dw_cuda(da, z, x, consts, True), 10, 2),
-               "dw_plain_ms": cuda_ms(
-                   lambda: fcb.bn_bwd_apply_dw_reference(da, z, x, consts, True), 3),
+        row = {**label,
+               **timed_pair("reduce", lambda: fcb.bn_bwd_reduce_cuda(da, z, c0, True),
+                            lambda: fcb.bn_bwd_reduce_reference(da, z, c0, True)),
+               **timed_pair("dx", lambda: fcb.bn_bwd_apply_dx_cuda(da, z, w, consts, True),
+                            lambda: fcb.bn_bwd_apply_dx_reference(da, z, w, consts, True)),
+               **timed_pair("dx_library", lambda: torch.matmul(dz, w.t())),
+               **timed_pair("dx_composite",
+                            lambda: pc.dgrad_cuda(fcb._dz(da, z, consts, True, dtype), w)),
+               **timed_pair("dw", lambda: fcb.bn_bwd_apply_dw_cuda(da, z, x, consts, True),
+                            lambda: fcb.bn_bwd_apply_dw_reference(da, z, x, consts, True)),
                "library_ms": None}
         for key, nbytes, flops in (
                 ("reduce", 2 * m * n * es + 8 * n, ew),
@@ -728,8 +764,37 @@ def phase_kernel_bn_bwd(fcb, pwb, torch, cases, cell: str):
             row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound(nbytes, flops, peak)
         emit(row)
         rows[(m, k, n, row["dtype"])] = row
-        del x, w, z, da, zf
+        del x, w, z, da, zf, dz
     return rows
+
+
+def phase_kernel_bn_dz(fcb, torch):
+    """With K = N and W the identity, dx = dz W^T is dz itself, every other
+    product an exact zero: the bf16 dx kernels' dz (ReLU mask and rounding
+    included) against the plain dz, bit for bit, in the strip kernel (N =
+    160, 512) and the panel kernel (N = 1024: two ranges of K; 520: a last
+    chunk 8 columns wide), at an M that is no whole number of strips."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 5)
+    cases = 0
+    for m, n in ((1000, 160), (2048, 512), (1000, 1024), (777, 520)):
+        z = torch.randn(m, n, device="cuda", dtype=torch.bfloat16, generator=gen)
+        da = torch.randn(m, n, device="cuda", dtype=torch.bfloat16, generator=gen)
+        zf = z.float()
+        mean = zf.mean(0)
+        stats = (mean, torch.rsqrt(zf.square().mean(0) - mean.square() + 1e-5),
+                 torch.rand(n, device="cuda", generator=gen) + 0.5,
+                 torch.randn(n, device="cuda", generator=gen) * 0.5)
+        w = torch.eye(n, device="cuda", dtype=torch.bfloat16)
+        for relu in (True, False):
+            r1, r2 = fcb.bn_bwd_reduce_reference(da, z, fcb._pack_consts(*stats), relu)
+            consts = fcb._pack_consts(*stats, r1 / m, r2 / m)
+            dx = fcb.bn_bwd_apply_dx_cuda(da, z, w, consts, relu)
+            dz = fcb._dz(da, z, consts, relu, torch.bfloat16)
+            torch.cuda.synchronize()
+            check(torch.equal(dx, dz), f"bn apply dx: dz differs from the plain dz at "
+                                       f"{(m, n, relu)} ({int((dx != dz).sum().item())} elements)")
+            cases += 1
+    emit({"phase": "kernel_bn_dz", "cases": cases, "bitwise_equal": True})
 
 
 def _grads(model, batch, torch):
@@ -1432,22 +1497,26 @@ def main() -> int:
     ).stdout.strip().splitlines()
     t_start = time.monotonic()
     try:
-        occupancy = phase_build(fm, pc, fcb)
+        occupancy, ptxas = phase_build(fm, pc, fcb)
         fwd_row, fwd_err = phase_kernel(fm, torch)
         bwd_row, bwd_err = phase_kernel_bwd(fm, pwb, torch)
         pw_rows = phase_kernel_conv1x1(pc, pwb, torch, r50, n64)
         wgrad_rows = phase_kernel_wgrad(pc, pwb, torch,
                                         list(dict.fromkeys([*r50, *n64, *bench_shapes])))
-        bf16 = torch.bfloat16
+        bf16, f32 = torch.bfloat16, torch.float32
         both = (True, False)
         bn_rows = phase_kernel_bn_bwd(
-            fcb, pwb, torch, [(m, k, n, bf16, both, True) for m, k, n in r50]
-            + [(25091, 1024, 256, bf16, both, True), (6275, 512, 256, torch.float32, both, True)]
-            + [(m, k, n, dt, both, False) for m, k, n in pwb.BN_RISK_SHAPES
-               for dt in (bf16, torch.float32)], "resnet50")
+            fcb, pc, pwb, torch, [(m, k, n, bf16, both, True) for m, k, n in r50]
+            + [(25091, 1024, 256, bf16, both, True), (6275, 512, 256, f32, both, True)]
+            + [(m, k, n, f32, both, False) for m, k, n in r50], "resnet50")
         inception_bn_rows = phase_kernel_bn_bwd(
-            fcb, pwb, torch, [(m, k, n, bf16, (True,), True) for m, k, n in inception]
-            + [(36992, 768, 160, torch.float32, (True,), True)], "inception_v3")
+            fcb, pc, pwb, torch, [(m, k, n, bf16, both, True) for m, k, n in inception]
+            + [(36992, 768, 160, f32, (True,), True)]
+            + [(m, k, n, f32, both, False) for m, k, n in inception], "inception_v3")
+        phase_kernel_bn_bwd(fcb, pc, pwb, torch, [(m, k, n, dt, both, False)
+                                                  for m, k, n in pwb.BN_RISK_SHAPES
+                                                  for dt in (bf16, f32)], "risk")
+        phase_kernel_bn_dz(fcb, torch)
         torch.cuda.empty_cache()
         bench_launches, bench_rows = phase_pw_bench(torch)
         phase_serve(fm, torch)
@@ -1514,6 +1583,15 @@ def main() -> int:
     bn_ref = "distributed_tensorflow_tpu/ops/fused_conv_bn.py:"
     sel = [bn_rows[(*sh, "bfloat16")] for sh in r50]
     units = list(r50.values())
+    bn_blocks = {
+        "bn_bwd_reduce": occupancy["bn_bwd_reduce"]["blocks_per_sm"],
+        "bn_bwd_apply_dx": {key.removeprefix("bn_bwd_apply_dx_"): rec["blocks_per_sm"]
+                            for key, rec in occupancy.items()
+                            if key.startswith("bn_bwd_apply_dx_")},
+        "bn_bwd_apply_dw": occupancy["bn_bwd_apply_dw"]["blocks_per_sm"]}
+    bn_ptxas = {"bn_bwd_reduce": ["bn_reduce_kernel_sm90"],
+                "bn_bwd_apply_dx": ["bn_apply_dx_strip_sm90", "bn_apply_dx_panel_sm90"],
+                "bn_bwd_apply_dw": ["bn_apply_dw_kernel_sm90"]}
     for name, part, line in (("bn_bwd_reduce", "reduce", "126"),
                              ("bn_bwd_apply_dx", "dx", "136"),
                              ("bn_bwd_apply_dw", "dw", "136")):
@@ -1522,9 +1600,17 @@ def main() -> int:
             "replaces": bn_ref + line, "launches": image_launches["fused"][name],
             "max_abs_err": max(r["max_abs_err"][part] for r in bn_rows.values()),
             **_step_record(sel, units, f"{part}_"), "library_ms": None, "cell": cell,
+            "graph_ms": sum(n * r[f"{part}_graph_ms"] for r, n in zip(sel, units)),
+            "blocks_per_sm": bn_blocks[name],
+            "ptxas": {entry: rec for key in bn_ptxas[name] for entry, rec in ptxas[key].items()},
         })
-    kernels[-1].update({"graph_ms": sum(n * r["dw_graph_ms"] for r, n in zip(sel, units)),
-                        "blocks_per_sm": occupancy["bn_bwd_apply_dw"]["blocks_per_sm"]})
+    kernels[-2].update({
+        "library_ms": sum(n * r["dx_library_ms"] for r, n in zip(sel, units)),
+        "library": "torch.matmul(dz, w.t()): the product alone, dz made ahead",
+        "library_graph_ms": sum(n * r["dx_library_graph_ms"] for r, n in zip(sel, units)),
+        "composite_ms": sum(n * r["dx_composite_ms"] for r, n in zip(sel, units)),
+        "composite_graph_ms": sum(n * r["dx_composite_graph_ms"] for r, n in zip(sel, units)),
+        "composite": "plain dz in device memory (bf16), then pw_dgrad_cuda"})
     # The wgrad's only path is the bench: its 9 shapes, one call each,
     # summed; plain and error from kernel_wgrad at the same shapes.
     sel = [wgrad_rows[(*sh, "bfloat16")] for sh in bench_shapes]
@@ -1547,11 +1633,18 @@ def main() -> int:
     # Inception-v3's fused units per training step, for PERF.md.
     sel = [inception_bn_rows[(*sh, "bfloat16")] for sh in inception]
     counts = list(inception.values())
+    per_step = {name: {**_step_record(sel, counts, f"{part}_"),
+                       "graph_ms": sum(n * r[f"{part}_graph_ms"] for r, n in zip(sel, counts))}
+                for name, part in (("bn_bwd_reduce", "reduce"), ("bn_bwd_apply_dx", "dx"),
+                                   ("bn_bwd_apply_dw", "dw"))}
+    for key in ("library", "composite"):
+        for suffix in ("ms", "graph_ms"):
+            per_step["bn_bwd_apply_dx"][f"{key}_{suffix}"] = sum(
+                n * r[f"dx_{key}_{suffix}"] for r, n in zip(sel, counts))
     emit({"phase": "inception_fused_per_step", "launches": inception_launches["fused"],
-          **{name: _step_record(sel, counts, f"{part}_")
-             for name, part in (("bn_bwd_reduce", "reduce"), ("bn_bwd_apply_dx", "dx"),
-                                ("bn_bwd_apply_dw", "dw"))},
-          "bn_bwd_apply_dw_graph_ms": sum(n * r["dw_graph_ms"] for r, n in zip(sel, counts))})
+          "max_abs_err": {part: max(r["max_abs_err"][part] for r in inception_bn_rows.values())
+                          for part in ("reduce", "dx", "dw")},
+          **per_step})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

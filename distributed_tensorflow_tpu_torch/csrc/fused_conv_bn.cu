@@ -17,13 +17,20 @@
 // against it: dz is the same number in both, and only the sums' order
 // differs.
 //
-// What the TPU kernels did in one sequential grid becomes three kernels:
-//   bn_reduce_kernel  blocks over (64-column strip, M range) each write their
-//                     own [2, N] partial row; the wrapper sums the partials
-//                     (as the JAX package sums them outside the kernel);
-//   bn_apply_dx_kernel one block per 128 x 128 tile of dx, dz recomputed
-//                     from dA, z and the constants for each chunk of N it
-//                     reduces over;
+// What the TPU kernels did in one sequential grid becomes these kernels:
+//   bn_reduce_kernel_sm90 one wave of blocks over (column strip, M range),
+//                     fed by a TMA ring; each writes its partial, and the
+//                     last block of a strip sums the strip's partials in a
+//                     fixed order and writes s1, s2 and the constants' rows
+//                     4-5 (s1/M, s2/M) itself: one launch, no host sum;
+//   bn_apply_dx_strip_sm90 (bf16, N <= 512) a block makes dz for 128 rows
+//                     of M and every column of N once, keeps it in shared
+//                     memory and walks a group of K tiles over it;
+//   bn_apply_dx_panel_sm90 (bf16, N > 512) a block keeps dx for 64 rows of
+//                     M and 256 or 512 columns of K in registers and makes
+//                     each 64-column chunk of dz once for all of them;
+//   bn_apply_dx_kernel (fp32) the first design: one block per 128 x 128
+//                     tile of dx, dz recomputed per tile of K;
 //   bn_apply_dw_kernel_sm90 (bf16) and bn_apply_dw_kernel (fp32) one block
 //                     per (tile of dW, M range): the TPU carried
 //                     dW across its sequential grid; here each block loops
@@ -31,8 +38,80 @@
 //                     second kernel (conv1x1_tile.cuh `sum_splits_kernel`)
 //                     adds in a fixed order. No atomics, so the result is
 //                     the same in every run.
-// dz never goes to device memory: each block makes the tile it multiplies
-// in registers and shared memory, which is what the TPU kernel was for.
+// dz never goes to device memory: each block makes what it multiplies in
+// registers and shared memory, which is what the TPU kernel was for.
+//
+// bf16 dx design (on pointwise_conv.cu's `pw_dgrad_kernel_sm90` and
+// sm90_gemm.cuh; the dW design below). dx = dz W^T has N as its reduction,
+// and the first design made every dz element once per 128 columns of K
+// (ceil(K / 128) times: 2.7x the elements needed over a ResNet-50 step,
+// 7.1x over an Inception-v3 one). Both kernels make each element once per
+// tile: one producer thread keeps Tensor Memory Accelerator (TMA) copies
+// of dA, z and W in flight through a ring of stages guarded by mbarriers;
+// two consumer warpgroups make dz in shared memory with `dz_of` (rounded
+// steps in the plain version's order, so dz is bitwise the plain
+// version's; zero past M and past N, where dz of a zero-filled row or
+// column would not be zero), publish it to the `wgmma` async proxy with
+// `fence.proxy.async` and a named barrier, and multiply it by W with
+// `wgmma` m64n128k16, both operands K-major (N contiguous in dz and W), as
+// in the dgrad. The grid is persistent (one block per SM, tiles t =
+// blockIdx.x, + gridDim.x, ...), and the ring's counter runs across tiles.
+// The epilogue packs the accumulators to bf16 into a stage whose products
+// are done (two swizzled 64 x 64 atoms a 64 x 128 tile) and stores them
+// with one TMA store (`store_dx`), which clips rows past M and columns past
+// K; bf16 pairs stored from registers had taken most of the strip
+// kernel's time (timing-only variants on the H100). The host picks
+// the kernel and its tiles per shape (ops/fused_conv_bn.py `dx_plan`):
+//   strip (N <= 512, every Inception-v3 unit and ResNet-50's reducing
+//     ones): a tile is 128 rows of M, 64 a warpgroup, and a group of
+//     128-column K tiles (all of K where the strips fill the SMs; two
+//     groups at M = 6272 and 8192). Its dA and z come through the ring in
+//     64-column chunks (two 16 KB boxes a stage); each warpgroup turns its
+//     64 rows into dz in a resident strip of 4 (N <= 256) or 8 swizzled 64
+//     x 64 atoms (32 or 64 KB a warpgroup), then, for each K tile, streams
+//     W's [128 K x 128 N] slices (two boxes a stage, W stays in L2) and
+//     runs 8 k-steps a slice into a 64 x 128 accumulator (all 8 always: a
+//     branch among the products makes ptxas fence each one, so a slice's
+//     second box past N is copied as TMA's zeros and its dz atom zeroed
+//     once). Both warpgroups read each slice, so they meet at a named
+//     barrier before the last slice's stage takes the tile's store; the
+//     stage goes back to the producer after the next item has arrived.
+//     Shared memory 64 KB of dz + 5 x 32 KB stages, or 128 KB + 3 x 32 KB.
+//   panel (N > 512, ResNet-50's expanding units): a tile is 64 rows of M
+//     and KT x 256 columns of K (KT = 1 where K <= 256, else 2; a K of
+//     1024 takes two such ranges, so dz is made twice there). A stage holds
+//     a 64-column chunk of dA and z (8 KB boxes), the chunk's six constant
+//     rows (an unswizzled 1.5 KB box: loading them from L2 chunk by chunk
+//     had stalled each dz pass) and W's [256 KT x 64] slice; the 256
+//     consumers make the chunk's dz over dA's slot, and each warpgroup
+//     multiplies it into its KT 64 x 128 accumulators (KT = 2: 128 floats
+//     a thread, which fit because the producer warpgroup gives its
+//     registers up: `setmaxnreg` 40 / 232, as in dW). The next chunk's dz
+//     is made while this chunk's products run; each warpgroup's tile is
+//     stored through its own W boxes of the tile's last stage. Four stages
+//     of 50 KB (KT = 1) or two of 82 KB (KT = 2). A 128-row variant of this
+//     kernel, which halves W's reads from L2, was no faster at any of
+//     ResNet-50's four panel shapes (exploratory, not kept).
+// A dx accumulator sums N / 16 k-steps, at most 128 (N = 2048), so the
+// precision is the first design's. No kernel spills (chip_smoke.py prints
+// ptxas' counts).
+//
+// Reduce design: a block owns 64 columns (bf16; 32 in fp32: 128 bytes a
+// row) and a range of whole 128-row boxes of M (the host's plan,
+// ops/fused_conv_bn.py `reduce_plan`: as many ranges as fill one wave at
+// two blocks an SM). Thread 0 keeps three stages of dA and z boxes in
+// flight; every thread sums 8 (4) columns of 4 rows a box in f32, rounded
+// in the plain version's order. The block's 32 row groups are added in
+// order into its partial row; then a ticket per strip, taken after
+// __threadfence(), finds the strip's last block, which adds the strip's
+// partials in a fixed order (interleaved groups of ranges, 8 in bf16 and
+// 16 in fp32, then the groups in order), writes s1 and s2, and writes
+// s1/M and s2/M by IEEE
+// division (__fdiv_rn: what the CPU path's `s / m` gives; PyTorch's CUDA
+// division by a Python number multiplies by the reciprocal, which may
+// differ by one ulp) into rows 4-5 of the constants that the apply
+// kernels read. It resets its ticket, so a replayed CUDA graph finds them
+// at zero. Two runs give the same bits.
 //
 // bf16 dW design (`bn_apply_dw_kernel_sm90`, on pointwise_conv.cu's
 // `pw_wgrad_kernel_sm90` and sm90_gemm.cuh): one producer thread and two
@@ -92,16 +171,17 @@
 // 61 us); apply reads dA, z, x and W and writes dx and dW, for 4 M K N
 // operations: bytes bound at every shape but the deepest
 // (6272, 2048, 512), where 26 GFLOP take 26 us and 36 MB move in 11 us.
-// Both apply kernels recompute dz once per tile of K (from L2: the K tiles
-// of one M strip run side by side), and split dW's partials cost one
-// more write and read of [splits, K, N] f32. The dx kernel and the fp32 dW
-// kernel (the first design, on conv1x1_tile.cuh's BlockGemm) are capped at
-// 128 registers a thread for two blocks an SM: the loop waits on the
-// global loads of dA and z each chunk, and one block of 8 warps leaves the
-// SM idle meanwhile.
+// The dx kernels read W from L2 once per block tile of M (128 rows, or 64
+// in the panel kernel), and split dW's partials cost one more write and
+// read of [splits, K, N] f32. The fp32 dx and dW kernels (the first
+// design, on conv1x1_tile.cuh's BlockGemm) are capped at 128 registers a
+// thread for two blocks an SM and wait on the global loads of dA and z
+// each chunk.
 
 #include "conv1x1_tile.cuh"
 #include "sm90_gemm.cuh"
+
+#include <algorithm>
 
 namespace {
 
@@ -198,61 +278,152 @@ struct DzOperand {
   }
 };
 
-constexpr int kReduceCols = 64;  // columns per reduce block: 8 threads x 8
+// ---------------------------------------------------------------------------
+// Reduce: one wave over (column strip, M range), the sum finished in-launch
+// ---------------------------------------------------------------------------
+
+// The reduce's boxes and shared memory (byte offsets from a 1024-byte
+// aligned base): three stages of a dA and a z box of 128 rows x 128 bytes,
+// their barriers, and the last-block flag. The block's sums reuse stage 0.
+struct RedSmem {
+  static constexpr int kRows = 128;  // rows of a box
+  static constexpr int kStages = 3;
+  static constexpr int kBox = kRows * 128;
+  static constexpr int kStage = 2 * kBox;
+  static constexpr int kBar = kStages * kStage;
+  static constexpr int kFlag = kBar + kStages * 8;
+  static constexpr int kAlloc = kFlag + 16 + 1024;
+};
 
 template <typename T, bool kRelu>
-__global__ void __launch_bounds__(256)
-    bn_reduce_kernel(const T* __restrict__ da, const T* __restrict__ z,
-                     const float* __restrict__ consts, float* __restrict__ part, int M, int N,
-                     int rows_per_split) {
-  __shared__ float red[2][32][kReduceCols + 1];
-  const int cg = threadIdx.x % 8, rg = threadIdx.x / 8;
-  const int n = blockIdx.x * kReduceCols + cg * 8;
-  const int mb = blockIdx.y * rows_per_split;
+__global__ void __launch_bounds__(256, 2)
+    bn_reduce_kernel_sm90(const __grid_constant__ CUtensorMap map_da,
+                          const __grid_constant__ CUtensorMap map_z,
+                          const float* __restrict__ consts, float* __restrict__ part,
+                          float* __restrict__ s12, float* __restrict__ consts_out,
+                          int* __restrict__ tickets, int M, int N, int rows_per_split) {
+  using S = RedSmem;
+  constexpr int kV = kVec<T>;     // columns of a 16-byte chunk
+  constexpr int kCols = 8 * kV;   // columns of a strip: 128 bytes a row
+  constexpr int kQ = 2 * kCols / 4;  // float4s of a partial row (s1 | s2)
+  constexpr int kG = 256 / kQ;       // thread groups over the ranges at the end
+  extern __shared__ __align__(1024) unsigned char smem_red[];
+  const uint32_t raw = sm90::smem_u32(smem_red);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_red + (base - raw);
+  const uint32_t full = base + S::kBar;
+  const int tid = threadIdx.x;
+  const int strip = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int n0 = strip * kCols;
+  const int mb = split * rows_per_split;
   const int me = min(M, mb + rows_per_split);
-  float s1[8], s2[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) s1[e] = s2[e] = 0.f;
-  if (n < N) {
-    float mu[8], inv[8], gamma[8], beta[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      mu[e] = consts[n + e];
-      inv[e] = consts[N + n + e];
-      gamma[e] = consts[2 * N + n + e];
-      beta[e] = consts[3 * N + n + e];
-    }
-    for (int m = mb + rg; m < me; m += 32) {
-      __align__(16) T a[8], b[8];
-      const int64_t off = (int64_t)m * N + n;
-#pragma unroll
-      for (int v = 0; v < 8 / kVec<T>; ++v) {
-        reinterpret_cast<uint4*>(a)[v] = reinterpret_cast<const uint4*>(da + off)[v];
-        reinterpret_cast<uint4*>(b)[v] = reinterpret_cast<const uint4*>(z + off)[v];
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float xh = __fmul_rn(__fsub_rn(to_float(b[e]), mu[e]), inv[e]);
-        float g = to_float(a[e]);
-        if (kRelu && !(__fadd_rn(__fmul_rn(gamma[e], xh), beta[e]) > 0.f)) g = 0.f;
-        s1[e] = __fadd_rn(s1[e], g);
-        s2[e] = __fadd_rn(s2[e], __fmul_rn(g, xh));
-      }
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    red[0][rg][cg * 8 + e] = s1[e];
-    red[1][rg][cg * 8 + e] = s2[e];
+  const int boxes = (me - mb + S::kRows - 1) / S::kRows;
+  if (tid == 0) {
+    for (int st = 0; st < S::kStages; ++st) sm90::mbar_init(full + 8 * st, 1);
+    sm90::mbar_init_fence();
   }
   __syncthreads();
-  if (threadIdx.x < 2 * kReduceCols) {
-    const int which = threadIdx.x / kReduceCols, col = threadIdx.x % kReduceCols;
-    const int nn = blockIdx.x * kReduceCols + col;
-    float t = 0.f;
-    for (int r = 0; r < 32; ++r) t += red[which][r][col];
-    if (nn < N) part[((int64_t)blockIdx.y * 2 + which) * N + nn] = t;
+  // Thread 0: box b of dA and z (rows mb + 128 b .., columns n0 ..) into
+  // stage b % 3; TMA zero-fills past M and N.
+  auto load_box = [&](int b) {
+    const uint32_t bar = full + 8 * (b % S::kStages);
+    const uint32_t st = base + (b % S::kStages) * S::kStage;
+    sm90::mbar_expect_tx(bar, S::kStage);
+    sm90::tma_load_2d(st, &map_da, n0, mb + b * S::kRows, bar);
+    sm90::tma_load_2d(st + S::kBox, &map_z, n0, mb + b * S::kRows, bar);
+  };
+  if (tid == 0) {
+    for (int b = 0; b < min(S::kStages, boxes); ++b) load_box(b);
   }
+
+  // Thread (rg, j) sums columns [n, n + kV) of rows rg, rg + 32, ... of
+  // each box; its four constants stay in registers.
+  const int j = tid % 8, rg = tid / 8;
+  const int n = n0 + kV * j;
+  const bool col_ok = n < N;
+  float mu[kV], inv[kV], gamma[kV], beta[kV], s1[kV], s2[kV];
+#pragma unroll
+  for (int e = 0; e < kV; ++e) {
+    s1[e] = s2[e] = 0.f;
+    mu[e] = col_ok ? consts[n + e] : 0.f;
+    inv[e] = col_ok ? consts[N + n + e] : 0.f;
+    gamma[e] = col_ok ? consts[2 * N + n + e] : 0.f;
+    beta[e] = col_ok ? consts[3 * N + n + e] : 0.f;
+  }
+  for (int b = 0; b < boxes; ++b) {
+    sm90::mbar_wait(full + 8 * (b % S::kStages), (b / S::kStages) & 1);
+    const unsigned char* st = smem + (b % S::kStages) * S::kStage;
+    if (col_ok) {
+#pragma unroll
+      for (int u = 0; u < S::kRows / 32; ++u) {
+        const int r = rg + 32 * u;
+        if (mb + b * S::kRows + r < me) {
+          const uint32_t off = r * 128 + ((j ^ (r & 7)) << 4);
+          const uint4 a4 = *reinterpret_cast<const uint4*>(st + off);
+          const uint4 z4 = *reinterpret_cast<const uint4*>(st + S::kBox + off);
+          const T* a = reinterpret_cast<const T*>(&a4);
+          const T* zz = reinterpret_cast<const T*>(&z4);
+#pragma unroll
+          for (int e = 0; e < kV; ++e) {
+            const float xh = __fmul_rn(__fsub_rn(to_float(zz[e]), mu[e]), inv[e]);
+            float g = to_float(a[e]);
+            if (kRelu && !(__fadd_rn(__fmul_rn(gamma[e], xh), beta[e]) > 0.f)) g = 0.f;
+            s1[e] = __fadd_rn(s1[e], g);
+            s2[e] = __fadd_rn(s2[e], __fmul_rn(g, xh));
+          }
+        }
+      }
+    }
+    __syncthreads();  // every thread has read stage b: refill it
+    if (tid == 0 && b + S::kStages < boxes) load_box(b + S::kStages);
+  }
+
+  // The block's partial row: its 32 row groups added in order.
+  float* red = reinterpret_cast<float*>(smem);  // [2][32][kCols], over stage 0
+#pragma unroll
+  for (int e = 0; e < kV; ++e) {
+    red[rg * kCols + kV * j + e] = s1[e];
+    red[(32 + rg) * kCols + kV * j + e] = s2[e];
+  }
+  __syncthreads();
+  float* mine = part + ((int64_t)strip * splits + split) * 2 * kCols;
+  if (tid < 2 * kCols) {
+    const int which = tid / kCols, col = tid % kCols;
+    float t = 0.f;
+    for (int r = 0; r < 32; ++r) t = __fadd_rn(t, red[(which * 32 + r) * kCols + col]);
+    mine[tid] = t;
+  }
+  // The strip's last block to finish adds the strip's partials.
+  int* last = reinterpret_cast<int*>(smem + S::kFlag);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *last = atomicAdd(tickets + strip, 1) == splits - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  const float4* p4 = reinterpret_cast<const float4*>(part + (int64_t)strip * splits * 2 * kCols);
+  const int q = tid % kQ, grp = tid / kQ;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+  for (int sp = grp; sp < splits; sp += kG) {
+    const float4 v = __ldcg(p4 + (int64_t)sp * kQ + q);
+    acc.x = __fadd_rn(acc.x, v.x);
+    acc.y = __fadd_rn(acc.y, v.y);
+    acc.z = __fadd_rn(acc.z, v.z);
+    acc.w = __fadd_rn(acc.w, v.w);
+  }
+  reinterpret_cast<float4*>(smem)[grp * kQ + q] = acc;
+  __syncthreads();
+  if (tid < 2 * kCols) {
+    float t = 0.f;
+    for (int g = 0; g < kG; ++g) t = __fadd_rn(t, red[g * 2 * kCols + tid]);
+    const int which = tid / kCols, col = n0 + tid % kCols;
+    if (col < N) {
+      s12[which * N + col] = t;
+      if (consts_out != nullptr) consts_out[(4 + which) * N + col] = __fdiv_rn(t, (float)M);
+    }
+  }
+  if (tid == 0) tickets[strip] = 0;  // ready for the next launch (or graph replay)
 }
 
 template <typename T, bool kRelu>
@@ -472,6 +643,415 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dx: dz made once per block in shared memory, wgmma from a TMA ring
+// ---------------------------------------------------------------------------
+
+// dz of 8 columns (16 bytes of a swizzled row) from dA and z at the same
+// offset: columns [col, col + 8) of row `row`, zero at or past M and N.
+template <bool kRelu>
+__device__ __forceinline__ uint4 dz_chunk(const unsigned char* da_s, const unsigned char* z_s,
+                                          const float (&kc)[6][8], bool ok) {
+  uint4 res = make_uint4(0u, 0u, 0u, 0u);
+  if (ok) {
+    const uint4 a4 = *reinterpret_cast<const uint4*>(da_s);
+    const uint4 z4 = *reinterpret_cast<const uint4*>(z_s);
+    const bf16* a = reinterpret_cast<const bf16*>(&a4);
+    const bf16* z = reinterpret_cast<const bf16*>(&z4);
+    bf16* d = reinterpret_cast<bf16*>(&res);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      d[e] = from_float<bf16>(dz_of<kRelu>(to_float(a[e]), to_float(z[e]), kc[0][e], kc[1][e],
+                                           kc[2][e], kc[3][e], kc[4][e], kc[5][e]));
+    }
+  }
+  return res;
+}
+
+// The six constants of columns [col, col + 8) (zero where col >= N: never
+// read from memory there).
+__device__ __forceinline__ void load_consts(float (&kc)[6][8], const float* consts, int N,
+                                            int col) {
+#pragma unroll
+  for (int q = 0; q < 6; ++q) {
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const float4 f = col < N ? __ldg(reinterpret_cast<const float4*>(consts + q * N + col) + v)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      kc[q][4 * v] = f.x;
+      kc[q][4 * v + 1] = f.y;
+      kc[q][4 * v + 2] = f.z;
+      kc[q][4 * v + 3] = f.w;
+    }
+  }
+}
+
+// dz_chunk with the constants of the chunk's 64 columns in shared memory
+// (cs: six rows of 64 floats, copied there with dA and z), each half's
+// read where it is made (24 floats live, not 48): for the panel kernel,
+// whose accumulators leave the fewest registers.
+template <bool kRelu>
+__device__ __forceinline__ uint4 dz_chunk_smem(const unsigned char* da_s,
+                                               const unsigned char* z_s, const float* cs, int j,
+                                               bool ok) {
+  uint4 res = make_uint4(0u, 0u, 0u, 0u);
+  if (ok) {
+    const uint4 a4 = *reinterpret_cast<const uint4*>(da_s);
+    const uint4 z4 = *reinterpret_cast<const uint4*>(z_s);
+    const bf16* a = reinterpret_cast<const bf16*>(&a4);
+    const bf16* z = reinterpret_cast<const bf16*>(&z4);
+    bf16* d = reinterpret_cast<bf16*>(&res);
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      float4 k[6];
+#pragma unroll
+      for (int q = 0; q < 6; ++q) k[q] = *reinterpret_cast<const float4*>(cs + q * 64 + 8 * j + 4 * v);
+      const float* kq[6] = {&k[0].x, &k[1].x, &k[2].x, &k[3].x, &k[4].x, &k[5].x};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        d[4 * v + e] = from_float<bf16>(dz_of<kRelu>(to_float(a[4 * v + e]), to_float(z[4 * v + e]),
+                                                     kq[0][e], kq[1][e], kq[2][e], kq[3][e],
+                                                     kq[4][e], kq[5][e]));
+      }
+    }
+  }
+  return res;
+}
+
+// Byte offset of 16-byte chunk j of row r in a swizzled box or atom of
+// 128-byte rows (the TMA's 128-byte swizzle, `Tile<64>`).
+__device__ __forceinline__ uint32_t swz(int r, int j) { return r * 128 + ((j ^ (r & 7)) << 4); }
+
+// The epilogue of a 64 x 128 accumulator tile of a warpgroup (named
+// barrier `bar`, thread ct of its 128): bf16 pairs into 16 KB of shared
+// memory at stg (two swizzled 64 x 64 atoms: the dx map's boxes), then
+// thread 0 stores both boxes with TMA at (column col0, row row0) of dx; the
+// memory may be handed back once that thread's sm90::bulk_wait_read()
+// returns. Rows past M and columns past K are not written.
+__device__ __forceinline__ void store_dx(const CUtensorMap* map_dx, unsigned char* stg_ptr,
+                                         uint32_t stg, const float (&acc)[64], int row0, int col0,
+                                         int bar, int ct) {
+  // The lane through volatile asm: the 32 staging offsets follow from it,
+  // and ptxas would otherwise hold them in registers across the kernel.
+  int lane;
+  asm volatile("mov.u32 %0, %%laneid;\n" : "=r"(lane));
+  const int wrow = ct / 32 * 16;
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int r = wrow + sm90::acc_row(lane, i);
+    const int c = sm90::acc_col(lane, i);
+    *reinterpret_cast<__nv_bfloat162*>(stg_ptr + sm90::Tile<128>::offset<64>(r, c)) =
+        __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+  sm90::fence_proxy_async();  // the tile, to the async proxy of the TMA store
+  sm90::warpgroup_sync(bar - 1);
+  if (ct == 0) {
+    sm90::tma_store_2d(map_dx, stg, col0, row0);
+    sm90::tma_store_2d(map_dx, stg + 64 * 128, col0 + 64, row0);
+    sm90::bulk_commit();
+  }
+}
+
+// The strip kernel's shared-memory map (byte offsets from a 1024-byte
+// aligned base): each consumer warpgroup's dz, kAtoms atoms of 64 rows x
+// 64 columns (N <= 64 kAtoms: 4 atoms and five stages up to N = 256, 8 and
+// three up to 512), then the ring; a stage holds a dz item (dA and z boxes
+// of 128 rows x 64 columns) or a W item (two boxes of 128 rows of K x 64
+// columns of N).
+template <int kAtoms>
+struct DxStripSmem {
+  static constexpr int kStages = kAtoms == 4 ? 5 : 3;
+  static constexpr int kAtom = 64 * 128;           // 64 rows x 64 bf16
+  static constexpr int kDzWg = kAtoms * kAtom;     // a warpgroup's dz
+  static constexpr int kBox = 128 * 128;           // 128 rows x 64 bf16
+  static constexpr int kRing = 2 * kDzWg;
+  static constexpr int kStage = 2 * kBox;
+  static constexpr int kBar = kRing + kStages * kStage;
+  static constexpr int kAlloc = kBar + 2 * kStages * 8 + 1024;
+};
+
+template <bool kRelu, int kAtoms>
+__global__ void __launch_bounds__(384, 1)
+    bn_apply_dx_strip_sm90(const __grid_constant__ CUtensorMap map_da,
+                           const __grid_constant__ CUtensorMap map_z,
+                           const __grid_constant__ CUtensorMap map_w,
+                           const __grid_constant__ CUtensorMap map_dx,
+                           const float* __restrict__ consts, int M, int K, int N,
+                           int k_group) {
+  using S = DxStripSmem<kAtoms>;
+  using Ring = sm90::Ring<S::kStages>;
+  extern __shared__ __align__(1024) unsigned char smem_dxs[];
+  const uint32_t raw = sm90::smem_u32(smem_dxs);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_dxs + (base - raw);
+  const Ring ring(base + S::kBar);
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  if (tid == 0) ring.init(256);
+  const int strips = (M + 127) / 128;
+  const int dz_items = (N + 63) / 64;    // 64-column chunks of dA and z
+  const int w_items = (N + 127) / 128;   // 128-column slices of W a K tile
+  // Every slice runs all 8 k-steps (no branch among the products, which
+  // would make ptxas fence each one): a slice's second box may lie past N,
+  // where the TMA copy is all zeros, and its dz atom is zeroed here once.
+  if (tid >= 128 && dz_items % 2) {
+    uint4* pad = reinterpret_cast<uint4*>(smem + (tid - 128) / 128 * S::kDzWg +
+                                          dz_items * S::kAtom);
+    for (int i = tid % 128; i < S::kAtom / 16; i += 128) pad[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  sm90::fence_proxy_async();
+  __syncthreads();
+
+  // A tile is a strip and a group of k_group K tiles (the host's plan).
+  const int k_tiles = (K + 127) / 128;
+  const int groups = (k_tiles + k_group - 1) / k_group;
+  const int tiles = strips * groups;
+  int it = 0;  // items through the ring so far
+  if (wg == 0) {
+    // Producer (one thread): a tile's dz items, then its W items, K tile
+    // by K tile.
+    if (tid == 0) {
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = 128 * (t / groups);
+        const int kt0 = k_group * (t % groups), kt1 = min(k_tiles, kt0 + k_group);
+        for (int c = 0; c < dz_items; ++c, ++it) {
+          const uint32_t bar = ring.acquire(it, S::kStage);
+          const uint32_t st = base + S::kRing + (it % S::kStages) * S::kStage;
+          sm90::tma_load_2d(st, &map_da, 64 * c, m0, bar);
+          sm90::tma_load_2d(st + S::kBox, &map_z, 64 * c, m0, bar);
+        }
+        for (int kt = kt0; kt < kt1; ++kt) {
+          for (int j = 0; j < w_items; ++j, ++it) {
+            const uint32_t bar = ring.acquire(it, S::kStage);
+            const uint32_t st = base + S::kRing + (it % S::kStages) * S::kStage;
+            sm90::tma_load_2d(st, &map_w, 128 * j, 128 * kt, bar);
+            sm90::tma_load_2d(st + S::kBox, &map_w, 128 * j + 64, 128 * kt, bar);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup cw owns rows [64 cw, 64 cw + 64) of each strip.
+  const int cw = wg - 1;
+  const int ct = tid % 128;
+  const uint32_t dz_base = base + cw * S::kDzWg;
+  unsigned char* dz_ptr = smem + cw * S::kDzWg;
+  float acc[64];
+  // The stage that staged the last tile's store: it goes back to the
+  // producer once the next item has arrived (the store overlaps the wait)
+  // and the store has read it.
+  int held = -1;
+  auto let_go = [&]() {
+    if (held >= 0) {
+      if (ct == 0) sm90::bulk_wait_read();
+      ring.release(held);
+      held = -1;
+    }
+  };
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = 128 * (t / groups);
+    const int kt0 = k_group * (t % groups), kt1 = min(k_tiles, kt0 + k_group);
+    // Every warp of the warpgroup is past its last products on the old dz.
+    sm90::warpgroup_sync(wg);
+    // dz of this warpgroup's 64 rows, chunk by chunk: thread ct makes the
+    // 16-byte chunk j = ct % 8 of rows ct / 8 + 16 u.
+    for (int c = 0; c < dz_items; ++c, ++it) {
+      const int j = ct % 8;
+      const int col = 64 * c + 8 * j;
+      float kc[6][8];
+      load_consts(kc, consts, N, col);
+      ring.wait(it);
+      let_go();
+      const unsigned char* st =
+          smem + S::kRing + (it % S::kStages) * S::kStage + cw * 64 * 128;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = ct / 8 + 16 * u;
+        const uint32_t off = swz(r, j);
+        *reinterpret_cast<uint4*>(dz_ptr + c * S::kAtom + off) =
+            dz_chunk<kRelu>(st + off, st + S::kBox + off, kc, col < N && m0 + 64 * cw + r < M);
+      }
+      ring.release(it);
+    }
+    sm90::fence_proxy_async();  // dz, written by this thread, to the async proxy of `wgmma`
+    sm90::warpgroup_sync(wg);   // the warpgroup's dz is in place
+    for (int kt = kt0; kt < kt1; ++kt) {
+      for (int j = 0; j < w_items; ++j, ++it) {
+        ring.wait(it);
+        let_go();
+        const uint32_t st = base + S::kRing + (it % S::kStages) * S::kStage;
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          sm90::wgmma_m64n128<0, 0>(
+              acc, sm90::Tile<64>::desc_k<64>(dz_base + (2 * j + kk / 4) * S::kAtom, kk % 4),
+              sm90::Tile<64>::desc_k<128>(st + (kk / 4) * S::kBox, kk % 4), j > 0 || kk > 0);
+        }
+        sm90::wgmma_commit();
+        // This slice's products stay in flight while the next is awaited;
+        // the slice before has been read once they are the only ones left.
+        sm90::wgmma_wait<1>();
+        if (j > 0) ring.release(it - 1);
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      // The last slice's stage stages the tile (this warpgroup's half) once
+      // both warpgroups' products have read it; it goes back to the
+      // producer once stored.
+      consumers_sync();
+      const uint32_t stg = base + S::kRing + ((it - 1) % S::kStages) * S::kStage + cw * S::kBox;
+      store_dx(&map_dx, smem + (stg - base), stg, acc, m0 + 64 * cw, 128 * kt, wg + 1, ct);
+      held = it - 1;
+    }
+  }
+  let_go();
+  if (ct == 0) sm90::bulk_wait();
+}
+
+// The panel kernel's stage (byte offsets): a dA and a z box of 64 rows x
+// 64 columns, the chunk's six constant rows (64 floats each, unswizzled),
+// then W's slice: 2 KT boxes of 128 rows of K x 64 columns.
+template <int KT>
+struct DxPanelSmem {
+  static constexpr int kStages = KT == 1 ? 4 : 2;
+  static constexpr int kBoxA = 64 * 128;
+  static constexpr int kBoxC = 6 * 64 * 4;
+  static constexpr int kBoxW = 128 * 128;
+  static constexpr int kZ = kBoxA;
+  static constexpr int kC = 2 * kBoxA;
+  static constexpr int kW = kC + 2048;
+  static constexpr int kStage = kW + 2 * KT * kBoxW;
+  static constexpr int kBar = kStages * kStage;
+  static constexpr int kAlloc = kBar + 2 * kStages * 8 + 1024;
+};
+
+template <bool kRelu, int KT>
+__global__ void __launch_bounds__(384, 1)
+    bn_apply_dx_panel_sm90(const __grid_constant__ CUtensorMap map_da,
+                           const __grid_constant__ CUtensorMap map_z,
+                           const __grid_constant__ CUtensorMap map_w,
+                           const __grid_constant__ CUtensorMap map_c,
+                           const __grid_constant__ CUtensorMap map_dx, int M, int K, int N) {
+  using S = DxPanelSmem<KT>;
+  using Ring = sm90::Ring<S::kStages>;
+  constexpr int kKw = 256 * KT;  // columns of K a tile
+  extern __shared__ __align__(1024) unsigned char smem_dxp[];
+  const uint32_t raw = sm90::smem_u32(smem_dxp);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_dxp + (base - raw);
+  const Ring ring(base + S::kBar);
+  const int tid = threadIdx.x;
+  if (tid == 0) ring.init(256);
+  __syncthreads();
+
+  const int ranges = (K + kKw - 1) / kKw;
+  const int tiles = ((M + 63) / 64) * ranges;
+  const int chunks = (N + 63) / 64;
+  // Item q of this block: chunk q % chunks of tile blockIdx.x + (q / chunks) gridDim.x.
+  const int total = ((tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x) * chunks;
+  auto tile_of = [&](int q) { return (int)blockIdx.x + (q / chunks) * (int)gridDim.x; };
+  if (tid >= 256) {
+    // Producer (thread 256; its warpgroup gives its registers up for KT =
+    // 2's 128 accumulator floats a consumer thread). A W box that starts
+    // past K is not copied: its products (stale shared memory) meet only
+    // columns of dx that are never stored.
+    if constexpr (KT == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 256) {
+      for (int q = 0; q < total; ++q) {
+        const int t = tile_of(q), c = q % chunks;
+        const int m0 = 64 * (t / ranges), k0 = kKw * (t % ranges);
+        const int wb = min(2 * KT, (K - k0 + 127) / 128);
+        const uint32_t bar = ring.acquire(q, 2 * S::kBoxA + S::kBoxC + wb * S::kBoxW);
+        const uint32_t st = base + (q % S::kStages) * S::kStage;
+        sm90::tma_load_2d(st, &map_da, 64 * c, m0, bar);
+        sm90::tma_load_2d(st + S::kZ, &map_z, 64 * c, m0, bar);
+        sm90::tma_load_2d(st + S::kC, &map_c, 64 * c, 0, bar);
+        for (int b = 0; b < wb; ++b) {
+          sm90::tma_load_2d(st + S::kW + b * S::kBoxW, &map_w, 64 * c, k0 + 128 * b, bar);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers (threads 0-255). Both warpgroups read the whole 64-row dz
+  // chunk; warpgroup cw owns columns [k0 + 128 KT cw, + 128 KT) of dx, KT
+  // accumulators.
+  if constexpr (KT == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int cw = tid / 128;
+  const int ct = tid;
+  // dz of item q over dA's slot of its stage: thread ct makes chunk j = ct
+  // % 8 of rows ct / 8 + 32 u.
+  auto make_dz = [&](int q) {
+    const int t = tile_of(q), c = q % chunks;
+    const int m0 = 64 * (t / ranges);
+    const int j = ct % 8;
+    const int col = 64 * c + 8 * j;
+    unsigned char* st = smem + (q % S::kStages) * S::kStage;
+    const float* cs = reinterpret_cast<const float*>(st + S::kC);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = ct / 8 + 32 * u;
+      const uint32_t off = swz(r, j);
+      *reinterpret_cast<uint4*>(st + off) =
+          dz_chunk_smem<kRelu>(st + off, st + S::kZ + off, cs, j, col < N && m0 + r < M);
+    }
+  };
+
+  float acc[KT][64];
+  if (total > 0) {
+    ring.wait(0);
+    make_dz(0);
+    sm90::fence_proxy_async();  // dz, written by this thread, to the async proxy of `wgmma`
+    consumers_sync();           // every thread's part of item 0's dz is in place
+  }
+  int q = 0;  // items so far
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = 64 * (t / ranges), k0 = kKw * (t % ranges);
+    for (int c = 0; c < chunks; ++c, ++q) {
+      const uint32_t st = base + (q % S::kStages) * S::kStage;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < KT; ++h) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          sm90::wgmma_m64n128<0, 0>(
+              acc[h], sm90::Tile<64>::desc_k<64>(st, kk),
+              sm90::Tile<64>::desc_k<128>(st + S::kW + (KT * cw + h) * S::kBoxW, kk),
+              c > 0 || kk > 0);
+        }
+      }
+      sm90::wgmma_commit();
+      // The next item's dz is made while this item's products run.
+      if (q + 1 < total) {
+        ring.wait(q + 1);
+        make_dz(q + 1);
+        sm90::fence_proxy_async();
+      }
+      sm90::wgmma_wait<0>();
+      // The tile's last item keeps its stage for the epilogue.
+      if (c + 1 < chunks) ring.release(q);
+      if (q + 1 < total) consumers_sync();
+    }
+    // Epilogue: each accumulator through this warpgroup's own W box of the
+    // last item's stage (no other warpgroup reads it), then the stage goes
+    // back to the producer.
+    const uint32_t st = base + ((q - 1) % S::kStages) * S::kStage;
+#pragma unroll
+    for (int h = 0; h < KT; ++h) {
+      sm90::fence_regs(acc[h]);
+      const uint32_t stg = st + S::kW + (KT * cw + h) * S::kBoxW;
+      store_dx(&map_dx, smem + (stg - base), stg, acc[h], m0, k0 + 128 * (KT * cw + h), cw + 2,
+               ct % 128);
+    }
+    if (ct % 128 == 0) sm90::bulk_wait_read();
+    ring.release(q - 1);
+  }
+  if (ct % 128 == 0) sm90::bulk_wait();
+}
+
 template <class Kernel>
 cudaError_t set_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -494,24 +1074,79 @@ cudaError_t launch_dw_sm90(const void* da, const void* z, const void* x, const f
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t reduce(const void* da, const void* z, const float* consts, float* part, int M, int N,
-                   int rows_per_split, bool relu, cudaStream_t s) {
-  const dim3 grid((N + kReduceCols - 1) / kReduceCols, (M + rows_per_split - 1) / rows_per_split);
-  auto kernel = relu ? bn_reduce_kernel<T, true> : bn_reduce_kernel<T, false>;
-  kernel<<<grid, 256, 0, s>>>(static_cast<const T*>(da), static_cast<const T*>(z), consts, part,
-                              M, N, rows_per_split);
+int sm_count() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+template <typename T, bool kRelu>
+cudaError_t launch_reduce(const void* da, const void* z, const float* consts, float* part,
+                          float* s12, float* consts_out, int* tickets, int M, int N,
+                          int rows_per_split, int strips, int splits, cudaStream_t s) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  cudaError_t err = set_smem(bn_reduce_kernel_sm90<T, kRelu>, RedSmem::kAlloc);
+  if (err != cudaSuccess) return err;
+  CUtensorMap map_da, map_z;
+  err = sm90::make_tmap_2d(&map_da, da, M, N, RedSmem::kRows, kF32);
+  if (err == cudaSuccess) err = sm90::make_tmap_2d(&map_z, z, M, N, RedSmem::kRows, kF32);
+  if (err != cudaSuccess) return err;
+  bn_reduce_kernel_sm90<T, kRelu><<<dim3(strips, splits), 256, RedSmem::kAlloc, s>>>(
+      map_da, map_z, consts, part, s12, consts_out, tickets, M, N, rows_per_split);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t apply_dx(const void* da, const void* z, const void* w, const float* consts, void* dx,
-                     int M, int K, int N, bool relu, cudaStream_t s) {
+// bf16 dx on a persistent grid through the strip kernel (k_cols columns of
+// K a tile) or the panel kernel (k_cols = 256 KT).
+template <bool kRelu>
+cudaError_t launch_dx_sm90(const void* da, const void* z, const void* w, const float* consts,
+                           void* dx, int M, int K, int N, int strip, int k_cols,
+                           cudaStream_t s) {
+  const int rows = strip ? 128 : 64;
+  // dx is stored in 64 x 64 boxes; the panel kernel copies the constants'
+  // rows 0-5 of each 64-column chunk unswizzled.
+  CUtensorMap map_da, map_z, map_w, map_dx, map_c;
+  cudaError_t err = sm90::make_tmap_2d(&map_da, da, M, N, rows);
+  if (err == cudaSuccess) err = sm90::make_tmap_2d(&map_z, z, M, N, rows);
+  if (err == cudaSuccess) err = sm90::make_tmap_2d(&map_w, w, K, N, 128);
+  if (err == cudaSuccess) err = sm90::make_tmap_2d(&map_dx, dx, M, K, 64);
+  if (err == cudaSuccess) err = sm90::make_tmap_2d(&map_c, consts, 8, N, 6, true, 64);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)((M + rows - 1) / rows) * ((K + k_cols - 1) / k_cols);
+  const int grid = (int)std::min<long long>(tiles, sm_count());
+  if (strip && N <= 256) {
+    err = set_smem(bn_apply_dx_strip_sm90<kRelu, 4>, DxStripSmem<4>::kAlloc);
+    if (err != cudaSuccess) return err;
+    bn_apply_dx_strip_sm90<kRelu, 4><<<grid, 384, DxStripSmem<4>::kAlloc, s>>>(
+        map_da, map_z, map_w, map_dx, consts, M, K, N, k_cols / 128);
+  } else if (strip) {
+    err = set_smem(bn_apply_dx_strip_sm90<kRelu, 8>, DxStripSmem<8>::kAlloc);
+    if (err != cudaSuccess) return err;
+    bn_apply_dx_strip_sm90<kRelu, 8><<<grid, 384, DxStripSmem<8>::kAlloc, s>>>(
+        map_da, map_z, map_w, map_dx, consts, M, K, N, k_cols / 128);
+  } else if (k_cols == 256) {
+    err = set_smem(bn_apply_dx_panel_sm90<kRelu, 1>, DxPanelSmem<1>::kAlloc);
+    if (err != cudaSuccess) return err;
+    bn_apply_dx_panel_sm90<kRelu, 1><<<grid, 384, DxPanelSmem<1>::kAlloc, s>>>(
+        map_da, map_z, map_w, map_c, map_dx, M, K, N);
+  } else {
+    err = set_smem(bn_apply_dx_panel_sm90<kRelu, 2>, DxPanelSmem<2>::kAlloc);
+    if (err != cudaSuccess) return err;
+    bn_apply_dx_panel_sm90<kRelu, 2><<<grid, 384, DxPanelSmem<2>::kAlloc, s>>>(
+        map_da, map_z, map_w, map_c, map_dx, M, K, N);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t apply_dx_f32(const void* da, const void* z, const void* w, const float* consts,
+                         void* dx, int M, int K, int N, bool relu, cudaStream_t s) {
   const dim3 grid((K + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  auto kernel = relu ? bn_apply_dx_kernel<T, true> : bn_apply_dx_kernel<T, false>;
-  kernel<<<grid, kThreads, 0, s>>>(static_cast<const T*>(da), static_cast<const T*>(z),
-                                   static_cast<const T*>(w), consts, static_cast<T*>(dx), M, K,
-                                   N);
+  auto kernel = relu ? bn_apply_dx_kernel<float, true> : bn_apply_dx_kernel<float, false>;
+  kernel<<<grid, kThreads, 0, s>>>(static_cast<const float*>(da), static_cast<const float*>(z),
+                                   static_cast<const float*>(w), consts, static_cast<float*>(dx),
+                                   M, K, N);
   return cudaGetLastError();
 }
 
@@ -537,27 +1172,48 @@ bool bad_shape(int M, int N) { return M <= 0 || N <= 0 || N % 8; }
 
 }  // namespace
 
-// s1/s2 partials [ceil(M / rows_per_split), 2, N] f32.
-extern "C" int bn_bwd_reduce(const void* da, const void* z, const void* consts, void* part, int M,
+// s1 and s2 into s12 [2, N] f32 and, unless consts_out is null, s1 / M and
+// s2 / M into its rows 4-5 ([8, N] f32). A block owns 128 bytes of columns
+// (64 bf16, 32 fp32) and rows_per_split rows (a multiple of 128 unless
+// there is one range); part holds the [strips, splits, 2, 128 bytes / 4]
+// f32 partials; tickets holds n_tickets zeroed ints (at least one a strip),
+// which the launch leaves zeroed.
+extern "C" int bn_bwd_reduce(const void* da, const void* z, const void* consts, void* part,
+                             void* s12, void* consts_out, void* tickets, int n_tickets, int M,
                              int N, int rows_per_split, int is_f32, int relu, void* stream) {
   if (bad_shape(M, N) || rows_per_split <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* c = static_cast<const float*>(consts);
-  float* p = static_cast<float*>(part);
-  return (int)(is_f32 ? reduce<float>(da, z, c, p, M, N, rows_per_split, relu, s)
-                      : reduce<__nv_bfloat16>(da, z, c, p, M, N, rows_per_split, relu, s));
-}
-
-// dx [M, K] in the operands' dtype.
-extern "C" int bn_bwd_apply_dx(const void* da, const void* z, const void* w, const void* consts,
-                               void* dx, int M, int K, int N, int is_f32, int relu,
-                               void* stream) {
-  if (bad_shape(M, N) || K <= 0 || K % 8 || (M + kBM - 1) / kBM > 65535)
+  const int strips = (N + (is_f32 ? 32 : 64) - 1) / (is_f32 ? 32 : 64);
+  const int splits = (M + rows_per_split - 1) / rows_per_split;
+  if (strips > n_tickets || splits > 65535 || (splits > 1 && rows_per_split % RedSmem::kRows))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(consts);
-  return (int)(is_f32 ? apply_dx<float>(da, z, w, c, dx, M, K, N, relu, s)
-                      : apply_dx<__nv_bfloat16>(da, z, w, c, dx, M, K, N, relu, s));
+  float* p = static_cast<float*>(part);
+  float* o = static_cast<float*>(s12);
+  float* co = static_cast<float*>(consts_out);
+  int* t = static_cast<int*>(tickets);
+  auto launch = is_f32 ? (relu ? launch_reduce<float, true> : launch_reduce<float, false>)
+                       : (relu ? launch_reduce<bf16, true> : launch_reduce<bf16, false>);
+  return (int)launch(da, z, c, p, o, co, t, M, N, rows_per_split, strips, splits, s);
+}
+
+// dx [M, K] in the operands' dtype. bf16: strip = 1 takes the strip kernel
+// (N <= 512) with k_cols (a multiple of 128) columns of K a tile, strip = 0
+// the panel kernel with k_cols = 256 or 512 (planned by
+// ops/fused_conv_bn.py `dx_plan`); fp32 ignores both.
+extern "C" int bn_bwd_apply_dx(const void* da, const void* z, const void* w, const void* consts,
+                               void* dx, int M, int K, int N, int strip, int k_cols, int is_f32,
+                               int relu, void* stream) {
+  if (bad_shape(M, N) || K <= 0 || K % 8 || (M + kBM - 1) / kBM > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (!is_f32 && !(strip ? N <= 512 && k_cols > 0 && k_cols % 128 == 0
+                         : k_cols == 256 || k_cols == 512))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* c = static_cast<const float*>(consts);
+  if (is_f32) return (int)apply_dx_f32(da, z, w, c, dx, M, K, N, relu, s);
+  return (int)(relu ? launch_dx_sm90<true>(da, z, w, c, dx, M, K, N, strip, k_cols, s)
+                    : launch_dx_sm90<false>(da, z, w, c, dx, M, K, N, strip, k_cols, s));
 }
 
 // dW [K, N] f32 from dA, z [M, N] and x [M, K]; part holds the
@@ -584,14 +1240,46 @@ extern "C" int bn_bwd_apply_dw(const void* da, const void* z, const void* x, con
   return (int)sum_splits(out, static_cast<float*>(dw), (int64_t)K * N, splits, s);
 }
 
-// Dynamic shared memory (bytes) and resident blocks per SM of the bf16 dW
-// kernel with 256-row tiles. Returns a cudaError_t.
-extern "C" int fused_conv_bn_occupancy(int* smem_bytes, int* blocks_per_sm) {
-  *smem_bytes = DwSmem<2>::kAlloc;
-  cudaError_t err = set_smem(bn_apply_dw_kernel_sm90<true, 2>, *smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, bn_apply_dw_kernel_sm90<true, 2>, 384, *smem_bytes);
+template <class Kernel>
+cudaError_t occupancy_of(Kernel kernel, int threads, int smem, int* blocks_per_sm) {
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, smem);
+}
+
+// Dynamic shared memory (bytes) and resident blocks per SM of one kernel:
+// which = 0 bf16 dW (256-row tiles), 1 the dx strip kernel up to N = 256, 2
+// up to N = 512, 3 the dx panel kernel with KT = 1, 4 with KT = 2, 5 the
+// bf16 reduce. Returns a cudaError_t.
+extern "C" int fused_conv_bn_occupancy(int which, int* smem_bytes, int* blocks_per_sm) {
+  switch (which) {
+    case 0:
+      *smem_bytes = DwSmem<2>::kAlloc;
+      return (int)occupancy_of(bn_apply_dw_kernel_sm90<true, 2>, 384, *smem_bytes,
+                               blocks_per_sm);
+    case 1:
+      *smem_bytes = DxStripSmem<4>::kAlloc;
+      return (int)occupancy_of(bn_apply_dx_strip_sm90<true, 4>, 384, *smem_bytes,
+                               blocks_per_sm);
+    case 2:
+      *smem_bytes = DxStripSmem<8>::kAlloc;
+      return (int)occupancy_of(bn_apply_dx_strip_sm90<true, 8>, 384, *smem_bytes,
+                               blocks_per_sm);
+    case 3:
+      *smem_bytes = DxPanelSmem<1>::kAlloc;
+      return (int)occupancy_of(bn_apply_dx_panel_sm90<true, 1>, 384, *smem_bytes,
+                               blocks_per_sm);
+    case 4:
+      *smem_bytes = DxPanelSmem<2>::kAlloc;
+      return (int)occupancy_of(bn_apply_dx_panel_sm90<true, 2>, 384, *smem_bytes,
+                               blocks_per_sm);
+    case 5:
+      *smem_bytes = RedSmem::kAlloc;
+      return (int)occupancy_of(bn_reduce_kernel_sm90<bf16, true>, 256, *smem_bytes,
+                               blocks_per_sm);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* fused_conv_bn_error_string(int code) {

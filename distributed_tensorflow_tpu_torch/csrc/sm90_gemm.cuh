@@ -85,6 +85,32 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Tensor Memory Accelerator store of one box from shared memory at src (in
+// the map's layout) to the box of a 2-D tensor whose first element is
+// (column c0, row c1); elements outside the tensor are not written. It
+// joins this thread's open bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk groups have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk groups have completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // Arrive at barrier bar and add `bytes` to the transaction its phase waits for.
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
@@ -127,18 +153,20 @@ struct Ring {
   __device__ void release(int it) const { mbar_arrive(empty + 8 * (it % S)); }
 };
 
-// Host: a 2-D tensor map of a row-major bf16 matrix [rows, cols] (cols a
-// multiple of 8, base 16-byte aligned) whose boxes are 64 columns (128
-// bytes, one swizzle atom) by box_rows rows, in the 128-byte swizzle of
-// `Tile<64>`. The CUDA driver's encoder is looked up through the CUDA
-// runtime, so nothing links libcuda.
+// Host: a 2-D tensor map of a row-major bf16 (or, with f32, float) matrix
+// [rows, cols] (cols a multiple of 8, base 16-byte aligned) whose boxes are
+// 128 bytes of a row (64 bf16 or 32 float columns, one swizzle atom) by
+// box_rows rows, in the 128-byte swizzle of `Tile<64>`; or, with box_cols
+// > 0, box_cols columns by box_rows rows unswizzled (row-major in shared
+// memory). cuTensorMapEncodeTiled is looked up through the CUDA runtime,
+// so nothing links libcuda.
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 inline cudaError_t make_tmap_2d(CUtensorMap* map, const void* base, int rows, int cols,
-                                int box_rows) {
+                                int box_rows, bool f32 = false, int box_cols = 0) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -155,12 +183,17 @@ inline cudaError_t make_tmap_2d(CUtensorMap* map, const void* base, int rows, in
     encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const int esize = f32 ? 4 : 2;
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)(box_cols > 0 ? box_cols : 128 / esize),
+                             (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+  const CUresult res = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                              2, const_cast<void*>(base),
                               dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              box_cols > 0 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -7,10 +7,10 @@ it to XLA); the backward is the kernels of ``csrc/fused_conv_bn.cu`` behind
 a ``torch.autograd.Function`` in place of ``_fused``'s ``custom_vjp``::
 
     g   = dA * mask             mask = (gamma*x_hat+beta > 0) recomputed
-    s1  = sum_m g               \  reduce kernel: partials per M range,
-    s2  = sum_m g * x_hat       /  summed here
-    dz  = gamma*inv * (g - s1/M - x_hat*s2/M)      per element, in registers
-    dx  = dz @ W^T              \  apply kernels: dz recomputed per tile,
+    s1  = sum_m g               \  reduce kernel: one launch, which also
+    s2  = sum_m g * x_hat       /  writes s1/M and s2/M into the constants
+    dz  = gamma*inv * (g - s1/M - x_hat*s2/M)      per element, on chip
+    dx  = dz @ W^T              \  apply kernels: dz made in shared memory,
     dW  = x^T @ dz              /  never written to device memory
     dgamma = s2, dbeta = s1
 
@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -50,11 +51,17 @@ from distributed_tensorflow_tpu_torch.ops.pointwise_conv import (
 
 _MAX_KN = 4096
 _TILE_BYTES = 2 * 1024 * 1024
-# Blocks to aim for in a split pass on the H100's 132 SMs: eight waves of
-# the light reduce blocks, two of the fp32 dW kernel's product blocks
-# (whose f32 partials cost a write and a read of [splits, K, N] each).
-_REDUCE_BLOCKS = 1056
+# Blocks to aim for in the fp32 dW kernel's split pass on the H100's 132
+# SMs: two waves of its product blocks (whose f32 partials cost a write and
+# a read of [splits, K, N] each).
 _DW_BLOCKS = 264
+# The reduce kernel (csrc/fused_conv_bn.cu `bn_reduce_kernel_sm90`): rows
+# of its boxes, and its blocks an SM (three stages of two 16 KB boxes).
+_RED_BOX_ROWS = 128
+_RED_BLOCKS_PER_SM = 2
+# The bf16 dx kernels: the strip kernel keeps dz of up to this many
+# columns of N in shared memory.
+_DX_STRIP_MAX_N = 512
 # The bf16 dW kernel's dW tile (csrc/fused_conv_bn.cu): _dw_tile_rows(K)
 # rows of K by 128 columns of N.
 _DW_TILE_N = 128
@@ -107,10 +114,14 @@ def fused_supported(m: int, k: int, n: int) -> bool:
 
 def _pack_consts(mu, inv, gamma, beta, c1=None, c2=None) -> torch.Tensor:
     """Per-channel constants as one ``[8, N]`` f32 tensor: mu, inv, gamma,
-    beta, s1/M, s2/M (zero when not given), two zero rows."""
-    z = torch.zeros_like(mu, dtype=torch.float32)
-    rows = [mu, inv, gamma, beta, z if c1 is None else c1, z if c2 is None else c2, z, z]
-    return torch.stack([r.to(torch.float32) for r in rows])
+    beta, s1/M, s2/M (zero when not given: the card's reduce writes them),
+    two zero rows. Two launches and few host operations: it runs once a
+    unit on the step's path."""
+    rows = [mu, inv, gamma, beta] if c1 is None else [mu, inv, gamma, beta, c1, c2]
+    out = torch.zeros((8, mu.shape[0]), dtype=torch.float32, device=mu.device)
+    torch.stack([r if r.dtype == torch.float32 else r.float() for r in rows],
+                out=out[:len(rows)])
+    return out
 
 
 def _g_xhat(da2, z2, consts, relu: bool):
@@ -150,6 +161,55 @@ def bn_bwd_apply_dw_reference(da2, z2, x2, consts, relu: bool):
 _LIBS: dict = {}
 
 
+def reduce_plan(m: int, n: int, fp32: bool, sms: int) -> tuple[int, int]:
+    """``(columns, rows)`` of a block of the reduce kernel: a strip of 128
+    bytes of columns (64 bf16, 32 fp32) and M ranges of whole 128-row boxes,
+    as many as fill one wave of ``sms`` SMs at two blocks each with the
+    shape's strips (one range where the strips alone fill it)."""
+    cols = 32 if fp32 else 64
+    strips = -(-n // cols)
+    boxes = -(-m // _RED_BOX_ROWS)
+    splits = max(1, min(boxes, _RED_BLOCKS_PER_SM * sms // strips))
+    return cols, -(-boxes // splits) * _RED_BOX_ROWS
+
+
+class DxPlan(NamedTuple):
+    """The bf16 dx kernel for a shape and its tiles: ``rows`` of M by
+    ``k_cols`` of K each."""
+
+    kernel: str  # "strip" or "panel"
+    rows: int
+    k_cols: int
+
+
+def dx_plan(m: int, k: int, n: int, sms: int) -> DxPlan:
+    """The bf16 dx kernel and its tiles for an ``[M, N] x [K, N]^T`` shape.
+
+    N <= 512: the strip kernel. A tile is 128 rows of M and a group of
+    128-column K tiles; the block makes the tile's dz (all of N) once and
+    walks the group's K tiles over it. The group is the one whose tiles
+    take the least time over ``sms`` SMs, counted as rounds of tiles times
+    a tile's K tiles plus one for its dz phase; a tie keeps the longer
+    group (dz made fewer times). On the H100 this picked the fastest group
+    at each of ResNet-50's and Inception-v3's strip shapes: all of K where
+    the strips fill the SMs many times over, two groups on Inception-v3's
+    17x17 grid (289 strips: 5 rounds of 3 K tiles, not 3 of 6) and where M
+    is small (6272 or 8192 rows: 49 or 64 strips), three at 3200 rows.
+
+    N > 512: the panel kernel, 64 rows by 256 columns of K where K <= 256,
+    else 512: a block keeps the tile's dx in registers and makes each chunk
+    of dz once for it (``ceil(K / k_cols)`` times in all)."""
+    if n > _DX_STRIP_MAX_N:
+        return DxPlan("panel", 64, 256 if k <= 256 else 512)
+    strips, k_tiles = -(-m // 128), -(-k // 128)
+
+    def cost(per: int) -> tuple[int, int]:
+        rounds = -(-strips * -(-k_tiles // per) // sms)
+        return rounds * (per + 1), -per
+
+    return DxPlan("strip", 128, 128 * min(range(1, k_tiles + 1), key=cost))
+
+
 def _library():
     """The kernel library, built and bound on the first call and cached."""
     if not _LIBS:
@@ -159,10 +219,10 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(i)
         for fn, argtypes in (
-            ("bn_bwd_reduce", [p] * 4 + [i] * 5 + [p]),
-            ("bn_bwd_apply_dx", [p] * 5 + [i] * 5 + [p]),
+            ("bn_bwd_reduce", [p] * 7 + [i] * 6 + [p]),
+            ("bn_bwd_apply_dx", [p] * 5 + [i] * 7 + [p]),
             ("bn_bwd_apply_dw", [p] * 6 + [i] * 7 + [p]),
-            ("fused_conv_bn_occupancy", [ip, ip]),
+            ("fused_conv_bn_occupancy", [i, ip, ip]),
         ):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
@@ -179,15 +239,22 @@ def build() -> None:
 
 def occupancy() -> dict:
     """Dynamic shared memory (bytes) and resident blocks per SM of the bf16
-    dW kernel, as the card's occupancy calculator reports them:
-    ``{"bn_bwd_apply_dw": (smem, blocks)}``."""
+    kernels, as the card's occupancy calculator reports them: ``{name:
+    (smem, blocks)}`` for the dW kernel (256-row tiles), the dx strip
+    kernel up to N = 256 and 512, the dx panel kernel at 256 and 512
+    columns of K, and the reduce."""
     lib = _library()
-    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    rc = lib.fused_conv_bn_occupancy(ctypes.byref(smem), ctypes.byref(blocks))
-    if rc != 0:
-        msg = lib.fused_conv_bn_error_string(rc).decode()
-        raise RuntimeError(f"fused_conv_bn_occupancy failed: {msg}")
-    return {"bn_bwd_apply_dw": (smem.value, blocks.value)}
+    out = {}
+    for which, name in enumerate(("bn_bwd_apply_dw", "bn_bwd_apply_dx_strip_256",
+                                  "bn_bwd_apply_dx_strip_512", "bn_bwd_apply_dx_panel_256",
+                                  "bn_bwd_apply_dx_panel_512", "bn_bwd_reduce")):
+        smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        rc = lib.fused_conv_bn_occupancy(which, ctypes.byref(smem), ctypes.byref(blocks))
+        if rc != 0:
+            msg = lib.fused_conv_bn_error_string(rc).decode()
+            raise RuntimeError(f"fused_conv_bn_occupancy({name}) failed: {msg}")
+        out[name] = (smem.value, blocks.value)
+    return out
 
 
 def dw_rows_per_split(m: int, k: int, n: int, sms: int) -> int:
@@ -204,7 +271,7 @@ def _check(fn: str, tensors: dict, consts) -> torch.dtype:
     if tensors["z"].shape != tensors["da"].shape:
         raise ValueError(f"{fn}: da and z must share one [M, N] shape")
     if (consts.dtype != torch.float32 or tuple(consts.shape) != (8, n)
-            or consts.device != tensors["da"].device or not consts.is_contiguous()):
+            or consts.get_device() != tensors["da"].get_device() or not consts.is_contiguous()):
         raise ValueError(f"{fn}: consts must be contiguous f32 [8, {n}] on da's device")
     return dtype
 
@@ -217,31 +284,56 @@ def _launch(lib, fn: str, *args) -> None:
     LAUNCHES[fn] += 1
 
 
-def bn_bwd_reduce_cuda(da2, z2, consts, relu: bool):
-    """Launch the reduce kernel: ``(s1, s2)`` f32 ``[N]``, its partials
-    summed here."""
+# Per device: the reduce kernel's tickets, one per column strip (N up to
+# 32768 fp32), zero between launches (each launch leaves them so). One
+# stream at a time may run the reduce on a device.
+_TICKETS: dict = {}
+_N_TICKETS = 1024
+
+
+def _tickets(device: int) -> torch.Tensor:
+    t = _TICKETS.get(device)
+    if t is None:
+        t = _TICKETS[device] = torch.zeros(_N_TICKETS, dtype=torch.int32, device=device)
+    return t
+
+
+def bn_bwd_reduce_cuda(da2, z2, consts, relu: bool, *, write_consts: bool = False):
+    """Launch the reduce kernel: ``(s1, s2)`` f32 ``[N]``, summed over M in
+    the launch in a fixed order (two runs give the same bits). With
+    ``write_consts`` it also writes ``s1 / M`` and ``s2 / M`` into rows 4-5
+    of ``consts``, as the CPU path's division gives them, for the apply
+    kernels."""
     dtype = _check("bn_bwd_reduce_cuda", {"da": da2, "z": z2}, consts)
     m, n = da2.shape
-    rows = rows_per_split(m, -(-n // 64), _REDUCE_BLOCKS)
-    part = torch.empty((-(-m // rows), 2, n), dtype=torch.float32, device=da2.device)
+    fp32 = dtype == torch.float32
+    device = da2.get_device()
+    cols, rows = reduce_plan(m, n, fp32, sm_count(device))
+    strips, splits = -(-n // cols), -(-m // rows)
+    part = torch.empty((strips, splits, 2, cols), dtype=torch.float32, device=device)
+    s12 = torch.empty((2, n), dtype=torch.float32, device=device)
     _launch(_library(), "bn_bwd_reduce", da2.data_ptr(), z2.data_ptr(), consts.data_ptr(),
-            part.data_ptr(), m, n, rows, int(dtype == torch.float32), int(relu),
-            torch.cuda.current_stream(da2.device).cuda_stream)
-    total = part.sum(0)
-    return total[0], total[1]
+            part.data_ptr(), s12.data_ptr(), consts.data_ptr() if write_consts else None,
+            _tickets(device).data_ptr(), _N_TICKETS, m, n, rows, int(fp32), int(relu),
+            torch.cuda.current_stream(device).cuda_stream)
+    return s12[0], s12[1]
 
 
 def bn_bwd_apply_dx_cuda(da2, z2, w2, consts, relu: bool):
-    """Launch the dx kernel of the apply pass: ``[M, K]`` in dA's dtype."""
+    """Launch the dx kernel of the apply pass: ``[M, K]`` in dA's dtype
+    (bf16: the strip or panel kernel, by :func:`dx_plan`)."""
     dtype = _check("bn_bwd_apply_dx_cuda", {"da": da2, "z": z2, "w": w2}, consts)
     m, n = da2.shape
     k = w2.shape[0]
     if w2.shape[1] != n:
         raise ValueError(f"bn_bwd_apply_dx_cuda: w {tuple(w2.shape)} is not [K, {n}]")
-    dx = torch.empty((m, k), dtype=dtype, device=da2.device)
+    device = da2.get_device()
+    dx = torch.empty((m, k), dtype=dtype, device=device)
+    plan = dx_plan(m, k, n, sm_count(device))
     _launch(_library(), "bn_bwd_apply_dx", da2.data_ptr(), z2.data_ptr(), w2.data_ptr(),
-            consts.data_ptr(), dx.data_ptr(), m, k, n, int(dtype == torch.float32),
-            int(relu), torch.cuda.current_stream(da2.device).cuda_stream)
+            consts.data_ptr(), dx.data_ptr(), m, k, n, int(plan.kernel == "strip"),
+            plan.k_cols, int(dtype == torch.float32), int(relu),
+            torch.cuda.current_stream(device).cuda_stream)
     return dx
 
 
@@ -276,9 +368,10 @@ def _bn_bwd(da2, z2, x2, w2, mean, inv, gamma, beta, relu: bool):
     m = x2.shape[0]
     consts = _pack_consts(mean, inv, gamma, beta)
     if da2.is_cuda:
+        # The reduce fills rows 4-5 of consts; nothing runs between it and
+        # the apply kernels.
         da2, z2, x2, w2 = (t.contiguous() for t in (da2, z2, x2, w2))
-        s1, s2 = bn_bwd_reduce_cuda(da2, z2, consts, relu)
-        consts = _pack_consts(mean, inv, gamma, beta, s1 / m, s2 / m)
+        s1, s2 = bn_bwd_reduce_cuda(da2, z2, consts, relu, write_consts=True)
         dx2 = bn_bwd_apply_dx_cuda(da2, z2, w2, consts, relu)
         dw = bn_bwd_apply_dw_cuda(da2, z2, x2, consts, relu)
         return dx2, dw, s1, s2

@@ -103,7 +103,7 @@ def wgrad_rows_per_split(m: int, k: int, n: int, sms: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device | int) -> int:
     """The card's streaming multiprocessors (the split plans' wave)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -158,7 +158,8 @@ def check_operands(fn: str, tensors: dict) -> torch.dtype:
     or fp32 tensor of one dtype on one CUDA device whose last dim is a
     multiple of 8; returns the dtype."""
     first = next(iter(tensors.values()))
-    if not all(x.is_cuda and x.device == first.device for x in tensors.values()):
+    index = first.get_device()  # an int: cheaper to compare than torch.device
+    if not all(x.is_cuda and x.get_device() == index for x in tensors.values()):
         raise ValueError(f"{fn}: {', '.join(tensors)} must be on one CUDA device")
     if first.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{fn}: dtype {first.dtype} not in (bfloat16, float32)")

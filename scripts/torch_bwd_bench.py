@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the flash-attention backward and the fused conv+BN dW kernel on one
-CUDA card, at the shapes of their main paths.
+"""Time the flash-attention backward and the fused conv+BN backward
+kernels on one CUDA card, at the shapes of their main paths.
 
 - ``flash``: the BERT-base training cell (B=24, L=512, H=12, D=64, bf16,
   no padding): the dQ kernel (``flash_bwd_dq``), the dK/dV kernel and the whole backward
@@ -12,6 +12,17 @@ CUDA card, at the shapes of their main paths.
   (b=128, 224x224, 29 units a step) and Inception-v3's 12 (299x299, 128
   images, 27 units a step), each shape's time times its units, summed
   (``scripts/torch_pw_bench.py``'s ``RESNET50`` and ``INCEPTION_FUSED``);
+- ``bn_dx``: ``bn_bwd_apply_dx`` (ReLU on) at the same shapes, summed the
+  same way, beside two yardsticks that are not ports of it: ``composite``,
+  dz made by the plain elementwise code into device memory in bf16 and
+  then ``pw_dgrad_cuda`` (what the fused kernel must beat for dz in
+  shared memory to pay), and ``product``, ``torch.matmul(dz, w.t())`` of a
+  dz made ahead (the product alone);
+- ``bn_reduce``: ``bn_bwd_reduce`` at the same shapes, summed the same way:
+  ``reduce`` the wrapper alone, and ``to_consts`` the whole sequence that
+  ``_bn_bwd`` runs from the batch statistics to the apply kernels'
+  constants (in a checkout whose reduce cannot write them: the reduce,
+  then ``s / m`` and a second ``_pack_consts``);
 - ``bn_dw_precision``: how close ``bn_bwd_apply_dw`` comes to its
   tolerance against the plain version (1e-5 x max |dW| + 1e-5, as the
   tests hold it) at the shapes whose M ranges sum the most rows, over 8
@@ -24,7 +35,7 @@ the same calls replayed from one CUDA graph), with ``scripts/torch_pw_bench.py``
 timers. Prints the card's name and power limit, then one JSON line per
 measurement and per-step sums; needs a card::
 
-    python3 scripts/torch_bwd_bench.py [--parts flash bn_dw bn_dw_precision]
+    python3 scripts/torch_bwd_bench.py [--parts flash bn_dw bn_dx bn_reduce bn_dw_precision]
 
 To time another checkout by the same method (for example a ``git archive``
 of an earlier commit), copy this script and ``scripts/torch_pw_bench.py``
@@ -37,6 +48,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -48,6 +60,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb  # noqa: E402
+from distributed_tensorflow_tpu_torch.ops import pointwise_conv as pc  # noqa: E402
 
 # The package re-exports the function under the module's name.
 fm = importlib.import_module("distributed_tensorflow_tpu_torch.ops.flash_attention")
@@ -96,6 +109,8 @@ def bench_flash(pwb, iters: int) -> dict:
 
 
 def _bn_inputs(gen, m, k, n):
+    """x, W, dA, z (bf16), the batch statistics (mean, inv, gamma, beta)
+    and the apply pass's constants (s1/M, s2/M of the plain reduce)."""
     x = torch.randn(m, k, device="cuda", dtype=torch.bfloat16, generator=gen)
     w = (torch.randn(k, n, device="cuda", generator=gen) * k**-0.5).bfloat16()
     da = torch.randn(m, n, device="cuda", dtype=torch.bfloat16, generator=gen)
@@ -105,29 +120,75 @@ def _bn_inputs(gen, m, k, n):
     inv = torch.rsqrt(zf.square().mean(0) - mean.square() + 1e-5)
     gamma = torch.rand(n, device="cuda", generator=gen) + 0.5
     beta = torch.randn(n, device="cuda", generator=gen) * 0.5
-    c0 = fcb._pack_consts(mean, inv, gamma, beta)
-    s1, s2 = fcb.bn_bwd_reduce_reference(da, z, c0, True)
-    return x, da, z, fcb._pack_consts(mean, inv, gamma, beta, s1 / m, s2 / m)
+    stats = (mean, inv, gamma, beta)
+    s1, s2 = fcb.bn_bwd_reduce_reference(da, z, fcb._pack_consts(*stats), True)
+    return x, w, da, z, stats, fcb._pack_consts(*stats, s1 / m, s2 / m)
 
 
-def bench_bn_dw(pwb, iters: int) -> dict:
-    gen = torch.Generator("cuda").manual_seed(SEED + 1)
+def _per_step(pwb, iters: int, part: str, seed: int, calls) -> dict:
+    """Time ``calls(m, k, n, inputs) -> {name: fn}`` at ResNet-50's and
+    Inception-v3's fused shapes (``ms`` and ``graph_ms`` of each), and sum
+    each name's times weighted by the shape's units a step."""
+    gen = torch.Generator("cuda").manual_seed(seed)
     out = {}
     for cell, table in (("resnet50", pwb.RESNET50), ("inception_v3", pwb.INCEPTION_FUSED)):
         table = {pwb.mkn(*sh): units for sh, units in table.items()}
-        total = {"ms": 0.0, "graph_ms": 0.0, "units": 0}
+        total = {}
         for (m, k, n), units in table.items():
-            x, da, z, consts = _bn_inputs(gen, m, k, n)
-            fn = lambda: fcb.bn_bwd_apply_dw_cuda(da, z, x, consts, True)  # noqa: E731
-            rec = {"ms": pwb.cuda_ms(fn, iters), "graph_ms": pwb.graph_ms(fn, iters)}
-            emit({"part": "bn_dw", "cell": cell, "M": m, "K": k, "N": n, "units": units, **rec})
-            for key in ("ms", "graph_ms"):
-                total[key] += units * rec[key]
-            total["units"] += units
-            del x, da, z, consts
+            inputs = _bn_inputs(gen, m, k, n)
+            for name, fn in calls(m, k, n, inputs).items():
+                rec = {"ms": pwb.cuda_ms(fn, iters), "graph_ms": pwb.graph_ms(fn, iters)}
+                emit({"part": part, "cell": cell, "call": name, "M": m, "K": k, "N": n,
+                      "units": units, **rec})
+                acc = total.setdefault(name, {"ms": 0.0, "graph_ms": 0.0, "units": 0})
+                for key in ("ms", "graph_ms"):
+                    acc[key] += units * rec[key]
+                acc["units"] += units
+            del inputs
         out[cell] = total
-        emit({"part": "bn_dw", "cell": cell, "per_step": total})
+        emit({"part": part, "cell": cell, "per_step": total})
     return out
+
+
+def bench_bn_dw(pwb, iters: int) -> dict:
+    def calls(m, k, n, inputs):
+        x, _, da, z, _, consts = inputs
+        return {"bn_bwd_apply_dw": lambda: fcb.bn_bwd_apply_dw_cuda(da, z, x, consts, True)}
+
+    return _per_step(pwb, iters, "bn_dw", SEED + 1, calls)
+
+
+def bench_bn_dx(pwb, iters: int) -> dict:
+    def calls(m, k, n, inputs):
+        _, w, da, z, _, consts = inputs
+        dz = fcb._dz(da, z, consts, True, torch.bfloat16)
+        return {"bn_bwd_apply_dx": lambda: fcb.bn_bwd_apply_dx_cuda(da, z, w, consts, True),
+                "composite": lambda: pc.dgrad_cuda(fcb._dz(da, z, consts, True, torch.bfloat16),
+                                                   w),
+                "product": lambda: torch.matmul(dz, w.t())}
+
+    return _per_step(pwb, iters, "bn_dx", SEED + 2, calls)
+
+
+def bench_bn_reduce(pwb, iters: int) -> dict:
+    writes = "write_consts" in inspect.signature(fcb.bn_bwd_reduce_cuda).parameters
+
+    def calls(m, k, n, inputs):
+        _, _, da, z, stats, _ = inputs
+        c0 = fcb._pack_consts(*stats)
+
+        def to_consts():
+            consts = fcb._pack_consts(*stats)
+            if writes:
+                fcb.bn_bwd_reduce_cuda(da, z, consts, True, write_consts=True)
+                return consts
+            s1, s2 = fcb.bn_bwd_reduce_cuda(da, z, consts, True)
+            return fcb._pack_consts(*stats, s1 / m, s2 / m)
+
+        return {"reduce": lambda: fcb.bn_bwd_reduce_cuda(da, z, c0, True),
+                "to_consts": to_consts}
+
+    return _per_step(pwb, iters, "bn_reduce", SEED + 3, calls)
 
 
 PRECISION_SHAPES = [(6272, 1024, 2048), (6272, 2048, 2048), (3136, 2048, 2048),
@@ -140,7 +201,7 @@ def bench_bn_dw_precision(seeds: int = 8) -> dict:
         worst = 0.0
         for seed in range(seeds):
             gen = torch.Generator("cuda").manual_seed(1000 + seed)
-            x, da, z, consts = _bn_inputs(gen, m, k, n)
+            x, _, da, z, _, consts = _bn_inputs(gen, m, k, n)
             ref = fcb.bn_bwd_apply_dw_reference(da, z, x, consts, True)
             got = fcb.bn_bwd_apply_dw_cuda(da, z, x, consts, True)
             tol = 1e-5 * ref.abs().max().item() + 1e-5
@@ -154,7 +215,7 @@ def bench_bn_dw_precision(seeds: int = 8) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parts = ["flash", "bn_dw", "bn_dw_precision"]
+    parts = ["flash", "bn_dw", "bn_dx", "bn_reduce", "bn_dw_precision"]
     ap.add_argument("--parts", nargs="+", default=parts, choices=parts)
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
@@ -170,6 +231,10 @@ def main(argv=None) -> int:
         summary["flash"] = bench_flash(pwb, args.iters)
     if "bn_dw" in args.parts:
         summary["bn_dw"] = bench_bn_dw(pwb, args.iters)
+    if "bn_dx" in args.parts:
+        summary["bn_dx"] = bench_bn_dx(pwb, args.iters)
+    if "bn_reduce" in args.parts:
+        summary["bn_reduce"] = bench_bn_reduce(pwb, args.iters)
     if "bn_dw_precision" in args.parts:
         summary["bn_dw_precision"] = bench_bn_dw_precision()
     emit({"summary": summary})

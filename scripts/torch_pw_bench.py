@@ -105,17 +105,23 @@ INCEPTION_FUSED = {
     **{(128, 8, k, n): 1 for k in (1280, 2048) for n in (192, 320, 384, 448)},
     (128, 5, 768, 128): 1,
 }
-# (M, K, N) that the fused dW kernel's tiling and copy ring put at risk,
+# (M, K, N) that the fused kernels' tiling and copy rings put at risk,
 # checked but not timed (chip_smoke.py and the card tests of
 # tests/test_torch_fused_conv_bn.py): M below one chunk and M not a multiple
 # of 64 (dz zeroed past M), N = 160 and 200 (a dz chunk partly past N,
 # whose constants are never read), K = 8 (one x2 box, mostly past K,
 # 128-row tiles), fewer dW tiles than SMs (6272, 512, 2048: 32 tiles, 4 M
 # ranges), a single M range (3136, 2048, 2048: 128 tiles) and ranges cut by
-# the 4096-row cap (6272, 2048, 2048).
+# the 4096-row cap (6272, 2048, 2048); then the dx kernels' boundaries, at
+# an M that is no whole number of 128- or 64-row strips: N = 512 (the
+# strip kernel's widest dz), 520 (the panel kernel, a last chunk 8 columns
+# wide) at K = 256 (one 256-column tile), 512 (one 512-column tile) and 520
+# (two, the second 8 columns wide), and K = 520 in the strip kernel (a last
+# K tile 8 columns wide).
 BN_RISK_SHAPES = [(17, 256, 128), (25091, 256, 128), (4099, 256, 160), (4099, 256, 200),
                   (1000, 8, 128), (17, 8, 8), (6272, 512, 2048), (3136, 2048, 2048),
-                  (6272, 2048, 2048)]
+                  (6272, 2048, 2048), (4099, 256, 512), (1000, 520, 512), (1000, 256, 520),
+                  (1000, 512, 520), (1000, 520, 520)]
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores
 WARMUP, ITERS = 3, 20

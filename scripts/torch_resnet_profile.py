@@ -142,10 +142,12 @@ def profile(args) -> list[dict]:
         per_step = lambda us: us / 1e3 / args.iters  # noqa: E731
         device_ms = per_step(sum(kernels.values()))
         wall_ms = statistics.median(walls[rows])
-        port = {name: per_step(sum(v for k, v in kernels.items() if f"{name}_kernel" in k))
+        # A port kernel's functions are named after it (bn_apply_dx_strip_sm90,
+        # pw_dgrad_kernel_sm90, ...).
+        port = {name: per_step(sum(v for k, v in kernels.items() if f"{name}_" in k))
                 for name in PORT_KERNELS}
         # The kernel functions behind each sum, as the profiler names them.
-        functions = {name: sorted({m.group(1) for k in kernels if f"{name}_kernel" in k
+        functions = {name: sorted({m.group(1) for k in kernels if f"{name}_" in k
                                    for m in [re.search(r"::(\w+)[<(]", k)] if m})
                      for name in PORT_KERNELS}
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:args.top]

@@ -60,7 +60,9 @@ Phases (any failure exits non-zero before the result lines):
    apply dW) against their plain versions at ResNet-50's 12 shapes and
    Inception-v3's 12 (N = 160, 192, 320 and 448 end partway through the
    kernels' column tiles) in bf16, timed with ReLU on, and in fp32, each
-   with ReLU on and off, plus a ragged M; and at ``BN_RISK_SHAPES`` (from
+   with ReLU on and off, plus a ragged M; at ResNet-50's shapes at 64
+   rows, the data-parallel phases' rows a rank (bf16, untimed); and at
+   ``BN_RISK_SHAPES`` (from
    ``scripts/torch_pw_bench.py``) in bf16 and fp32, checked only: s1, s2
    within 1e-5 of the terms' magnitudes summed and bitwise equal across
    two runs, the constants' rows 4-5 that the reduce writes bitwise equal
@@ -139,6 +141,35 @@ Phases (any failure exits non-zero before the result lines):
 14. train_cli_inception — the same for ``--config imagenet_inception_async
    --image-size 75`` (no aux head below 299x299): the restore also brings
    back the K = 4 stale ring, on the card.
+
+15. train_cli_dp — ``cli.train --config imagenet_resnet50 --image-size 64
+   --global-batch 16 --steps 3`` with the cluster flags
+   (``--coordinator-address 127.0.0.1:<free port> --num-processes 1
+   --process-id 0``): the log must show an NCCL group of world size 1, and
+   a ``Checkpointer`` restores its checkpoint on the card; the same run as
+   rank 1 of 2 with nobody at the coordinator (``--init-timeout 5``) must
+   exit non-zero; then ``scripts/torch_dp_train.py`` at world 1 over NCCL
+   (full-width ResNet-50 ``fused``, 128 rows, 3 steps, 29 launches of each
+   fused kernel a step) and one real NCCL all-reduce of its flat gradient
+   bucket (25.6 M f32), timed.
+16. train_dp_resnet50 — ``scripts/torch_dp_train.py`` as two processes on
+   the one card over gloo (NCCL refuses two ranks on one device; gloo
+   stages CUDA tensors through the host), full-width ResNet-50 ``fused``,
+   64 rows each of one fixed global batch of 128, 3 steps through
+   ``initialize_runtime`` + ``make_train_step`` + ``fit``. Checks: the
+   ranks' params, momentum slots and batch_stats bitwise equal after every
+   step (digests); steps 1 and 2 repeated in this process as two 64-row
+   ``fused`` shards with gradients and statistics averaged by hand, bit
+   for bit the same params, momentum and batch_stats as rank 0's; step 2's
+   averaged gradients and statistics (every zero-initialised BN scale has
+   moved by then, so every leaf has a gradient) against the same two
+   shards through the plain ``conv`` backend, at the train_resnet50
+   phase's tolerances; 29 launches of each fused kernel a step per rank;
+   the loss falls. Prints ms a step (5 more steps with no digest) and the
+   all-reduce's ms. Then K = 4 stale gradients for K + 2 = 6 steps:
+   lockstep, launches, params still for the first K steps (the ring gives
+   zeros), moved by the first stored gradient at step K + 1 and again at
+   K + 2, and a loss that moves with them.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs one card; without CUDA it exits 1.
@@ -1290,6 +1321,277 @@ def phase_train_cli_image(torch):
           "restored_step": step, "batch_stats": len(stats)})
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _repo_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, (str(ROOT), env.get("PYTHONPATH"))))
+    return env
+
+
+def load_dp_train():
+    """``scripts/torch_dp_train.py`` as a module: the DP phases' model,
+    recipe and fixed batch."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_dp_train", ROOT / "scripts" / "torch_dp_train.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _dp_launch(world: int, backend: str, *extra: str, timeout: int = 600) -> list[dict]:
+    """``scripts/torch_dp_train.py`` as ``world`` processes on a fresh port,
+    under one deadline of ``timeout`` seconds for them all; each rank's
+    output goes to files under ``build/chip_smoke_dp_logs/`` (no pipe to
+    fill). Returns each rank's JSON line."""
+    port = _free_port()
+    log_dir = ROOT / "build" / "chip_smoke_dp_logs"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    log_dir.mkdir(parents=True)
+    paths = [(log_dir / f"rank{r}.out", log_dir / f"rank{r}.err") for r in range(world)]
+    procs = []
+    try:
+        for r, (out, err) in enumerate(paths):
+            with open(out, "w") as fo, open(err, "w") as fe:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "scripts" / "torch_dp_train.py"),
+                     "--world", str(world), "--rank", str(r), "--port", str(port),
+                     "--backend", backend, *extra],
+                    cwd=ROOT, env=_repo_env(), stdout=fo, stderr=fe, text=True))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                raise SmokeFailure(f"torch_dp_train ({backend}, world {world}) passed {timeout} s")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = [(out.read_text(), err.read_text()) for out, err in paths]
+    for r, (p, (out, err)) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"torch_dp_train rank {r} of {world} ({backend}) exited "
+                                 f"{p.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in logs]
+
+
+DP_LAUNCHES = RESNET50_LAUNCHES["fused"]
+DP_ROWS = 128  # the global batch of the DP phases
+DP_RANK_ROWS = DP_ROWS // 2  # rows a rank at world 2
+DP_STALENESS = 4
+
+
+def phase_train_cli_dp(torch):
+    """``cli.train --config imagenet_resnet50 --image-size 64`` as one rank
+    of an NCCL group of one (the cluster flags), with a checkpoint that a
+    ``Checkpointer`` restores; the same CLI with a coordinator nobody
+    serves must exit non-zero; then ``scripts/torch_dp_train.py`` at world
+    1 over NCCL: full-width ResNet-50 at 128 rows, and one real NCCL
+    all-reduce of its flat gradient bucket."""
+    from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
+    from distributed_tensorflow_tpu_torch.cli.train import PRESETS, _make_tx
+    from distributed_tensorflow_tpu_torch.models import ResNet50
+    from distributed_tensorflow_tpu_torch.train import create_train_state
+    from distributed_tensorflow_tpu_torch.train.objectives import init_model
+
+    ckpt_dir = ROOT / "build" / "chip_smoke_dp"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    args = [sys.executable, "-m", "distributed_tensorflow_tpu_torch.cli.train",
+            "--config", "imagenet_resnet50", "--image-size", "64", "--global-batch", "16",
+            "--steps", "3", "--lr", "0.05", "--log-every", "1"]
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        args + ["--ckpt-dir", str(ckpt_dir), "--coordinator-address",
+                f"127.0.0.1:{_free_port()}", "--num-processes", "1", "--process-id", "0"],
+        cwd=ROOT, env=_repo_env(), capture_output=True, text=True, timeout=600)
+    seconds = time.monotonic() - t0
+    check(proc.returncode == 0, f"cli.train exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    group = [ln for ln in proc.stderr.splitlines() if "process group:" in ln]
+    check(len(group) == 1 and "backend=nccl world=1 rank=0 device=cuda:0" in group[0],
+          f"process group log: {group}")
+    steps = [ln for ln in proc.stderr.splitlines() if "train.loop: step" in ln]
+    check(len(steps) == 3 and all("loss=nan" not in ln for ln in steps), f"log: {steps}")
+    model = ResNet50(dtype=torch.bfloat16, device="cuda")
+    params, model_state = init_model(model)
+    tx, _ = _make_tx(PRESETS["imagenet_resnet50"])
+    state, step = Checkpointer(ckpt_dir).restore_latest(create_train_state(params, tx,
+                                                                           model_state))
+    stats = state.model_state["batch_stats"]
+    check(step == 3 and all(t.is_cuda for t in stats.values())
+          and all(not torch.equal(stats[k], model_state["batch_stats"][k]) for k in stats),
+          f"restored step {step} and its batch_stats")
+    del model, params, model_state, state
+    # A declared cluster that cannot form (rank 1 of 2, nobody at the
+    # coordinator) fails the run; it never trains alone.
+    t1 = time.monotonic()
+    bad = subprocess.run(
+        args + ["--coordinator-address", f"127.0.0.1:{_free_port()}", "--num-processes", "2",
+                "--process-id", "1", "--init-timeout", "5"],
+        cwd=ROOT, env=_repo_env(), capture_output=True, text=True, timeout=300)
+    bad_seconds = time.monotonic() - t1
+    check(bad.returncode != 0 and "train.loop: step" not in bad.stderr,
+          f"cli.train with an unreachable coordinator exited {bad.returncode}")
+    (rank,) = _dp_launch(1, "nccl", "--steps", "3", "--rows", str(DP_ROWS))
+    check(len(rank["losses"]) == 3 and all(np.isfinite(rank["losses"])),
+          f"world-1 losses {rank['losses']}")
+    check({k: v for k, v in rank["launches"].items() if v}
+          == {k: 3 * v for k, v in DP_LAUNCHES.items()}, f"world-1 launches {rank['launches']}")
+    check(rank["allreduce_ok"], "the NCCL all-reduce of a group of one changed the bucket")
+    emit({"phase": "train_cli_dp", "seconds": seconds, "group": group[0].split(": ", 1)[-1],
+          "last_log": steps[-1].split(": ", 1)[-1], "restored_step": step,
+          "bad_coordinator_exit": bad.returncode, "bad_coordinator_seconds": bad_seconds,
+          "bad_coordinator_error": (bad.stderr.strip().splitlines() or [""])[-1][-300:]})
+    emit({"phase": "train_dp_world1", **{k: v for k, v in rank.items() if k != "digests"}})
+    return rank
+
+
+def _hand_mean_step(model, params, model_state, batch, torch):
+    """One data-parallel step by hand in this process: the loss of each
+    ``DP_RANK_ROWS``-row shard of ``batch``, then the gradients and the
+    BatchNorm statistics averaged as the all-reduce's sum of two halved."""
+    from distributed_tensorflow_tpu_torch.train.objectives import make_classification_loss
+
+    loss_fn = make_classification_loss(model)
+    grads, stats = [], []
+    for r in range(DP_ROWS // DP_RANK_ROWS):
+        shard = {k: v[r * DP_RANK_ROWS:(r + 1) * DP_RANK_ROWS] for k, v in batch.items()}
+        loss, (new_state, _) = loss_fn(params, model_state, shard, None)
+        grads.append(dict(zip(params, torch.autograd.grad(loss, list(params.values())))))
+        stats.append(new_state["batch_stats"])
+    mean = lambda trees: {k: (trees[0][k] + trees[1][k]) / 2 for k in trees[0]}  # noqa: E731
+    return mean(grads), mean(stats)
+
+
+def phase_train_dp_resnet50(torch):
+    """Full-width ResNet-50 ``fused`` as two ranks on the one card over
+    gloo (NCCL refuses two ranks on one device), 64 rows each of a fixed
+    global batch of 128: bitwise equal ranks after every step; steps 1 and
+    2 repeated in this process as two 64-row ``fused`` shards averaged by
+    hand, bit for bit; step 2's averaged gradients and statistics against
+    the plain ``conv`` backend's; 29 launches of each fused kernel a step
+    per rank; a falling loss; then K = 4 stale gradients for K + 2 steps
+    (lockstep, launches, params held for K steps and then moved)."""
+    dp = load_dp_train()
+    out_dir = ROOT / "build" / "chip_smoke_dp_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.monotonic()
+    ranks = _dp_launch(2, "gloo", "--steps", "3", "--rows", str(DP_ROWS), "--save", str(out_dir))
+    seconds = time.monotonic() - t0
+    for rank in ranks:
+        check({k: v for k, v in rank["launches"].items() if v}
+              == {k: 3 * v for k, v in DP_LAUNCHES.items()},
+              f"rank {rank['rank']} launches {rank['launches']}")
+        check(rank["allreduce_ok"], f"rank {rank['rank']}: the gloo all-reduce's sum is wrong")
+    check(ranks[0]["digests"] == ranks[1]["digests"] and len(ranks[0]["digests"]) == 3,
+          f"the ranks' states differ: {[r['digests'] for r in ranks]}")
+    losses = ranks[0]["losses"]
+    check(losses == ranks[1]["losses"] and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"losses {[r['losses'] for r in ranks]}")
+
+    # Steps 1 and 2 in this process, under the ranks' numerics: the two
+    # shards' gradients and statistics averaged by hand, then the same SGD
+    # update. The ranks ran the same kernels on the same shards, so rank 0's
+    # state must match bit for bit.
+    dp.numerics()
+    model, state, _ = dp.build("cuda")
+    batch = dp.fixed_batch(DP_ROWS, "cuda")
+    for step in (1, 2):
+        grads, stats = _hand_mean_step(model, state.params, state.model_state, batch, torch)
+        for name, p in state.params.items():
+            p.grad = grads[name]
+        state.opt_state.apply()
+        for p in state.params.values():
+            p.grad = None
+        if step == 1:
+            # The state step 2 starts from, for the plain backend below.
+            start = ({k: v.detach().clone() for k, v in state.params.items()},
+                     {k: v.clone() for k, v in stats.items()})
+        state.model_state = {"batch_stats": stats}
+        saved = torch.load(out_dir / f"dp_step{step}.pt", weights_only=True)
+        mine = {"params": {k: v.detach() for k, v in state.params.items()},
+                "slots": dp.slots(state), "batch_stats": stats}
+        for part in ("params", "batch_stats"):
+            differ = [k for k, v in mine[part].items()
+                      if not torch.equal(saved[part][k].cuda(), v)]
+            check(not differ and mine[part].keys() == saved[part].keys(),
+                  f"DP step {step}: {part} differ from the hand-averaged shards' "
+                  f"at {len(differ)} leaves, {differ[:4]}")
+        differ = [k for k, slot in mine["slots"].items()
+                  if slot.keys() != saved["slots"][k].keys()
+                  or not all(torch.equal(saved["slots"][k][n].cuda(), t) for n, t in slot.items())]
+        check(not differ and mine["slots"].keys() == saved["slots"].keys(),
+              f"DP step {step}: momentum differs at {len(differ)} leaves, {differ[:4]}")
+    fused_grads, fused_stats = grads, stats
+    del model, state, saved, mine
+
+    # Step 2's averaged gradients and statistics through the plain backend
+    # from the same state: the fused kernels at the 64-row shapes against
+    # cuDNN and PyTorch's BatchNorm.
+    conv_model, conv_state, _ = dp.build("cuda", pw_backend="conv")
+    check(conv_state.params.keys() == start[0].keys(), "conv and fused parameter names differ")
+    with torch.no_grad():
+        for k, v in conv_state.params.items():
+            v.copy_(start[0][k])
+    conv_grads, conv_stats = _hand_mean_step(conv_model, conv_state.params,
+                                             {"batch_stats": start[1]}, batch, torch)
+    total, per = _rel_errors(fused_grads, conv_grads, torch)
+    stat_total, _ = _rel_errors(fused_stats, conv_stats, torch)
+    worst = max(per, key=per.get)
+    median = statistics.median(per.values())
+    zero = sum(int(not g.any()) for g in conv_grads.values())
+    del conv_model, conv_state, conv_grads, conv_stats, fused_grads, fused_stats, start
+    torch.cuda.empty_cache()
+    check(zero == 0, f"{zero} leaves have an all-zero plain gradient at step 2")
+    # The train_resnet50 phase's tolerances.
+    check(total <= 5e-2 and median <= 5e-2 and per[worst] <= 0.5,
+          f"DP step 2's gradients differ from the plain backend's: total {total}, "
+          f"median {median}, worst {worst} {per[worst]}")
+    check(stat_total <= 1e-2, f"DP step 2's batch_stats differ from the plain backend's: "
+                              f"{stat_total}")
+
+    depth = DP_STALENESS
+    t1 = time.monotonic()
+    stale = _dp_launch(2, "gloo", "--steps", str(depth + 2), "--rows", str(DP_ROWS), "--mode",
+                       "stale", "--staleness", str(depth))
+    stale_seconds = time.monotonic() - t1
+    check(stale[0]["digests"] == stale[1]["digests"] and len(stale[0]["digests"]) == depth + 2,
+          f"stale ranks' states differ: {[r['digests'] for r in stale]}")
+    for rank in stale:
+        check({k: v for k, v in rank["launches"].items() if v}
+              == {k: (depth + 2) * v for k, v in DP_LAUNCHES.items()},
+              f"stale rank {rank['rank']} launches {rank['launches']}")
+    # The ring applies zeros for K steps (SGD without decay: the params stay
+    # put), then step 1's gradient at step K + 1 and step 2's at K + 2; the
+    # loss of step K + 2 is the first taken after a real update.
+    pd, stale_losses = stale[0]["param_digests"], stale[0]["losses"]
+    check(len(set(pd[:depth])) == 1 and len(set(pd[depth - 1:])) == 3,
+          f"stale params: digests {pd}")
+    check(stale_losses[depth + 1] != stale_losses[depth], f"stale losses {stale_losses}")
+    emit({"phase": "train_dp_resnet50", "seconds": seconds, "world": 2, "backend": "gloo",
+          "global_rows": DP_ROWS, "losses": losses,
+          "step_ms": {r["rank"]: r["step_ms"] for r in ranks},
+          "step_ms_median": {r["rank"]: r["step_ms_median"] for r in ranks},
+          "allreduce_ms": {r["rank"]: r["allreduce_ms"] for r in ranks},
+          "bucket_numel": ranks[0]["bucket_numel"],
+          "peak_mem_gb": {r["rank"]: r["peak_mem_gb"] for r in ranks},
+          "launches": ranks[0]["launches"], "vs_hand_fused": "bitwise equal, steps 1 and 2",
+          "vs_conv_rel_l2_err_total": total, "vs_conv_median_rel_l2_err": median,
+          "vs_conv_worst_leaf": {worst: per[worst]},
+          "vs_conv_batch_stats_rel_l2_err": stat_total})
+    emit({"phase": "train_dp_resnet50_stale", "seconds": stale_seconds, "staleness": depth,
+          "losses": stale_losses, "step_ms": {r["rank"]: r["step_ms"] for r in stale},
+          "step_ms_median": {r["rank"]: r["step_ms_median"] for r in stale},
+          "launches": stale[0]["launches"]})
+    return ranks
+
+
 def _payloads(vocab: int):
     rng = np.random.default_rng(SEED)
     lengths = ([int(x) for x in rng.integers(64, 129, 8)]
@@ -1509,6 +1811,9 @@ def main() -> int:
             fcb, pc, pwb, torch, [(m, k, n, bf16, both, True) for m, k, n in r50]
             + [(25091, 1024, 256, bf16, both, True), (6275, 512, 256, f32, both, True)]
             + [(m, k, n, f32, both, False) for m, k, n in r50], "resnet50")
+        # The data-parallel phases run the same kernels at 64 rows a rank.
+        phase_kernel_bn_bwd(fcb, pc, pwb, torch, [(m * DP_RANK_ROWS // 128, k, n, bf16, both,
+                                                   False) for m, k, n in r50], "resnet50_dp_rank")
         inception_bn_rows = phase_kernel_bn_bwd(
             fcb, pc, pwb, torch, [(m, k, n, bf16, both, True) for m, k, n in inception]
             + [(36992, 768, 160, f32, (True,), True)]
@@ -1530,6 +1835,9 @@ def main() -> int:
         phase_train_cli(torch)
         phase_train_cli_image(torch)
         phase_train_cli_inception(torch)
+        torch.cuda.empty_cache()
+        dp_world1 = phase_train_cli_dp(torch)
+        dp_ranks = phase_train_dp_resnet50(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1600,6 +1908,9 @@ def main() -> int:
             "replaces": bn_ref + line, "launches": image_launches["fused"][name],
             "max_abs_err": max(r["max_abs_err"][part] for r in bn_rows.values()),
             **_step_record(sel, units, f"{part}_"), "library_ms": None, "cell": cell,
+            "dp_launches": {"world1_nccl": dp_world1["launches"][name],
+                            **{f"world2_gloo_rank{r['rank']}": r["launches"][name]
+                               for r in dp_ranks}},
             "graph_ms": sum(n * r[f"{part}_graph_ms"] for r, n in zip(sel, units)),
             "blocks_per_sm": bn_blocks[name],
             "ptxas": {entry: rec for key in bn_ptxas[name] for entry, rec in ptxas[key].items()},

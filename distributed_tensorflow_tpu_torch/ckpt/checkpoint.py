@@ -8,6 +8,12 @@ adds the optimizer state, the stale gradient ring and the generator state
 to the same file, so :func:`restore_serving_state` serves a training
 checkpoint unchanged.
 
+Under several processes (:mod:`..parallel.mesh`) the ranks hold the same
+replicated state, so rank 0 alone writes and prunes, every rank reads, and
+the ranks agree on the newest step by rank 0's word: the coordination the
+JAX package's orbax checkpointer does across its processes. The directory
+is one that every rank sees.
+
 Importing an orbax checkpoint written by the JAX package needs JAX to read
 it and is left to a later slice: convert such params with :mod:`..interop`
 and ``save`` them here.
@@ -22,6 +28,9 @@ import threading
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
+
+from distributed_tensorflow_tpu_torch.parallel.mesh import barrier, process_count, process_index
 
 logger = logging.getLogger(__name__)
 
@@ -78,7 +87,13 @@ class Checkpointer:
     ``save`` copies the state to the CPU on the caller's thread (the step
     updates the parameters in place right after) and writes the file on a
     background thread; ``wait`` blocks until the last write is durable.
-    The newest ``max_to_keep`` files are kept. Usage::
+    The newest ``max_to_keep`` files are kept.
+
+    Under several processes every rank calls ``save``, ``latest_step`` and
+    ``restore_latest`` at the same points (they meet in collectives): rank 0
+    snapshots, writes and prunes, and the ranks meet at a barrier after
+    its snapshot; ``latest_step`` is rank 0's, after its last write is
+    durable, so a rank that restores reads a whole file. Usage::
 
         ckpt = Checkpointer(dir)
         state, start = ckpt.restore_latest(state, generator=g)  # (state, 0) on a fresh dir
@@ -94,7 +109,11 @@ class Checkpointer:
 
     def save(self, step: int, state, *, generator: torch.Generator | None = None) -> None:
         """Save ``state`` (a :class:`~..train.state.TrainState`) as ``step``,
-        with ``generator``'s state when one is given."""
+        with ``generator``'s state when one is given. Only rank 0 writes;
+        every rank returns after rank 0 has taken its snapshot."""
+        if process_index() != 0:
+            barrier()
+            return
         blob = {
             "step": int(step),
             "params": _to_cpu(state.params),
@@ -109,6 +128,7 @@ class Checkpointer:
             target=self._write_and_prune, args=(int(step), blob),
             name="ckpt-writer", daemon=True)
         self._thread.start()
+        barrier()
 
     def _write_and_prune(self, step: int, blob: dict) -> None:
         try:
@@ -122,15 +142,22 @@ class Checkpointer:
             self._error = e
 
     def latest_step(self) -> int | None:
-        """Newest saved step, counting a save still being written."""
+        """Newest saved step, counting a save still being written: rank 0's
+        answer on every rank, given once its last write is durable."""
         self.wait()
-        return latest_step(self.directory)
+        step = latest_step(self.directory) if process_index() == 0 else None
+        if process_count() > 1:
+            box = [step]
+            dist.broadcast_object_list(box, src=0)
+            step = box[0]
+        return step
 
     def restore_latest(self, state, *, generator: torch.Generator | None = None):
         """Load the newest checkpoint into ``state`` in place (parameters,
         optimizer state, stale ring, step), its ``model_state`` (BatchNorm
         running statistics) onto the parameters' device, and, when both
-        exist, the saved generator state into ``generator``. Returns
+        exist, the saved generator state into ``generator``. Every rank
+        reads the step that rank 0 names onto its own device. Returns
         ``(state, step)``; ``(state, 0)`` untouched when there is no
         checkpoint."""
         step = self.latest_step()

@@ -1,14 +1,16 @@
 """``python -m distributed_tensorflow_tpu_torch.cli.train --config <preset>``.
 
-Port of the JAX package's ``cli/train.py`` on one process, on the card by
-default (``--device cpu`` runs on the CPU), for the presets ``bert_base``
-(MLM + NSP pretraining), ``mnist_lenet``, ``cifar_resnet20``,
-``imagenet_resnet50`` and ``imagenet_inception_async`` (image
-classification with BatchNorm statistics in the train state; the last
-under K = 4 stale gradients), under synchronous or K-stale data
-parallelism. The
-optimizer recipes keep the JAX names: :func:`make_lr_schedule`,
-:func:`_decay_mask` and :func:`_make_tx`.
+Port of the JAX package's ``cli/train.py``, on the card by default
+(``--device cpu`` runs on the CPU), in one process or as one rank of a
+multi-process job (``--coordinator-address host:port --num-processes N
+--process-id i`` in each process, or a torchrun environment; each rank
+trains on its own card and ``--global-batch`` stays global), for the
+presets ``bert_base`` (MLM + NSP pretraining), ``mnist_lenet``,
+``cifar_resnet20``, ``imagenet_resnet50`` and ``imagenet_inception_async``
+(image classification with BatchNorm statistics in the train state; the
+last under K = 4 stale gradients), under synchronous or K-stale data
+parallelism. The optimizer recipes keep the JAX names:
+:func:`make_lr_schedule`, :func:`_decay_mask` and :func:`_make_tx`.
 
 Data is seeded and synthetic: the Markov-chain MLM stream, and class-template
 images through the numpy feed (no augmentation; the JAX CLI falls back to
@@ -358,8 +360,6 @@ _UNPORTED_FLAGS = {
                      "--moe-dispatch", "--moe-topk", "--pipeline-parallel",
                      "--pipeline-microbatches", "--expert-parallel"),
                     "comes with the model-parallel slice"),
-    **dict.fromkeys(("--coordinator-address", "--num-processes", "--process-id"),
-                    "comes with the multi-card slice"),
     **dict.fromkeys(("--resilient", "--max-restarts", "--fault-plan", "--nonfinite",
                      "--beacon-dir", "--dump-dir"), "comes with the resilient-training slice"),
     **dict.fromkeys(("--tb-dir", "--metrics-jsonl", "--profile-dir", "--profile-steps",
@@ -373,8 +373,12 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
     """Train ``cfg`` on ``args.device``; returns ``(state, last_metrics)``."""
     from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
     from distributed_tensorflow_tpu_torch.data.prefetch import prefetch
-    from distributed_tensorflow_tpu_torch.device import resolve_device
     from distributed_tensorflow_tpu_torch.obs.metrics import FeedMetrics
+    from distributed_tensorflow_tpu_torch.parallel.mesh import (
+        build_mesh,
+        initialize_runtime,
+        process_index,
+    )
     from distributed_tensorflow_tpu_torch.train import (
         aggregate_metric_sums,
         create_train_state,
@@ -384,8 +388,18 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
         make_train_step,
     )
 
-    device = resolve_device(args.device)
-    logger.info("workload=%s device=%s", cfg.name, device)
+    # Multi-process bootstrap before anything touches a device: explicit
+    # flags, or a launcher's environment; neither is one process.
+    device = initialize_runtime(
+        coordinator_address=args.coordinator_address or None,
+        num_processes=args.num_processes if args.num_processes > 0 else None,
+        process_id=args.process_id if args.process_id >= 0 else None,
+        device=args.device,
+        timeout_s=args.init_timeout,
+    )
+    mesh = build_mesh({"data": -1})
+    if process_index() == 0:
+        logger.info("workload=%s mesh=%s device=%s", cfg.name, dict(mesh.shape), device)
     pieces = cfg.build(cfg)(device)
     tx, lr_schedule = _make_tx(cfg)
     staleness = cfg.staleness if cfg.mode == "stale" else 0
@@ -438,10 +452,26 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
 
 
 def make_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Training on one CUDA card (or the CPU)")
+    p = argparse.ArgumentParser(
+        description="Training on CUDA cards, one a process (or on the CPU)")
     p.add_argument("--config", required=True, help=f"workload preset; ported: {sorted(PRESETS)}")
     p.add_argument("--device", default="cuda",
-                   help="training device: cuda (default; fails without a card) or cpu")
+                   help="training device: cuda (default: this rank's card; fails "
+                        "without one) or cpu")
+    p.add_argument("--coordinator-address", default="",
+                   help="multi-process bootstrap: coordinator ip:port of the process "
+                        "group (required for a manual launch)")
+    p.add_argument("--num-processes", type=int, default=0,
+                   help="multi-process bootstrap: total process count "
+                        "(with --coordinator-address)")
+    p.add_argument("--process-id", type=int, default=-1,
+                   help="multi-process bootstrap: this process's rank in "
+                        "[0, --num-processes)")
+    p.add_argument("--init-timeout", type=float, default=300.0,
+                   help="multi-process bootstrap: seconds the process group may take to "
+                        "form before the run fails; a deployment setting, as "
+                        "jax.distributed.initialize's initialization_timeout is (the "
+                        "JAX CLI keeps that one at its default)")
     p.add_argument("--steps", type=int, default=0, help="override num_steps")
     p.add_argument("--global-batch", type=int, default=0)
     p.add_argument("--image-size", type=int, default=0,
@@ -507,9 +537,14 @@ def main(argv: list[str] | None = None) -> int:
         if args.staleness:
             overrides["mode"] = "stale"
     cfg = dataclasses.replace(PRESETS[args.config], **overrides)
-    _, last = run(cfg, args)
-    if last is not None:
-        logger.info("final: %s", last)
+    from distributed_tensorflow_tpu_torch.parallel.mesh import process_index, shutdown_runtime
+
+    try:
+        _, last = run(cfg, args)
+        if last is not None and process_index() == 0:
+            logger.info("final: %s", last)
+    finally:
+        shutdown_runtime()
     return 0
 
 

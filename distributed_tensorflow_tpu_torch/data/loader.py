@@ -5,10 +5,10 @@ The producer is **stream-position indexed**: batch ``k`` of a run is a pure
 function of ``(seed, k)``, so a checkpoint-restored run passes
 ``start_step=N`` and consumes batches ``N, N+1, ...``. Each epoch reshuffles
 with the permutation ``np.random.default_rng(seed + epoch)`` of the JAX
-package, so both packages draw the same rows in the same order. With a
-``torch.distributed`` group every rank takes its own contiguous slice of
-each global batch (the JAX package's per-process slice); one process takes
-it all.
+package, so both packages draw the same rows in the same order. Under
+several processes every rank takes its own contiguous slice of each global
+batch (:func:`..parallel.mesh.process_rows`, the JAX package's per-process
+slice); one process takes it all.
 
 The native C++ pipeline (augmentation on a worker pool) comes with a later
 slice; this is the numpy feed the JAX package falls back to when that
@@ -22,10 +22,10 @@ from collections.abc import Iterator
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from distributed_tensorflow_tpu_torch.data.synthetic import SyntheticClassification
 from distributed_tensorflow_tpu_torch.device import resolve_device
+from distributed_tensorflow_tpu_torch.parallel.mesh import process_rows
 
 
 def _center_crop(images: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
@@ -58,12 +58,7 @@ def device_batches(
     n = len(dataset)
     if global_batch > n:
         raise ValueError(f"global batch {global_batch} > dataset size {n}")
-    world, rank = 1, 0
-    if dist.is_available() and dist.is_initialized():
-        world, rank = dist.get_world_size(), dist.get_rank()
-    if global_batch % world:
-        raise ValueError(f"global batch {global_batch} not divisible by {world} processes")
-    local_b = global_batch // world
+    start, stop = process_rows(global_batch)
     batches_per_epoch = n // global_batch
     step = start_step
     epoch, order = -1, None
@@ -71,8 +66,8 @@ def device_batches(
         e, slot = divmod(step, batches_per_epoch)
         if e != epoch:
             epoch, order = e, np.random.default_rng(seed + e).permutation(n)
-        lo = slot * global_batch + rank * local_b
-        idx = order[lo : lo + local_b]
+        lo = slot * global_batch
+        idx = order[lo + start : lo + stop]
         images = dataset.images[idx]
         # Crop before the u8 -> f32 scale: the elementwise work then touches
         # only the pixels kept (the result is the same).

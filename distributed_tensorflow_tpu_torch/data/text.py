@@ -20,9 +20,9 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from distributed_tensorflow_tpu_torch.device import resolve_device
+from distributed_tensorflow_tpu_torch.parallel.mesh import process_rows
 
 PAD, CLS, SEP, MASK = 0, 1, 2, 3
 NUM_SPECIAL = 4
@@ -136,23 +136,17 @@ def mlm_device_batches(
     by default).
 
     Batch k, global row r is a pure function of ``(seed, k, r //
-    _ROW_CHUNK)``, whatever the number of processes: with a
-    ``torch.distributed`` group each rank generates only the row chunks of
-    its contiguous slice of ``global_batch``, and one process generates
-    them all. So a restored run resumes at ``start_step`` with the batches
-    an uninterrupted run would have seen. Generation runs inline in
-    ``next()``; wrap it in :func:`~.prefetch.prefetch` to move it off the
-    step's critical path.
+    _ROW_CHUNK)``, whatever the number of processes: under several
+    processes each rank generates only the row chunks of its contiguous
+    slice of ``global_batch`` (:func:`..parallel.mesh.process_rows`), and
+    one process generates them all. So a restored run resumes at
+    ``start_step`` with the batches an uninterrupted run would have seen.
+    Generation runs inline in ``next()``; wrap it in
+    :func:`~.prefetch.prefetch` to move it off the step's critical path.
     """
     dev = resolve_device(device)
-    world, rank = 1, 0
-    if dist.is_available() and dist.is_initialized():
-        world, rank = dist.get_world_size(), dist.get_rank()
-    if global_batch % world:
-        raise ValueError(f"global batch {global_batch} not divisible by {world} processes")
-    local_b = global_batch // world
-    start_row = rank * local_b
-    stop_row = start_row + local_b
+    start_row, stop_row = process_rows(global_batch)
+    local_b = stop_row - start_row
     if start_row % _ROW_CHUNK or (local_b % _ROW_CHUNK and stop_row != global_batch):
         raise ValueError(
             f"per-process batch {local_b} (offset {start_row}) must align to "

@@ -537,27 +537,23 @@ class ServeMetrics:
         }
 
 
-def _rank() -> int:
-    import torch.distributed as dist
-
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
-
-
 def make_metric_hook(
     logdir: str | Path | None = None,
     jsonl: str | Path | None = None,
 ):
     """Build a ``fit()`` hook writing to TensorBoard and/or JSONL.
 
-    Rank 0 only (the ``torch.distributed`` rank, 0 without a process
-    group); returns a no-op hook elsewhere. The hook signature is
+    Rank 0 only (:func:`..parallel.mesh.process_index`, 0 without a
+    process group); returns a no-op hook elsewhere. The hook signature is
     the loop's: ``hook(step, state, metrics)``. Empty strings count as
     unset — a default-constructed CLI arg must never create an event file
     in the current directory.
     """
     logdir = logdir or None
     jsonl = jsonl or None
-    if _rank() != 0 or (logdir is None and jsonl is None):
+    from distributed_tensorflow_tpu_torch.parallel.mesh import process_index
+
+    if process_index() != 0 or (logdir is None and jsonl is None):
         return lambda step, state, metrics: None
     writers = []
     if logdir is not None:

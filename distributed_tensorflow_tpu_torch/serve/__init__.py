@@ -22,6 +22,7 @@ from distributed_tensorflow_tpu_torch.serve.engine import (  # noqa: F401
     CompileRecord,
     InFlightBatch,
     RequestError,
+    plan_serve_mesh,
 )
 from distributed_tensorflow_tpu_torch.serve.server import (  # noqa: F401
     Client,

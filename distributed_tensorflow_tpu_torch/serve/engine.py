@@ -47,6 +47,46 @@ class RequestError(ValueError):
     """A malformed or un-servable request (maps to HTTP 400, not 500)."""
 
 
+def plan_serve_mesh(
+    tp: int = 1,
+    pp: int = 1,
+    ep: int = 1,
+    n_devices: int | None = None,
+) -> tuple[dict, bool]:
+    """Serving-mesh spec for the requested model parallelism, with graceful
+    degradation: returns ``(spec, fell_back)``.
+
+    The model axes need ``tp * pp * ep`` devices (default
+    ``torch.cuda.device_count()``) and the remainder goes to data
+    parallelism, so the product must divide the device count. When it
+    does not, serving falls back to one device a replica, data-parallel,
+    with a warning: a wrong-sized ``--tp`` degrades to slower serving and
+    never dies at startup. It only plans: the engines that serve the
+    tensor, expert and pipeline layouts come with the model-parallel slice.
+    """
+    if n_devices is None:
+        n_devices = torch.cuda.device_count()
+    need = max(tp, 1) * max(pp, 1) * max(ep, 1)
+    if need <= 1:
+        return {"data": -1}, False
+    if need > n_devices or n_devices % need:
+        logger.warning(
+            "requested serving mesh (tp=%d pp=%d ep=%d) needs %d devices "
+            "to divide the %d available; falling back to single-device "
+            "data-parallel serving",
+            tp, pp, ep, need, n_devices,
+        )
+        return {"data": -1}, True
+    spec = {"data": -1}
+    if pp > 1:
+        spec["pipeline"] = pp
+    if ep > 1:
+        spec["expert"] = ep
+    if tp > 1:
+        spec["model"] = tp
+    return spec, False
+
+
 def _normalize_tiers(tiers, max_batch: int) -> tuple[int, ...]:
     """Clamp the tier ladder to ``max_batch`` and guarantee a full-batch
     rung — the grid must always hold a ``max_batch``-row flush."""

@@ -1,7 +1,9 @@
 """The training loop (port of ``train/loop.py``).
 
 Plain Python around the train step; hooks are plain callables, and only
-rank 0 (of the ``torch.distributed`` group, 0 without one) logs.
+rank 0 (:func:`..parallel.mesh.process_index`) logs. Under several
+processes ``fit`` ends at a barrier once rank 0's last checkpoint is
+durable, so no rank returns before it is whole.
 
 As in the JAX package:
 
@@ -29,8 +31,9 @@ import torch
 
 from distributed_tensorflow_tpu_torch.obs.flightrec import NULL_RECORDER
 from distributed_tensorflow_tpu_torch.obs.memory import default_registry
-from distributed_tensorflow_tpu_torch.obs.metrics import FeedMetrics, _rank
+from distributed_tensorflow_tpu_torch.obs.metrics import FeedMetrics
 from distributed_tensorflow_tpu_torch.obs.trace import NULL_TRACER, Tracer
+from distributed_tensorflow_tpu_torch.parallel.mesh import barrier, process_index
 
 logger = logging.getLogger(__name__)
 
@@ -126,7 +129,7 @@ def fit(
     it: Iterator = iter(data)
     if feed_metrics is None:
         feed_metrics = getattr(data, "metrics", None) or FeedMetrics()
-    rank0 = _rank() == 0
+    rank0 = process_index() == 0
     pending_metrics = None
     start_step = int(state.step)
     if start_step >= num_steps:
@@ -203,4 +206,7 @@ def fit(
         if checkpointer is not None and ckpt_every and (step + 1) % ckpt_every == 0:
             with tracer.span("checkpoint_save", "train", step=step + 1):
                 checkpointer.save(step + 1, state, generator=rng)
+    if checkpointer is not None:
+        checkpointer.wait()
+    barrier()
     return state, pending_metrics

@@ -13,10 +13,16 @@ overwritten slot by slot, so no second copy of the parameters or the
 optimizer state is ever made.
 
 Randomness: the step is given a ``torch.Generator``; it never draws from
-it, but folds ``(initial_seed, step)`` (and the micro-slice index under
-``grad_accum``) into a fresh generator on the same device, as the JAX step
-folds ``state.step`` into its key. A resumed run therefore draws the same
-dropout masks as an uninterrupted one.
+it, but folds ``(initial_seed, step, rank)`` (and the micro-slice index
+under ``grad_accum``) into a fresh generator on the same device, as the JAX
+step folds ``state.step`` and the device's coordinate along the data axes
+into its key: every rank draws its own dropout masks for its own rows, and
+a resumed run draws the same masks as an uninterrupted one.
+
+The exchange across ranks is one call: gradients, metrics and
+``model_state`` (BatchNorm statistics) go through one bucketed mean
+(:func:`..parallel.collectives.pmean_tree`, one all-reduce a dtype), the
+counterpart of the JAX step's combined AllReduce.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 
 from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+from distributed_tensorflow_tpu_torch.parallel.mesh import process_index
 from distributed_tensorflow_tpu_torch.train.state import TrainState, Transform
 
 # loss_fn(params, model_state, batch, generator) -> (loss, (model_state, metrics))
@@ -120,6 +127,7 @@ def make_train_step(
             depth = next(iter(state.grad_buffer.values())).shape[0]
             if depth != staleness:
                 raise ValueError(f"state.grad_buffer depth {depth} != staleness {staleness}")
+        rank = process_index()
         with torch.enable_grad():
             if grad_accum > 1:
                 rows = next(iter(batch.values())).shape[0]
@@ -129,7 +137,7 @@ def make_train_step(
                 size = rows // grad_accum
                 parts = [
                     grads_of(state, {k: v[a * size:(a + 1) * size] for k, v in batch.items()},
-                             _step_generator(generator, state.step, a))
+                             _step_generator(generator, state.step, rank, a))
                     for a in range(grad_accum)
                 ]
                 inv = 1.0 / grad_accum
@@ -138,12 +146,11 @@ def make_train_step(
                 metrics = _mean_tree([p[2] for p in parts], inv)
             else:
                 grads, model_state, metrics = grads_of(
-                    state, batch, _step_generator(generator, state.step))
+                    state, batch, _step_generator(generator, state.step, rank))
 
-        grads = coll.pmean_tree(grads)
-        metrics = coll.pmean_tree(metrics)
-        if model_state:
-            model_state = coll.pmean_tree(model_state)
+        # THE sync point: one bucketed all-reduce for the gradients, the
+        # metrics and the BatchNorm statistics together.
+        grads, metrics, model_state = coll.pmean_tree((grads, metrics, model_state))
 
         if mode == "stale":
             # Ring: apply the gradient stored K steps ago, keep the fresh one

@@ -1,0 +1,186 @@
+"""One rank of the port's multi-process tests (``tests/test_torch_multiprocess.py``).
+
+    python tests/_torch_mp_worker.py JOB RANK WORLD OUT_DIR PORTS [ARGV_JSON]
+
+``PORTS`` is a comma-separated list of free localhost ports, one a process
+group the job starts. Every job runs on the CPU over gloo, imports only
+torch, numpy and the port, and saves its results to
+``OUT_DIR/<job>_rank<RANK>.pt``:
+
+- ``collectives``: the bucketed psum/pmean beside a per-leaf reduction
+  written here as the reference, and every other collective on seeded
+  inputs (saved too, for the JAX side of the test);
+- ``dropout``: a 1-layer BERT with dropout 0.1 trained 2 steps through
+  ``fit`` with a checkpoint at step 1, then restored from it and step 2
+  run again; the dropout masks each step drew;
+- ``cli``: ``cli.train.main`` once for each argv of ``ARGV_JSON`` (a JSON
+  list of lists), each as a new process group on the next port, and the
+  final state of each run with the number of checkpoint files this rank
+  wrote.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from distributed_tensorflow_tpu_torch.parallel import collectives as coll  # noqa: E402
+from distributed_tensorflow_tpu_torch.parallel.mesh import (  # noqa: E402
+    initialize_runtime,
+    shutdown_runtime,
+)
+
+
+def _cpu(tree):
+    return coll._map(lambda x: x.detach().clone(), tree)
+
+
+def job_collectives(rank: int, world: int, ports: list[int], argv) -> dict:
+    initialize_runtime(f"127.0.0.1:{ports[0]}", world, rank, device="cpu", timeout_s=60)
+    rng = np.random.default_rng(100 + rank)
+    tree = {
+        "w": torch.from_numpy(rng.standard_normal((6, 4)).astype(np.float32)),
+        "b": [torch.from_numpy(rng.standard_normal(5).astype(np.float32)),
+              torch.from_numpy(rng.standard_normal((2, 3)))],  # float64: its own bucket
+        "s": torch.tensor(float(rng.standard_normal()), dtype=torch.float32),
+    }
+
+    def per_leaf(x, mean):
+        y = x.clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM)
+        return y / world if mean else y
+
+    x = tree["w"]
+    global_batch = {"image": torch.arange(24.0).reshape(8, 3), "label": torch.arange(8)}
+    out = {
+        "tree": _cpu(tree),
+        "psum": _cpu(coll.psum_tree(tree)),
+        "pmean": _cpu(coll.pmean_tree(tree)),
+        "psum_per_leaf": coll._map(lambda t: per_leaf(t, False), tree),
+        "pmean_per_leaf": coll._map(lambda t: per_leaf(t, True), tree),
+        "gather0": coll.all_gather_tree(x, axis=0),
+        "gather1": coll.all_gather_tree(x, axis=1),
+        "stack0": coll.all_gather_tree(x, axis=0, tiled=False),
+        "scatter0": coll.reduce_scatter_mean_tree(x, axis=0),
+        "scatter1": coll.reduce_scatter_mean_tree(x, axis=1),
+        "ring": coll.ppermute_ring(x),
+        "ring_back": coll.ppermute_ring(x, shift=-1),
+        "index": coll.axis_index("data"),
+        "size": coll.axis_size("data"),
+        "replicated": _cpu(coll.replicate(tree)),
+        "shard": coll.shard_batch(global_batch),
+    }
+    shutdown_runtime()
+    return out
+
+
+def job_dropout(rank: int, world: int, ports: list[int], argv, out_dir: Path) -> dict:
+    from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
+    from distributed_tensorflow_tpu_torch.data.text import (
+        SyntheticMLM,
+        SyntheticMLMConfig,
+        mlm_device_batches,
+    )
+    from distributed_tensorflow_tpu_torch.models import bert
+    from distributed_tensorflow_tpu_torch.train import create_train_state, fit, make_train_step
+    from distributed_tensorflow_tpu_torch.train.state import Transform
+
+    initialize_runtime(f"127.0.0.1:{ports[0]}", world, rank, device="cpu", timeout_s=60)
+    masks: list[torch.Tensor] = []
+    draw = bert.dropout
+
+    def recording(x, rate, train, generator):
+        y = draw(x, rate, train, generator)
+        if train and rate > 0:
+            masks.append(y == 0)
+        return y
+
+    bert.dropout = recording
+    cfg = bert.BertConfig(vocab_size=64, hidden_size=32, num_layers=1, num_heads=2,
+                          intermediate_size=64, max_position=16, dropout_rate=0.1)
+    data = SyntheticMLM(SyntheticMLMConfig(vocab_size=64, seq_len=16, seed=7))
+    batches = list(itertools.islice(mlm_device_batches(data, 16, device="cpu", seed=1), 2))
+    tx = Transform(lambda p: torch.optim.SGD(list(p.values()), lr=0.1), lambda count: 0.1)
+
+    def build():
+        model = bert.BertForPreTraining(cfg, device="cpu", seed=0)
+        state = create_train_state(dict(model.named_parameters()), tx)
+        return state, make_train_step(bert.make_bert_pretraining_loss(model), tx)
+
+    ckpt = Checkpointer(out_dir / "dropout_ckpt")
+    state, step = build()
+    rng = torch.Generator().manual_seed(0)
+    fit(state, step, iter(batches), num_steps=1, rng=rng, log_every=0,
+        checkpointer=ckpt, ckpt_every=1)
+    masks.clear()
+    fit(state, step, iter(batches[1:]), num_steps=2, rng=rng, log_every=0)
+    first = list(masks)
+    resumed, step2 = build()
+    rng2 = torch.Generator().manual_seed(0)
+    resumed, start = ckpt.restore_latest(resumed, generator=rng2)
+    masks.clear()
+    fit(resumed, step2, iter(batches[1:]), num_steps=2, rng=rng2, log_every=0)
+    out = {"first": first, "again": list(masks), "start": start,
+           "params": _cpu(state.params), "resumed_params": _cpu(resumed.params)}
+    shutdown_runtime()
+    return out
+
+
+def job_cli(rank: int, world: int, ports: list[int], argv) -> dict:
+    from distributed_tensorflow_tpu_torch.ckpt import checkpoint
+    from distributed_tensorflow_tpu_torch.cli import train as cli
+
+    runs = []
+    for port, args in zip(ports, argv):
+        captured, writes = {}, []
+        run, write = cli.run, checkpoint._write
+
+        def capture(cfg, ns, run=run, captured=captured):
+            state, last = run(cfg, ns)
+            captured["state"] = state
+            return state, last
+
+        def counted(directory, step, blob, write=write, writes=writes):
+            writes.append(step)
+            return write(directory, step, blob)
+
+        cli.run, checkpoint._write = capture, counted
+        try:
+            code = cli.main(args + [
+                "--device", "cpu", "--coordinator-address", f"127.0.0.1:{port}",
+                "--num-processes", str(world), "--process-id", str(rank),
+                "--init-timeout", "60"])
+        finally:
+            cli.run, checkpoint._write = run, write
+        state = captured["state"]
+        runs.append({"code": code, "step": state.step, "writes": writes,
+                     "params": _cpu(state.params), "model_state": _cpu(state.model_state),
+                     "grad_buffer": _cpu(state.grad_buffer or {}),
+                     "buffer_index": state.buffer_index})
+    return {"runs": runs}
+
+
+def main() -> int:
+    job, rank, world, out_dir, ports = sys.argv[1:6]
+    argv = json.loads(sys.argv[6]) if len(sys.argv) > 6 else None
+    rank, world, out_dir = int(rank), int(world), Path(out_dir)
+    ports = [int(p) for p in ports.split(",")]
+    torch.set_num_threads(1)
+    if job == "dropout":
+        out = job_dropout(rank, world, ports, argv, out_dir)
+    else:
+        out = {"collectives": job_collectives, "cli": job_cli}[job](rank, world, ports, argv)
+    torch.save(out, out_dir / f"{job}_rank{rank}.pt")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

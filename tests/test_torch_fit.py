@@ -255,6 +255,7 @@ def test_two_process_data_parallel_step_matches_one_process(tmp_path):
     batch, bit for bit), and one sync-DP step equals the one-process step
     on the whole batch."""
     import socket
+    import time
 
     import torch.multiprocessing as mp
 
@@ -263,7 +264,17 @@ def test_two_process_data_parallel_step_matches_one_process(tmp_path):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    mp.spawn(_dp_worker, args=(2, port, tmp_path), nprocs=2, join=True)
+    ctx = mp.start_processes(_dp_worker, args=(2, port, tmp_path), nprocs=2, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + 120
+    try:
+        # join() returns each time a rank exits: True once both have.
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            assert time.monotonic() < deadline, "the ranks did not finish within 120 s"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
     ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=True) for r in range(2)]
     data = SyntheticMLM(SyntheticMLMConfig(vocab_size=50, seq_len=16, seed=7))
     whole = next(mlm_device_batches(data, 16, device="cpu", seed=1))

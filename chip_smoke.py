@@ -4,8 +4,9 @@
 Phases (any failure exits non-zero before the result lines):
 
 1. build  — compile the port's CUDA kernels from ``csrc/`` (one nvcc per
-   library, started together, sm_90a) into ``build/kernels/``; print the
-   build seconds, ptxas' resource use and spills (the 1x1 GEMMs' ``_sm90``
+   library, started together, sm_90a) into ``build/kernels/``, and beside
+   them the host input pipeline (``csrc/data_pipeline.cpp``, g++) into
+   ``build/host/``; print the build seconds, ptxas' resource use and spills (the 1x1 GEMMs' ``_sm90``
    kernels, the three ``flash_bwd_dq_sm90``, the four
    ``bn_apply_dw_kernel_sm90``, the four ``bn_apply_dx_strip_sm90``, the
    four ``bn_apply_dx_panel_sm90`` and the four ``bn_reduce_kernel_sm90``
@@ -13,6 +14,16 @@ Phases (any failure exits non-zero before the result lines):
    blocks per SM of the bf16 flash kernels at D=64 (the forward under each
    q tile), of the 1x1 GEMMs and of the fused kernels (the card's
    occupancy calculator).
+1b. feed_native — the host C++ pipeline at ``imagenet_resnet50``'s training
+   geometry (random-resized crop to 224, flip, ImageNet mean/std, 128 a
+   batch) over a seeded u8 cache of 1280 images at 256x256 (252 MB, written
+   under ``build/chip_smoke_u8/`` by ``scripts/torch_feed_bench.py``'s
+   ``write_cache``): batches bitwise the same at 1 thread and at every core,
+   one epoch a permutation without replacement, a ``start_ticket`` resume
+   equal to the stream's tail, and ``native_device_batches`` onto the card
+   through 4 reused pinned staging buffers (10 batches kept) equal to the
+   host stream. Prints host ms a batch and images/s at 1, 4 and all cores,
+   the device path's rate and the CRC-32C's cost per 110 kB record.
 2. kernel — hold the flash-attention forward kernel to its plain PyTorch
    version on the card: bf16 at B in {1, 8} x L in {256, 512, 300} with
    H=12, D=64, plus D=32, D=128, an fp32 case and the BERT training cell
@@ -86,7 +97,11 @@ Phases (any failure exits non-zero before the result lines):
    ``Client``, serve 24 requests across all three buckets, and check that
    the kernel ran 12 times per forward in buckets 256 and 512, that the
    answers agree with the same params run through plain attention on the
-   card, and one HTTP ``/v1/mlm`` round trip. Then per-bucket latency.
+   card, and one HTTP ``/v1/mlm`` round trip; then ``POST /profilez?ms=200``
+   while bucket-512 requests keep arriving (serve_profilez): the reply's
+   ``trace_dir``/``requested_ms``/``wall_ms`` with ``wall_ms >= 200``, and
+   ``flash_fwd`` kernel events in the ``torch.profiler`` trace it wrote.
+   Then per-bucket latency.
 9. train  — full-width BERT-base pretraining (MLM + NSP) in bf16 over f32
    params at L=512, 24 rows, ``SyntheticMLM`` data, AdamW(1e-4, weight
    decay 0.01 off biases/LayerNorms) + global-norm clip 1.0, dropout 0.1
@@ -118,6 +133,15 @@ Phases (any failure exits non-zero before the result lines):
    (3 x the forward's FLOPs per image, counted from the model's layers by
    ``models/flops.py`` at 2 FLOPs a multiply-add, against 989 TFLOP/s) and
    peak memory.
+10b. train_fused_native — ``fit`` of ``ResNet50(pw_backend="fused")`` (the
+   same recipe, 128 images) on ``native_device_batches`` from the feed
+   phase's u8 cache (through ``load_imagefolder``, with the preset's
+   augmentation) for 4 steps, the first 2 under ``trace_steps(num_steps=2)``.
+   Checks: 29 launches of each fused kernel a step by the counters and, by
+   kernel name in the profile, 29 a profiled step; finite losses; on the
+   first native batch, the fused gradients and BatchNorm statistics against
+   the ``conv`` backend's at train_resnet50's limits, from the seeded init
+   (the first step) and from the trained params.
 11. train_inception — full-width Inception-v3 at 299x299 with the aux head,
    128 images (``bench.py``'s per-card batch for ResNet-50), bf16 over f32
    params, the ``imagenet_inception_async`` recipe (plain SGD 0.05 at a
@@ -141,6 +165,20 @@ Phases (any failure exits non-zero before the result lines):
 14. train_cli_inception — the same for ``--config imagenet_inception_async
    --image-size 75`` (no aux head below 299x299): the restore also brings
    back the K = 4 stale ring, on the card.
+
+14b. train_cli_imagenet_real — ``cli.train --config imagenet_resnet50
+   --data-dir <the u8 cache>`` at the preset's width and batch (224x224, 256
+   images) for 12 steps with ``--metrics-jsonl``, ``--trace-dir`` and
+   ``--profile-dir --profile-steps 3``: the cache read (no fallback), finite
+   losses, one JSONL record a step, the span trace's host_wait / dispatch /
+   device spans, CUDA kernel events in the profile; again with
+   ``--no-native-input`` and with ``--device-pool 8``. Prints each run's
+   median step ms and host_wait_ms.
+14c. train_cli_bert_corpus — ``cli.train --config bert_base --data-dir`` on a
+   seeded corpus of made-up words (20,000 sentences in documents over four
+   ``*.txt`` files, plus ``val/val.txt``) at the preset's width (L=128, 256
+   rows) for 4 steps and an eval pass: finite losses, the corpus's
+   vocabulary logged, eval metrics from the val split.
 
 15. train_cli_dp — ``cli.train --config imagenet_resnet50 --image-size 64
    --global-batch 16 --steps 3`` with the cluster flags
@@ -171,7 +209,10 @@ Phases (any failure exits non-zero before the result lines):
    zeros), moved by the first stored gradient at step K + 1 and again at
    K + 2, and a loss that moves with them.
 
-The last two lines are the kernels' JSON record and
+Before the result lines, ``feed_summary`` gives the added phases' seconds,
+the cores the host pipeline needs to keep up with this run's ResNet-50
+``fused`` step, and the CLI's median step ms and host_wait_ms under each
+feed. The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs one card; without CUDA it exits 1.
 """
 
@@ -267,13 +308,25 @@ def ptxas_entries(log: str) -> dict:
 
 
 def phase_build(fm, pc, fcb):
+    from concurrent.futures import ThreadPoolExecutor
+
+    from distributed_tensorflow_tpu_torch.data import native
     from distributed_tensorflow_tpu_torch.ops import build as kbuild
 
     t0 = time.monotonic()
-    kbuild.load_libraries(kbuild.LIBRARIES)  # one nvcc per library, together
+    # The host input pipeline's g++ build beside the kernels' nvcc builds.
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(native.load_library)
+        kbuild.load_libraries(kbuild.LIBRARIES)  # one nvcc per library, together
+        host.result()
     for op in (fm, pc, fcb):
         op.build()  # bind the built libraries
     seconds = round(time.monotonic() - t0, 3)
+    info = kbuild.BUILD_INFO["data_pipeline"]
+    check(Path(info["path"]).parent == ROOT / "build" / "host", f"host library at {info['path']}")
+    emit({"phase": "build", "library": Path(info["path"]).name,
+          "gxx_seconds": round(info["seconds"], 3), "seconds": seconds,
+          "warnings": [ln for ln in info["log"].splitlines() if "warning" in ln]})
     for name in kbuild.LIBRARIES:
         info = kbuild.BUILD_INFO[name]
         regs = [ln.strip() for ln in info["log"].splitlines()
@@ -1694,7 +1747,9 @@ def phase_serve(fm, torch):
         check(confident_miss == 0, f"{confident_miss} mismatches with margin > 0.125")
         check(score_err <= 0.05, f"score differs by {score_err}")
 
-        server = build_http_server(client, port=0)
+        prof_dir = ROOT / "build" / "chip_smoke_profilez"
+        shutil.rmtree(prof_dir, ignore_errors=True)
+        server = build_http_server(client, port=0, trace_dir=str(prof_dir))
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
         try:
@@ -1710,6 +1765,7 @@ def phase_serve(fm, torch):
                 check(resp.status == 200, "healthz")
             emit({"phase": "http", "route": "/v1/mlm", "status": 200,
                   "bucket": out["bucket"], "phases_ms": out.get("phases")})
+            phase_serve_profilez(client, base, payloads)
         finally:
             server.shutdown()
             server.server_close()
@@ -1727,6 +1783,38 @@ def phase_serve(fm, torch):
             emit({"phase": "latency", "bucket": bucket, "tier": tier,
                   "ms_p50": float(np.median(times)), "ms_min": min(times)})
     return launches
+
+
+def phase_serve_profilez(client, base: str, payloads: list) -> None:
+    """``POST /profilez?ms=200`` on the live server while bucket-512
+    requests keep arriving: the reply's keys, ``wall_ms >= 200``, and
+    ``flash_fwd`` kernel events in the trace it wrote."""
+    reply: dict = {}
+
+    def profilez():
+        req = urllib.request.Request(base + "/profilez?ms=200", data=b"", method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            reply.update(status=resp.status, body=json.loads(resp.read()))
+
+    long = [p for p in payloads if len(p["input_ids"]) > 256]  # bucket 512
+    prof = threading.Thread(target=profilez)
+    t0 = time.monotonic()
+    prof.start()
+    served = 0
+    while prof.is_alive() and time.monotonic() - t0 < 120:
+        for f in [client.submit(p) for p in long]:
+            check(f.result(timeout=60)["bucket"] == 512, "bucket")
+            served += 1
+    prof.join(timeout=10)
+    body = reply.get("body", {})
+    check(reply.get("status") == 200 and {"trace_dir", "requested_ms", "wall_ms"} <= set(body)
+          and body["wall_ms"] >= 200.0, f"/profilez reply {reply}")
+    names = _kernel_names(Path(body["path"]))
+    flash = sum("flash_fwd" in n for n in names)
+    check(flash > 0, f"no flash_fwd kernel events among {len(names)} in the /profilez trace")
+    emit({"phase": "serve_profilez", "requested_ms": body["requested_ms"],
+          "wall_ms": body["wall_ms"], "requests_served": served,
+          "kernel_events": len(names), "flash_fwd_events": flash})
 
 
 def phase_train_cli(torch):
@@ -1761,6 +1849,322 @@ def phase_train_cli(torch):
     emit({"phase": "train_cli", "seconds": seconds, "last_log": steps[-1].split(": ", 1)[-1],
           "restored_step": step, "served_tokens": int(out["pred_ids"].shape[0]),
           "score": out["score"]})
+
+
+FEED_IMAGES, FEED_HW, FEED_OUT, FEED_BATCH = 1280, 256, 224, 128
+
+
+def load_feed_bench():
+    """``scripts/torch_feed_bench.py`` as a module: the seeded u8 cache, the
+    preset's augmentation and the host-rate timers."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_feed_bench", ROOT / "scripts" / "torch_feed_bench.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _kernel_names(trace: Path) -> list[str]:
+    """The names of the CUDA kernel events of a ``torch.profiler`` Chrome
+    trace."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+def phase_feed_native(torch):
+    """The host C++ pipeline at ``imagenet_resnet50``'s training geometry
+    (random-resized crop to 224, flip, ImageNet mean/std, 128 a batch) over
+    a seeded u8 cache of 1280 images at 256x256 written under ``build/``:
+    batches bitwise the same at 1 thread and at every core, one epoch a
+    permutation without replacement, a ``start_ticket`` resume equal to the
+    stream's tail, and 10 batches through ``native_device_batches`` onto
+    the card (4 pinned staging buffers reused, every batch kept) equal to
+    the host stream. Then host ms a batch and images/s at 1, 4 and all
+    cores, the device path's, and CRC-32C per 110 kB record."""
+    from distributed_tensorflow_tpu_torch.data.loader import native_device_batches
+    from distributed_tensorflow_tpu_torch.data.native import NativePipeline
+    from distributed_tensorflow_tpu_torch.data.synthetic import SyntheticClassification
+
+    fb = load_feed_bench()
+    cores = fb.host_cores()
+    t0 = time.monotonic()
+    cache = fb.write_cache(ROOT / "build" / "chip_smoke_u8", FEED_IMAGES, FEED_HW, seed=SEED)
+    write_s = time.monotonic() - t0
+    images, labels = fb.load_cache(cache)
+    check(images.shape == (FEED_IMAGES, FEED_HW, FEED_HW, 3) and images.dtype == np.uint8,
+          f"cache {images.shape} {images.dtype}")
+    kw = dict(seed=SEED, **fb.imagenet_kwargs(FEED_OUT))
+    index = np.arange(FEED_IMAGES, dtype=np.int32)  # label = example index
+
+    def take(n, n_threads, **extra):
+        with NativePipeline(images, index, FEED_BATCH, n_threads=n_threads, **kw,
+                            **extra) as pipe:
+            return [pipe.next() for _ in range(n)]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    per_epoch = FEED_IMAGES // FEED_BATCH
+    epoch = take(per_epoch, cores)
+    check(all(b[0].shape == (FEED_BATCH, FEED_OUT, FEED_OUT, 3) and torch.isfinite(b[0]).all()
+              for b in epoch), "batch shape or values")
+    check(all(same(a, b) for a, b in zip(take(3, 1), epoch)),
+          f"batches differ between 1 and {cores} threads")
+    seen = np.sort(np.concatenate([b[1].numpy() for b in epoch]))
+    check(np.array_equal(seen, index), "one epoch is not a permutation without replacement")
+    check(all(same(a, b) for a, b in zip(take(3, cores, start_ticket=7), epoch[7:])),
+          "start_ticket 7 differs from the stream's batches 7..9")
+    # The card's path: each batch written into one of 4 pinned buffers, its
+    # copy issued on the feed's stream; all 10 batches kept, so a buffer
+    # overwritten before its copy left would show here.
+    feed = native_device_batches(SyntheticClassification(images=images, labels=index),
+                                 FEED_BATCH, device="cuda", n_threads=cores, staging=4, **kw)
+    try:
+        on_card = [next(feed) for _ in range(per_epoch)]
+    finally:
+        feed.close()
+    torch.cuda.synchronize()
+    check(all(b["image"].is_cuda and torch.equal(b["image"].cpu(), h[0])
+              and torch.equal(b["label"].cpu(), h[1]) for b, h in zip(on_card, epoch)),
+          "native_device_batches on the card differ from the host stream")
+    emit({"phase": "feed_native", "cores": cores, "cache_images": list(images.shape),
+          "cache_write_seconds": write_s, "checks": "threads, epoch, resume, staging"})
+    rows = []
+    for n_threads in sorted({1, 4, cores}):
+        rows.append(fb.bench_native(images, labels, out_hw=FEED_OUT, batch=FEED_BATCH,
+                                    n_batches=5, n_threads=n_threads))
+    rows.append(fb.bench_device(images, labels, out_hw=FEED_OUT, batch=FEED_BATCH,
+                                n_batches=5, n_threads=cores, device="cuda"))
+    rows.append(fb.bench_crc(110_000))
+    for r in rows:
+        emit({"phase": "feed_native_rate", "cores": cores, **r})
+    return cache, rows
+
+
+def _cli_train(args: list[str], timeout: int = 900) -> subprocess.CompletedProcess:
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.cli.train", *args],
+        cwd=ROOT, env=_repo_env(), capture_output=True, text=True, timeout=timeout)
+    check(proc.returncode == 0, f"cli.train {' '.join(args)} exited {proc.returncode}:\n"
+                                f"{proc.stderr[-4000:]}")
+    return proc
+
+
+def phase_train_cli_imagenet_real(torch, cache: Path):
+    """``cli.train --config imagenet_resnet50 --data-dir <u8 cache>`` at the
+    preset's width and batch (224x224, 256 images, plain convolutions) for
+    12 steps with ``--metrics-jsonl``, ``--trace-dir`` and ``--profile-dir
+    --profile-steps 3``; then with ``--no-native-input`` and with
+    ``--device-pool 8``. Checks: the cache was read (no fallback), finite
+    losses, one JSONL record a logged step, the span trace's host_wait /
+    dispatch / device spans, the profile's CUDA kernel events. Prints each
+    run's median step ms and host_wait_ms (steps 3-12)."""
+    out = ROOT / "build" / "chip_smoke_cli_real"
+    shutil.rmtree(out, ignore_errors=True)
+    n_steps = 12
+    base = ["--config", "imagenet_resnet50", "--data-dir", str(cache), "--steps", str(n_steps),
+            "--log-every", "1"]
+    runs = {}
+    for name, extra in (
+            ("native", ["--trace-dir", str(out / "trace"), "--profile-dir", str(out / "prof"),
+                        "--profile-steps", "3"]),
+            ("numpy", ["--no-native-input"]),
+            ("device_pool", ["--device-pool", "8"])):
+        jsonl = out / f"{name}.jsonl"
+        t0 = time.monotonic()
+        proc = _cli_train(base + ["--metrics-jsonl", str(jsonl), *extra])
+        seconds = time.monotonic() - t0
+        check(f"image feed: {FEED_IMAGES} images" in proc.stderr
+              and "FALLING BACK" not in proc.stderr, f"{name}: the cache was not read")
+        recs = [json.loads(ln) for ln in jsonl.read_text().splitlines()]
+        check([r["step"] for r in recs] == list(range(1, n_steps + 1)),
+              f"{name}: JSONL steps {[r['step'] for r in recs]}")
+        losses = [r["loss"] for r in recs]
+        check(all(np.isfinite(losses)), f"{name}: losses {losses}")
+        step_ms = [(b["wall"] - a["wall"]) * 1e3 for a, b in zip(recs[1:], recs[2:])]
+        runs[name] = {"seconds": seconds, "step_ms_median": statistics.median(step_ms),
+                      "step_ms_min": min(step_ms),
+                      "host_wait_ms_median": statistics.median(r["host_wait_ms"] for r in recs[2:]),
+                      "losses": losses}
+        emit({"phase": "train_cli_imagenet_real", "feed": name, "rows": 256, "image": 224,
+              **runs[name]})
+    spans = json.loads((out / "trace" / "train_trace.json").read_text())["traceEvents"]
+    names = {e["name"] for e in spans}
+    check({"host_wait", "dispatch", "device"} <= names, f"span names {sorted(names)}")
+    traces = list((out / "prof").glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"profile files {traces}")
+    kernels = _kernel_names(traces[0])
+    check(len(kernels) > 0, "the profile holds no CUDA kernel events")
+    emit({"phase": "train_cli_imagenet_real_trace", "spans": len(spans),
+          "profile_kernel_events": len(kernels), "profile_mb": traces[0].stat().st_size / 1e6})
+    return runs
+
+
+def phase_train_fused_native(pc, fcb, torch, cache: Path):
+    """``fit`` of ``ResNet50(pw_backend="fused")`` (224x224, 128 images, the
+    train_resnet50 phase's recipe) on ``native_device_batches`` from the u8
+    cache, through ``load_imagefolder``, with the preset's augmentation and
+    a ``trace_steps(num_steps=2)`` profile window. Checks: 29 launches of
+    each fused kernel a step by the counters, and by name in the profile
+    (``bn_reduce_kernel_sm90``, ``bn_apply_dx_{strip,panel}_sm90``,
+    ``bn_apply_dw_kernel_sm90``) 29 a profiled step; finite losses; the
+    first step's gradients and new BatchNorm statistics (the seeded init,
+    the first native batch) against the ``conv`` backend's at
+    train_resnet50_grad_check's limits, and again at the trained params
+    (every BN scale moved: every leaf has a gradient)."""
+    from distributed_tensorflow_tpu_torch.cli.train import PRESETS, _make_tx
+    from distributed_tensorflow_tpu_torch.data.loader import native_device_batches
+    from distributed_tensorflow_tpu_torch.data.prefetch import prefetch
+    from distributed_tensorflow_tpu_torch.data.readers import load_imagefolder
+    from distributed_tensorflow_tpu_torch.models import ResNet50
+    from distributed_tensorflow_tpu_torch.obs.profile import trace_steps
+    from distributed_tensorflow_tpu_torch.train import create_train_state, fit, make_rng
+    from distributed_tensorflow_tpu_torch.train import make_train_step
+    from distributed_tensorflow_tpu_torch.train.objectives import (
+        init_model,
+        make_classification_loss,
+    )
+
+    fb = load_feed_bench()
+    rows, n_steps, prof_steps = 128, 4, 2
+    ds = load_imagefolder(cache)
+    check(isinstance(ds.images, np.memmap) and len(ds) == FEED_IMAGES, "load_imagefolder")
+    feed_kw = dict(seed=SEED, **fb.imagenet_kwargs(FEED_OUT))
+    recipe = dataclasses.replace(PRESETS["imagenet_resnet50"], lr_schedule="constant",
+                                 learning_rate=0.1, momentum=0.9, optimizer="sgd")
+    model = ResNet50(dtype=torch.bfloat16, pw_backend="fused", device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(SEED))
+    params, model_state = init_model(model)
+    init = ({k: v.detach().clone() for k, v in model.state_dict().items()},
+            {k: v.clone() for k, v in model_state["batch_stats"].items()})
+    tx, _ = _make_tx(recipe)
+    state = create_train_state(params, tx, model_state)
+    step = make_train_step(make_classification_loss(model), tx)
+    prof_dir = ROOT / "build" / "chip_smoke_fused_prof"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    losses = []
+    feed = prefetch(native_device_batches(ds, rows, device="cuda", **feed_kw), 2)
+    try:
+        pc.reset_launch_counts()
+        fcb.reset_launch_counts()
+        with trace_steps(prof_dir, num_steps=prof_steps, device="cuda") as win:
+            def step_fn(state_, batch_, rng_):
+                win.before_step()
+                out = step(state_, batch_, rng_)
+                win.after_step(out)
+                return out
+
+            state, _ = fit(state, step_fn, feed, num_steps=n_steps, rng=make_rng(SEED, "cuda"),
+                           log_every=1, hooks=(lambda s, st, m: losses.append(m["loss"]),))
+        torch.cuda.synchronize()
+        launches = {**pc.LAUNCHES, **fcb.LAUNCHES}
+    finally:
+        feed.close()
+    check(len(losses) == n_steps and all(np.isfinite(losses)), f"losses {losses}")
+    want = {k: v * n_steps for k, v in RESNET50_LAUNCHES["fused"].items()}
+    check({k: v for k, v in launches.items() if v} == want,
+          f"launches {launches} in {n_steps} steps, expected {want}")
+    names = _kernel_names(win.trace_path)
+    by_kernel = {
+        "bn_reduce_kernel_sm90": sum("bn_reduce_kernel_sm90" in n for n in names),
+        "bn_apply_dx_*_sm90": sum("bn_apply_dx_" in n and "_sm90" in n for n in names),
+        "bn_apply_dw_kernel_sm90": sum("bn_apply_dw_kernel_sm90" in n for n in names),
+    }
+    check(all(v == 29 * prof_steps for v in by_kernel.values()),
+          f"profiled launches {by_kernel} in {prof_steps} steps, expected 29 a step")
+    trained = ({k: v.detach().clone() for k, v in model.state_dict().items()},
+               {k: v.clone() for k, v in state.model_state["batch_stats"].items()})
+    del model, state, step, params
+    torch.cuda.empty_cache()
+
+    first = native_device_batches(ds, rows, device="cuda", **feed_kw)
+    try:
+        batch = next(first)
+    finally:
+        first.close()
+    checks = {}
+    for label, (weights, stats_in) in (("first_step", init), ("trained", trained)):
+        grads, stats = {}, {}
+        for backend in ("conv", "fused"):
+            net = ResNet50(dtype=torch.bfloat16, pw_backend=backend, device="cuda")
+            net.load_state_dict(weights)
+            p = dict(net.named_parameters())
+            loss, (new_state, _) = make_classification_loss(net)(
+                p, {"batch_stats": stats_in}, batch, None)
+            grads[backend] = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+            stats[backend] = new_state["batch_stats"]
+            del net, p, loss
+        total, per = _rel_errors(grads["fused"], grads["conv"], torch)
+        stat_total, _ = _rel_errors(stats["fused"], stats["conv"], torch)
+        worst = max(per, key=per.get)
+        median = statistics.median(per.values())
+        checks[label] = {"rel_l2_err_total": total, "median_rel_l2_err": median,
+                         "worst_leaf": {worst: per[worst]}, "batch_stats_rel_l2_err": stat_total,
+                         "zero_grad_leaves": sum(int(not g.any()) for g in grads["conv"].values())}
+        # train_resnet50_grad_check's limits and reason.
+        check(total <= 5e-2 and median <= 5e-2 and per[worst] <= 0.5 and stat_total <= 1e-2,
+              f"{label}: fused gradients differ from conv's on the native batch: {checks[label]}")
+        del grads, stats
+    torch.cuda.empty_cache()
+    emit({"phase": "train_fused_native", "rows": rows, "steps": n_steps, "losses": losses,
+          "launches": launches, "profiled_steps": prof_steps, "profiled_launches": by_kernel,
+          "profile_kernel_events": len(names), "grad_check": checks})
+    return launches
+
+
+def write_corpus(root: Path, n_sentences: int = 20_000, seed: int = SEED) -> Path:
+    """A seeded corpus of made-up words with Zipf-like frequencies: four
+    ``*.txt`` files of documents (4-12 sentences of 6-18 words, blank lines
+    between) holding ``n_sentences`` in all, and ``val/val.txt`` with a
+    twentieth as many."""
+    rng = np.random.default_rng(seed)
+    syllables = [a + b for a in "bdfgklmnprstvz" for b in ("a", "e", "i", "o", "u", "ai", "ou")]
+    vocab = sorted({"".join(rng.choice(syllables, rng.integers(1, 4))) for _ in range(12_000)})
+    weights = 1.0 / np.arange(1, len(vocab) + 1)
+    weights /= weights.sum()
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "val").mkdir(parents=True)
+
+    def write(path: Path, n: int) -> None:
+        lengths = rng.integers(6, 19, n)
+        words = np.asarray(vocab)[rng.choice(len(vocab), int(lengths.sum()), p=weights)]
+        sentences = [" ".join(ws).capitalize() + "."
+                     for ws in np.split(words, np.cumsum(lengths)[:-1])]
+        lines, i = [], 0
+        while i < n:
+            k = int(rng.integers(4, 13))
+            lines += sentences[i:i + k] + [""]
+            i += k
+        path.write_text("\n".join(lines) + "\n")
+
+    for i in range(4):
+        write(root / f"part{i}.txt", n_sentences // 4)
+    write(root / "val" / "val.txt", n_sentences // 20)
+    return root
+
+
+def phase_train_cli_bert_corpus(torch):
+    """``cli.train --config bert_base --data-dir <corpus>`` at the preset's
+    width (L=128, 256 rows a step) for 4 steps with an eval pass on the
+    ``val/`` split: finite losses, the corpus's vocabulary logged, an eval
+    metric in the log."""
+    corpus = write_corpus(ROOT / "build" / "chip_smoke_corpus")
+    t0 = time.monotonic()
+    proc = _cli_train(["--config", "bert_base", "--data-dir", str(corpus), "--steps", "4",
+                       "--log-every", "1", "--eval-every", "4", "--eval-batches", "2"])
+    seconds = time.monotonic() - t0
+    steps = [ln for ln in proc.stderr.splitlines() if "train.loop: step" in ln and "eval" not in ln]
+    losses = [float(ln.split("loss=")[1].split()[0]) for ln in steps]
+    check(len(losses) == 4 and all(np.isfinite(losses)), f"log: {steps}")
+    vocab = [ln.split("text corpus: ", 1)[1] for ln in proc.stderr.splitlines()
+             if "text corpus: " in ln]
+    check(len(vocab) == 1 and "4 files, 20000 sentences" in vocab[0], f"corpus log {vocab}")
+    evals = [ln.split("eval: ", 1)[1] for ln in proc.stderr.splitlines() if "eval: " in ln]
+    check(len(evals) == 1 and "eval_mlm_accuracy=" in evals[0], f"eval log {evals}")
+    check("FALLING BACK" not in proc.stderr and "RESAMPLE" not in proc.stderr,
+          "the corpus or its val split was not read")
+    emit({"phase": "train_cli_bert_corpus", "seconds": seconds, "corpus": vocab[0],
+          "losses": losses, "eval": evals[0]})
 
 
 def _step_record(rows: list, counts: list, field: str) -> dict:
@@ -1800,6 +2204,9 @@ def main() -> int:
     t_start = time.monotonic()
     try:
         occupancy, ptxas = phase_build(fm, pc, fcb)
+        t_phase = time.monotonic()
+        cache, feed_rows = phase_feed_native(torch)
+        seconds = {"feed_native": time.monotonic() - t_phase}
         fwd_row, fwd_err = phase_kernel(fm, torch)
         bwd_row, bwd_err = phase_kernel_bwd(fm, pwb, torch)
         pw_rows = phase_kernel_conv1x1(pc, pwb, torch, r50, n64)
@@ -1828,7 +2235,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches = phase_train(fm, torch)
         torch.cuda.empty_cache()
-        image_launches, _ = phase_train_resnet50(pc, fcb, torch)
+        image_launches, image_results = phase_train_resnet50(pc, fcb, torch)
+        torch.cuda.empty_cache()
+        t_phase = time.monotonic()
+        native_launches = phase_train_fused_native(pc, fcb, torch, cache)
+        seconds["train_fused_native"] = time.monotonic() - t_phase
         torch.cuda.empty_cache()
         inception_launches, _ = phase_train_inception(fcb, pc, torch, inception)
         torch.cuda.empty_cache()
@@ -1836,6 +2247,12 @@ def main() -> int:
         phase_train_cli_image(torch)
         phase_train_cli_inception(torch)
         torch.cuda.empty_cache()
+        t_phase = time.monotonic()
+        cli_real = phase_train_cli_imagenet_real(torch, cache)
+        seconds["train_cli_imagenet_real"] = time.monotonic() - t_phase
+        t_phase = time.monotonic()
+        phase_train_cli_bert_corpus(torch)
+        seconds["train_cli_bert_corpus"] = time.monotonic() - t_phase
         dp_world1 = phase_train_cli_dp(torch)
         dp_ranks = phase_train_dp_resnet50(torch)
     except SmokeFailure as e:
@@ -1843,6 +2260,16 @@ def main() -> int:
         return 1
     print(f"chip_smoke: all phases passed in {time.monotonic() - t_start:.1f} s",
           file=sys.stderr)
+    # The feed against the ResNet-50 `fused` step of this run: the cores
+    # the host pipeline needs to keep up with it.
+    fused_img_s = image_results["fused"]["images_per_s"]
+    emit({"phase": "feed_summary", "phase_seconds": seconds,
+          "resnet50_fused_images_per_s": fused_img_s,
+          "cores_needed_for_resnet50_fused": {
+              f"{r['mode']}_{r['threads']}_threads": fused_img_s / r["img_per_s_per_core"]
+              for r in feed_rows if "threads" in r},
+          "cli_imagenet_real": {k: {f: v[f] for f in ("step_ms_median", "host_wait_ms_median")}
+                                for k, v in cli_real.items()}})
     print(smi[0] if smi else "nvidia-smi: no output")
     src = "distributed_tensorflow_tpu_torch/csrc/"
     ref = "distributed_tensorflow_tpu/ops/flash_attention.py:"
@@ -1908,6 +2335,7 @@ def main() -> int:
             "replaces": bn_ref + line, "launches": image_launches["fused"][name],
             "max_abs_err": max(r["max_abs_err"][part] for r in bn_rows.values()),
             **_step_record(sel, units, f"{part}_"), "library_ms": None, "cell": cell,
+            "native_feed_launches": native_launches[name],
             "dp_launches": {"world1_nccl": dp_world1["launches"][name],
                             **{f"world2_gloo_rank{r['rank']}": r["launches"][name]
                                for r in dp_ranks}},

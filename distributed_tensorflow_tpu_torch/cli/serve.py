@@ -194,7 +194,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--slo-availability", type=float, default=0.0,
                    help="availability SLO target fraction (0 = none)")
     p.add_argument("--trace-dir", default="",
-                   help="receives a Chrome span trace at shutdown")
+                   help="receives a Chrome span trace at shutdown, and the "
+                        "torch.profiler traces of POST /profilez")
     p.add_argument("--trace-buffer", type=int, default=4096,
                    help="span ring-buffer size (0 disables tracing)")
     p.add_argument("--flight-buffer", type=int, default=2048,
@@ -244,11 +245,12 @@ def main(argv: list[str] | None = None):
             return _selftest(client, make_payload, args.selftest)
         from distributed_tensorflow_tpu_torch.serve import build_http_server
 
-        server = build_http_server(client, args.host, args.port)
+        server = build_http_server(client, args.host, args.port,
+                                   trace_dir=args.trace_dir or None)
         logger.info(
             "ready on http://%s:%d (POST /v1/mlm /v1/embed; GET /healthz "
             "/sloz /statusz /memz /compilez /tracez /metrics?format=prom, "
-            "POST /drainz /debugz/dump)",
+            "POST /profilez /drainz /debugz/dump)",
             *server.server_address,
         )
         try:

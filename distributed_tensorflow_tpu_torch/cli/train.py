@@ -12,26 +12,49 @@ last under K = 4 stale gradients), under synchronous or K-stale data
 parallelism. The optimizer recipes keep the JAX names:
 :func:`make_lr_schedule`, :func:`_decay_mask` and :func:`_make_tx`.
 
-Data is seeded and synthetic: the Markov-chain MLM stream, and class-template
-images through the numpy feed (no augmentation; the JAX CLI falls back to
-the same feed when its native pipeline cannot be built). The other presets
-and the flags of the paths not ported yet (real-data readers among them,
-``--data-dir``) are refused with a message naming the slice that brings
-them. The JAX CLI trains ResNet-50 and Inception-v3 with plain
-convolutions, so this one has no ``pw_backend`` or ``fused`` flag either;
-``ResNet50(pw_backend=...)`` and ``InceptionV3(fused=True)`` select the
-kernels.
+Data: ``--data-dir`` points the image presets at MNIST idx files, CIFAR-10
+pickles or an ImageNet-class u8 cache, class-folder tree or TFRecord shards
+(:mod:`..data.readers`), and ``bert_base`` at ``*.txt`` files with an
+optional ``val/*.txt`` split (:class:`..data.text.TextCorpusMLM`); without
+it (or when it holds no data, with a loud warning) the data is seeded and
+synthetic. The image presets train through the host C++ pipeline with the
+JAX presets' augmentation (``cifar``: pad-crop and flip; ``imagenet``:
+random-resized crop, flip and, for u8 pixels, ImageNet mean/std), and
+evaluate through the numpy feed (center crop, mean/std).
+
+One deliberate difference from the JAX CLI: when the host library cannot
+be built, the run fails with g++'s output instead of falling back to the
+numpy feed, which would train on other batches. ``--no-native-input``
+asks for the numpy feed. ``--device-pool N`` keeps the first N batches on
+the card and cycles them; ``--prefetch N`` sets the feed's lookahead.
+
+Observability: ``--metrics-jsonl`` and ``--tb-dir`` (refused at once when
+the ``tensorboard`` package is missing) receive every logged step's
+metrics, ``--trace-dir`` the host span trace (``train_trace.json``), and
+``--profile-dir`` (``--profile-steps N``: the first N steps only) a
+``torch.profiler`` Chrome trace with the card's kernels.
+
+The other presets and the flags of the paths not ported yet are refused
+with a message naming the slice that brings them. The JAX CLI trains
+ResNet-50 and Inception-v3 with plain convolutions, so this one has no
+``pw_backend`` or ``fused`` flag either; ``ResNet50(pw_backend=...)`` and
+``InceptionV3(fused=True)`` select the kernels.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import importlib.util
+import itertools
 import logging
 import math
 from collections.abc import Callable, Iterator
+from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 
 logger = logging.getLogger(__name__)
@@ -61,6 +84,17 @@ class WorkloadConfig:
     bert_vocab: int = 0  # > 0: override vocab size (smoke runs)
     image_size: int = 0  # > 0: override the image presets' square geometry
     dataset: str = ""  # dataset name for data.readers.load_dataset
+    data_dir: str = ""  # where to look for it; synthetic fallback otherwise
+    augment: str = ""  # "" | "cifar" (pad-crop+flip) | "imagenet" (RRC+flip)
+    native_input: bool = True  # train through the host C++ pipeline
+    # > 0: place the first N batches on the card once and cycle them: no
+    # host->device transfer in the hot loop. For throughput runs on
+    # feed-bound hosts; the model revisits the pool every N steps.
+    device_pool: int = 0
+    # Feed lookahead (data/prefetch.py): a feeder thread runs assembly and
+    # the host->device copy this many batches ahead; 0 = synchronous feed.
+    # Streams are bit-identical either way.
+    prefetch: int = 2
     log_every: int = 50
 
 
@@ -157,6 +191,8 @@ def _build_bert_workload(cfg_kwargs: dict):
         from distributed_tensorflow_tpu_torch.data.text import (
             SyntheticMLM,
             SyntheticMLMConfig,
+            TextCorpusConfig,
+            TextCorpusMLM,
             mlm_device_batches,
         )
         from distributed_tensorflow_tpu_torch.models.bert import (
@@ -177,12 +213,46 @@ def _build_bert_workload(cfg_kwargs: dict):
                 kwargs["vocab_size"] = cfg.bert_vocab
             model_cfg = BertConfig(**kwargs, remat=cfg.remat)
             model = BertForPreTraining(model_cfg, device=device)
-            data = SyntheticMLM(SyntheticMLMConfig(
-                vocab_size=model_cfg.vocab_size, seq_len=model_cfg.max_position, seed=0))
+            L = model_cfg.max_position
+            # Real corpus when --data-dir holds *.txt (one sentence per
+            # line, blank line between documents); seeded synthetic Markov
+            # chains otherwise. A val/*.txt subdirectory provides unseen
+            # eval text, tokenized with the TRAIN vocab.
+            txt_files, val_files = [], []
+            if cfg.data_dir:
+                txt_files = sorted(Path(cfg.data_dir).glob("*.txt"))
+                val_files = sorted((Path(cfg.data_dir) / "val").glob("*.txt"))
+            eval_data = None
+            if txt_files:
+                corpus_cfg = TextCorpusConfig(seq_len=L, vocab_size=model_cfg.vocab_size,
+                                              seed=0)
+                data = TextCorpusMLM(txt_files, corpus_cfg)
+                logger.info("text corpus: %d files, %d sentences, vocab_size=%d (cap %d)",
+                            len(txt_files), len(data._sents), data.vocab_size,
+                            model_cfg.vocab_size)
+                if val_files:
+                    eval_data = TextCorpusMLM(val_files, corpus_cfg, vocab_from=data)
+                else:
+                    logger.warning(
+                        "no val/*.txt under %s; eval will RESAMPLE THE TRAINING TEXT "
+                        "with fresh masking (not held-out documents) — provide a val "
+                        "split for a true held-out metric", cfg.data_dir)
+            else:
+                if cfg.data_dir:
+                    logger.warning(
+                        "no *.txt under %s; FALLING BACK TO SYNTHETIC MLM DATA%s",
+                        cfg.data_dir,
+                        (f" (IGNORING {len(val_files)} val/*.txt files — training "
+                         "text must live at the top level)" if val_files else ""),
+                    )
+                data = SyntheticMLM(SyntheticMLMConfig(
+                    vocab_size=model_cfg.vocab_size, seq_len=L, seed=0))
 
             def eval_batches(n_batches: int) -> Iterator[dict]:
-                # Held-out stream: a disjoint seed over the synthetic source.
-                it = mlm_device_batches(data, cfg.global_batch, device=device, seed=900_001)
+                # Held-out stream: the val corpus when one exists, else a
+                # disjoint seed over the training source.
+                it = mlm_device_batches(eval_data if eval_data is not None else data,
+                                        cfg.global_batch, device=device, seed=900_001)
                 for _ in range(n_batches):
                     yield next(it)
 
@@ -201,13 +271,48 @@ def _build_bert_workload(cfg_kwargs: dict):
     return build
 
 
+def _image_batches(cfg: WorkloadConfig, ds, device, model_hw, *, train: bool, seed: int,
+                   start_step: int = 0):
+    """Train/eval batch stream over an image dataset (the JAX CLI's
+    ``_image_batches``): training through the host C++ pipeline with the
+    preset's augmentation unless ``native_input`` is off; evaluation and
+    ``--no-native-input`` through the numpy feed (center crop). u8 pixels
+    under ``augment="imagenet"`` are normalised by the ImageNet mean/std."""
+    from distributed_tensorflow_tpu_torch.data.loader import (
+        device_batches,
+        native_device_batches,
+    )
+    from distributed_tensorflow_tpu_torch.data.readers import IMAGENET_MEAN, IMAGENET_STD
+
+    store_hw = tuple(ds.images.shape[1:3])
+    is_u8 = ds.images.dtype == np.uint8
+    # Per-channel normalisation belongs to the real-pixel path; synthetic
+    # float templates are already ~N(0, 1).
+    mean = IMAGENET_MEAN if (is_u8 and cfg.augment == "imagenet") else None
+    std = IMAGENET_STD if mean is not None else None
+    out_size = model_hw if store_hw != model_hw else None
+    if train and cfg.native_input:
+        return native_device_batches(
+            ds, cfg.global_batch, device=device, out_size=out_size,
+            pad=4 if cfg.augment == "cifar" else 0,
+            flip=cfg.augment in ("cifar", "imagenet"),
+            rrc=cfg.augment == "imagenet",
+            mean=mean, stddev=std, seed=seed, start_step=start_step,
+            # One pinned buffer a batch the prefetch queue holds, plus the
+            # one being written and the one whose copy is in flight.
+            staging=max(cfg.prefetch, 0) + 2,
+        )
+    return device_batches(ds, cfg.global_batch, device=device, seed=seed,
+                          start_step=start_step, out_size=out_size, mean=mean, stddev=std)
+
+
 def _build_image_workload(model_factory, image_shape, num_classes, n_examples=4096):
     """``model_factory(shape, device)`` builds the model on the device
     (seeded init, the JAX package's ``jax.random.key(0)`` counterpart)."""
 
     def build(cfg: WorkloadConfig):
-        from distributed_tensorflow_tpu_torch.data.loader import device_batches
         from distributed_tensorflow_tpu_torch.data.readers import load_dataset
+        from distributed_tensorflow_tpu_torch.parallel.mesh import process_index
         from distributed_tensorflow_tpu_torch.train.objectives import (
             init_model,
             make_classification_loss,
@@ -224,21 +329,36 @@ def _build_image_workload(model_factory, image_shape, num_classes, n_examples=40
 
             def load(split):
                 return load_dataset(
-                    cfg.dataset or "synthetic", None, split=split,
+                    cfg.dataset or "synthetic", cfg.data_dir or None, split=split,
                     fallback_examples=max(n_examples, cfg.global_batch),
                     image_shape=shape, num_classes=num_classes,
                     seed=0 if split == "train" else 1,
                 )
 
             ds = load("train")
-            logger.info("image feed: numpy device_batches, no augmentation (the native "
-                        "pipeline comes with a later slice)")
-            eval_ds_box: list = []  # the val split loads on the first eval pass
+            store = tuple(ds.images.shape[1:3])
+            if store != shape[:2] and (
+                ds.images.dtype != np.uint8 or store[0] < shape[0] or store[1] < shape[1]
+            ):
+                raise ValueError(
+                    f"dataset images are {ds.images.shape[1:]} but the model was "
+                    f"configured for {shape}; a u8 store may only be LARGER than the "
+                    "model geometry (train-time crop)")
+            if process_index() == 0:
+                logger.info(
+                    "image feed: %d images %s %s; training through %s (augment=%r)",
+                    len(ds), ds.images.shape[1:], ds.images.dtype,
+                    "the host C++ pipeline" if cfg.native_input else "the numpy feed",
+                    cfg.augment)
+            # The val split loads on the first eval pass: preparing a real
+            # val cache must not tax runs that never evaluate.
+            eval_ds_box: list = []
 
             def eval_batches(n_batches: int) -> Iterator[dict]:
                 if not eval_ds_box:
                     eval_ds_box.append(load("val"))
-                it = device_batches(eval_ds_box[0], cfg.global_batch, device=device, seed=101)
+                it = _image_batches(cfg, eval_ds_box[0], device, shape[:2], train=False,
+                                    seed=101)
                 for _ in range(n_batches):
                     yield next(it)
 
@@ -248,8 +368,8 @@ def _build_image_workload(model_factory, image_shape, num_classes, n_examples=40
                 "model": net,
                 "image_shape": shape,
                 "loss_fn": make_classification_loss(net),
-                "batches": lambda start_step=0: device_batches(
-                    ds, cfg.global_batch, device=device, seed=1, start_step=start_step),
+                "batches": lambda start_step=0: _image_batches(
+                    cfg, ds, device, shape[:2], train=True, seed=1, start_step=start_step),
                 "metric_fn": make_classification_metrics(net),
                 "eval_batches": eval_batches,
             }
@@ -303,6 +423,7 @@ PRESETS = {
         learning_rate=0.1,
         lr_schedule="piecewise",
         dataset="cifar10",
+        augment="cifar",
     ),
     "imagenet_resnet50": WorkloadConfig(
         name="imagenet_resnet50",
@@ -312,6 +433,7 @@ PRESETS = {
         learning_rate=0.4,  # linear-scaling rule for large global batch
         lr_schedule="warmup_cosine",
         dataset="imagenet",
+        augment="imagenet",
     ),
     "imagenet_inception_async": WorkloadConfig(
         name="imagenet_inception_async",
@@ -324,6 +446,7 @@ PRESETS = {
         mode="stale",
         staleness=4,
         dataset="imagenet",
+        augment="imagenet",
     ),
     "bert_base": WorkloadConfig(
         name="bert_base",
@@ -351,20 +474,12 @@ _UNPORTED_PRESETS = {
 
 # Flags of the JAX CLI that this slice's path does not read, with why.
 _UNPORTED_FLAGS = {
-    **dict.fromkeys(("--no-native-input", "--device-pool"),
-                    "the native input pipeline and HBM batch pools come with a later "
-                    "image slice; the feed is the numpy one"),
-    "--data-dir": ("the real-data readers come with later slices (TextCorpusMLM for "
-                   "bert_base; the MNIST/CIFAR/ImageFolder readers for the image presets)"),
     **dict.fromkeys(("--seq-parallel", "--sp-impl", "--tensor-parallel", "--moe-experts",
                      "--moe-dispatch", "--moe-topk", "--pipeline-parallel",
                      "--pipeline-microbatches", "--expert-parallel"),
                     "comes with the model-parallel slice"),
     **dict.fromkeys(("--resilient", "--max-restarts", "--fault-plan", "--nonfinite",
                      "--beacon-dir", "--dump-dir"), "comes with the resilient-training slice"),
-    **dict.fromkeys(("--tb-dir", "--metrics-jsonl", "--profile-dir", "--profile-steps",
-                     "--trace-dir", "--trace-buffer"), "comes with a later observability slice"),
-    "--prefetch": "the feed runs two batches ahead",
     "--rng-impl": "dropout draws from a torch.Generator seeded by --seed",
 }
 
@@ -373,7 +488,9 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
     """Train ``cfg`` on ``args.device``; returns ``(state, last_metrics)``."""
     from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
     from distributed_tensorflow_tpu_torch.data.prefetch import prefetch
-    from distributed_tensorflow_tpu_torch.obs.metrics import FeedMetrics
+    from distributed_tensorflow_tpu_torch.obs.metrics import FeedMetrics, make_metric_hook
+    from distributed_tensorflow_tpu_torch.obs.profile import trace_steps
+    from distributed_tensorflow_tpu_torch.obs.trace import Tracer
     from distributed_tensorflow_tpu_torch.parallel.mesh import (
         build_mesh,
         initialize_runtime,
@@ -413,8 +530,31 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
         state, start = ckpt.restore_latest(state, generator=rng)
     feed_metrics = FeedMetrics()
     # Resume-correct stream: a restored run consumes batches N.., not 0..
-    # Two batches of lookahead: one in flight while the next assembles.
-    batches = prefetch(pieces["batches"](start), 2, metrics=feed_metrics)
+    batches = pieces["batches"](0 if cfg.device_pool > 0 else start)
+    if cfg.device_pool > 0:
+        # Device-resident pool: the first N batches on the card once, then
+        # cycled, so the host leaves the hot loop. The step never writes
+        # into its batch, so reusing one is safe. The pool is ALWAYS stream
+        # positions 0..N-1 and a resumed run re-enters the cycle at
+        # start % N, which reproduces the uninterrupted run (a pool built
+        # from position `start` would train on other data after a restart).
+        src = batches
+        try:
+            pool = [next(src) for _ in range(cfg.device_pool)]
+        finally:
+            src.close()
+        # Wait for the WHOLE pool's copies before the first timed step.
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        k = start % cfg.device_pool
+        batches = itertools.cycle(pool[k:] + pool[:k])
+        if process_index() == 0:
+            logger.info("device_pool=%d batches resident on %s; the host feed is out "
+                        "of the hot loop", cfg.device_pool, device)
+    else:
+        # Feed stage: assembly and the host->device copy run on a feeder
+        # thread, cfg.prefetch batches ahead (0: synchronous, same metrics).
+        batches = prefetch(batches, cfg.prefetch, metrics=feed_metrics)
 
     evaluate = None
     if args.eval_every:
@@ -426,28 +566,54 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
                 eval_step(state, batch) for batch in pieces["eval_batches"](args.eval_batches))
 
     def lr_hook(step_: int, state_, metrics: dict) -> None:
+        # Runs before the writers (hook order): `lr` lands in every record.
         if "loss" in metrics:
             metrics["lr"] = float(lr_schedule(step_ - 1))
 
+    hook = make_metric_hook(logdir=args.tb_dir, jsonl=args.metrics_jsonl)
+    # Host span trace (obs/trace.py), exported at the end of the run; the
+    # device side is --profile-dir's torch.profiler trace.
+    tracer = Tracer(buffer_size=args.trace_buffer) if args.trace_dir else None
+    profile_cm = (trace_steps(args.profile_dir, num_steps=args.profile_steps or None,
+                              device=device)
+                  if args.profile_dir else contextlib.nullcontext())
     try:
-        state, last = fit(
-            state, step, batches,
-            num_steps=cfg.num_steps,
-            rng=rng,
-            log_every=cfg.log_every,
-            hooks=(lr_hook,),
-            checkpointer=ckpt,
-            ckpt_every=args.ckpt_every,
-            evaluate=evaluate,
-            eval_every=args.eval_every,
-            feed_metrics=feed_metrics,
-        )
+        with profile_cm as win:
+            step_fn = step
+            if args.profile_steps:
+                # Armed window: the profiler runs for exactly N steps.
+                def step_fn(state_, batch_, rng_):
+                    win.before_step()
+                    out = step(state_, batch_, rng_)
+                    win.after_step(out)
+                    return out
+
+            state, last = fit(
+                state, step_fn, batches,
+                num_steps=cfg.num_steps,
+                rng=rng,
+                log_every=cfg.log_every,
+                hooks=(lr_hook, hook),
+                checkpointer=ckpt,
+                ckpt_every=args.ckpt_every,
+                evaluate=evaluate,
+                eval_every=args.eval_every,
+                feed_metrics=feed_metrics,
+                tracer=tracer,
+            )
         if ckpt is not None and ckpt.latest_step() != state.step:
             ckpt.save(state.step, state, generator=rng)
     finally:
         if ckpt is not None:
             ckpt.close()
-        batches.close()
+        for w in getattr(hook, "writers", ()):
+            w.close()
+        close = getattr(batches, "close", None)
+        if close is not None:
+            close()
+        if tracer is not None and process_index() == 0:
+            out = tracer.export(Path(args.trace_dir) / "train_trace.json")
+            logger.info("wrote host span trace to %s", out)
     return state, last
 
 
@@ -499,6 +665,39 @@ def make_parser() -> argparse.ArgumentParser:
                    help="number of global batches per eval pass")
     p.add_argument("--ckpt-dir", default="")
     p.add_argument("--ckpt-every", type=int, default=0)
+    p.add_argument("--data-dir", default="",
+                   help="directory with real dataset files: MNIST idx, CIFAR-10 pickles, "
+                        "an ImageNet-class u8 cache, class folders or TFRecord shards for "
+                        "the image presets; *.txt (+ val/*.txt) for bert_base (seeded "
+                        "synthetic data, with a warning, when it holds none)")
+    p.add_argument("--no-native-input", action="store_true",
+                   help="train the image presets through the numpy feed (center crop, no "
+                        "augmentation) instead of the host C++ pipeline")
+    p.add_argument("--device-pool", type=int, default=0,
+                   help="place the first N batches on the device and cycle them (the host "
+                        "feed leaves the hot loop; the model revisits the pool every N steps)")
+    p.add_argument("--prefetch", type=int, default=-1,
+                   help="feed lookahead depth: a feeder thread runs batch assembly and the "
+                        "host->device copy N batches ahead (default 2; 0 = synchronous). "
+                        "Batch streams are bit-identical for any N")
+    p.add_argument("--tb-dir", default="",
+                   help="write every logged step's metrics as TensorBoard scalars here "
+                        "(needs the tensorboard package)")
+    p.add_argument("--metrics-jsonl", default="",
+                   help="append every logged step's metrics to this JSONL file")
+    p.add_argument("--profile-dir", default="",
+                   help="write a torch.profiler Chrome trace (CPU, and the card's kernels "
+                        "on CUDA) of the whole run to this directory")
+    p.add_argument("--profile-steps", type=int, default=0,
+                   help="arm the --profile-dir window for exactly N steps (starts at the "
+                        "first step, stops after the Nth; 0 = the whole run)")
+    p.add_argument("--trace-dir", default="",
+                   help="record host-side step-phase spans (host_wait/dispatch/device/"
+                        "metrics_fetch/checkpoint_save/eval) and write them here as Chrome "
+                        "trace-event JSON (train_trace.json)")
+    p.add_argument("--trace-buffer", type=int, default=4096,
+                   help="span ring-buffer size for --trace-dir (the export holds the most "
+                        "recent N spans)")
     p.add_argument("--seed", type=int, default=0, help="seed of the run's dropout generator")
     return p
 
@@ -519,6 +718,13 @@ def main(argv: list[str] | None = None) -> int:
         parser.error(f"--config {args.config}: unknown preset (ported: {sorted(PRESETS)})")
     if args.grad_accum < 0:
         parser.error("--grad-accum must be >= 1")
+    if args.profile_steps and not args.profile_dir:
+        parser.error("--profile-steps requires --profile-dir")
+    if args.device_pool < 0:
+        parser.error("--device-pool must be >= 0")
+    if args.tb_dir and importlib.util.find_spec("tensorboard") is None:
+        parser.error("--tb-dir: the tensorboard package is not installed here "
+                     "(--metrics-jsonl writes the same records without it)")
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     overrides = {}
@@ -536,6 +742,14 @@ def main(argv: list[str] | None = None) -> int:
         overrides["staleness"] = args.staleness
         if args.staleness:
             overrides["mode"] = "stale"
+    if args.data_dir:
+        overrides["data_dir"] = args.data_dir
+    if args.no_native_input:
+        overrides["native_input"] = False
+    if args.device_pool:
+        overrides["device_pool"] = args.device_pool
+    if args.prefetch >= 0:
+        overrides["prefetch"] = args.prefetch
     cfg = dataclasses.replace(PRESETS[args.config], **overrides)
     from distributed_tensorflow_tpu_torch.parallel.mesh import process_index, shutdown_runtime
 

@@ -8,15 +8,22 @@ bidirectional context; sentence pairs either continue the chain (NSP label
 
 Vocab layout: 0=[PAD] 1=[CLS] 2=[SEP] 3=[MASK], content tokens 4..vocab-1.
 
+:class:`TextCorpusMLM` builds the same batches from plain-text files (one
+sentence per line, blank lines between documents), with a word-level
+vocabulary: 0=[PAD] 1=[CLS] 2=[SEP] 3=[MASK] 4=[UNK], words 5..V-1.
+
 The batches are numpy, drawn in the JAX package's order, so the same seeds
 give bit-identical batches in both packages; only the placement differs
-(``torch`` tensors on the given device). ``TextCorpusMLM`` (real text) and
-``SyntheticLM`` are ported with a later slice.
+(``torch`` tensors on the given device). ``SyntheticLM`` is ported with the
+causal-LM slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
+from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -117,6 +124,157 @@ class SyntheticMLM:
             "nsp_label": nsp,
         }
 
+
+UNK = 4
+NUM_SPECIAL_TEXT = 5  # PAD CLS SEP MASK UNK
+
+_WORD_RE = re.compile(r"[a-zA-Z0-9']+|[^\sa-zA-Z0-9]")
+
+
+def _words(line: str, lowercase: bool) -> list[str]:
+    if lowercase:
+        line = line.lower()
+    return _WORD_RE.findall(line)
+
+
+@dataclasses.dataclass
+class TextCorpusConfig:
+    """Real-text BERT pretraining corpus: the real-data path beside the
+    synthetic Markov stand-in."""
+
+    seq_len: int = 128
+    vocab_size: int = 30522  # cap; actual vocab may be smaller
+    mask_prob: float = 0.15
+    lowercase: bool = True
+    seed: int = 0
+
+
+class TextCorpusMLM:
+    """BERT pretraining batches from plain-text files.
+
+    Format: one sentence per line; blank lines separate documents (the
+    classic BERT pretraining input convention). Tokenization is word-level
+    with an [UNK] bucket (vocab = most-frequent words up to
+    ``vocab_size``); masking/NSP semantics are identical to
+    :class:`SyntheticMLM` (15% masked: 80/10/10; 50% random next-sentence),
+    and the batch dict is interchangeable — ``mlm_device_batches`` and the
+    train step don't know which one they're fed.
+
+    Vocab layout: 0=[PAD] 1=[CLS] 2=[SEP] 3=[MASK] 4=[UNK], words 5..V-1.
+
+    ``vocab_from``: reuse another corpus's vocabulary instead of building
+    one from these files — a held-out val split must tokenize with the
+    TRAIN vocab (unseen words become [UNK]) or its ids would be meaningless
+    to the model.
+    """
+
+    def __init__(
+        self,
+        paths,
+        cfg: TextCorpusConfig,
+        *,
+        vocab_from: "TextCorpusMLM | None" = None,
+    ):
+        self.cfg = cfg
+        sents: list[list[str]] = []
+        doc_last: list[bool] = []  # True if sentence ends its document
+        for path in paths:
+            doc_open = False
+            for line in Path(path).read_text().splitlines():
+                ws = _words(line, cfg.lowercase)
+                if not ws:
+                    if doc_open and doc_last:
+                        doc_last[-1] = True
+                    doc_open = False
+                    continue
+                sents.append(ws)
+                doc_last.append(False)
+                doc_open = True
+            if doc_last:
+                doc_last[-1] = True
+        if not sents:
+            raise ValueError(f"no sentences found in {list(paths)}")
+        if vocab_from is not None:
+            self.vocab = vocab_from.vocab
+            self._ids = vocab_from._ids
+            self.vocab_size = vocab_from.vocab_size
+        else:
+            freq = Counter(w for s in sents for w in s)
+            n_words = min(len(freq), cfg.vocab_size - NUM_SPECIAL_TEXT)
+            self.vocab = [w for w, _ in freq.most_common(n_words)]
+            self._ids = {w: NUM_SPECIAL_TEXT + i for i, w in enumerate(self.vocab)}
+            self.vocab_size = NUM_SPECIAL_TEXT + n_words
+        self._sents = [
+            np.asarray([self._ids.get(w, UNK) for w in s], np.int32) for s in sents
+        ]
+        self._doc_last = np.asarray(doc_last)
+
+    def _segment(self, start: int, budget: int) -> tuple[np.ndarray, int, bool]:
+        """Pack consecutive sentences from ``start`` into <= budget tokens.
+
+        Returns ``(tokens, next_idx, doc_ended)``: ``next_idx`` is the first
+        sentence AFTER the ones consumed (where a true next-sentence
+        continuation must start) and ``doc_ended`` whether the segment's
+        document (or the corpus) ends at its last sentence — in which case
+        no continuation exists.
+        """
+        out: list[np.ndarray] = []
+        n, i = 0, start
+        while True:
+            s = self._sents[i]
+            out.append(s[: budget - n])
+            n += len(out[-1])
+            at_end = bool(self._doc_last[i]) or i + 1 >= len(self._sents)
+            if n >= budget or at_end:
+                return np.concatenate(out), i + 1, at_end
+            i += 1
+
+    def batch(
+        self, batch_size: int, *, seed: int | tuple[int, ...]
+    ) -> dict[str, np.ndarray]:
+        cfg = self.cfg
+        key = (seed,) if isinstance(seed, int) else tuple(seed)
+        rng = np.random.default_rng((cfg.seed, 1, *key))
+        L = cfg.seq_len
+        n_a = (L - 3) // 2
+        n_b = L - 3 - n_a
+        ids = np.full((batch_size, L), PAD, np.int32)
+        types = np.zeros((batch_size, L), np.int32)
+        nsp = (rng.random(batch_size) < 0.5).astype(np.int32)  # 1 = random b
+        n_sents = len(self._sents)
+        for r in range(batch_size):
+            start = int(rng.integers(0, n_sents))
+            a, nxt, doc_ended = self._segment(start, n_a)
+            # Continuation = the sentence right after the ones A consumed,
+            # same document; random = an unrelated position (NSP label 1).
+            # If A ran to its document's end, no continuation exists — fall
+            # back to a random segment and relabel the pair as random.
+            if nsp[r] or doc_ended:
+                nsp[r] = 1
+                b, _, _ = self._segment(int(rng.integers(0, n_sents)), n_b)
+            else:
+                b, _, _ = self._segment(nxt, n_b)
+            row_len = 1 + len(a) + 1 + len(b) + 1
+            ids[r, 0] = CLS
+            ids[r, 1 : 1 + len(a)] = a
+            ids[r, 1 + len(a)] = SEP
+            ids[r, 2 + len(a) : 2 + len(a) + len(b)] = b
+            ids[r, row_len - 1] = SEP
+            types[r, 2 + len(a) : row_len] = 1
+        attention_mask = ids != PAD
+
+        # Identical masking recipe to SyntheticMLM (content = non-special,
+        # which here includes [UNK]); random replacements draw real words.
+        masked_ids, targets = _apply_bert_masking(
+            rng, ids, cfg.mask_prob, NUM_SPECIAL_TEXT, self.vocab_size
+        )
+        return {
+            "input_ids": masked_ids,
+            "attention_mask": attention_mask,
+            "token_type_ids": types,
+            "mlm_targets": targets,
+            "nsp_label": nsp,
+        }
 
 
 # Fixed generation granularity for mlm_device_batches: global row r of batch

@@ -1,5 +1,5 @@
 """Observability for the port: serving and feed metrics, SLOs, health,
-tracing, the flight recorder and device-memory accounting."""
+tracing, profiling, the flight recorder and device-memory accounting."""
 
 from distributed_tensorflow_tpu_torch.obs.export import (  # noqa: F401
     PROM_CONTENT_TYPE,
@@ -30,6 +30,10 @@ from distributed_tensorflow_tpu_torch.obs.metrics import (  # noqa: F401
     ServeMetrics,
     TensorBoardWriter,
     make_metric_hook,
+)
+from distributed_tensorflow_tpu_torch.obs.profile import (  # noqa: F401
+    profile_window,
+    trace_steps,
 )
 from distributed_tensorflow_tpu_torch.obs.slo import (  # noqa: F401
     SloSpec,

@@ -7,8 +7,8 @@ connection blocks on its Future while the flusher thread batches across
 them — exactly the concurrency the micro-batcher exists to exploit).
 
 Routes (port of the JAX package's ``serve/server.py``; the decode,
-KV-transfer, stream-migration, image and profiler routes answer 404 until
-their slices)::
+KV-transfer, stream-migration and image routes answer 404 until their
+slices)::
 
     GET  /healthz    -> readiness probe: 200 {"status": "ready", ...} only
                         when the stack serves; 503 with the state string
@@ -28,6 +28,9 @@ their slices)::
     GET  /compilez   -> warm-up grid digest: cells total/compiled/failed,
                         cumulative warm-up seconds, per-cell records
     POST /debugz/dump-> force a flight-recorder dump
+    POST /profilez?ms=N -> capture a bounded ``torch.profiler`` window on
+                        the RUNNING server (needs trace_dir): replies
+                        trace_dir, requested_ms, wall_ms
     POST /drainz     -> flip to draining: /healthz goes 503 so the router
                         stops routing here, while in-flight + already-
                         queued requests still complete
@@ -261,11 +264,19 @@ def _jsonable(obj):
     return obj
 
 
-def build_http_server(client: Client, host: str = "127.0.0.1", port: int = 0):
+def build_http_server(
+    client: Client,
+    host: str = "127.0.0.1",
+    port: int = 0,
+    *,
+    trace_dir: str | None = None,
+):
     """Build (not start) a ``ThreadingHTTPServer`` over ``client``.
 
     ``port=0`` binds an ephemeral port (read ``server.server_address``).
-    Call ``serve_forever()`` to run; ``shutdown()`` to stop.
+    Call ``serve_forever()`` to run; ``shutdown()`` to stop. ``trace_dir``
+    is where ``POST /profilez`` writes its ``torch.profiler`` traces (None:
+    the route answers 503).
     """
 
     class Handler(BaseHTTPRequestHandler):
@@ -373,8 +384,33 @@ def build_http_server(client: Client, host: str = "127.0.0.1", port: int = 0):
             else:
                 self._reply(404, {"error": f"no route {url.path}"})
 
+        def _profilez(self, url) -> None:
+            if trace_dir is None:
+                self._reply(
+                    503,
+                    {"error": "profiling disabled: server built without "
+                              "trace_dir (pass --trace-dir)"},
+                )
+                return
+            q = parse_qs(url.query)
+            try:
+                ms = float(q["ms"][0]) if "ms" in q else 500.0
+            except ValueError:
+                self._reply(400, {"error": "ms must be a number"})
+                return
+            from distributed_tensorflow_tpu_torch.obs.profile import profile_window
+
+            # Blocks THIS handler thread for the window; the serving hot
+            # path keeps running underneath, so the capture sees live
+            # traffic.
+            self._reply(200, profile_window(
+                trace_dir, ms, device=getattr(client.engine, "device", None)))
+
         def do_POST(self):
             url = urlparse(self.path)
+            if url.path == "/profilez":
+                self._profilez(url)
+                return
             if url.path == "/drainz":
                 client.start_draining()
                 code, body = client.health.probe()

@@ -200,8 +200,9 @@ def test_train_cli_bert_base_on_cpu_then_serve(tmp_path):
     "argv,message",
     [(["--config", "lm_base"], "causal-LM slice"),
      (["--config", "bert_base", "--tensor-parallel", "2"], "model-parallel slice"),
-     (["--config", "bert_base", "--data-dir", "/x"], "TextCorpusMLM for bert_base")],
-    ids=["preset", "parallel-flag", "data-dir"],
+     (["--config", "bert_base", "--profile-steps", "2"],
+      "--profile-steps requires --profile-dir")],
+    ids=["preset", "parallel-flag", "profile-steps"],
 )
 def test_train_cli_refuses_unported_paths(argv, message, capsys):
     from distributed_tensorflow_tpu_torch.cli.train import main
@@ -209,6 +210,34 @@ def test_train_cli_refuses_unported_paths(argv, message, capsys):
     with pytest.raises(SystemExit):
         main(argv + ["--device", "cpu"])
     assert message in capsys.readouterr().err
+
+
+def test_train_cli_bert_base_reads_a_text_corpus(tmp_path, caplog):
+    """``--data-dir`` with ``*.txt`` and ``val/*.txt``: the corpus's vocabulary
+    is logged and the eval runs on the val split; a corpus without a val
+    split, and a directory without text, give the JAX CLI's warnings."""
+    from distributed_tensorflow_tpu_torch.cli.train import main
+
+    corpus = tmp_path / "corpus"
+    (corpus / "val").mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(40)]
+    for name in ("a.txt", "b.txt", "val/c.txt"):
+        docs = ["\n".join(" ".join(rng.choice(words, 6)) for _ in range(4)) for _ in range(3)]
+        (corpus / name).write_text("\n\n".join(docs) + "\n")
+    argv = ["--config", "bert_base", "--device", "cpu", "--bert-layers", "1",
+            "--bert-hidden", "48", "--bert-vocab", "64", "--steps", "2", "--global-batch", "8",
+            "--log-every", "1", "--eval-every", "2", "--eval-batches", "1"]
+    with caplog.at_level("INFO"):
+        assert main(argv + ["--data-dir", str(corpus)]) == 0
+    assert "text corpus: 2 files, 24 sentences, vocab_size=43 (cap 64)" in caplog.text
+    assert "eval_mlm_accuracy=" in caplog.text
+    for data_dir, warning in ((corpus / "val", "RESAMPLE THE TRAINING TEXT"),
+                              (tmp_path, "FALLING BACK TO SYNTHETIC MLM DATA")):
+        caplog.clear()
+        with caplog.at_level("WARNING"):
+            assert main(argv + ["--steps", "1", "--data-dir", str(data_dir)]) == 0
+        assert warning in caplog.text
 
 
 def _dp_worker(rank, world, port, out_dir):

@@ -2,8 +2,11 @@
 
 The numpy batch stream (bit-identical, resume included), the
 classification loss and eval metrics, and the SGD-momentum, SGD and Adam
-updates against optax; then the image CLI on the CPU with a checkpoint and
-a resume that brings the BatchNorm statistics back, and its refusals. f32;
+updates against optax; the CLI's feed (the host C++ pipeline with the
+preset's augmentation, and the numpy feed under ``--no-native-input``)
+against the JAX CLI's ``_image_batches``; then the image CLI on the CPU
+with a checkpoint and a resume that brings the BatchNorm statistics back,
+its data-dir fallback, a failed host-library build, and its refusals. f32;
 losses within 1e-6 and SGD updates within 1e-6 (the same f32 arithmetic in
 another order), Adam within 1e-5 (torch applies the bias corrections in
 another order than optax: about one rounding of each update of size lr),
@@ -215,10 +218,83 @@ def test_inception_async_preset_trains_stale_on_cpu(tmp_path, caplog, monkeypatc
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--config=imagenet_resnet50", "--device-pool"], "HBM batch pools"),
-    (["--config=cifar_resnet20", "--data-dir=/nonexistent"], "MNIST/CIFAR/ImageFolder"),
+    (["--config=imagenet_resnet50", "--profile-steps=2"], "--profile-steps requires --profile-dir"),
+    (["--config=cifar_resnet20", "--rng-impl=rbg"], "dropout draws from a torch.Generator"),
 ])
 def test_image_cli_refusals(argv, match, capsys):
     with pytest.raises(SystemExit):
         cli.main(argv + ["--device=cpu"])
     assert match in capsys.readouterr().err
+
+
+def _u8_store(n, hw, seed):
+    rng = np.random.default_rng(seed)
+    return SyntheticClassification(
+        images=rng.integers(0, 256, (n, *hw, 3), dtype=np.uint8),
+        labels=rng.integers(0, 10, n).astype(np.int32))
+
+
+def test_cifar_preset_first_training_batch_equals_jax(monkeypatch):
+    """The cifar_resnet20 preset's feed as the CLI builds it (host C++
+    pipeline, pad-crop 4 + flip) against the JAX CLI's ``_image_batches``
+    on the same u8 dataset and seed: the first two batches bit for bit."""
+    from distributed_tensorflow_tpu.cli import train as jcli
+    from distributed_tensorflow_tpu_torch.data import readers
+
+    ds = _u8_store(24, (32, 32), seed=8)
+    monkeypatch.setattr(readers, "load_dataset", lambda *a, **k: ds)
+    cfg = dataclasses.replace(cli.PRESETS["cifar_resnet20"], global_batch=8)
+    assert (cfg.augment, cfg.native_input) == ("cifar", True)
+    got = cfg.build(cfg)("cpu")["batches"]()
+    jcfg = dataclasses.replace(jcli.PRESETS["cifar_resnet20"], global_batch=8)
+    mesh = build_mesh({"data": 1}, devices=jax.devices()[:1])
+    want = jcli._image_batches(jcfg, ds, mesh, (32, 32), train=True, seed=1)
+    for _ in range(2):
+        g, w = next(got), next(want)
+        for k in ("image", "label"):
+            np.testing.assert_array_equal(g[k].numpy(), np.asarray(w[k]))
+    got.close()
+    want.close()
+
+
+def test_no_native_input_batch_equals_jax_numpy_feed(monkeypatch):
+    """``--no-native-input`` on the ImageNet preset: a 20x20 u8 store center
+    cropped to 16x16 and normalised by the ImageNet mean/std, as the JAX
+    CLI's numpy feed makes it."""
+    from distributed_tensorflow_tpu.cli import train as jcli
+
+    ds = _u8_store(20, (20, 20), seed=9)
+    over = dict(global_batch=8, native_input=False)
+    cfg = dataclasses.replace(cli.PRESETS["imagenet_resnet50"], **over)
+    jcfg = dataclasses.replace(jcli.PRESETS["imagenet_resnet50"], **over)
+    got = cli._image_batches(cfg, ds, "cpu", (16, 16), train=True, seed=1, start_step=1)
+    mesh = build_mesh({"data": 1}, devices=jax.devices()[:1])
+    want = jcli._image_batches(jcfg, ds, mesh, (16, 16), train=True, seed=1, start_step=1)
+    for _ in range(2):
+        g, w = next(got), next(want)
+        for k in ("image", "label"):
+            np.testing.assert_array_equal(g[k].numpy(), np.asarray(w[k]))
+
+
+def test_image_cli_missing_data_dir_falls_back_with_warning(tmp_path, caplog):
+    with caplog.at_level("WARNING"):
+        assert cli.main(["--config=mnist_lenet", "--device=cpu", "--global-batch=8",
+                         "--steps=1", f"--data-dir={tmp_path / 'nonexistent'}"]) == 0
+    assert "FALLING BACK TO SYNTHETIC DATA" in caplog.text
+
+
+def test_failed_host_library_build_raises_unless_numpy_feed(tmp_path, monkeypatch):
+    """No silent fallback: a compiler that fails makes the run raise with
+    its output; ``--no-native-input`` trains through the numpy feed."""
+    from distributed_tensorflow_tpu_torch.ops import build
+
+    cxx = tmp_path / "broken-cxx"
+    cxx.write_text("#!/bin/sh\necho 'broken-cxx: cannot compile' >&2\nexit 1\n")
+    cxx.chmod(0o755)
+    monkeypatch.setenv("CXX", str(cxx))
+    monkeypatch.setattr(build, "HOST_BUILD_DIR", tmp_path / "host")
+    monkeypatch.delitem(build._LIBS, "data_pipeline", raising=False)
+    argv = ["--config=mnist_lenet", "--device=cpu", "--global-batch=8", "--steps=1"]
+    with pytest.raises(RuntimeError, match="broken-cxx: cannot compile"):
+        cli.main(argv)
+    assert cli.main(argv + ["--no-native-input"]) == 0

@@ -1,8 +1,11 @@
-"""The port stands alone: no JAX-side imports, and no silent CPU fallback."""
+"""The port stands alone: no JAX-side imports, no use of the JAX package's
+native directory or its library (the port builds its own host library from
+``csrc/`` into ``build/``), and no silent CPU fallback."""
 
 from __future__ import annotations
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -48,6 +51,30 @@ def test_port_imports_nothing_of_jax():
         if root in FORBIDDEN
     ]
     assert not bad, bad
+
+
+def test_port_never_touches_the_jax_native_directory():
+    """No port file, ``scripts/torch_*.py`` or ``chip_smoke.py`` names the
+    ``native/`` directory or ``libdata_pipeline.so``, and the host library
+    builds and loads from under ``build/``."""
+    pattern = re.compile(r"(?<![\w.])native/|libdata_pipeline\.so")
+    files = _port_files() + sorted(
+        (ROOT / "distributed_tensorflow_tpu_torch" / "csrc").glob("*.c*"))
+    assert ROOT / "distributed_tensorflow_tpu_torch" / "csrc" / "data_pipeline.cpp" in files
+    bad = [
+        f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
+        for f in files
+        for i, line in enumerate(f.read_text().splitlines(), 1)
+        if pattern.search(line)
+    ]
+    assert not bad, bad
+    from distributed_tensorflow_tpu_torch.data import native
+    from distributed_tensorflow_tpu_torch.ops import build
+
+    native.load_library()
+    path = Path(build.BUILD_INFO["data_pipeline"]["path"]).resolve()
+    assert path.parent == (ROOT / "build" / "host").resolve()
+    assert path.name.startswith("libdata_pipeline-") and path.exists()
 
 
 @pytest.fixture()

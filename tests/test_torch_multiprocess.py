@@ -12,7 +12,8 @@ devices:
   sums of two values, whose order does not matter);
 - ``cli.train --config cifar_resnet20`` under ``--num-processes 2``, sync
   and ``--staleness 2``: the ranks end bitwise equal, and equal to the JAX
-  step on the same interop-converted params and global batches, BatchNorm
+  step on the same interop-converted params and global batches (each
+  rank's slice of the native augmenting feed, concatenated), BatchNorm
   statistics per shard as in JAX, within ``TOL`` (f32 convolutions and
   BatchNorm sums in another order, three SGD-momentum steps);
 - rank 0 alone writes the checkpoint, both ranks restore it, and the
@@ -194,6 +195,28 @@ def cli_runs(tmp_path_factory):
     return out
 
 
+def _global_batches(pieces, world: int = 2):
+    """The global batches of a ``world``-rank run: each rank's slice of the
+    CLI's training feed, concatenated. The native pipeline draws a rank's
+    augmentation from the start of its own slice, so one process's global
+    stream is not the same batch."""
+    from unittest import mock
+
+    from distributed_tensorflow_tpu_torch.data import loader
+
+    streams = []
+    for r in range(world):
+        def rows(global_batch, r=r):
+            n = global_batch // world
+            return r * n, (r + 1) * n
+
+        with mock.patch.object(loader, "process_rows", rows):
+            streams.append(pieces["batches"]())
+    while True:
+        parts = [next(it) for it in streams]
+        yield {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
 def _jax_reference(mode: str, n_steps: int = 3):
     """The JAX package's step on a {"data": 2} mesh from the port CLI's
     initial params, over the port CLI's global batches."""
@@ -212,7 +235,7 @@ def _jax_reference(mode: str, n_steps: int = 3):
     params, stats = resnet_params_to_flax(
         {k: v.detach() for k, v in pieces["params"].items()},
         pieces["model_state"]["batch_stats"])
-    batches = pieces["batches"]()
+    batches = _global_batches(pieces)
     jcfg = dataclasses.replace(JAX_PRESETS["cifar_resnet20"], num_steps=n_steps,
                                global_batch=8, lr_schedule="constant",
                                mode="stale" if staleness else "sync",

@@ -155,13 +155,42 @@ Phases (any failure exits non-zero before the result lines):
    a fresh K = 4 ring (its first 4 steps apply zeros) the loss after 14
    steps below the first step's. Then ms per step, images/s, MFU and peak
    memory.
+8b. serve_bert_int8 — the same BERT-base checkpoint restored with
+   ``weight_dtype="int8"`` (per-channel packing at restore) behind
+   ``Client``: 8 requests of 257-512 tokens in bucket 512, 12 ``flash_fwd``
+   launches a forward (counted), finite answers; prints pred_ids agreement
+   with the bf16 engine and ms a batch of 8 for both.
 12. train_cli — ``python -m distributed_tensorflow_tpu_torch.cli.train
    --config bert_base`` (the preset at its own width: L=128, dense
    attention) for 3 steps with a checkpoint, then ``restore_serving_state``
    on it and one ``run_batch``.
+12b. train_cli_lm — ``cli.train --config lm_base`` at the preset's width
+   (12 layers, H 768, 12 heads, vocab 30522, L 128, bf16) and global batch
+   (256) for 4 steps with a checkpoint: finite losses, ms a step and
+   tokens/s; then resumed to step 64 at a constant 3e-4 (the restore
+   logged, the loss down by more than 2), the checkpoint served next.
+12c. serve_lm — ``CausalLMEngine`` on that checkpoint through
+   ``restore_serving_state`` (buckets 64/128, 8 slots, tiers of up to 4,
+   32 new tokens), 12 seeded prompts of 5-120 tokens admitted a tier at a
+   time and decoded until every budget is spent (lm_base's 128 positions
+   cap prompt + budget). Greedy streams against the port's own full
+   forward on the card (fp32 engine exactly; bf16: a first divergence only
+   within one bf16 ulp of the reference's top-2 gap), streams run to run,
+   sampled streams solo versus mid-flight (fp32; bf16 measured), chunked
+   prefill (32) versus monolithic (fp32), verify (k = 4) against decode
+   (fp32 argmax equal;
+   bf16 measured; max |logit difference| printed), prefix insert / gather /
+   export / import and slot export / import bit for bit, int8 weights +
+   int8 KV teacher-forced top-1 agreement >= 0.95 over >= 30 probes.
+   Prints prefill ms per (tier, bucket), decode ms a step at 8 slots (bf16
+   and int8), tokens/s, kv_bytes_per_token and packed parameter bytes.
 13. train_cli_image — ``cli.train --config imagenet_resnet50 --image-size 64
    --global-batch 16 --steps 3`` with a checkpoint, then a ``Checkpointer``
    restore that brings back the step and every BatchNorm running average.
+13b. serve_image — ``cli.serve --config imagenet_resnet50 --image-size 64
+   --selftest 16`` on that checkpoint, and one ``POST /v1/classify`` whose
+   top-5 equals a plain eval forward of the restored model; ms a batch per
+   tier.
 14. train_cli_inception — the same for ``--config imagenet_inception_async
    --image-size 75`` (no aux head below 299x299): the restore also brings
    back the K = 4 stale ring, on the card.
@@ -2167,6 +2196,655 @@ def phase_train_cli_bert_corpus(torch):
           "losses": losses, "eval": evals[0]})
 
 
+# ------------------------------------------------------------- causal LM
+
+LM_SLOTS, LM_TIER, LM_NEW = 8, 4, 32
+LM_BUCKETS = (64, 128)
+# The int8 controls' bounds, set between the H100's readings of the sound
+# trees and of a planted fault (_misplace_scales); PERF.md section 5 has
+# both. Max |logit - bf16 full forward's|, teacher forced: int8 0.086,
+# the fault 1.125.
+LM_INT8_MAX_LOGIT_ERR = 0.3
+# Against the bf16 engine: pred_ids agreement, int8 0.943, the fault
+# 0.381; max |mean target log-prob difference|, int8 0.0023, the fault
+# 0.0096.
+BERT_INT8_MIN_PRED_AGREEMENT = 0.9
+BERT_INT8_MAX_SCORE_DIFF = 0.005
+
+
+def phase_train_cli_lm(torch, resume_steps: int = 64):
+    """``cli.train --config lm_base`` at the preset's width (12 layers, H
+    768, 12 heads, vocab 30522, L 128, bf16) and global batch (256) for 4
+    steps with a checkpoint and ``--metrics-jsonl``: finite losses; ms a
+    step and tokens a second from the logged rate (steps 2-4). Then the
+    same CLI resumes that checkpoint to step ``resume_steps`` at a constant
+    3e-4 (the preset's 1000-step warmup leaves 4 steps at lr ~1e-7, a
+    model whose logits are flat): the restore is logged and the loss
+    falls. The served checkpoint is that one (the 4-step one when
+    ``resume_steps`` is 0)."""
+    ckpt_dir = ROOT / "build" / "chip_smoke_lm"
+    jsonl = ROOT / "build" / "chip_smoke_lm_metrics.jsonl"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    jsonl.unlink(missing_ok=True)
+    t0 = time.monotonic()
+    _cli_train(["--config", "lm_base", "--steps", "4", "--log-every", "1",
+                "--ckpt-dir", str(ckpt_dir), "--metrics-jsonl", str(jsonl)], timeout=600)
+    seconds = time.monotonic() - t0
+    records = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    losses = [r["loss"] for r in records if "loss" in r]
+    check(len(losses) == 4 and all(np.isfinite(losses)), f"lm_base losses {losses}")
+    rate = statistics.median(r["steps_per_sec"] for r in records[1:] if "loss" in r)
+    out = {"phase": "train_cli_lm", "seconds": seconds, "losses": losses,
+           "step_ms": 1e3 / rate, "tokens_per_s": 256 * 128 * rate}
+    if resume_steps:
+        t0 = time.monotonic()
+        proc = _cli_train(["--config", "lm_base", "--steps", str(resume_steps), "--lr", "3e-4",
+                           "--lr-schedule", "constant", "--log-every", "20",
+                           "--ckpt-dir", str(ckpt_dir)], timeout=600)
+        resumed = [float(ln.split(" loss=")[1].split()[0]) for ln in proc.stderr.splitlines()
+                   if "train.loop: step" in ln and " loss=" in ln]
+        check("restored checkpoint at step 4" in proc.stderr, "lm_base did not resume at step 4")
+        check(len(resumed) >= 2 and all(np.isfinite(resumed)) and resumed[-1] < losses[0] - 2.0,
+              f"lm_base losses after the resume: {resumed}")
+        out.update(resume_seconds=time.monotonic() - t0, resumed_logged_losses=resumed)
+    emit(out)
+    return ckpt_dir
+
+
+def _lm_requests(vocab: int, n: int = 12, max_position: int = 128):
+    """Seeded prompts of 5-120 tokens; every other one sampled (0.8, its
+    own seed); budgets fill the cache pages: min(32, 128 - prompt)."""
+    rng = np.random.default_rng(SEED + 11)
+    out = []
+    for i in range(n):
+        length = int(rng.integers(5, 121)) if i else 120
+        out.append({"id": i, "input_ids": rng.integers(4, vocab, length),
+                    "temperature": 0.8 if i % 2 else 0.0, "seed": 100 + i,
+                    "budget": min(LM_NEW, max_position - length)})
+    return out
+
+
+def _generate(engine, requests, chunk: int = 0) -> dict:
+    """A host loop standing in for the continuous batcher: admit requests
+    into free slots a tier at a time (whole prompts, or ``chunk``-token
+    chunks), decode every active slot until each budget is spent, reuse
+    the freed slots. Returns ``{id: [tokens]}``."""
+    S = engine.slots
+    lengths, active = np.zeros(S, np.int32), np.zeros(S, bool)
+    temps, seeds = np.zeros(S, np.float32), np.zeros(S, np.int32)
+    free, pending, owner, out = list(range(S)), list(requests), {}, {}
+    while pending or owner:
+        while pending and free:
+            group = []
+            while pending and free and len(group) < engine.max_batch:
+                group.append((free.pop(0), pending.pop(0)))
+            if chunk:
+                first = {}
+                for s0 in range(0, max(len(r["input_ids"]) for _, r in group), chunk):
+                    rows = [(s, r) for s, r in group if s0 < len(r["input_ids"])]
+                    tok = engine.fetch_step(engine.prefill_chunks([
+                        {"slot": s, "input_ids": r["input_ids"], "start": s0,
+                         "n_tokens": min(chunk, len(r["input_ids"]) - s0),
+                         "length": len(r["input_ids"]), "temperature": r["temperature"],
+                         "seed": r["seed"]} for s, r in rows]))
+                    for j, (s, r) in enumerate(rows):
+                        if s0 + chunk >= len(r["input_ids"]):
+                            first[s] = int(tok[j])
+                firsts = [first[s] for s, _ in group]
+            else:
+                tok = engine.fetch_step(engine.prefill([
+                    {"slot": s, "input_ids": r["input_ids"], "temperature": r["temperature"],
+                     "seed": r["seed"]} for s, r in group]))
+                firsts = [int(t) for t in tok[:len(group)]]
+            for (s, r), t in zip(group, firsts):
+                out[r["id"]] = [t]
+                lengths[s], active[s] = len(r["input_ids"]), True
+                temps[s], seeds[s] = r["temperature"], r["seed"]
+                owner[s] = r
+        tok = engine.fetch_step(engine.decode(lengths, active, temps, seeds))
+        for s, r in list(owner.items()):
+            out[r["id"]].append(int(tok[s]))
+            lengths[s] += 1
+            if len(out[r["id"]]) >= r["budget"]:
+                active[s] = False
+                del owner[s]
+                free.append(s)
+    return out
+
+
+def _bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at ``x`` (8 significand bits)."""
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 1e-30))) - 7)
+
+
+def _greedy_against_full_forward(engine, requests, streams, torch, exact: bool):
+    """Each greedy stream against the port's own full forward on the card
+    over prompt + stream (teacher-forced argmax at every generated
+    position): the first divergence of each stream, with the reference's
+    top-2 gap there. ``exact``: any divergence is a violation; otherwise
+    only one whose gap exceeds one bf16 ulp of the larger logit."""
+    rows, violations = [], []
+    with torch.inference_mode():
+        for r in requests:
+            if r["temperature"]:
+                continue
+            stream, n = streams[r["id"]], len(r["input_ids"])
+            seq = torch.as_tensor(np.concatenate([r["input_ids"], stream[:-1]]),
+                                  device=engine.device)[None]
+            logits = engine.model(seq, torch.ones_like(seq, dtype=torch.bool))[0, n - 1:]
+            ref = logits.argmax(-1).tolist()
+            diverge = next((t for t, (a, b) in enumerate(zip(stream, ref)) if a != b), None)
+            if diverge is None:
+                continue
+            top2 = logits[diverge].float().topk(2).values.tolist()
+            gap = top2[0] - top2[1]
+            row = {"id": r["id"], "step": diverge, "gap": gap, "ulp": _bf16_ulp(top2[0])}
+            rows.append(row)
+            if exact or gap > row["ulp"]:
+                violations.append(row)
+    return rows, violations
+
+
+def _teacher_forced_probes(ref_model, vocab: int, torch, n_prompts: int = 6,
+                           n_steps: int = 7):
+    """Probes for the teacher-forced agreement: seeded prompts of 8-40
+    tokens, each greedily continued by ``ref_model``'s full forward (one
+    re-run a token); probe ``t`` is the prompt plus the first ``t``
+    reference tokens, with the reference's next two tokens and its top-2
+    logit gaps there."""
+    rng = np.random.default_rng(SEED + 23)
+    probes = []
+    with torch.inference_mode():
+        for _ in range(n_prompts):
+            p = rng.integers(4, vocab, int(rng.integers(8, 40)))
+            seq, gaps = list(p), []
+            device = next(ref_model.parameters()).device
+            for _ in range(n_steps):
+                ids = torch.as_tensor(seq, device=device)[None]
+                row = ref_model(ids, torch.ones_like(ids, dtype=torch.bool))[0, -1].float()
+                top2 = row.topk(2).values.tolist()
+                gaps.append(top2[0] - top2[1])
+                seq.append(int(row.argmax()))
+            ref = seq[len(p):]
+            probes += [(np.asarray(seq[:len(p) + t]), ref[t:t + 2], gaps[t:t + 2])
+                       for t in range(n_steps - 1)]
+    return probes
+
+
+def _teacher_forced(engine, probes):
+    """Top-1 agreement of ``engine`` with the probes' reference, teacher
+    forced: each probe is admitted whole and checked on the prefill's token
+    and on one decode step's (two comparisons a probe). Returns the
+    agreement and the reference's top-2 gaps at the disagreements."""
+    agree = total = 0
+    missed = []
+    S = engine.slots
+    for i in range(0, len(probes), engine.max_batch):
+        group = probes[i:i + engine.max_batch]
+        first = engine.fetch_step(engine.prefill([
+            {"slot": s, "input_ids": ids} for s, (ids, _, _) in enumerate(group)]))
+        lengths, active = np.zeros(S, np.int32), np.zeros(S, bool)
+        for s, (ids, _, _) in enumerate(group):
+            lengths[s], active[s] = len(ids), True
+        second = engine.fetch_step(engine.decode(lengths, active, np.zeros(S, np.float32),
+                                                 np.zeros(S, np.int32)))
+        for s, (_, ref, gaps) in enumerate(group):
+            for got, want, gap in zip((first[s], second[s]), ref, gaps):
+                agree += int(got == want)
+                total += 1
+                if got != want:
+                    missed.append(gap)
+    return agree / total, missed
+
+
+def _misplace_scales(params: dict) -> dict:
+    """A planted fault for the int8 controls: ``params`` (a packed serving
+    tree) with every kernel's scales on the wrong output rows, as a
+    mis-broadcast would put them: q/k/v's per-head-dim-lane scales indexed
+    by ``row // heads`` instead of ``row % d``, every other kernel's
+    per-row scales rolled by one row."""
+    out = {}
+    for name, leaf in params.items():
+        if isinstance(leaf, dict) and "_q8_scale" in leaf:
+            s, rows = leaf["_q8_scale"], leaf["_q8"].shape[0]
+            s = s.roll(1) if s.numel() == rows else s.repeat_interleave(rows // s.numel())
+            leaf = {"_q8": leaf["_q8"], "_q8_scale": s}
+        out[name] = leaf
+    return out
+
+
+def _logit_error(engine, ref_model, probes, torch) -> dict:
+    """|logit difference| of ``engine``'s model against ``ref_model``'s full
+    forward, teacher forced, at each probe's next position (the prefill
+    forward) and the one after (a decode step that reads the K/V the
+    engine's prefill cell wrote into its slot cache, fed the reference's
+    token): the max and the root mean square over all positions and
+    vocabulary entries."""
+    S, lc, dev = engine.slots, engine.cache_len, engine.device
+    worst, sq, n = 0.0, 0.0, 0
+    with torch.inference_mode():
+        for i in range(0, len(probes), engine.max_batch):
+            group = probes[i:i + engine.max_batch]
+            engine.fetch_step(engine.prefill([
+                {"slot": s, "input_ids": ids} for s, (ids, _, _) in enumerate(group)]))
+            tok = torch.zeros(S, dtype=torch.int32, device=dev)
+            pos = torch.full((S,), lc, dtype=torch.int32, device=dev)
+            for s, (ids, ref, _) in enumerate(group):
+                tok[s], pos[s] = int(ref[0]), len(ids)
+            dec, _, _ = engine.model.decode_step(tok, pos, engine._cache_k, engine._cache_v)
+            for s, (ids, ref, _) in enumerate(group):
+                seq = torch.as_tensor(np.append(ids, ref[0]), device=dev)[None]
+                mask = torch.ones_like(seq, dtype=torch.bool)
+                want = ref_model(seq, mask)[0, -2:].float()
+                first = engine.model.prefill(seq[:, :-1], mask[:, :-1])[0][0, -1].float()
+                diff = torch.stack([first, dec[s].float()]) - want
+                worst = max(worst, float(diff.abs().max()))
+                sq += float(diff.square().sum())
+                n += diff.numel()
+    return {"max_abs": worst, "rms": (sq / n) ** 0.5}
+
+
+def _verify_against_decode(engine, requests, torch):
+    """Admit the first ``slots`` greedy prompts, then from that state: K + 1
+    decode steps through ``decode_step`` (logits kept), and from the same
+    state one ``verify_step`` over the slot's last token plus the K decoded
+    tokens as drafts. Returns the argmax mismatches between verify column j
+    and decode step j, the max |logit difference|, and whether the engine's
+    verify cell accepted every draft and emitted decode's tokens."""
+    k = engine.spec_tokens
+    S = engine.slots
+    reqs = [dict(r, temperature=0.0) for r in requests[:S]]
+    for j in range(0, S, engine.max_batch):
+        engine.fetch_step(engine.prefill([
+            {"slot": j + s, "input_ids": r["input_ids"]}
+            for s, r in enumerate(reqs[j:j + engine.max_batch])]))
+    lengths = np.array([len(r["input_ids"]) for r in reqs], np.int32)
+    snap = lambda c: ({n: t.clone() for n, t in c.items()} if isinstance(c, dict)  # noqa: E731
+                      else c.clone())
+
+    def restore(state):
+        for dst, src in zip((engine._cache_k, engine._cache_v, engine._last_buf), state):
+            if isinstance(dst, dict):
+                for n in dst:
+                    dst[n].copy_(src[n])
+            else:
+                dst.copy_(src)
+
+    state = (snap(engine._cache_k), snap(engine._cache_v), engine._last_buf.clone())
+    lc = engine.cache_len
+    dev = engine.device
+    with torch.inference_mode():
+        tok = engine._last_token.clone()
+        step_logits, step_tok = [], []
+        for j in range(k + 1):
+            pos = torch.as_tensor(lengths + j, device=dev).clamp_max(lc - 1)
+            logits, _, _ = engine.model.decode_step(tok, pos, engine._cache_k, engine._cache_v)
+            tok = logits.argmax(-1).to(torch.int32)
+            step_logits.append(logits.float())
+            step_tok.append(tok)
+        restore(state)
+        tokens = torch.stack([engine._last_token] + step_tok[:k], dim=1)
+        pos = torch.as_tensor(lengths, device=dev)[:, None] + torch.arange(k + 1, device=dev)
+        vlogits, _, _ = engine.model.verify_step(tokens, pos, engine._cache_k, engine._cache_v)
+        vlogits = vlogits.float()
+        restore(state)
+    dec = torch.stack(step_logits, dim=1)
+    mismatches = int((vlogits.argmax(-1) != dec.argmax(-1)).sum())
+    max_diff = float((vlogits - dec).abs().max())
+    drafts = torch.stack(step_tok[:k], dim=1).cpu().numpy()
+    mat = engine.fetch_step(engine.verify(drafts, lengths, np.full(S, k + 1, np.int32),
+                                          np.zeros(S, np.float32), np.zeros(S, np.int32)))
+    want = torch.stack(step_tok, dim=1).cpu().numpy()
+    restore(state)
+    return {"argmax_mismatches": mismatches, "columns": S * (k + 1),
+            "max_abs_logit_diff": max_diff, "cell_matches_decode": bool((mat == want).all())}
+
+
+def _prefix_round_trip(engine, requests, torch):
+    """Prefix insert, gather, export and import, bit for bit: prompt A (the
+    longest request) prefilled in chunks into slot 0 and its head blocks
+    published; the pool pages equal slot 0's; B (A's head plus a tail)
+    admitted into slot 1 with the chain gathered equals slot 0 over the
+    head; pages exported, imported under other ids and exported again are
+    the same bytes; a slot's lane exported and imported into another slot
+    is the same bytes."""
+    bt = engine.block_tokens
+    a = requests[0]["input_ids"]
+    n_blocks = min(len(a) // bt, engine._max_chain)
+    head = n_blocks * bt
+    b = np.concatenate([a[:head], np.arange(5, 5 + 7)])
+    chunk = engine.prefill_chunk_size
+    for s0 in range(0, len(a), chunk):
+        engine.fetch_step(engine.prefill_chunks([
+            {"slot": 0, "input_ids": a, "start": s0, "n_tokens": min(chunk, len(a) - s0),
+             "length": len(a)}]))
+    blocks = list(range(1, 1 + n_blocks))
+    engine.insert_prefix(0, [(blk, i) for i, blk in enumerate(blocks)])
+    engine.fetch_step(engine.prefill_chunks([
+        {"slot": 1, "input_ids": b, "start": head, "n_tokens": len(b) - head,
+         "length": len(b), "chain": blocks}]))
+    ck = engine._cache_k
+    pool_k, pool_v = engine.export_prefix_pages(blocks)
+    nl = pool_k.shape[0]
+    ok = {
+        "pool_is_slot0": torch.equal(pool_k[:, :n_blocks].reshape(nl, head, *ck.shape[3:]),
+                                     ck[:, 0, :head]),
+        "gather_is_slot0": torch.equal(ck[:, 1, :head], ck[:, 0, :head])
+        and torch.equal(engine._cache_v[:, 1, :head], engine._cache_v[:, 0, :head]),
+    }
+    others = [engine._pool_blocks - 1 - i for i in range(n_blocks)]
+    engine.import_prefix_pages([(blk, i) for i, blk in enumerate(others)], pool_k, pool_v)
+    k2, v2 = engine.export_prefix_pages(others)
+    ok["export_import_export"] = (torch.equal(k2[:, :n_blocks], pool_k[:, :n_blocks])
+                                  and torch.equal(v2[:, :n_blocks], pool_v[:, :n_blocks]))
+    sk, sv = engine.export_slot_pages(1)
+    engine.import_slot_pages(2, sk, sv, last_token=int(engine._last_token[1]))
+    sk2, sv2 = engine.export_slot_pages(2)
+    ok["slot_lane"] = torch.equal(sk2, sk) and torch.equal(sv2, sv)
+    return {**ok, "blocks": n_blocks, "block_tokens": bt}
+
+
+def _time_lm(engine, vocab: int, torch) -> dict:
+    """Prefill ms per (tier, bucket) with real rows (slots 0..T-1), and
+    decode ms a step with all slots active (median of 20, each fetched)."""
+    rng = np.random.default_rng(SEED + 31)
+    prefill = {}
+    for T in engine.batch_tiers:
+        for L in engine.buckets:
+            adm = [{"slot": s, "input_ids": rng.integers(4, vocab, L)} for s in range(T)]
+            engine.fetch_step(engine.prefill(adm))
+            times = []
+            for _ in range(5):
+                t0 = time.monotonic()
+                engine.fetch_step(engine.prefill(adm))
+                times.append((time.monotonic() - t0) * 1e3)
+            prefill[f"t{T}/b{L}"] = statistics.median(times)
+    S = engine.slots
+    lengths = np.full(S, 64, np.int32)
+    args = (np.ones(S, bool), np.zeros(S, np.float32), np.zeros(S, np.int32))
+    engine.fetch_step(engine.decode(lengths, *args))
+    times = []
+    for _ in range(20):
+        t0 = time.monotonic()
+        engine.fetch_step(engine.decode(lengths, *args))
+        times.append((time.monotonic() - t0) * 1e3)
+    decode_ms = statistics.median(times)
+    return {"prefill_ms": prefill, "decode_ms": decode_ms,
+            "decode_tokens_per_s": S / decode_ms * 1e3}
+
+
+def phase_serve_lm(torch, ckpt_dir: Path, *, device="cuda", cfg=None, n_requests=12):
+    """``CausalLMEngine`` on the ``lm_base`` checkpoint through
+    ``restore_serving_state``: buckets (64, 128), 8 slots, tiers of up to 4,
+    32 new tokens; 12 seeded prompts of 5-120 tokens (every other one
+    sampled at 0.8) admitted a tier at a time into free slots and decoded
+    until every budget is spent (:func:`_generate`). Checks: greedy streams
+    equal the port's full forward on the card (fp32 engine: exactly; bf16:
+    a first divergence only where the reference's top-2 gap is within one
+    bf16 ulp); streams equal run to run (fp32 and bf16), solo versus
+    mid-flight (fp32; bf16 measured), and chunked (``prefill_chunk=32``)
+    versus monolithic (fp32); verify (``spec_tokens=4``) columns' argmax
+    equals decode's (fp32; bf16 measured) and the verify cell emits
+    decode's tokens; prefix insert / gather / export / import and slot
+    export / import bit for bit; int8 weights + int8 KV teacher-forced
+    top-1 agreement with the bf16 full forward >= 0.95 over >= 30 probes
+    (the bf16 engine's own agreement printed beside it), and its logits
+    there within ``LM_INT8_MAX_LOGIT_ERR`` of the bf16 full forward's, a
+    bound that the same tree with misplaced scales must exceed. Prints prefill ms
+    per (tier, bucket), decode ms a step at 8 slots (bf16, int8), tokens/s,
+    kv_bytes_per_token and packed versus fp32-equivalent parameter bytes."""
+    from distributed_tensorflow_tpu_torch.ckpt import restore_serving_state
+    from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLM, CausalLMConfig
+    from distributed_tensorflow_tpu_torch.models.quant import fp32_equiv_nbytes
+    from distributed_tensorflow_tpu_torch.obs.memory import tree_nbytes
+    from distributed_tensorflow_tpu_torch.serve import CausalLMEngine
+
+    cfg = cfg or CausalLMConfig(max_position=128, dtype=torch.bfloat16)  # lm_base
+    t0 = time.monotonic()
+    params, _, step = restore_serving_state(ckpt_dir)
+
+    def engine(dtype, **kw):
+        model = CausalLM(dataclasses.replace(cfg, dtype=dtype), device="cpu")
+        return CausalLMEngine(model, dict(params), device, buckets=LM_BUCKETS, slots=LM_SLOTS,
+                              max_batch=LM_TIER, max_new_tokens=LM_NEW, **kw)
+
+    bf16 = engine(torch.bfloat16, spec_tokens=4)
+    fp32 = engine(torch.float32, spec_tokens=4)
+    setup_s = time.monotonic() - t0
+    requests = _lm_requests(cfg.vocab_size, n_requests, cfg.max_position)
+    violations = {}
+    out = {"phase": "serve_lm", "ckpt_step": step, "setup_seconds": setup_s,
+           "requests": len(requests),
+           "new_tokens": sum(r["budget"] for r in requests)}
+
+    t1 = time.monotonic()
+    s_bf16 = _generate(bf16, requests)
+    out["generate_seconds_bf16"] = time.monotonic() - t1
+    s_fp32 = _generate(fp32, requests)
+    rows, bad = _greedy_against_full_forward(bf16, requests, s_bf16, torch, exact=False)
+    out["bf16_greedy_divergences"] = rows
+    violations["bf16_greedy"] = bad
+    rows, bad = _greedy_against_full_forward(fp32, requests, s_fp32, torch, exact=True)
+    out["fp32_greedy_divergences"] = rows
+    violations["fp32_greedy"] = bad
+    for name, eng, first in (("bf16", bf16, s_bf16), ("fp32", fp32, s_fp32)):
+        again = _generate(eng, requests)
+        violations[f"run_to_run_{name}"] = [i for i in first if again[i] != first[i]]
+    # A request alone runs its prefill at tier 1 and its own bucket; in
+    # flight, at the tier and bucket of its admission group. The fp32
+    # streams must not move; bf16 is measured (the products' rounding
+    # differs with their shapes, and a sampled draw can sit that close).
+    sampled = [r for r in requests if r["temperature"]]
+    for name, eng, mid in (("fp32", fp32, s_fp32), ("bf16", bf16, s_bf16)):
+        solo = {r["id"]: _generate(eng, [r])[r["id"]] for r in sampled}
+        out[f"solo_vs_mid_flight_{name}_differing"] = [i for i, s in solo.items()
+                                                      if s != mid[i]]
+    violations["solo_vs_mid_flight_fp32"] = out["solo_vs_mid_flight_fp32_differing"]
+    chunked = engine(torch.float32, prefill_chunk=32)
+    s_chunk = _generate(chunked, requests, chunk=32)
+    violations["chunked_vs_monolithic_fp32"] = [i for i in s_fp32 if s_chunk[i] != s_fp32[i]]
+    del chunked
+    out["verify_fp32"] = _verify_against_decode(fp32, requests, torch)
+    out["verify_bf16"] = _verify_against_decode(bf16, requests, torch)
+    if out["verify_fp32"]["argmax_mismatches"] or not out["verify_fp32"]["cell_matches_decode"]:
+        violations["verify_fp32"] = [out["verify_fp32"]]
+    prefix = engine(torch.bfloat16, prefix_cache_mb=64, block_tokens=16, prefill_chunk=32,
+                    kv_transfer=True, stream_migrate=True)
+    out["prefix"] = _prefix_round_trip(prefix, requests, torch)
+    violations["prefix"] = [k for k, v in out["prefix"].items() if v is False]
+    del prefix
+    int8 = engine(torch.bfloat16, weight_dtype="int8", kv_dtype="int8")
+    probes = _teacher_forced_probes(bf16.model, cfg.vocab_size, torch)
+    agreement, missed = _teacher_forced(int8, probes)
+    out["int8_top1_agreement"], out["int8_probes"] = agreement, len(probes)
+    out["int8_missed_ref_gaps"] = missed
+    # The control on the same probes: the bf16 engine itself.
+    out["bf16_engine_agreement"] = _teacher_forced(bf16, probes)
+    if agreement < 0.95 or len(probes) < 30:
+        violations["int8_agreement"] = [agreement, len(probes)]
+    # The logits themselves against the bf16 full forward: the int8 engine
+    # within the bound, the bf16 engine beside it, and a planted fault (the
+    # same packed tree, its scales on the wrong rows) outside it: the
+    # bound can fail.
+    fault = CausalLMEngine(CausalLM(cfg, device="cpu"), _misplace_scales(int8.params), device,
+                           buckets=LM_BUCKETS, slots=LM_SLOTS, max_batch=LM_TIER,
+                           max_new_tokens=LM_NEW, kv_dtype="int8")
+    out["logit_err"] = {name: _logit_error(eng, bf16.model, probes, torch)
+                        for name, eng in (("int8", int8), ("bf16", bf16),
+                                          ("int8_planted_fault", fault))}
+    del fault
+    out["logit_err_bound"] = LM_INT8_MAX_LOGIT_ERR
+    if out["logit_err"]["int8"]["max_abs"] > LM_INT8_MAX_LOGIT_ERR:
+        violations["int8_logits"] = [out["logit_err"]["int8"]]
+    if out["logit_err"]["int8_planted_fault"]["max_abs"] <= LM_INT8_MAX_LOGIT_ERR:
+        violations["int8_planted_fault_passed"] = [out["logit_err"]["int8_planted_fault"]]
+    out["timing_bf16"] = _time_lm(bf16, cfg.vocab_size, torch)
+    out["timing_int8"] = _time_lm(int8, cfg.vocab_size, torch)
+    out["kv_bytes_per_token"] = {"bf16": bf16.kv_bytes_per_token(),
+                                 "int8": int8.kv_bytes_per_token()}
+    out["param_bytes"] = {"int8_packed": tree_nbytes(int8.params),
+                          "int8_fp32_equiv": fp32_equiv_nbytes(int8.params),
+                          "bf16_engine": tree_nbytes(bf16.params)}
+    out["violations"] = {k: v for k, v in violations.items() if v}
+    emit(out)
+    check(not out["violations"], f"serve_lm: {out['violations']}")
+    return out
+
+
+def phase_serve_bert_int8(fm, torch):
+    """BERT-base at 512 positions in bf16 (``phase_serve``'s checkpoint)
+    served with ``weight_dtype="int8"``: restored packed, behind ``Client``,
+    8 requests of 257-512 tokens in bucket 512. Checks: 12 ``flash_fwd``
+    launches a forward; finite answers; pred_ids agreement with the bf16
+    engine on the same requests and the max |score difference| within
+    ``BERT_INT8_*``, bounds that the same tree with misplaced scales must
+    break. Prints ms a batch of 8 for both."""
+    from distributed_tensorflow_tpu_torch import ckpt
+    from distributed_tensorflow_tpu_torch.models.bert import BertConfig, BertForPreTraining
+    from distributed_tensorflow_tpu_torch.models.quant import fp32_equiv_nbytes
+    from distributed_tensorflow_tpu_torch.obs.memory import tree_nbytes
+    from distributed_tensorflow_tpu_torch.serve import (
+        BatcherConfig,
+        BertInferenceEngine,
+        Client,
+    )
+
+    cfg = BertConfig(dtype=torch.bfloat16)
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    params, _, _ = ckpt.restore_serving_state(ckpt_dir, weight_dtype="int8",
+                                              num_heads=cfg.num_heads)
+    kw = dict(buckets=(512,), max_batch=8, batch_tiers=(1, 8))
+    engine = BertInferenceEngine(BertForPreTraining(cfg, device="cpu"), params, "cuda", **kw)
+    check(engine.weight_dtype == "int8", f"weight_dtype {engine.weight_dtype}")
+    rng = np.random.default_rng(SEED + 5)
+    payloads = []
+    for n in rng.integers(257, 513, 8):
+        ids = rng.integers(5, cfg.vocab_size, int(n))
+        payloads.append({"input_ids": ids, "mlm_targets": ids})
+    with Client(engine, BatcherConfig(max_batch=8, max_delay_ms=50.0)) as client:
+        fm.reset_launch_counts()
+        results = [f.result(timeout=300) for f in [client.submit(p) for p in payloads]]
+        launches = fm.LAUNCHES["flash_fwd"]
+        forwards = sum(client.metrics.bucket_hits.snapshot().values())
+    check(launches == 12 * forwards and forwards >= 1,
+          f"{launches} flash_fwd launches for {forwards} forwards")
+    check(all(np.isfinite(r["embedding"]).all() and r["score"] is not None
+              and np.isfinite(r["score"]) for r in results), "int8 answers")
+    ref_params, _, _ = ckpt.restore_serving_state(ckpt_dir)
+    ref = BertInferenceEngine(BertForPreTraining(cfg, device="cpu"), ref_params, "cuda", **kw)
+    ref_results = ref.run_batch(payloads)
+    total = sum(len(p["input_ids"]) for p in payloads)
+
+    def against_bf16(got):
+        return {"pred_agreement": sum(int((a["pred_ids"] == b["pred_ids"]).sum())
+                                      for a, b in zip(got, ref_results)) / total,
+                "max_score_diff": max(abs(a["score"] - b["score"])
+                                      for a, b in zip(got, ref_results))}
+
+    def within(r):
+        return (r["pred_agreement"] >= BERT_INT8_MIN_PRED_AGREEMENT
+                and r["max_score_diff"] <= BERT_INT8_MAX_SCORE_DIFF)
+
+    # A planted fault (the same packed tree, its scales on the wrong rows)
+    # must fall outside the bounds that the int8 engine keeps.
+    fault = BertInferenceEngine(BertForPreTraining(cfg, device="cpu"),
+                                _misplace_scales(engine.params), "cuda", **kw)
+    sound, planted = against_bf16(results), against_bf16(fault.run_batch(payloads))
+    del fault
+
+    def batch_ms(eng):
+        eng.run_batch(payloads)
+        times = []
+        for _ in range(5):
+            t0 = time.monotonic()
+            eng.run_batch(payloads)
+            times.append((time.monotonic() - t0) * 1e3)
+        return statistics.median(times)
+
+    out = {"phase": "serve_bert_int8", "flash_fwd_launches": launches, "forwards": forwards,
+           "against_bf16": sound, "planted_fault_against_bf16": planted,
+           "bounds": {"min_pred_agreement": BERT_INT8_MIN_PRED_AGREEMENT,
+                      "max_score_diff": BERT_INT8_MAX_SCORE_DIFF},
+           "batch8_ms_int8": batch_ms(engine), "batch8_ms_bf16": batch_ms(ref),
+           "param_bytes_int8": tree_nbytes(engine.params),
+           "param_bytes_fp32_equiv": fp32_equiv_nbytes(engine.params)}
+    emit(out)
+    check(within(sound), f"int8 BERT against bf16: {sound}")
+    check(not within(planted), f"a planted scale fault passed the int8 bounds: {planted}")
+    return launches
+
+
+def phase_serve_image(torch):
+    """``cli.serve --config imagenet_resnet50 --image-size 64 --selftest 16``
+    from ``train_cli_image``'s checkpoint (a subprocess, on the card), then
+    the same client in this process behind the HTTP server and one ``POST
+    /v1/classify``: its top-5 ids equal a plain eval forward of the
+    restored model on the same image (same card, same shape), probabilities
+    within 1e-3. Prints ms a batch per tier."""
+    from distributed_tensorflow_tpu_torch import ckpt
+    from distributed_tensorflow_tpu_torch.cli.serve import (
+        PRESETS,
+        build_serving_client,
+        make_parser,
+    )
+    from distributed_tensorflow_tpu_torch.models import ResNet50
+    from distributed_tensorflow_tpu_torch.serve import build_http_server
+
+    ckpt_dir = ROOT / "build" / "chip_smoke_image"
+    flags = ["--config", "imagenet_resnet50", "--ckpt-dir", str(ckpt_dir), "--image-size", "64"]
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.cli.serve", *flags,
+         "--selftest", "16"],
+        cwd=ROOT, env=_repo_env(), capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"cli.serve exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    snapshot = json.loads(proc.stdout)
+    check(snapshot["requests"] == 16, f"selftest served {snapshot['requests']}")
+    selftest_s = time.monotonic() - t0
+    client, _ = build_serving_client(PRESETS["imagenet_resnet50"], make_parser().parse_args(flags))
+    server = build_http_server(client, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    img = np.random.default_rng(SEED + 7).standard_normal((64, 64, 3)).astype(np.float32)
+    try:
+        req = urllib.request.Request(
+            "http://{}:{}/v1/classify".format(*server.server_address),
+            data=json.dumps({"image": img.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            check(resp.status == 200, f"/v1/classify status {resp.status}")
+            body = json.loads(resp.read())
+        engine = client.engine
+        tiers = {}
+        for T in engine.batch_tiers:
+            batch = [{"image": img}] * T
+            engine.run_batch(batch)
+            times = []
+            for _ in range(5):
+                t1 = time.monotonic()
+                engine.run_batch(batch)
+                times.append((time.monotonic() - t1) * 1e3)
+            tiers[T] = statistics.median(times)
+    finally:
+        server.shutdown()
+        server.server_close()
+        client.close()
+        thread.join(timeout=10)
+    params, state, _ = ckpt.restore_serving_state(ckpt_dir)
+    model = ResNet50(dtype=torch.bfloat16, device="cuda")
+    model.load_state_dict(params)
+    stats = {k: v.cuda() for k, v in state["batch_stats"].items()}
+    with torch.inference_mode():
+        logits, _ = model.eval()(torch.from_numpy(img).cuda()[None], stats, train=False)
+        want = torch.softmax(logits.float(), -1).topk(5)
+    check(body["top_ids"] == want.indices[0].tolist(),
+          f"/v1/classify {body['top_ids']} vs eval forward {want.indices[0].tolist()}")
+    err = float(np.abs(np.asarray(body["top_probs"]) - want.values[0].cpu().numpy()).max())
+    check(err <= 1e-3, f"top_probs differ by {err}")
+    emit({"phase": "serve_image", "selftest_seconds": selftest_s, "top_ids": body["top_ids"],
+          "top_probs_max_err": err, "batch_ms_per_tier": tiers})
+
+
 def _step_record(rows: list, counts: list, field: str) -> dict:
     """One kernel's times per ResNet-50 training step: each shape's row
     (``rows``, one per shape) weighted by its launches per step
@@ -2233,6 +2911,10 @@ def main() -> int:
         bench_launches, bench_rows = phase_pw_bench(torch)
         phase_serve(fm, torch)
         torch.cuda.empty_cache()
+        t_phase = time.monotonic()
+        int8_launches = phase_serve_bert_int8(fm, torch)
+        seconds["serve_bert_int8"] = time.monotonic() - t_phase
+        torch.cuda.empty_cache()
         launches = phase_train(fm, torch)
         torch.cuda.empty_cache()
         image_launches, image_results = phase_train_resnet50(pc, fcb, torch)
@@ -2244,7 +2926,18 @@ def main() -> int:
         inception_launches, _ = phase_train_inception(fcb, pc, torch, inception)
         torch.cuda.empty_cache()
         phase_train_cli(torch)
+        t_phase = time.monotonic()
+        lm_ckpt = phase_train_cli_lm(torch)
+        seconds["train_cli_lm"] = time.monotonic() - t_phase
+        t_phase = time.monotonic()
+        phase_serve_lm(torch, lm_ckpt)
+        seconds["serve_lm"] = time.monotonic() - t_phase
+        torch.cuda.empty_cache()
         phase_train_cli_image(torch)
+        t_phase = time.monotonic()
+        phase_serve_image(torch)
+        seconds["serve_image"] = time.monotonic() - t_phase
+        torch.cuda.empty_cache()
         phase_train_cli_inception(torch)
         torch.cuda.empty_cache()
         t_phase = time.monotonic()
@@ -2281,6 +2974,8 @@ def main() -> int:
         "library_ms": fwd_row["library_ms"],
         "blocks_per_sm": {tile: occupancy[f"flash_fwd_{tile}"]["blocks_per_sm"]
                           for tile in ("q64", "q128")},
+        # Launches on the int8 BERT serving path (bucket 512, 12 a forward).
+        "int8_serve_launches": int8_launches,
     }]
     for name, key, line in (("flash_bwd_dq", "dq", "490"), ("flash_bwd_dkv", "dkv", "559")):
         kernels.append({

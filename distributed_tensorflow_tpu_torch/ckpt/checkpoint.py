@@ -203,25 +203,35 @@ def restore_serving_state(
     directory: str | Path,
     *,
     weight_dtype: str | None = None,
+    num_heads: int | None = None,
     memory=None,
     recorder=None,
 ):
-    """Load the newest checkpoint for the inference engine.
+    """Load the newest checkpoint for an inference engine.
 
     Returns ``(params, model_state, step)``: ``params`` is the saved state
-    dict on the CPU (the engine places it), ``model_state`` is ``{}`` (BERT
-    keeps no mutable state). Raises ``FileNotFoundError`` when the directory
-    holds no checkpoint: serving must never silently answer from random
-    init. ``weight_dtype`` casts the floating params at the restore
-    boundary (``"bfloat16"``/``"float32"``; ``"int8"`` raises until the
-    int8 slice); the bytes the cast frees land in the memory registry's
-    released ledger (component ``weight_quantization``).
+    dict on the CPU (the engine places it), ``model_state`` what the
+    training run kept beside it (``{"batch_stats": ...}`` for the image
+    models, ``{}`` for BERT and the causal LM, and for files written by
+    :func:`save`). Raises ``FileNotFoundError`` when the directory holds no
+    checkpoint: serving must never silently answer from random init.
+
+    ``weight_dtype`` converts the params at the restore boundary:
+    ``"int8"`` packs every eligible kernel (:func:`~..models.quant.
+    quantize_params`; ``num_heads`` is the model's head count, which the
+    attention projections' scales need), ``"bfloat16"``/``"float32"`` cast.
+    Then every replaced leaf is freed (:func:`~..models.quant.
+    free_replaced_leaves`), and the bytes land in the memory registry's
+    released ledger (component ``weight_quantization``). The optimizer
+    state and gradient ring of a training checkpoint are never kept.
     """
     from distributed_tensorflow_tpu_torch.models.quant import (
         cast_params,
+        free_replaced_leaves,
         normalize_quant_dtype,
+        quantize_params,
     )
-    from distributed_tensorflow_tpu_torch.obs.memory import default_registry, tree_nbytes
+    from distributed_tensorflow_tpu_torch.obs.memory import default_registry
 
     step = latest_step(directory)
     if step is None:
@@ -230,18 +240,22 @@ def restore_serving_state(
         _step_path(Path(directory), step), map_location="cpu", weights_only=True
     )
     params = blob["params"]
+    model_state = blob.get("model_state") or {}
     registry = memory if memory is not None else default_registry()
     wd = normalize_quant_dtype(weight_dtype, "weight_dtype")
     reclaimed = 0
     if wd is not None:
-        before = tree_nbytes(params)
-        params = cast_params(params, wd)
-        reclaimed = max(before - tree_nbytes(params), 0)
+        new_params = (quantize_params(params, num_heads) if wd == "int8"
+                      else cast_params(params, wd))
+        # Quantize-then-free: only REPLACED leaves go (embeddings, biases
+        # and LayerNorms are shared by identity and survive).
+        reclaimed = free_replaced_leaves(params, new_params)
+        params = new_params
         if reclaimed:
             registry.register("weight_quantization", reclaimed)
             registry.release("weight_quantization")
             logger.info(
-                "cast restored params to %s: %.1f MiB reclaimed",
+                "converted restored params to %s: %.1f MiB reclaimed",
                 wd, reclaimed / 2**20,
             )
     if recorder is not None:
@@ -250,4 +264,4 @@ def restore_serving_state(
             quant_reclaimed_bytes=reclaimed,
         )
     logger.info("restored checkpoint at step %d from %s", step, directory)
-    return params, {}, step
+    return params, model_state, step

@@ -1,13 +1,19 @@
-"""``python -m distributed_tensorflow_tpu_torch.cli.serve --config=bert_base``.
+"""``python -m distributed_tensorflow_tpu_torch.cli.serve --config=<preset>``.
 
-Serve a saved BERT checkpoint behind the dynamic micro-batcher: rebuild the
+Serve a saved checkpoint behind the dynamic micro-batcher: rebuild the
 model from the preset (plus the same geometry overrides the training run
 used), restore the newest checkpoint from ``--ckpt-dir``, warm the forward
-per batch tier x sequence bucket on ``--device`` (the card by default), and
-expose it over HTTP (serve/server.py routes).
+per batch tier (x sequence bucket) on ``--device`` (the card by default),
+and expose it over HTTP (serve/server.py routes).
 
-Port of the JAX package's ``cli/serve.py`` for the BERT presets. Other
-presets and the decode flags are refused until their slices.
+Port of the JAX package's ``cli/serve.py`` for ``bert_base`` (``POST
+/v1/mlm`` and ``/v1/embed``; ``--weight-dtype int8`` packs the kernels at
+restore) and the image presets ``mnist_lenet``, ``cifar_resnet20``,
+``imagenet_resnet50`` and ``imagenet_inception_async`` (``POST
+/v1/classify``: top-k through :class:`ImageClassifierEngine`, BatchNorm
+from the checkpoint's running statistics). ``lm_base`` and the decode
+flags are refused until the continuous batcher is ported: the decode
+engine (:class:`CausalLMEngine`) exists, its batcher does not yet.
 
 ``--selftest N`` runs N synthetic requests through the in-process
 :class:`Client` instead of binding a port and prints the metrics snapshot.
@@ -28,11 +34,13 @@ logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass(frozen=True)
 class ServePreset:
-    """The serving half of a JAX-package workload preset: the model config
-    overrides (``cli/train.py`` PRESETS)."""
+    """The serving half of a JAX-package workload preset: the BERT config
+    overrides, or an image model (``cli/train.py`` PRESETS)."""
 
     name: str
-    bert_kwargs: dict
+    bert_kwargs: dict | None = None
+    image_factory: str = ""  # a model factory of cli/train.py
+    image_shape: tuple[int, int, int] = (0, 0, 0)
 
 
 PRESETS = {
@@ -40,13 +48,22 @@ PRESETS = {
         name="bert_base",
         bert_kwargs=dict(max_position=128, dropout_rate=0.1, dtype=torch.bfloat16),
     ),
+    "mnist_lenet": ServePreset("mnist_lenet", image_factory="_lenet",
+                               image_shape=(28, 28, 1)),
+    "cifar_resnet20": ServePreset("cifar_resnet20", image_factory="_resnet20",
+                                  image_shape=(32, 32, 3)),
+    "imagenet_resnet50": ServePreset("imagenet_resnet50", image_factory="_resnet50",
+                                     image_shape=(224, 224, 3)),
+    "imagenet_inception_async": ServePreset("imagenet_inception_async",
+                                            image_factory="_inception",
+                                            image_shape=(299, 299, 3)),
 }
 
 # Presets of the JAX package whose serving path is not ported yet.
-_UNPORTED_PRESETS = (
-    "mnist_lenet", "cifar_resnet20", "imagenet_resnet50",
-    "imagenet_inception_async", "lm_base",
-)
+_UNPORTED_PRESETS = {
+    "lm_base": "decode serving needs the continuous batcher (ContinuousBatcher, "
+               "serve/kvpool.py and /v1/generate: Queue A item 4 of ROADMAP.md)",
+}
 
 # Decode-serving flags of the JAX CLI (causal-LM presets): refused here.
 _DECODE_FLAGS = {
@@ -73,46 +90,74 @@ def bert_config(preset: ServePreset, args):
     return BertConfig(**kwargs)
 
 
-def build_serving_client(preset: ServePreset, args):
-    """Preset + flags -> (Client, payload_maker) over the restored ckpt."""
+def image_shape(preset: ServePreset, args) -> tuple[int, int, int]:
+    """The image preset's geometry, square ``--image-size`` overriding."""
+    if args.image_size:
+        return (args.image_size, args.image_size, preset.image_shape[-1])
+    return preset.image_shape
+
+
+def _build_engine(preset: ServePreset, args, recorder):
+    """Restore the checkpoint and build the preset's engine; returns
+    ``(engine, make_payload, step)``."""
     from distributed_tensorflow_tpu_torch.ckpt import restore_serving_state
-    from distributed_tensorflow_tpu_torch.models.bert import BertForPreTraining
-    from distributed_tensorflow_tpu_torch.obs.flightrec import FlightRecorder
-    from distributed_tensorflow_tpu_torch.obs.slo import SloSpec
-    from distributed_tensorflow_tpu_torch.obs.trace import Tracer
     from distributed_tensorflow_tpu_torch.serve import (
-        BatcherConfig,
         BertInferenceEngine,
-        Client,
+        ImageClassifierEngine,
     )
 
-    cfg = bert_config(preset, args)
-    fbuf = args.flight_buffer
-    recorder = FlightRecorder(
-        capacity=fbuf, enabled=fbuf > 0, dump_dir=args.dump_dir or None,
-    )
     weight_dtype = args.weight_dtype or None
+    if preset.image_factory:
+        from distributed_tensorflow_tpu_torch.cli import train as train_cli
+
+        shape = image_shape(preset, args)
+        params, model_state, step = restore_serving_state(args.ckpt_dir, recorder=recorder)
+        # The template module is built on the CPU; the engine loads the
+        # restored params into it and moves it to the serving device.
+        model = getattr(train_cli, preset.image_factory)(shape, "cpu")
+        engine = ImageClassifierEngine(
+            model, params, model_state, args.device, image_shape=shape,
+            max_batch=args.max_batch, batch_tiers=tuple(args.batch_tiers),
+            top_k=args.top_k)
+
+        def make_payload(rng: np.random.Generator) -> dict:
+            return {"image": rng.standard_normal(shape).astype(np.float32)}
+
+        return engine, make_payload, step
+
+    from distributed_tensorflow_tpu_torch.models.bert import BertForPreTraining
+
+    cfg = bert_config(preset, args)
     params, _, step = restore_serving_state(
-        args.ckpt_dir, weight_dtype=weight_dtype, recorder=recorder,
-    )
-    logger.info("restored %s step %d for serving on %s", preset.name, step, args.device)
-    # The template module is built on the CPU; the engine loads the restored
-    # params into it and moves it to the serving device.
+        args.ckpt_dir, weight_dtype=weight_dtype, num_heads=cfg.num_heads,
+        recorder=recorder)
     engine = BertInferenceEngine(
-        BertForPreTraining(cfg, device="cpu"),
-        params,
-        args.device,
-        buckets=tuple(args.buckets),
-        max_batch=args.max_batch,
-        batch_tiers=tuple(args.batch_tiers),
-        weight_dtype=weight_dtype,
-    )
+        BertForPreTraining(cfg, device="cpu"), params, args.device,
+        buckets=tuple(args.buckets), max_batch=args.max_batch,
+        batch_tiers=tuple(args.batch_tiers), weight_dtype=weight_dtype)
     vocab = cfg.vocab_size
 
     def make_payload(rng: np.random.Generator) -> dict:
         n = int(rng.integers(4, engine.buckets[-1] + 1))
         ids = rng.integers(5, vocab, size=n)
         return {"input_ids": ids, "mlm_targets": ids}
+
+    return engine, make_payload, step
+
+
+def build_serving_client(preset: ServePreset, args):
+    """Preset + flags -> (Client, payload_maker) over the restored ckpt."""
+    from distributed_tensorflow_tpu_torch.obs.flightrec import FlightRecorder
+    from distributed_tensorflow_tpu_torch.obs.slo import SloSpec
+    from distributed_tensorflow_tpu_torch.obs.trace import Tracer
+    from distributed_tensorflow_tpu_torch.serve import BatcherConfig, Client
+
+    fbuf = args.flight_buffer
+    recorder = FlightRecorder(
+        capacity=fbuf, enabled=fbuf > 0, dump_dir=args.dump_dir or None,
+    )
+    engine, make_payload, step = _build_engine(preset, args, recorder)
+    logger.info("restored %s step %d for serving on %s", preset.name, step, args.device)
 
     buf = args.trace_buffer
     slo = SloSpec(
@@ -150,7 +195,8 @@ def _selftest(client, make_payload, n: int) -> int:
 
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="serve a saved BERT checkpoint (dynamic-batching inference)"
+        description="serve a saved BERT or image-classifier checkpoint "
+                    "(dynamic-batching inference)"
     )
     p.add_argument("--config", required=True,
                    help=f"workload preset; ported: {sorted(PRESETS)}")
@@ -183,11 +229,15 @@ def make_parser() -> argparse.ArgumentParser:
                    help="queue bound; beyond -> 429 + Retry-After")
     p.add_argument("--weight-dtype", default="",
                    choices=["", "float32", "bfloat16", "int8"],
-                   help="serving dtype for restored params (int8: later slice); "
-                        "empty keeps the checkpoint dtype")
+                   help="BERT serving dtype for restored params (int8: per-channel "
+                        "absmax packing at restore); empty keeps the checkpoint dtype")
+    p.add_argument("--top-k", type=int, default=5,
+                   help="image presets: classes returned per image")
     p.add_argument("--bert-layers", type=int, default=0)
     p.add_argument("--bert-hidden", type=int, default=0)
     p.add_argument("--bert-vocab", type=int, default=0)
+    p.add_argument("--image-size", type=int, default=0,
+                   help="image presets: the square input size the model trained at")
     p.add_argument("--slo-p99-ms", type=float, default=0.0,
                    help="latency SLO threshold in ms (0 = none)")
     p.add_argument("--slo-target", type=float, default=0.99)
@@ -222,8 +272,8 @@ def main(argv: list[str] | None = None):
     args = parser.parse_args(argv)
     if args.config not in PRESETS:
         if args.config in _UNPORTED_PRESETS:
-            parser.error(f"--config {args.config}: not ported to PyTorch yet "
-                         f"(ported: {sorted(PRESETS)})")
+            parser.error(f"--config {args.config}: not ported to PyTorch yet: "
+                         f"{_UNPORTED_PRESETS[args.config]} (ported: {sorted(PRESETS)})")
         parser.error(f"--config {args.config}: unknown preset "
                      f"(ported: {sorted(PRESETS)})")
     set_decode = [
@@ -231,10 +281,11 @@ def main(argv: list[str] | None = None):
         if getattr(args, k) != d
     ]
     if set_decode:
-        parser.error(f"{', '.join(set_decode)}: decode serving is not ported "
-                     "to PyTorch yet (BERT presets only)")
-    if args.weight_dtype == "int8":
-        parser.error("--weight-dtype int8: int8 serving is not ported yet")
+        parser.error(f"{', '.join(set_decode)}: decode serving is not ported to "
+                     f"PyTorch yet: {_UNPORTED_PRESETS['lm_base']}")
+    if args.weight_dtype and PRESETS[args.config].image_factory:
+        parser.error("--weight-dtype is not supported for image serving (the "
+                     "classifier forward has no dequantize step)")
 
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(name)s: %(message)s"
@@ -248,7 +299,7 @@ def main(argv: list[str] | None = None):
         server = build_http_server(client, args.host, args.port,
                                    trace_dir=args.trace_dir or None)
         logger.info(
-            "ready on http://%s:%d (POST /v1/mlm /v1/embed; GET /healthz "
+            "ready on http://%s:%d (POST /v1/mlm /v1/embed /v1/classify; GET /healthz "
             "/sloz /statusz /memz /compilez /tracez /metrics?format=prom, "
             "POST /profilez /drainz /debugz/dump)",
             *server.server_address,

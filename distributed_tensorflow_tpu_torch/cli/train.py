@@ -5,7 +5,8 @@ Port of the JAX package's ``cli/train.py``, on the card by default
 multi-process job (``--coordinator-address host:port --num-processes N
 --process-id i`` in each process, or a torchrun environment; each rank
 trains on its own card and ``--global-batch`` stays global), for the
-presets ``bert_base`` (MLM + NSP pretraining), ``mnist_lenet``,
+presets ``bert_base`` (MLM + NSP pretraining), ``lm_base`` (the causal
+LM's next-token pretraining on ``SyntheticLM``), ``mnist_lenet``,
 ``cifar_resnet20``, ``imagenet_resnet50`` and ``imagenet_inception_async``
 (image classification with BatchNorm statistics in the train state; the
 last under K = 4 stale gradients), under synchronous or K-stale data
@@ -123,7 +124,9 @@ def make_lr_schedule(cfg: WorkloadConfig) -> Callable[[int], float]:
 
         return warmup_cosine
     if cfg.lr_schedule == "piecewise":
-        bounds = (cfg.num_steps // 2, (3 * cfg.num_steps) // 4)
+        # optax takes the bounds as dict keys: a bound that repeats (at 1
+        # and 2 steps both fall on one step) scales the rate once.
+        bounds = {cfg.num_steps // 2, (3 * cfg.num_steps) // 4}
         return lambda count: lr * 0.1 ** sum(count >= b for b in bounds)
     raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}")
 
@@ -306,6 +309,54 @@ def _image_batches(cfg: WorkloadConfig, ds, device, model_hw, *, train: bool, se
                           start_step=start_step, out_size=out_size, mean=mean, stddev=std)
 
 
+def _build_causal_lm_workload(cfg_kwargs: dict):
+    def build(cfg: WorkloadConfig):
+        from distributed_tensorflow_tpu_torch.data.text import (
+            SyntheticLM,
+            SyntheticMLMConfig,
+            mlm_device_batches,
+        )
+        from distributed_tensorflow_tpu_torch.models.causal_lm import (
+            CausalLM,
+            CausalLMConfig,
+            make_causal_lm_eval_metrics,
+            make_causal_lm_loss,
+        )
+
+        def make(device):
+            kwargs = dict(cfg_kwargs)
+            if cfg.bert_layers:
+                kwargs["num_layers"] = cfg.bert_layers
+            if cfg.bert_hidden:
+                kwargs["hidden_size"] = cfg.bert_hidden
+                kwargs["intermediate_size"] = 4 * cfg.bert_hidden
+            if cfg.bert_vocab:
+                kwargs["vocab_size"] = cfg.bert_vocab
+            model_cfg = CausalLMConfig(**kwargs)
+            model = CausalLM(model_cfg, device=device)
+            data = SyntheticLM(SyntheticMLMConfig(
+                vocab_size=model_cfg.vocab_size, seq_len=model_cfg.max_position, seed=0))
+
+            def eval_batches(n_batches: int) -> Iterator[dict]:
+                it = mlm_device_batches(data, cfg.global_batch, device=device, seed=900_001)
+                for _ in range(n_batches):
+                    yield next(it)
+
+            return {
+                "params": dict(model.named_parameters()),
+                "model_state": {},
+                "loss_fn": make_causal_lm_loss(model),
+                "batches": lambda start_step=0: mlm_device_batches(
+                    data, cfg.global_batch, device=device, seed=1, start_step=start_step),
+                "metric_fn": make_causal_lm_eval_metrics(model),
+                "eval_batches": eval_batches,
+            }
+
+        return make
+
+    return build
+
+
 def _build_image_workload(model_factory, image_shape, num_classes, n_examples=4096):
     """``model_factory(shape, device)`` builds the model on the device
     (seeded init, the JAX package's ``jax.random.key(0)`` counterpart)."""
@@ -465,12 +516,23 @@ PRESETS = {
         lr_schedule="warmup_cosine",
         warmup_steps=1000,
     ),
+    "lm_base": WorkloadConfig(
+        name="lm_base",
+        build=_build_causal_lm_workload(dict(max_position=128, dtype=torch.bfloat16)),
+        global_batch=256,
+        num_steps=10000,
+        learning_rate=1e-4,
+        # bert_base's decoupled-decay recipe: the decoder reuses its blocks.
+        optimizer="adamw",
+        weight_decay=0.01,
+        clip_norm=1.0,
+        lr_schedule="warmup_cosine",
+        warmup_steps=1000,
+    ),
 }
 
-# Presets of the JAX package that later slices bring.
-_UNPORTED_PRESETS = {
-    "lm_base": "the causal-LM slice",
-}
+# Presets of the JAX package that later slices bring (none left).
+_UNPORTED_PRESETS: dict[str, str] = {}
 
 # Flags of the JAX CLI that this slice's path does not read, with why.
 _UNPORTED_FLAGS = {

@@ -1,5 +1,5 @@
 """Input pipelines of the port: BERT pretraining batches (synthetic or from
-a text corpus), the image-classification feeds (numpy, or the host C++
+a text corpus), causal-LM batches, the image-classification feeds (numpy, or the host C++
 augmenting pipeline), the dataset readers, and the background prefetch
 stage."""
 
@@ -14,6 +14,7 @@ from distributed_tensorflow_tpu_torch.data.synthetic import (  # noqa: F401
     synthetic_image_classification,
 )
 from distributed_tensorflow_tpu_torch.data.text import (  # noqa: F401
+    SyntheticLM,
     SyntheticMLM,
     SyntheticMLMConfig,
     TextCorpusConfig,

@@ -14,8 +14,8 @@ vocabulary: 0=[PAD] 1=[CLS] 2=[SEP] 3=[MASK] 4=[UNK], words 5..V-1.
 
 The batches are numpy, drawn in the JAX package's order, so the same seeds
 give bit-identical batches in both packages; only the placement differs
-(``torch`` tensors on the given device). ``SyntheticLM`` is ported with the
-causal-LM slice.
+(``torch`` tensors on the given device). :class:`SyntheticLM` draws
+left-to-right causal-LM batches over the same chains.
 """
 
 from __future__ import annotations
@@ -123,6 +123,28 @@ class SyntheticMLM:
             "mlm_targets": targets,
             "nsp_label": nsp,
         }
+
+
+class SyntheticLM(SyntheticMLM):
+    """Left-to-right causal-LM batches over the same Markov chains:
+    ``input_ids`` / ``attention_mask`` only (``cfg.mask_prob`` is unused).
+    Row lengths vary over ``[L/2, L]`` with PAD tails, so the shift-by-one
+    loss weighting is exercised."""
+
+    def batch(
+        self, batch_size: int, *, seed: int | tuple[int, ...]
+    ) -> dict[str, np.ndarray]:
+        cfg = self.cfg
+        key = (seed,) if isinstance(seed, int) else tuple(seed)
+        rng = np.random.default_rng((cfg.seed, *key))
+        L = cfg.seq_len
+        ids = np.empty((batch_size, L), np.int32)
+        ids[:, 0] = CLS
+        ids[:, 1:] = self._chains(rng, batch_size, L - 1)
+        lengths = rng.integers(max(2, L // 2), L + 1, batch_size)
+        attention_mask = np.arange(L)[None, :] < lengths[:, None]
+        ids[~attention_mask] = PAD
+        return {"input_ids": ids, "attention_mask": attention_mask}
 
 
 UNK = 4

@@ -2,8 +2,10 @@
 
 The flax side is a nested dict of **numpy** arrays (``jax.tree.map(
 np.asarray, params)`` on the JAX side), so this module needs no JAX. The
-torch side is a :class:`~.models.bert.BertForPreTraining` ``state_dict``
-(:func:`bert_params_from_flax`) or an image model's ``state_dict`` and
+torch side is a :class:`~.models.bert.BertForPreTraining` or
+:class:`~.models.causal_lm.CausalLM` ``state_dict``
+(:func:`bert_params_from_flax`, :func:`causal_lm_params_from_flax`: the
+decoder reuses BERT's leaf names) or an image model's ``state_dict`` and
 ``batch_stats`` (:func:`resnet_params_from_flax`, for ResNet-20/50 and
 LeNet-5).
 
@@ -18,8 +20,11 @@ BERT mappings:
 - ``LayerNorm`` ``scale``/``bias`` <-> ``weight``/``bias``;
 - ``layer_<i>`` <-> ``layers.<i>``.
 
-Int8-packed leaves (``_q8``/``_q8_scale``) are refused until the int8 slice.
-bf16 numpy arrays (``ml_dtypes``) arrive as bf16 tensors; bf16 tensors leave
+Int8-packed kernels (``{"_q8", "_q8_scale"}``, :mod:`.models.quant`) carry
+over in both BERT-family directions: ``_q8`` moves like the kernel it
+replaced and ``_q8_scale``, one scale per channel of the flax last axis,
+keeps its shape. The image walkers refuse them (image serving has no int8
+mode). bf16 numpy arrays (``ml_dtypes``) arrive as bf16 tensors; bf16 tensors leave
 as float32 arrays, which hold every bf16 value exactly.
 """
 
@@ -30,9 +35,12 @@ import re
 import numpy as np
 import torch
 
-_EMBEDDINGS = {"word", "position", "token_type"}
-_NORMS = {"ln", "mlm_ln"}
-_HEAD_PROJ = {"query", "key", "value"}
+from distributed_tensorflow_tpu_torch.models.quant import _EMBEDDINGS, _HEAD_PROJ
+from distributed_tensorflow_tpu_torch.models.quant import is_quantized_leaf as _is_packed
+
+
+def _is_norm(module: str) -> bool:
+    return module == "ln" or module.endswith("_ln")
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -49,35 +57,55 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def _flatten(tree: dict, prefix: tuple = ()):
+def _flatten(tree: dict, prefix: tuple = (), packed_leaves: bool = False):
     for key, val in tree.items():
         path = prefix + (str(key),)
-        if isinstance(val, dict):
-            yield from _flatten(val, path)
+        if packed_leaves and _is_packed(val):
+            yield path, val
+        elif isinstance(val, dict):
+            yield from _flatten(val, path, packed_leaves)
         else:
             yield path, val
 
 
-def bert_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
-    """flax ``BertForPreTraining`` params (numpy leaves) -> torch state dict."""
+def _kernel_from_flax(parent: str, a: np.ndarray) -> np.ndarray:
+    if parent in _HEAD_PROJ:  # [H, heads, d] -> [heads*d, H]
+        return a.reshape(a.shape[0], -1).T
+    if parent == "out":       # [heads, d, H] -> [H, heads*d]
+        return a.reshape(-1, a.shape[-1]).T
+    return a.T                # [in, out] -> [out, in]
+
+
+def _kernel_to_flax(parent: str, a: np.ndarray, num_heads: int) -> np.ndarray:
+    if parent in _HEAD_PROJ:  # [heads*d, H] -> [H, heads, d]
+        return a.T.reshape(a.shape[1], num_heads, -1)
+    if parent == "out":       # [H, heads*d] -> [heads, d, H]
+        return a.T.reshape(num_heads, -1, a.shape[0])
+    return a.T
+
+
+def bert_params_from_flax(tree: dict) -> dict:
+    """flax ``BertForPreTraining`` (or ``CausalLM``) params (numpy leaves)
+    -> torch state dict; a packed kernel becomes ``{"_q8", "_q8_scale"}``
+    tensors under the kernel's torch name."""
     out = {}
-    for path, leaf in _flatten(tree):
-        _refuse_quantized(path)
-        a = np.asarray(leaf)
+    for path, leaf in _flatten(tree, packed_leaves=True):
         names = [re.sub(r"^layer_(\d+)$", r"layers.\1", p) for p in path]
         parent, name = (path[-2] if len(path) > 1 else ""), path[-1]
-        if name == "embedding":
+        if _is_packed(leaf):
             names[-1] = "weight"
-        elif name == "scale":
+            q = _kernel_from_flax(parent, np.asarray(leaf["_q8"]))
+            out[".".join(names)] = {
+                "_q8": _to_tensor(np.ascontiguousarray(q)),
+                "_q8_scale": _to_tensor(np.asarray(leaf["_q8_scale"])),
+            }
+            continue
+        a = np.asarray(leaf)
+        if name in ("embedding", "scale"):
             names[-1] = "weight"
         elif name == "kernel":
             names[-1] = "weight"
-            if parent in _HEAD_PROJ:  # [H, heads, d] -> [heads*d, H]
-                a = a.reshape(a.shape[0], -1).T
-            elif parent == "out":     # [heads, d, H] -> [H, heads*d]
-                a = a.reshape(-1, a.shape[-1]).T
-            else:                     # [in, out] -> [out, in]
-                a = a.T
+            a = _kernel_from_flax(parent, a)
         elif name == "bias" and parent in _HEAD_PROJ:  # [heads, d] -> [heads*d]
             a = a.reshape(-1)
         out[".".join(names)] = _to_tensor(np.ascontiguousarray(a))
@@ -98,21 +126,26 @@ def bert_params_to_flax(state_dict: dict, num_heads: int) -> dict:
             else:
                 path.append(parts[i])
                 i += 1
-        a = _to_numpy(t)
         parent = path[-2] if len(path) > 1 else ""
+        if _is_packed(t):
+            a = {"_q8": np.ascontiguousarray(
+                     _kernel_to_flax(parent, _to_numpy(t["_q8"]), num_heads)),
+                 "_q8_scale": _to_numpy(t["_q8_scale"])}
+            path[-1] = "kernel"
+            node = tree
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[path[-1]] = a
+            continue
+        a = _to_numpy(t)
         if path[-1] == "weight":
             if parent in _EMBEDDINGS:
                 path[-1] = "embedding"
-            elif parent in _NORMS:
+            elif _is_norm(parent):
                 path[-1] = "scale"
             else:
                 path[-1] = "kernel"
-                if parent in _HEAD_PROJ:  # [heads*d, H] -> [H, heads, d]
-                    a = a.T.reshape(a.shape[1], num_heads, -1)
-                elif parent == "out":     # [H, heads*d] -> [heads, d, H]
-                    a = a.T.reshape(num_heads, -1, a.shape[0])
-                else:
-                    a = a.T
+                a = _kernel_to_flax(parent, a, num_heads)
         elif path[-1] == "bias" and parent in _HEAD_PROJ:
             a = a.reshape(num_heads, -1)
         node = tree
@@ -122,11 +155,16 @@ def bert_params_to_flax(state_dict: dict, num_heads: int) -> dict:
     return tree
 
 
+# The decoder's tree uses BERT's leaf names and layout rules.
+causal_lm_params_from_flax = bert_params_from_flax
+causal_lm_params_to_flax = bert_params_to_flax
+
+
 def _refuse_quantized(path) -> None:
     if any(p in ("_q8", "_q8_scale") for p in path):
         raise NotImplementedError(
-            f"int8-packed leaf {'/'.join(path)}: quantized checkpoints are ported "
-            "with the int8 slice"
+            f"int8-packed leaf {'/'.join(path)}: image models are served in "
+            "float (image serving has no int8 mode)"
         )
 
 

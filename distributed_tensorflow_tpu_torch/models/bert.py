@@ -41,6 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from distributed_tensorflow_tpu_torch.device import resolve_device
+from distributed_tensorflow_tpu_torch.models.quant import dequantize_leaf
 from distributed_tensorflow_tpu_torch.ops.flash_attention import flash_attention
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import dense_attention
 
@@ -99,10 +100,18 @@ def bert_base(**overrides) -> BertConfig:
     return BertConfig(**overrides)
 
 
+def _kernel(layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """A ``Linear``'s weight in ``dtype``; an int8-packed one
+    (:func:`~.quant.load_params`) is dequantized here, once a call."""
+    if getattr(layer, "weight_q8", None) is not None:
+        return dequantize_leaf({"_q8": layer.weight_q8, "_q8_scale": layer.weight_scale}, dtype)
+    return layer.weight.to(dtype)
+
+
 def _linear(x, layer: nn.Linear, dtype: torch.dtype):
     """flax ``Dense(dtype=dtype)``: inputs, kernel and bias in ``dtype``."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    return F.linear(x.to(dtype), _kernel(layer, dtype), bias)
 
 
 class LayerNorm(nn.Module):

@@ -1,8 +1,10 @@
-"""Serving: dynamic-batching BERT inference over saved checkpoints.
+"""Serving: dynamic-batching inference over saved checkpoints.
 
 - ``engine.py``  — the BERT engine over a warmed batch-tier x sequence-bucket
   grid, with a non-blocking ``dispatch``/``fetch`` split over pooled
-  (pinned) staging buffers.
+  (pinned) staging buffers; the image classifier engine; and the causal-LM
+  decode engine (slot-addressed KV cache, prefill/chunk/decode/verify
+  cells; its continuous batcher comes with a later slice).
 - ``batcher.py`` — dynamic micro-batcher: flush on max-batch-size or
   max-delay, bounded queue with explicit backpressure, optional
   per-bucket queues, and up to ``max_in_flight`` overlapped batches.
@@ -19,7 +21,9 @@ from distributed_tensorflow_tpu_torch.serve.batcher import (  # noqa: F401
 )
 from distributed_tensorflow_tpu_torch.serve.engine import (  # noqa: F401
     BertInferenceEngine,
+    CausalLMEngine,
     CompileRecord,
+    ImageClassifierEngine,
     InFlightBatch,
     RequestError,
     plan_serve_mesh,

@@ -1,6 +1,10 @@
-"""Inference engine: checkpoint-loaded BERT forward over a warmed shape grid.
+"""Inference engines: checkpoint-loaded forwards over warmed shape grids.
 
-Port of the JAX package's ``serve/engine.py`` for BERT on one device. Every
+Port of the JAX package's ``serve/engine.py`` on one device: the BERT
+engine (MLM scoring / embeddings, float or int8 weights), the causal-LM
+decode engine (:class:`CausalLMEngine`, a slot-addressed KV cache on the
+device driven cell by cell) and the image classifier
+(:class:`ImageClassifierEngine`, top-k). For the BERT engine: every
 (batch tier x sequence bucket) cell the engine will ever run is warmed at
 STARTUP by one forward at that shape, timed into a :class:`CompileRecord`,
 so ``grid_status``/``warm_fraction`` keep their meaning (the JAX engine
@@ -35,7 +39,13 @@ import torch
 from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.models.quant import (
     cast_params,
+    fp32_equiv_nbytes,
+    is_quantized_leaf,
+    is_quantized_tree,
+    load_params,
     normalize_quant_dtype,
+    quantize_kv,
+    quantize_params,
     torch_dtype,
 )
 from distributed_tensorflow_tpu_torch.obs.memory import default_registry, tree_nbytes
@@ -262,6 +272,32 @@ class _AotEngine:
         return self.fetch(self.dispatch(payloads))
 
 
+def _convert_params(params: dict, weight_dtype: str, cfg) -> dict:
+    """The engines' weight conversion: pack to int8 (idempotent: a tree
+    that ``restore_serving_state`` packed passes through) or cast to a
+    float dtype other than the model's compute dtype."""
+    if is_quantized_tree(params):
+        return params
+    if weight_dtype == "int8":
+        return quantize_params(params, cfg.num_heads)
+    if torch_dtype(weight_dtype) != cfg.dtype:
+        return cast_params(params, torch_dtype(weight_dtype))
+    return params
+
+
+def serving_params(model) -> dict:
+    """A served model's parameters by name, each packed kernel as its
+    ``{"_q8", "_q8_scale"}`` dict (for the memory ledger)."""
+    out = {}
+    for name, t in model.state_dict().items():
+        if name.endswith(".weight_q8"):
+            base = name.removesuffix("_q8")
+            out[base] = {"_q8": t, "_q8_scale": model.get_buffer(base + "_scale")}
+        elif not name.endswith(".weight_scale"):
+            out[name] = t
+    return out
+
+
 def _make_bert_forward(model, return_logits: bool):
     """The serving forward: model outputs plus per-ROW MLM statistics in
     f32 (the training loss's masking/clamp recipe without the cross-row
@@ -324,22 +360,20 @@ class BertInferenceEngine(_AotEngine):
     ):
         super().__init__(device, max_batch, batch_tiers, memory=memory)
         cfg = model.cfg
-        w = normalize_quant_dtype(weight_dtype, "weight_dtype")
-        self.weight_dtype = w or str(cfg.dtype).removeprefix("torch.")
-        if torch_dtype(self.weight_dtype) != cfg.dtype:
-            params = cast_params(params, torch_dtype(self.weight_dtype))
+        self.weight_dtype = self._plan_quant(cfg, weight_dtype=weight_dtype)
+        params = _convert_params(params, self.weight_dtype, cfg)
+        if is_quantized_tree(params):
+            self.weight_dtype = "int8"
         self.buckets = tuple(sorted({min(int(b), cfg.max_position) for b in buckets}))
         if not self.buckets:
             raise ValueError("need at least one sequence bucket")
         self.return_logits = return_logits
-        model.load_state_dict(params, strict=True, assign=True)
+        load_params(model, params)
         self.model = model.to(self.device).eval()
-        self.params = dict(self.model.state_dict())
+        self.params = serving_params(self.model)
         self.memory.register_tree(
             "bert_params", self.params, dtype=self.weight_dtype,
-            fp32_nbytes=sum(
-                t.numel() * 4 for t in self.params.values() if t.is_floating_point()
-            ),
+            fp32_nbytes=fp32_equiv_nbytes(self.params),
         )
         self._forward = _make_bert_forward(self.model, return_logits)
         # Warm every (tier, bucket) cell NOW: startup pays the first-call
@@ -356,6 +390,13 @@ class BertInferenceEngine(_AotEngine):
             self.device, self.buckets, self.batch_tiers,
             len(self.batch_tiers) * len(self.buckets),
         )
+
+    @staticmethod
+    def _plan_quant(cfg, *, weight_dtype: str | None = None) -> str:
+        """Validate the weight-quantization knob and return the concrete
+        dtype name (``None`` resolves to the model's compute dtype)."""
+        w = normalize_quant_dtype(weight_dtype, "weight_dtype")
+        return w or str(cfg.dtype).removeprefix("torch.")
 
     @torch.inference_mode()
     def _warm(self, T: int, L: int):
@@ -479,3 +520,993 @@ class BertInferenceEngine(_AotEngine):
             results.append(res)
         self._give_buffers(inflight.key, inflight.buffers)
         return results
+
+
+# ------------------------------------------------------------ causal LM
+#
+# The cell builders below are the JAX package's executable bodies. Each
+# returns a function that updates the engine's device state IN PLACE (the
+# slot caches, the last-token vector, the prefix pool) and returns what the
+# host fetches: the in-place update stands in for JAX's buffer donation.
+# Every cache, pool and last-token buffer carries one spare entry past its
+# end (position ``cache_len``, block ``n_blocks``, slot ``slots``): the
+# writes the JAX bodies drop with ``mode="drop"`` land there instead, so no
+# index is out of range on the card and nothing waits on the host.
+
+
+def _kv_leaf(cache):
+    """The payload leaf of a KV operand: ``"q"`` of an int8 ``{"q", "s"}``
+    dict, or the dense tensor. Geometry is read off this leaf."""
+    return cache["q"] if isinstance(cache, dict) else cache
+
+
+def _kv_map(fn, *caches):
+    """``fn`` over a KV operand's leaves (``q`` and ``s`` together for an
+    int8 cache, so pages move with their scales bit-exactly)."""
+    if isinstance(caches[0], dict):
+        return {k: fn(*(c[k] for c in caches)) for k in ("q", "s")}
+    return fn(*caches)
+
+
+def _kv_put(cache, index, fresh) -> None:
+    """``cache[index] = fresh`` over every leaf; ``fresh`` is dense K/V,
+    quantized at the write for an int8 cache (``index`` picks leading axes
+    only, so the scale plane takes the same index)."""
+    if isinstance(cache, dict):
+        q, s = quantize_kv(fresh)
+        cache["q"][index] = q
+        cache["s"][index] = s
+    else:
+        cache[index] = fresh.to(cache.dtype)
+
+
+def _make_causal_prefill(model, cache_len: int):
+    """Prefill body for one (tier, bucket): the full causal forward, its K/V
+    written into the admitted rows' slot pages, each row's FIRST token
+    sampled on the device. Padding rows carry slot index ``S`` (one past
+    the pool): their pages go to slot 0's spare position and their token to
+    the last-token vector's spare entry. int8 caches quantize the fresh K/V
+    at the write, as the incremental decode write does."""
+
+    def prefill_fn(ck, cv, last, ids, mask, slots, lengths, temps, seeds):
+        from distributed_tensorflow_tpu_torch.models.causal_lm import sample_tokens
+
+        logits, k, v = model.prefill(ids, mask)
+        T, L = ids.shape
+        rows = torch.arange(T, device=ids.device)
+        tok = sample_tokens(logits[rows, lengths.clamp_min(1) - 1], temps, seeds, lengths)
+        real = slots < last.shape[0] - 1
+        wslot = torch.where(real, slots, 0)[:, None]
+        wpos = torch.where(real[:, None], torch.arange(L, device=ids.device)[None], cache_len)
+        _kv_put(ck, (slice(None), wslot, wpos), k)
+        _kv_put(cv, (slice(None), wslot, wpos), v)
+        last[slots] = tok
+        return tok
+
+    return prefill_fn
+
+
+def _make_causal_decode(model, cache_len: int):
+    """Decode-step body (one shape: the full slot table): write each slot's
+    pending token at its position, attend the cache prefix, sample the next
+    token. ``last`` advances only where ``active``; idle lanes carry
+    position ``cache_len``, so their K/V goes to the spare position (a
+    mid-chunk-prefill slot rides decode steps inactive, and a stray write
+    would corrupt pages its earlier chunks filled)."""
+
+    def decode_fn(ck, cv, last, lengths, active, temps, seeds):
+        from distributed_tensorflow_tpu_torch.models.causal_lm import sample_tokens
+
+        pos = torch.where(active, lengths.clamp_max(cache_len - 1), cache_len)
+        logits, _, _ = model.decode_step(last, pos, ck, cv)
+        tok = sample_tokens(logits, temps, seeds, lengths + 1)
+        last.copy_(torch.where(active, tok, last))
+        return tok
+
+    return decode_fn
+
+
+def _make_causal_verify(model, cache_len: int, k: int):
+    """Speculative-verify body (the full slot table, ``k + 1`` columns):
+    score each verifying slot's last token plus up to ``k`` drafts in one
+    forward, sample every column with the (seed, absolute position) key
+    the successive decode steps would use, and advance ``last`` to the
+    accepted prefix's next token on the device. Column ``j`` sits at
+    ``lengths + j``; columns past ``n_input`` (all of a non-verifying slot)
+    carry ``cache_len``. Draft ``j`` survives iff it equals the sampled
+    token of column ``j - 1`` and every earlier draft survived."""
+
+    def verify_fn(ck, cv, last, drafts, lengths, n_input, temps, seeds):
+        from distributed_tensorflow_tpu_torch.models.causal_lm import sample_tokens
+
+        S = drafts.shape[0]
+        tokens = torch.cat([last[:, None], drafts], dim=1)  # [S, k+1]
+        cols = torch.arange(k + 1, device=drafts.device)[None, :]
+        pos = lengths[:, None] + cols
+        wpos = torch.where(cols < n_input[:, None], pos, cache_len).clamp_max(cache_len)
+        logits, _, _ = model.verify_step(tokens, wpos, ck, cv)
+        # Column j's key is position lengths + j + 1: the key of the
+        # (j+1)-th plain decode step after this point.
+        tok = sample_tokens(
+            logits.reshape(S * (k + 1), -1), temps.repeat_interleave(k + 1),
+            seeds.repeat_interleave(k + 1), (pos + 1).reshape(-1),
+        ).view(S, k + 1)
+        dcols = torch.arange(k, device=drafts.device)[None, :]
+        matches = (tok[:, :-1] == drafts) & (dcols < n_input[:, None] - 1)
+        m = torch.cumprod(matches.to(torch.int32), dim=1).sum(dim=1)
+        new_last = tok[torch.arange(S, device=drafts.device), m]
+        last.copy_(torch.where(n_input > 0, new_last, last))
+        return tok
+
+    return verify_fn
+
+
+def _make_causal_chunk_prefill(model, cache_len: int):
+    """Chunk-prefill body for one (tier, chunk bucket): a page-gather
+    prologue, one absolute-position prompt chunk, and the first token
+    sampled where the chunk completes its row's prompt.
+
+    The prologue copies each row's matched prefix chain (pool block ids in
+    ``chain``, the first ``n_gather`` real) into the row's slot pages; rows
+    past their first chunk pass ``n_gather == 0``. Pool pages are only read
+    here. Lane ``c`` of row ``t`` holds position ``starts[t] + c`` when it
+    is below ``lengths[t]``, else ``cache_len`` (the spare position), so
+    padding lanes and padding rows (slot ``S``, length 0) write nothing
+    real. ``is_last`` rows sample at the prompt's final lane, keyed on the
+    absolute position exactly like the monolithic prefill."""
+
+    def chunk_fn(ck, cv, last, pool_k, pool_v, ids, starts, lengths, chain, n_gather,
+                 slots, temps, seeds):
+        from distributed_tensorflow_tpu_torch.models.causal_lm import sample_tokens
+
+        dev = ids.device
+        T, C = ids.shape
+        nl = _kv_leaf(ck).shape[0]
+        real = slots < last.shape[0] - 1
+        rows = torch.where(real, slots, 0)
+        bt = _kv_leaf(pool_k).shape[2]
+        span = chain.shape[1] * bt
+        lane = torch.arange(span, device=dev)[None, :]
+        gpos = torch.where(lane < (n_gather * bt)[:, None], lane, cache_len).clamp_max(cache_len)
+        index = (slice(None), rows[:, None], gpos)
+        for cache, pool in ((ck, pool_k), (cv, pool_v)):
+            def blend(c, p):
+                c[index] = p[:, chain].reshape(nl, T, span, *p.shape[3:])
+            _kv_map(blend, cache, pool)
+        pos = starts[:, None] + torch.arange(C, device=dev)[None, :]
+        wpos = torch.where(pos < lengths[:, None], pos, cache_len).clamp_max(cache_len)
+        logits, _, _ = model.prefill_chunk(ids, wpos, ck, cv, rows=rows)
+        is_last = starts + C >= lengths
+        li = (lengths - 1 - starts).clamp(0, C - 1)
+        tok = sample_tokens(logits[torch.arange(T, device=dev), li], temps, seeds, lengths)
+        last[slots] = torch.where(is_last, tok, last[rows])
+        return tok
+
+    return chunk_fn
+
+
+def _make_prefix_insert(block_tokens: int):
+    """Publish-to-pool body: copy a finished slot's prefix pages into newly
+    allocated pool blocks (``block_ids`` padded with the pool's spare block
+    id ``n_blocks``; ``block_pos`` the chain index each takes)."""
+
+    def insert_fn(pool_k, pool_v, ck, cv, slot, block_ids, block_pos):
+        nl, _, lc1 = _kv_leaf(ck).shape[:3]
+        nb = (lc1 - 1) // block_tokens
+        bp = block_pos.clamp_max(nb - 1)
+
+        def publish(p, c):
+            # Both ranks: c.shape[3:] is (h, d) for pages, () for scales.
+            src = c[:, slot, : nb * block_tokens].reshape(nl, nb, block_tokens, *c.shape[3:])
+            p[:, block_ids] = src[:, bp]
+
+        _kv_map(publish, pool_k, ck)
+        _kv_map(publish, pool_v, cv)
+
+    return insert_fn
+
+
+def _make_pool_export():
+    """Gather-for-transfer body: a pinned chain's pool pages as a fixed
+    ``[nl, max_chain, block_tokens, heads, head_dim]`` stage (pad lanes
+    repeat block 0). Copies; the pool stays as it is."""
+
+    def export_fn(pool_k, pool_v, block_ids):
+        return (_kv_map(lambda a: a[:, block_ids], pool_k),
+                _kv_map(lambda a: a[:, block_ids], pool_v))
+
+    return export_fn
+
+
+def _make_pool_import():
+    """Adopt-transferred-pages body: write a ``[nl, max_chain, ...]`` stage
+    into the pool at ``block_ids`` (pad lanes carry the spare block id)."""
+
+    def import_fn(pool_k, pool_v, pages_k, pages_v, block_ids):
+        def put(p, g):
+            p[:, block_ids] = g
+        _kv_map(put, pool_k, pages_k)
+        _kv_map(put, pool_v, pages_v)
+
+    return import_fn
+
+
+def _make_slot_export():
+    """Live-stream checkpoint body: ONE slot's lane of the slot cache as a
+    ``[nl, cache_len, heads, head_dim]`` stage (spare position stripped).
+    Copies; the cache stays live."""
+
+    def export_fn(ck, cv, slot):
+        def take(a):
+            return a[:, slot, : a.shape[2] - 1].clone()
+        return _kv_map(take, ck), _kv_map(take, cv)
+
+    return export_fn
+
+
+def _make_slot_import():
+    """Resume-a-migrated-stream body: write a ``[nl, cache_len, ...]`` stage
+    into ONE slot's lane and seed ``last_token[slot]``, so the next decode
+    step continues the generation."""
+
+    def import_fn(ck, cv, last, stage_k, stage_v, slot, tok):
+        def put(a, st):
+            a[:, slot, : a.shape[2] - 1] = st
+        _kv_map(put, ck, stage_k)
+        _kv_map(put, cv, stage_v)
+        last[slot] = tok
+
+    return import_fn
+
+
+class CausalLMEngine(_AotEngine):
+    """Autoregressive generation over a :class:`~..models.causal_lm.CausalLM`
+    checkpoint with a slot-addressed KV cache on the device.
+
+    The cache is a FIXED table of per-slot pages, ``k/v: [num_layers,
+    slots, cache_len + 1, heads, head_dim]`` (one spare position, see
+    :mod:`..models.causal_lm`), plus ``last_token [slots]``, on the device
+    for the engine's lifetime; every cell updates them in place, so slot
+    assignment and reuse never change a shape. The warmed grid:
+
+    - ``prefill`` per (batch tier x prompt bucket): the full causal forward,
+      its K/V written into the admitted rows' pages, each row's first
+      token sampled on the device;
+    - ``decode``, one cell at the full slot table: each slot's pending
+      token in, the next one sampled; idle slots ride along masked;
+    - ``verify`` (``spec_tokens > 0``), one cell at ``[slots, k + 1]``.
+
+    ``last_token`` stays on the device, so step k+1 is dispatched against
+    step k's un-fetched output; :meth:`fetch_step` is the one
+    synchronisation point. Sampling is greedy at ``temperature == 0`` and
+    seeded-categorical otherwise, keyed on (seed, absolute position) only,
+    so a request's stream does not depend on its batchmates.
+
+    **Chunked mode** (``prefix_cache_mb > 0`` or ``prefill_chunk > 0``)
+    replaces the prefill grid by a chunk grid (tier x chunk bucket): a
+    page-gather prologue plus one absolute-position chunk
+    (:func:`_make_causal_chunk_prefill`). With a prefix-cache budget the
+    engine also owns a pool of KV pages ``[nl, n_blocks + 1, block_tokens,
+    heads, head_dim]`` and the ``insert`` cell that publishes a finished
+    slot's prefix into it; the host trie that hands out block ids
+    (``serve/kvpool.py``) comes with the continuous batcher, so callers
+    pass block ids directly. ``kv_transfer`` adds the pool export/import
+    cells and ``stream_migrate`` the slot export/import cells.
+
+    ``weight_dtype="int8"`` packs kernels (idempotent: a tree
+    ``restore_serving_state`` packed passes through); ``kv_dtype="int8"``
+    stores cache and pool pages as ``{"q", "s"}``. ``device`` defaults to
+    the card; ``device="cpu"`` must be asked for. One device a replica:
+    the tensor-parallel layout comes with the model-parallel slice.
+    """
+
+    def __init__(
+        self,
+        model,
+        params: dict,
+        device="cuda",
+        *,
+        buckets: tuple[int, ...] = (64, 128, 256),
+        slots: int = 8,
+        max_batch: int = 4,
+        batch_tiers: tuple[int, ...] | None = None,
+        max_new_tokens: int = 32,
+        prefix_cache_mb: float = 0.0,
+        block_tokens: int = 16,
+        prefill_chunk: int = 0,
+        spec_tokens: int = 0,
+        spec_min_match: int = 2,
+        kv_transfer: bool = False,
+        stream_migrate: bool = False,
+        weight_dtype: str | None = None,
+        kv_dtype: str | None = None,
+        memory=None,
+    ):
+        if slots < 1:
+            raise ValueError(f"need at least one cache slot, got {slots}")
+        super().__init__(device, min(max_batch, slots), batch_tiers, memory=memory)
+        cfg = model.cfg
+        self.weight_dtype, self.kv_dtype = self._plan_quant(
+            cfg, weight_dtype=weight_dtype, kv_dtype=kv_dtype)
+        params = _convert_params(params, self.weight_dtype, cfg)
+        if is_quantized_tree(params):
+            self.weight_dtype = "int8"
+        self._kv_quantized = self.kv_dtype == "int8"
+        self._kv_store_dtype = cfg.dtype if self._kv_quantized else torch_dtype(self.kv_dtype)
+        load_params(model, params)
+        self.model = model.to(self.device).eval()
+        self.params = serving_params(self.model)
+        self.slots = slots
+        self.buckets = tuple(sorted({min(int(b), cfg.max_position) for b in buckets}))
+        if not self.buckets:
+            raise ValueError("need at least one prompt bucket")
+        # Every slot's pages hold prompt + generated tokens; validate()
+        # rejects requests that could not fit before they enqueue.
+        self.cache_len = min(self.buckets[-1] + max_new_tokens, cfg.max_position)
+        self.max_new_tokens = max_new_tokens
+        self.spec_tokens = self._plan_spec(cfg, spec_tokens=spec_tokens,
+                                           min_match=spec_min_match,
+                                           max_new_tokens=max_new_tokens)
+
+        heads, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        cache_shape = (cfg.num_layers, slots, self.cache_len + 1, heads, hd)
+        self._cache_k = self._kv_zeros(cache_shape)
+        self._cache_v = self._kv_zeros(cache_shape)
+        # last_token plus a spare entry for padding rows' writes.
+        self._last_buf = torch.zeros(slots + 1, dtype=torch.int32, device=self.device)
+        self._last_token = self._last_buf[:slots]
+        self.memory.register_tree(
+            "lm_params", self.params, dtype=self.weight_dtype,
+            fp32_nbytes=fp32_equiv_nbytes(self.params),
+        )
+        kv_bytes = tree_nbytes(self._cache_k) + tree_nbytes(self._cache_v)
+        logical = cfg.num_layers * slots * self.cache_len * heads * hd
+        self.memory.register("kv_slot_cache", kv_bytes, dtype=self.kv_dtype,
+                             fp32_nbytes=2 * logical * 4)
+        # Per-slot share of the slot-table cache: the batcher multiplies it
+        # by slots_active so /statusz and /memz agree on active bytes.
+        self.slot_page_bytes = kv_bytes // slots
+
+        self.block_tokens = int(block_tokens)
+        self._chunked_mode = prefix_cache_mb > 0 or prefill_chunk > 0
+        self.prefix_cache = None  # the host trie comes with serve/kvpool.py
+        self._pool_k = self._pool_v = None
+        self._pool_blocks = 0
+        if self._chunked_mode:
+            chunk = int(prefill_chunk) if prefill_chunk > 0 else self.buckets[-1]
+            self.prefill_chunk_size = min(chunk, self.buckets[-1])
+            self._chunk_buckets = tuple(sorted(
+                {b for b in self.buckets if b <= self.prefill_chunk_size}
+                | {self.prefill_chunk_size}))
+            self._max_chain = max(1, self.buckets[-1] // self.block_tokens)
+            n_blocks, self._bytes_per_block = self._plan_prefix_cache(
+                cfg, prefix_cache_mb=prefix_cache_mb, block_tokens=self.block_tokens,
+                kv_dtype=self.kv_dtype)
+            if prefix_cache_mb <= 0:
+                n_blocks = 1  # a dummy pool keeps one chunk operand layout
+            self._pool_blocks = n_blocks
+            pool_shape = (cfg.num_layers, n_blocks + 1, self.block_tokens, heads, hd)
+            self._pool_k = self._kv_zeros(pool_shape)
+            self._pool_v = self._kv_zeros(pool_shape)
+            self.memory.register(
+                "kv_prefix_pool", tree_nbytes(self._pool_k) + tree_nbytes(self._pool_v),
+                dtype=self.kv_dtype,
+                fp32_nbytes=2 * cfg.num_layers * n_blocks * self.block_tokens * heads * hd * 4)
+        else:
+            self.prefill_chunk_size = 0
+        self._has_pool = self._chunked_mode and prefix_cache_mb > 0
+        self._kv_transfer = bool(kv_transfer) and self._has_pool
+        self.stream_migrate = bool(stream_migrate)
+
+        L = self.cache_len
+        self._prefill_cells = {}
+        self._chunk_cells = {}
+        n_cells = (len(self.batch_tiers) * (len(self._chunk_buckets) if self._chunked_mode
+                                            else len(self.buckets))
+                   + 1 + (1 if self.spec_tokens else 0) + (1 if self._has_pool else 0)
+                   + (2 if self._kv_transfer else 0) + (2 if self.stream_migrate else 0))
+        self._plan_cells(n_cells)
+        if not self._chunked_mode:
+            fn = _make_causal_prefill(self.model, L)
+            for T in self.batch_tiers:
+                for B in self.buckets:
+                    self._prefill_cells[T, B] = fn
+                    self._compile_cell(f"lm/{self.layout}/prefill/t{T}/b{B}",
+                                       lambda T=T, B=B: self._warm_prefill(T, B))
+        else:
+            fn = _make_causal_chunk_prefill(self.model, L)
+            for T in self.batch_tiers:
+                for C in self._chunk_buckets:
+                    self._chunk_cells[T, C] = fn
+                    self._compile_cell(f"lm/{self.layout}/chunk/t{T}/c{C}",
+                                       lambda T=T, C=C: self._warm_chunk(T, C))
+            if self._has_pool:
+                self._insert_cell = _make_prefix_insert(self.block_tokens)
+                self._compile_cell(f"lm/{self.layout}/insert",
+                                   lambda: self.insert_prefix(0, []))
+            if self._kv_transfer:
+                self._export_cell = _make_pool_export()
+                self._import_cell = _make_pool_import()
+                self._compile_cell(f"lm/{self.layout}/export",
+                                   lambda: self.export_prefix_pages([]))
+                self._compile_cell(f"lm/{self.layout}/import",
+                                   lambda: self._warm_import())
+        self._decode_cell = _make_causal_decode(self.model, L)
+        self._compile_cell(f"lm/{self.layout}/decode", lambda: self._warm_decode())
+        self._verify_cell = None
+        if self.spec_tokens:
+            self._verify_cell = _make_causal_verify(self.model, L, self.spec_tokens)
+            self._compile_cell(f"lm/{self.layout}/verify", lambda: self._warm_verify())
+        self._slot_export_cell = self._slot_import_cell = None
+        if self.stream_migrate:
+            self._slot_export_cell = _make_slot_export()
+            self._slot_import_cell = _make_slot_import()
+            self._compile_cell(f"lm/{self.layout}/slot_export",
+                               lambda: self.export_slot_pages(0))
+            # Slot 0's own lane back into it: the state is unchanged.
+            self._compile_cell(f"lm/{self.layout}/slot_import",
+                               lambda: self.import_slot_pages(
+                                   0, *self.export_slot_pages(0),
+                                   last_token=int(self._last_token[0])))
+        logger.info(
+            "causal-LM engine ready: device=%s slots=%d cache_len=%d buckets=%s "
+            "tiers=%s chunk=%s pool_blocks=%s spec_k=%s (%d cells)",
+            self.device, slots, self.cache_len, self.buckets, self.batch_tiers,
+            self.prefill_chunk_size or None, self._pool_blocks if self._has_pool else None,
+            self.spec_tokens or None, n_cells,
+        )
+
+    # -- planning (the JAX engine's static validators) -------------------
+
+    @staticmethod
+    def _plan_prefix_cache(cfg, *, prefix_cache_mb: float = 0.0,
+                           block_tokens: int = 16,
+                           kv_dtype: str | None = None) -> tuple[int, int]:
+        """Size and validate the prefix-page pool: ``(n_blocks,
+        bytes_per_block)``; a budget below one block raises at startup."""
+        if block_tokens < 1:
+            raise ValueError(f"block_tokens must be >= 1, got {block_tokens}")
+        kv = (normalize_quant_dtype(kv_dtype, "kv_dtype")
+              or str(cfg.dtype).removeprefix("torch."))
+        if kv == "int8":
+            # int8 page payload + two f32 per-position scales (k and v).
+            bytes_per_block = 2 * cfg.num_layers * block_tokens * (cfg.hidden_size + 4)
+        else:
+            bytes_per_block = (2 * cfg.num_layers * block_tokens * cfg.hidden_size
+                               * torch_dtype(kv).itemsize)
+        n_blocks = int(prefix_cache_mb * 2**20 // bytes_per_block)
+        if prefix_cache_mb > 0 and n_blocks < 1:
+            raise ValueError(
+                f"--prefix-cache-mb {prefix_cache_mb:g} holds no {bytes_per_block}-byte "
+                f"block (num_layers={cfg.num_layers}, block_tokens={block_tokens}, "
+                f"hidden={cfg.hidden_size})")
+        return n_blocks, bytes_per_block
+
+    @staticmethod
+    def _plan_spec(cfg, *, spec_tokens: int = 0, min_match: int = 2,
+                   max_new_tokens: int = 32) -> int:
+        """Validate the speculation knobs; returns the verify width ``k``
+        (0 = off)."""
+        if spec_tokens < 0:
+            raise ValueError(f"spec_tokens must be >= 0, got {spec_tokens}")
+        if spec_tokens == 0:
+            return 0
+        if min_match < 1:
+            raise ValueError(f"spec min_match must be >= 1, got {min_match}")
+        if spec_tokens >= max_new_tokens:
+            raise ValueError(
+                f"spec_tokens {spec_tokens} >= max_new_tokens {max_new_tokens}: a "
+                "draft can never exceed the remaining generation budget")
+        if spec_tokens + 1 > cfg.max_position:
+            raise ValueError(
+                f"spec_tokens {spec_tokens} + 1 exceeds max_position {cfg.max_position}")
+        return int(spec_tokens)
+
+    @staticmethod
+    def _plan_quant(cfg, *, weight_dtype: str | None = None,
+                    kv_dtype: str | None = None) -> tuple[str, str]:
+        """Validate the quantization knobs; returns concrete ``(weight_dtype,
+        kv_dtype)`` names (``None`` resolves to the model's compute dtype)."""
+        w = normalize_quant_dtype(weight_dtype, "weight_dtype")
+        k = normalize_quant_dtype(kv_dtype, "kv_dtype")
+        default = str(cfg.dtype).removeprefix("torch.")
+        return w or default, k or default
+
+    def _kv_zeros(self, shape):
+        if not self._kv_quantized:
+            return torch.zeros(shape, dtype=self._kv_store_dtype, device=self.device)
+        return {"q": torch.zeros(shape, dtype=torch.int8, device=self.device),
+                "s": torch.zeros(shape[:-2], dtype=torch.float32, device=self.device)}
+
+    def kv_bytes_per_token(self) -> int:
+        """Slot-cache bytes ONE cached token occupies (K + V across all
+        layers, plus scales at int8)."""
+        cfg = self.model.cfg
+        if self._kv_quantized:
+            return 2 * cfg.num_layers * (cfg.hidden_size + 4)
+        return 2 * cfg.num_layers * cfg.hidden_size * self._kv_store_dtype.itemsize
+
+    # -- request surface -----------------------------------------------
+
+    def bucket_for(self, length: int) -> int:
+        for b in self.buckets:
+            if length <= b:
+                return b
+        raise RequestError(
+            f"prompt length {length} exceeds the largest bucket {self.buckets[-1]}")
+
+    def _chunk_bucket_for(self, n: int) -> int:
+        for c in self._chunk_buckets:
+            if n <= c:
+                return c
+        raise ValueError(f"chunk of {n} exceeds prefill_chunk_size {self.prefill_chunk_size}")
+
+    def validate(self, payload: dict) -> None:
+        ids = np.asarray(payload.get("input_ids", ()))
+        if ids.ndim != 1 or ids.size == 0:
+            raise RequestError("input_ids must be a non-empty 1-D id list")
+        max_new = int(payload.get("max_new_tokens", self.max_new_tokens))
+        if max_new < 1:
+            raise RequestError("max_new_tokens must be >= 1")
+        # Migration replay: resume_tokens are already-delivered tokens the
+        # re-prefill treats as prompt suffix.
+        res = np.asarray(payload.get("resume_tokens", ()))
+        if res.size and res.ndim != 1:
+            raise RequestError("resume_tokens must be a 1-D id list")
+        if res.size >= max_new:
+            raise RequestError(
+                f"resume_tokens of {res.size} already satisfy max_new_tokens "
+                f"{max_new}: nothing left to generate")
+        if not self._chunked_mode:
+            self.bucket_for(ids.shape[0] + res.size)
+        if ids.shape[0] + max_new > self.cache_len:
+            raise RequestError(
+                f"prompt of {ids.shape[0]} + max_new_tokens {max_new} exceeds the "
+                f"{self.cache_len}-token cache pages")
+        if float(payload.get("temperature", 0.0)) < 0.0:
+            raise RequestError("temperature must be >= 0")
+        pri = payload.get("priority")
+        if pri is not None:
+            try:
+                pri = int(pri)
+            except (TypeError, ValueError):
+                raise RequestError("priority must be an integer") from None
+            if pri < 0:
+                raise RequestError(f"priority must be >= 0, got {pri}")
+        ddl = payload.get("deadline_ms")
+        if ddl is not None:
+            try:
+                ddl = float(ddl)
+            except (TypeError, ValueError):
+                raise RequestError("deadline_ms must be a number of milliseconds") from None
+            if not ddl > 0.0:
+                raise RequestError(f"deadline_ms must be > 0, got {ddl}")
+
+    def request_bucket(self, payload: dict) -> int:
+        n = np.asarray(payload["input_ids"]).shape[0]
+        n += np.asarray(payload.get("resume_tokens", ())).size
+        if self._chunked_mode and n > self.buckets[-1]:
+            return self.buckets[-1]  # queue key only: chunks split the rest
+        return self.bucket_for(n)
+
+    # -- dispatch (the decode loop's thread only: the cells write the
+    # -- engine's device state, single-writer by contract) ---------------
+
+    def _to_device(self, *host):
+        return [h.to(self.device, non_blocking=True) for h in host]
+
+    def _launch(self, key, buffers, n, meta, cell, *args) -> InFlightBatch:
+        """Run ``cell`` under inference mode, copy its token output into a
+        pinned host buffer and record the event :meth:`fetch_step` waits
+        on."""
+        t_assembled = time.monotonic()
+        with torch.inference_mode():
+            tok = cell(*args)
+            host = self._host_empty(tuple(tok.shape), torch.int32)
+            host.copy_(tok, non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return InFlightBatch(out={"tok": host}, key=key, n=n, meta=meta, buffers=buffers,
+                             layout=self.layout, event=event, t_assembled=t_assembled)
+
+    def prefill(self, admissions: list[dict]) -> InFlightBatch:
+        """Admit up to a tier of requests into their assigned slots.
+
+        ``admissions`` rows: ``{"slot", "input_ids", "temperature",
+        "seed"}``. Returns without blocking; :meth:`fetch_step` yields the
+        ``[tier]`` first-token vector (real rows in admitted order)."""
+        if self._chunked_mode:
+            raise RuntimeError(
+                "engine built in chunked-prefill mode (prefix cache / prefill_chunk); "
+                "admissions go through prefill_chunks")
+        if len(admissions) > self.max_batch:
+            raise ValueError(f"admitting {len(admissions)} exceeds max_batch {self.max_batch}")
+        lens = [np.asarray(a["input_ids"]).shape[0] for a in admissions]
+        L = self.bucket_for(max(lens))
+        T = self.tier_for(len(admissions))
+        key = ("prefill", T, L)
+        buffers = self._take_buffers(key, lambda: (
+            self._host_empty((T, L), torch.int32), self._host_empty((T, L), torch.bool),
+            self._host_empty((T,), torch.int32), self._host_empty((T,), torch.int32),
+            self._host_empty((T,), torch.float32), self._host_empty((T,), torch.int32)))
+        ids, mask, slot_ix, lengths, temps, seeds = (b.numpy() for b in buffers)
+        ids.fill(0)
+        mask.fill(False)
+        slot_ix.fill(self.slots)  # one past the pool: padding rows write nothing real
+        lengths.fill(0)
+        temps.fill(0.0)
+        seeds.fill(0)
+        for r, (a, n) in enumerate(zip(admissions, lens)):
+            ids[r, :n] = np.asarray(a["input_ids"], np.int32)
+            mask[r, :n] = True
+            slot_ix[r] = int(a["slot"])
+            lengths[r] = n
+            temps[r] = float(a.get("temperature", 0.0))
+            seeds[r] = int(a.get("seed", 0))
+        mask[len(admissions):, 0] = True
+        self._record_dispatch(T, L, len(admissions))
+        return self._launch(key, buffers, len(admissions), [int(s) for s in slot_ix[:len(lens)]],
+                            self._prefill_cells[T, L], self._cache_k, self._cache_v,
+                            self._last_buf, *self._to_device(*buffers))
+
+    def prefill_chunks(self, rows: list[dict]) -> InFlightBatch:
+        """Dispatch ONE prefill chunk for up to a tier of admitted slots.
+
+        ``rows``: ``{"slot", "input_ids" (the FULL prompt), "start",
+        "n_tokens", "length", "chain" (pool block ids, non-empty only on a
+        row's first chunk, when its matched prefix gathers), "temperature",
+        "seed"}``. Rows whose chunk completes the prompt sample their first
+        token on the device (rows mid-prompt return lanes nobody reads)."""
+        if not self._chunked_mode:
+            raise RuntimeError(
+                "prefill_chunks needs chunked mode (prefix_cache_mb or prefill_chunk "
+                "at construction)")
+        if len(rows) > self.max_batch:
+            raise ValueError(f"admitting {len(rows)} exceeds max_batch {self.max_batch}")
+        T = self.tier_for(len(rows))
+        C = self._chunk_bucket_for(max(int(r["n_tokens"]) for r in rows))
+        M = self._max_chain
+        key = ("chunk", T, C)
+        buffers = self._take_buffers(key, lambda: (
+            self._host_empty((T, C), torch.int32), self._host_empty((T,), torch.int32),
+            self._host_empty((T,), torch.int32), self._host_empty((T, M), torch.int32),
+            self._host_empty((T,), torch.int32), self._host_empty((T,), torch.int32),
+            self._host_empty((T,), torch.float32), self._host_empty((T,), torch.int32)))
+        ids, starts, lengths, chain, n_gather, slot_ix, temps, seeds = (
+            b.numpy() for b in buffers)
+        ids.fill(0)
+        starts.fill(0)
+        lengths.fill(0)
+        chain.fill(0)
+        n_gather.fill(0)
+        slot_ix.fill(self.slots)
+        temps.fill(0.0)
+        seeds.fill(0)
+        for r, row in enumerate(rows):
+            s0, n = int(row["start"]), int(row["n_tokens"])
+            ids[r, :n] = np.asarray(row["input_ids"][s0:s0 + n], np.int32)
+            starts[r] = s0
+            lengths[r] = int(row["length"])
+            blocks = row.get("chain") or ()
+            if len(blocks) > M:
+                raise ValueError(f"prefix chain of {len(blocks)} exceeds max chain {M}")
+            chain[r, :len(blocks)] = blocks
+            n_gather[r] = len(blocks)
+            slot_ix[r] = int(row["slot"])
+            temps[r] = float(row.get("temperature", 0.0))
+            seeds[r] = int(row.get("seed", 0))
+        self._record_dispatch(T, C, len(rows))
+        ids_d, starts_d, lengths_d, chain_d, ng_d, slots_d, temps_d, seeds_d = (
+            self._to_device(*buffers))
+        return self._launch(key, buffers, len(rows), [int(s) for s in slot_ix[:len(rows)]],
+                            self._chunk_cells[T, C], self._cache_k, self._cache_v,
+                            self._last_buf, self._pool_k, self._pool_v, ids_d, starts_d,
+                            lengths_d, chain_d, ng_d, slots_d, temps_d, seeds_d)
+
+    def _require_pool(self) -> None:
+        if not self._has_pool:
+            raise RuntimeError("engine has no prefix cache (prefix_cache_mb=0)")
+
+    @torch.inference_mode()
+    def insert_prefix(self, slot: int, blocks: list[tuple[int, int]]) -> None:
+        """Publish a fully-prefilled slot's prefix pages into the pool:
+        ``blocks`` are ``(block_id, block_index)`` pairs. Dispatch-only;
+        stream order puts the prompt's K/V in the pages before any later
+        chunk can gather them."""
+        self._require_pool()
+        M = self._max_chain
+        if len(blocks) > M:
+            raise ValueError(f"inserting {len(blocks)} blocks exceeds max chain {M}")
+        ids = np.full((M,), self._pool_blocks, np.int64)  # the spare block
+        pos = np.zeros((M,), np.int64)
+        for j, (bid, bix) in enumerate(blocks):
+            ids[j], pos[j] = int(bid), int(bix)
+        self._insert_cell(self._pool_k, self._pool_v, self._cache_k, self._cache_v, int(slot),
+                          torch.from_numpy(ids).to(self.device),
+                          torch.from_numpy(pos).to(self.device))
+
+    @torch.inference_mode()
+    def export_prefix_pages(self, blocks: list[int]):
+        """Gather published pool pages for a PINNED chain of block ids:
+        ``(k, v)`` stages ``[nl, max_chain, block_tokens, heads, head_dim]``
+        on the device, the chain's pages in order, pad lanes repeating
+        block 0. Needs ``kv_transfer=True``. Reads only; in-place writes
+        never free a buffer here, so it needs no retry loop."""
+        if not self._kv_transfer:
+            raise RuntimeError("engine built without kv_transfer=True (no pool-export cell)")
+        M = self._max_chain
+        if len(blocks) > M:
+            raise ValueError(f"exporting {len(blocks)} blocks exceeds max chain {M}")
+        idx = np.zeros((M,), np.int64)
+        idx[:len(blocks)] = blocks
+        return self._export_cell(self._pool_k, self._pool_v,
+                                 torch.from_numpy(idx).to(self.device))
+
+    @torch.inference_mode()
+    def import_prefix_pages(self, blocks: list[tuple[int, int]], pages_k, pages_v) -> None:
+        """Adopt transferred KV pages into the pool: ``blocks`` are
+        ``(block_id, chain_index)`` pairs; ``pages_*`` are ``[nl, max_chain,
+        block_tokens, heads, head_dim]`` stages (host or device tensors, or
+        numpy; ``{"q", "s"}`` at int8). Needs ``kv_transfer=True``."""
+        if not self._kv_transfer:
+            raise RuntimeError("engine built without kv_transfer=True (no pool-import cell)")
+        M = self._max_chain
+        if len(blocks) > M:
+            raise ValueError(f"importing {len(blocks)} blocks exceeds max chain {M}")
+        ids = np.full((M,), self._pool_blocks, np.int64)
+        for bid, cix in blocks:
+            if not 0 <= int(cix) < M:
+                raise ValueError(f"chain index {cix} outside the {M}-lane page stage")
+            ids[int(cix)] = int(bid)
+        self._import_cell(self._pool_k, self._pool_v, self._stage(pages_k),
+                          self._stage(pages_v), torch.from_numpy(ids).to(self.device))
+
+    def _stage(self, pages):
+        """A received page stage on the device, in the cache's storage."""
+        def put(x, like):
+            return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x
+                                   ).to(self.device, like.dtype)
+        if isinstance(self._cache_k, dict):
+            return {k: put(pages[k], self._cache_k[k]) for k in ("q", "s")}
+        return put(pages, self._cache_k)
+
+    def _warm_import(self):
+        k, v = self.export_prefix_pages([])
+        self.import_prefix_pages([], k, v)
+
+    def page_meta(self) -> dict:
+        """Static page geometry the wire format stamps into its header: two
+        pools are transfer-compatible iff these match."""
+        self._require_pool()
+        nl, _, bt, heads, hd = _kv_leaf(self._pool_k).shape
+        return {
+            "num_layers": int(nl), "block_tokens": int(bt), "heads": int(heads),
+            "head_dim": int(hd),
+            # int8 pools report int8 (the q payload's dtype).
+            "dtype": str(_kv_leaf(self._pool_k).dtype).removeprefix("torch."),
+            "max_chain": int(self._max_chain),
+        }
+
+    @torch.inference_mode()
+    def export_slot_pages(self, slot: int):
+        """Checkpoint ONE live slot's KV lane: ``(k, v)`` stages ``[nl,
+        cache_len, heads, head_dim]`` on the device. Needs
+        ``stream_migrate=True``."""
+        if self._slot_export_cell is None:
+            raise RuntimeError("engine built without stream_migrate=True (no slot-export cell)")
+        return self._slot_export_cell(self._cache_k, self._cache_v, int(slot))
+
+    @torch.inference_mode()
+    def import_slot_pages(self, slot: int, pages_k, pages_v, last_token: int) -> None:
+        """Adopt a migrated stream's KV lane into ``slot`` and seed
+        ``last_token[slot]``, so the next decode step continues it. Needs
+        ``stream_migrate=True``."""
+        if self._slot_import_cell is None:
+            raise RuntimeError("engine built without stream_migrate=True (no slot-import cell)")
+        self._slot_import_cell(self._cache_k, self._cache_v, self._last_buf,
+                               self._stage(pages_k), self._stage(pages_v), int(slot),
+                               int(last_token))
+
+    def stream_page_meta(self) -> dict:
+        """Slot-lane geometry the stream wire format stamps into its header."""
+        nl, _, lc1, heads, hd = _kv_leaf(self._cache_k).shape
+        return {"num_layers": int(nl), "cache_len": int(lc1 - 1), "heads": int(heads),
+                "head_dim": int(hd),
+                "dtype": str(_kv_leaf(self._cache_k).dtype).removeprefix("torch.")}
+
+    def decode(self, lengths, active, temps, seeds) -> InFlightBatch:
+        """Dispatch ONE decode step over the full slot table (host arrays
+        are snapshots; the batcher advances its lengths at dispatch so
+        steps pipeline). Returns without blocking."""
+        key = ("decode",)
+        s = self.slots
+        buffers = self._take_buffers(key, lambda: (
+            self._host_empty((s,), torch.int32), self._host_empty((s,), torch.bool),
+            self._host_empty((s,), torch.float32), self._host_empty((s,), torch.int32)))
+        for b, src in zip(buffers, (lengths, active, temps, seeds)):
+            np.copyto(b.numpy(), src)
+        return self._launch(key, buffers, int(np.sum(active)), None, self._decode_cell,
+                            self._cache_k, self._cache_v, self._last_token,
+                            *self._to_device(*buffers))
+
+    def verify(self, drafts, lengths, n_input, temps, seeds) -> InFlightBatch:
+        """Dispatch ONE speculative verify step over the full slot table.
+        ``drafts [slots, k]``; ``n_input``: drafted + 1 for verifying lanes,
+        0 for the rest. :meth:`fetch_step` yields the ``[slots, k + 1]``
+        sampled-token matrix."""
+        if self._verify_cell is None:
+            raise RuntimeError("engine built without speculation (spec_tokens=0)")
+        key = ("verify",)
+        s = self.slots
+        buffers = self._take_buffers(key, lambda: (
+            self._host_empty((s, self.spec_tokens), torch.int32),
+            self._host_empty((s,), torch.int32), self._host_empty((s,), torch.int32),
+            self._host_empty((s,), torch.float32), self._host_empty((s,), torch.int32)))
+        for b, src in zip(buffers, (drafts, lengths, n_input, temps, seeds)):
+            np.copyto(b.numpy(), src)
+        return self._launch(key, buffers, int(np.sum(np.asarray(n_input) > 0)), None,
+                            self._verify_cell, self._cache_k, self._cache_v,
+                            self._last_token, *self._to_device(*buffers))
+
+    def fetch_step(self, inflight: InFlightBatch) -> np.ndarray:
+        """Wait for a step's sampled-token vector (or a verify step's
+        ``[slots, k + 1]`` matrix): the ONE synchronisation point of the
+        decode path."""
+        if inflight.event is not None:
+            inflight.event.synchronize()
+        tok = inflight.out["tok"].numpy().copy()
+        inflight.t_got = time.monotonic()
+        if inflight.buffers is not None:
+            self._give_buffers(inflight.key, inflight.buffers)
+        return tok
+
+    # -- warm-up: each cell once at its shape, on inputs that change no
+    # -- state (padding rows, idle lanes, spare blocks) --------------------
+
+    def _warm_prefill(self, T: int, L: int):
+        """A prefill of ``T`` padding rows at bucket ``L``: every write lands
+        in a spare entry."""
+        buffers = (torch.zeros((T, L), dtype=torch.int32), torch.zeros((T, L), dtype=torch.bool),
+                   torch.full((T,), self.slots, dtype=torch.int32),
+                   torch.zeros((T,), dtype=torch.int32), torch.zeros((T,), dtype=torch.float32),
+                   torch.zeros((T,), dtype=torch.int32))
+        buffers[1][:, 0] = True
+        return self.fetch_step(self._launch(
+            ("warm",), None, 0, [], self._prefill_cells[T, L], self._cache_k, self._cache_v,
+            self._last_buf, *self._to_device(*buffers)))
+
+    def _warm_chunk(self, T: int, C: int):
+        z = torch.zeros((T,), dtype=torch.int32)
+        buffers = (torch.zeros((T, C), dtype=torch.int32), z, z,
+                   torch.zeros((T, self._max_chain), dtype=torch.int32), z,
+                   torch.full((T,), self.slots, dtype=torch.int32),
+                   torch.zeros((T,), dtype=torch.float32), z)
+        dev = self._to_device(*buffers)
+        inflight = self._launch(("warm",), None, 0, [], self._chunk_cells[T, C], self._cache_k,
+                                self._cache_v, self._last_buf, self._pool_k, self._pool_v, *dev)
+        return self.fetch_step(inflight)
+
+    def _warm_decode(self):
+        s = self.slots
+        inflight = self._launch(
+            ("warm",), None, 0, None, self._decode_cell, self._cache_k, self._cache_v,
+            self._last_token, *self._to_device(
+                torch.zeros((s,), dtype=torch.int32), torch.zeros((s,), dtype=torch.bool),
+                torch.zeros((s,), dtype=torch.float32), torch.zeros((s,), dtype=torch.int32)))
+        return self.fetch_step(inflight)
+
+    def _warm_verify(self):
+        s = self.slots
+        z = torch.zeros((s,), dtype=torch.int32)
+        inflight = self._launch(
+            ("warm",), None, 0, None, self._verify_cell, self._cache_k, self._cache_v,
+            self._last_token, *self._to_device(
+                torch.zeros((s, self.spec_tokens), dtype=torch.int32), z, z,
+                torch.zeros((s,), dtype=torch.float32), z))
+        return self.fetch_step(inflight)
+
+
+class ImageClassifierEngine(_AotEngine):
+    """Top-k classification over a trained image classifier (LeNet,
+    ResNet-20/50, Inception-v3) in eval mode, BatchNorm from the running
+    statistics in ``model_state`` (``{"batch_stats": ...}``).
+
+    Request payload: ``image`` ``[H, W, C]`` float32 at the engine's
+    geometry (one image "bucket"). Response: ``top_ids [k]``,
+    ``top_probs [k]``. ``device`` defaults to the card.
+    """
+
+    def __init__(
+        self,
+        model,
+        params: dict,
+        model_state: dict | None = None,
+        device="cuda",
+        *,
+        image_shape: tuple[int, int, int],
+        max_batch: int = 8,
+        batch_tiers: tuple[int, ...] | None = None,
+        top_k: int = 5,
+        memory=None,
+    ):
+        super().__init__(device, max_batch, batch_tiers, memory=memory)
+        if any(is_quantized_leaf(v) for v in params.values()):
+            raise ValueError("image serving has no int8 mode (the classifier forward "
+                             "has no dequantize step)")
+        model.load_state_dict(params, strict=True, assign=True)
+        self.model = model.to(self.device).eval()
+        self.model_state = {
+            k: ({n: t.to(self.device) for n, t in v.items()} if isinstance(v, dict)
+                else v.to(self.device))
+            for k, v in (model_state or {}).items()
+        }
+        self.image_shape = tuple(image_shape)
+        self.top_k = top_k
+        self.memory.register_tree("image_params",
+                                  {"params": dict(self.model.state_dict()),
+                                   **self.model_state})
+        self._plan_cells(len(self.batch_tiers))
+        outs = [
+            self._compile_cell(
+                f"image/{self.layout}/t{T}",
+                lambda T=T: self._forward(
+                    torch.zeros((T, *self.image_shape), device=self.device)))
+            for T in self.batch_tiers
+        ]
+        self._k = outs[0]["top_ids"].shape[-1]  # top_k clamped to the classes
+        logger.info("image engine ready: device=%s shape=%s tiers=%s top_k=%d",
+                    self.device, self.image_shape, self.batch_tiers, top_k)
+
+    @torch.inference_mode()
+    def _forward(self, image):
+        from distributed_tensorflow_tpu_torch.train.objectives import _apply
+
+        logits, _ = _apply(self.model, self.model_state, image, False)
+        probs = torch.softmax(logits.float(), dim=-1)
+        top_probs, top_ids = torch.topk(probs, min(self.top_k, probs.shape[-1]), dim=-1)
+        return {"top_ids": top_ids.to(torch.int32), "top_probs": top_probs}
+
+    def validate(self, payload: dict) -> None:
+        img = np.asarray(payload.get("image", ()))
+        if img.shape != self.image_shape:
+            raise RequestError(
+                f"image shape {img.shape} != engine geometry {self.image_shape}")
+
+    def request_bucket(self, payload: dict) -> int:
+        return 0  # one geometry: every request shares the single bucket
+
+    def dispatch(self, payloads: list[dict]) -> InFlightBatch:
+        if len(payloads) > self.max_batch:
+            raise ValueError(f"batch of {len(payloads)} exceeds max_batch {self.max_batch}")
+        T = self.tier_for(len(payloads))
+        k = self._k
+        buffers = self._take_buffers((T,), lambda: (
+            self._host_empty((T, *self.image_shape), torch.float32),
+            self._host_empty((T, k), torch.int32), self._host_empty((T, k), torch.float32)))
+        imgs = buffers[0].numpy()
+        imgs.fill(0.0)
+        for r, p in enumerate(payloads):
+            imgs[r] = np.asarray(p["image"], np.float32)
+        t_assembled = time.monotonic()
+        out = self._forward(buffers[0].to(self.device, non_blocking=True))
+        host = {"top_ids": buffers[1], "top_probs": buffers[2]}
+        for key, h in host.items():
+            h.copy_(out[key], non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        self._record_dispatch(T, None, len(payloads))
+        return InFlightBatch(out=host, key=(T,), n=len(payloads), meta=[], buffers=buffers,
+                             layout=self.layout, event=event, t_assembled=t_assembled)
+
+    def fetch(self, inflight: InFlightBatch) -> list[dict]:
+        if inflight.event is not None:
+            inflight.event.synchronize()
+        inflight.t_got = time.monotonic()
+        out = {k: v.numpy().copy() for k, v in inflight.out.items()}
+        self._give_buffers(inflight.key, inflight.buffers)
+        return [{"top_ids": out["top_ids"][r], "top_probs": out["top_probs"][r]}
+                for r in range(inflight.n)]

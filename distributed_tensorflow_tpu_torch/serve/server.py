@@ -7,8 +7,8 @@ connection blocks on its Future while the flusher thread batches across
 them — exactly the concurrency the micro-batcher exists to exploit).
 
 Routes (port of the JAX package's ``serve/server.py``; the decode,
-KV-transfer, stream-migration and image routes answer 404 until their
-slices)::
+KV-transfer and stream-migration routes answer 404 until the continuous
+batcher's slice)::
 
     GET  /healthz    -> readiness probe: 200 {"status": "ready", ...} only
                         when the stack serves; 503 with the state string
@@ -36,6 +36,7 @@ slices)::
                         queued requests still complete
     POST /v1/mlm     -> BERT: pred_ids / score / nsp_probs for one example
     POST /v1/embed   -> BERT: pooled [CLS] embedding for one example
+    POST /v1/classify-> image engine: top_ids / top_probs for one image
 
 Every request gets a ``request_id`` (honoring an ``X-Request-Id`` header
 when the client sends one) that rides through the batcher and comes back
@@ -113,8 +114,8 @@ class Client:
     ):
         if hasattr(engine, "prefill") and hasattr(engine, "decode"):
             raise NotImplementedError(
-                "decode engines need the continuous batcher, ported with "
-                "the decode slice"
+                "decode engines need the continuous batcher (ContinuousBatcher, "
+                "serve/kvpool.py and the decode routes: Queue A item 4 of ROADMAP.md)"
             )
         self.engine = engine
         self.tag = tag
@@ -285,6 +286,7 @@ def build_http_server(
         _routes = {
             "/v1/mlm": ("pred_ids", "score", "nsp_probs", "bucket"),
             "/v1/embed": ("embedding", "bucket"),
+            "/v1/classify": ("top_ids", "top_probs"),
         }
 
         def log_message(self, fmt, *args):  # route access logs into logging

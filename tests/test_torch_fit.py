@@ -66,6 +66,30 @@ def test_mlm_stream_is_bit_identical_to_jax(global_batch):
         np.testing.assert_array_equal(got[k].numpy(), expected[2][k], err_msg=k)
 
 
+def test_lm_stream_is_bit_identical_to_jax():
+    """``SyntheticLM`` through ``mlm_device_batches``: the JAX package's
+    causal-LM batches (ids, PAD tails, masks) bit for bit."""
+    import jax
+
+    from distributed_tensorflow_tpu.data.text import SyntheticLM as JaxLM
+    from distributed_tensorflow_tpu.data.text import SyntheticMLMConfig as JaxLMConfig
+    from distributed_tensorflow_tpu.data.text import mlm_device_batches as jax_batches
+    from distributed_tensorflow_tpu.parallel.mesh import build_mesh
+    from distributed_tensorflow_tpu_torch.data.text import SyntheticLM
+
+    mesh = build_mesh({"data": 1}, devices=jax.devices()[:1])
+    cfg = dict(vocab_size=50, seq_len=24, seed=7)
+    ref = jax_batches(JaxLM(JaxLMConfig(**cfg)), mesh, 12, seed=1)
+    ours = mlm_device_batches(SyntheticLM(SyntheticMLMConfig(**cfg)), 12, device="cpu", seed=1)
+    for _ in range(2):
+        want = jax.tree.map(np.asarray, next(ref))
+        got = next(ours)
+        assert set(got) == set(want) == {"input_ids", "attention_mask"}
+        for k in want:
+            np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+        assert not want["attention_mask"].all()  # PAD tails exercised
+
+
 def _setup(seed: int):
     from distributed_tensorflow_tpu_torch.cli.train import PRESETS, _make_tx
 
@@ -198,7 +222,7 @@ def test_train_cli_bert_base_on_cpu_then_serve(tmp_path):
 
 @pytest.mark.parametrize(
     "argv,message",
-    [(["--config", "lm_base"], "causal-LM slice"),
+    [(["--config", "no_such_preset"], "unknown preset"),
      (["--config", "bert_base", "--tensor-parallel", "2"], "model-parallel slice"),
      (["--config", "bert_base", "--profile-steps", "2"],
       "--profile-steps requires --profile-dir")],
@@ -210,6 +234,74 @@ def test_train_cli_refuses_unported_paths(argv, message, capsys):
     with pytest.raises(SystemExit):
         main(argv + ["--device", "cpu"])
     assert message in capsys.readouterr().err
+
+
+def test_train_cli_lm_base_steps_match_jax(tmp_path):
+    """The lm_base preset at a tiny width (1 layer, hidden 48, the preset's
+    12 heads and 128 positions, vocab 64, 8 rows), its AdamW, decay mask
+    and clipping at a constant 1e-3 (the preset's 1000-step warmup would
+    leave the first updates at lr ~0): the CLI's three logged losses equal
+    the JAX step's on the same initial params and the same ``SyntheticLM``
+    batches, within 2e-2 (bf16 compute on both sides, the roundings at
+    other points; the BERT recipe test's bf16 bound), and so do the moves
+    of the loss from step 1."""
+    import json
+
+    import jax
+    import jax.numpy as jnp
+
+    from distributed_tensorflow_tpu.cli.train import PRESETS as JAX_PRESETS
+    from distributed_tensorflow_tpu.cli.train import _decay_mask as jax_mask
+    from distributed_tensorflow_tpu.cli.train import _make_tx as jax_tx
+    from distributed_tensorflow_tpu.data.text import SyntheticLM as JaxLM
+    from distributed_tensorflow_tpu.data.text import SyntheticMLMConfig as JaxLMConfig
+    from distributed_tensorflow_tpu.data.text import mlm_device_batches as jax_batches
+    from distributed_tensorflow_tpu.models.causal_lm import CausalLM, CausalLMConfig
+    from distributed_tensorflow_tpu.models.causal_lm import make_causal_lm_loss
+    from distributed_tensorflow_tpu.parallel.mesh import build_mesh
+    from distributed_tensorflow_tpu.train import create_train_state as jax_state
+    from distributed_tensorflow_tpu.train import make_train_step as jax_step
+    from distributed_tensorflow_tpu.train.step import place_state
+    from distributed_tensorflow_tpu_torch.cli.train import PRESETS, _decay_mask, main
+    from distributed_tensorflow_tpu_torch.interop import causal_lm_params_to_flax
+
+    width = dict(bert_layers=1, bert_hidden=48, bert_vocab=64, global_batch=8, num_steps=3,
+                 lr_schedule="constant", learning_rate=1e-3)
+    jsonl = tmp_path / "m.jsonl"
+    assert main(["--config", "lm_base", "--device", "cpu", "--bert-layers", "1",
+                 "--bert-hidden", "48", "--bert-vocab", "64", "--global-batch", "8",
+                 "--steps", "3", "--lr-schedule", "constant", "--lr", "1e-3",
+                 "--log-every", "1", "--prefetch", "0", "--metrics-jsonl", str(jsonl)]) == 0
+    port_losses = [json.loads(line)["loss"] for line in jsonl.read_text().splitlines()]
+
+    pcfg = dataclasses.replace(PRESETS["lm_base"], **width)
+    init = pcfg.build(pcfg)("cpu")["params"]  # the CLI's seeded init
+    flax = causal_lm_params_to_flax({k: v.detach() for k, v in init.items()}, num_heads=12)
+    jcfg = dataclasses.replace(JAX_PRESETS["lm_base"], **width)
+    mesh = build_mesh({"data": 1}, devices=jax.devices()[:1])
+    tx, _ = jax_tx(jcfg)
+    state = place_state(jax_state(jax.tree.map(jnp.asarray, flax), tx), mesh)
+    model = CausalLM(CausalLMConfig(vocab_size=64, hidden_size=48, num_layers=1,
+                                    num_heads=12, intermediate_size=192, max_position=128,
+                                    dtype=jnp.bfloat16))
+    step = jax_step(make_causal_lm_loss(model), tx, mesh, clip_norm=jcfg.clip_norm)
+    batches = jax_batches(JaxLM(JaxLMConfig(vocab_size=64, seq_len=128, seed=0)), mesh, 8,
+                          seed=1)
+    jax_losses = []
+    for _ in range(3):
+        state, metrics = step(state, next(batches), jax.random.key(0))
+        jax_losses.append(float(metrics["loss"]))
+    assert len(port_losses) == 3 and np.isfinite(port_losses).all()
+    np.testing.assert_allclose(port_losses, jax_losses, atol=2e-2)
+    # The moves (about -0.06 and -0.04) within 2e-3: a lr off by 2x moves
+    # them by 0.03 or more.
+    np.testing.assert_allclose(np.diff(port_losses), np.diff(jax_losses), atol=2e-3)
+    # The decay mask over the causal tree, leaf by leaf.
+    mask = _decay_mask(init)
+    filled = {k: torch.full_like(p, float(mask[k])) for k, p in init.items()}
+    jax.tree.map(lambda a, b: np.testing.assert_array_equal(np.asarray(a), b),
+                 causal_lm_params_to_flax(filled, num_heads=12),
+                 jax.tree.map(np.float32, jax_mask(flax)))
 
 
 def test_train_cli_bert_base_reads_a_text_corpus(tmp_path, caplog):

@@ -207,7 +207,16 @@ def test_stale_mode_matches_jax_and_first_updates_are_zero(step_params, mesh1):
     _assert_tree_close(p_params, j_params, atol=2e-5)
 
 
-def test_schedule_and_decay_mask_match_jax():
+@pytest.mark.parametrize(
+    "over",
+    [{"num_steps": 40, "warmup_steps": 5}, {"lr_schedule": "piecewise"},
+     {"lr_schedule": "constant"},
+     # Both piecewise bounds fall on one step: optax's dict keeps one.
+     {"lr_schedule": "piecewise", "num_steps": 1},
+     {"lr_schedule": "piecewise", "num_steps": 2}],
+    ids=["warmup_cosine", "piecewise", "constant", "piecewise_1_step", "piecewise_2_steps"],
+)
+def test_schedule_and_decay_mask_match_jax(over):
     """warmup_cosine/piecewise learning rates at optax's pre-increment count
     (update 0 runs at lr 0), and the decay mask leaf by leaf."""
     from distributed_tensorflow_tpu.cli.train import _decay_mask as jax_mask
@@ -215,13 +224,11 @@ def test_schedule_and_decay_mask_match_jax():
     from distributed_tensorflow_tpu_torch.cli.train import _decay_mask, make_lr_schedule
 
     jcfg, pcfg = _recipes()
-    for over in ({"num_steps": 40, "warmup_steps": 5}, {"lr_schedule": "piecewise"},
-                 {"lr_schedule": "constant"}):
-        js, ps = (make_lr_schedule(dataclasses.replace(pcfg, **over)),
-                  jax_sched(dataclasses.replace(jcfg, **over)))
-        got = [ps(c) for c in range(45)]
-        # optax evaluates in f32, the port in double: rtol 1e-5.
-        np.testing.assert_allclose(got, [float(js(c)) for c in range(45)], rtol=1e-5, atol=1e-12)
+    js, ps = (make_lr_schedule(dataclasses.replace(pcfg, **over)),
+              jax_sched(dataclasses.replace(jcfg, **over)))
+    got = [ps(c) for c in range(45)]
+    # optax evaluates in f32, the port in double: rtol 1e-5.
+    np.testing.assert_allclose(got, [float(js(c)) for c in range(45)], rtol=1e-5, atol=1e-12)
     assert make_lr_schedule(pcfg)(0) == 0.0
     model = BertForPreTraining(BertConfig(**GEOM), device="cpu")
     mask = _decay_mask(dict(model.named_parameters()))

@@ -184,6 +184,22 @@ Phases (any failure exits non-zero before the result lines):
    int8 KV teacher-forced top-1 agreement >= 0.95 over >= 30 probes.
    Prints prefill ms per (tier, bucket), decode ms a step at 8 slots (bf16
    and int8), tokens/s, kv_bytes_per_token and packed parameter bytes.
+12d. serve_lm_batcher — the same checkpoint and engine geometry behind
+   ``Client`` and the continuous batcher. fp32 checks against the direct
+   driver of serve_lm (one request's fp32 stream does not depend on its
+   batchmates): 24 seeded requests (half sampled) from 8 threads with
+   ``max_in_flight=2``; the same plus 4 draftable prompts with
+   ``spec_tokens=4`` (drafts must be verified); 12 requests sharing a
+   64-token prefix through the prefix cache (hit tokens > 0 on
+   ``/statusz``); EDF with preemption (8 priority-2 requests fill the
+   slots, a priority-0 request with a 1 ms deadline parks one). Then
+   ``cli.serve --config lm_base`` as a server process with 16 concurrent
+   ``/v1/generate``: all 200, ``n_tokens`` equal to each budget, the prom
+   text's ``ttft``, ``tokens`` and ``kv_bytes_per_token``. Prints bf16
+   tokens/s and ms a decode step on 16 requests under continuous
+   (``max_in_flight`` 2 and 1) and flush admission beside the direct
+   driver's, TTFT p50/p99, tokens a step with speculation, the prefix hit
+   rate and the phase's seconds.
 13. train_cli_image — ``cli.train --config imagenet_resnet50 --image-size 64
    --global-batch 16 --steps 3`` with a checkpoint, then a ``Checkpointer``
    restore that brings back the step and every BatchNorm running average.
@@ -259,6 +275,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -2265,7 +2282,8 @@ def _lm_requests(vocab: int, n: int = 12, max_position: int = 128):
 
 
 def _generate(engine, requests, chunk: int = 0) -> dict:
-    """A host loop standing in for the continuous batcher: admit requests
+    """The direct driver (the reference serve_lm_batcher holds the
+    continuous batcher to): admit requests
     into free slots a tier at a time (whole prompts, or ``chunk``-token
     chunks), decode every active slot until each budget is spent, reuse
     the freed slots. Returns ``{id: [tokens]}``."""
@@ -2691,6 +2709,359 @@ def phase_serve_lm(torch, ckpt_dir: Path, *, device="cuda", cfg=None, n_requests
     return out
 
 
+class _DecodeTimer:
+    """An engine seen through its decode steps: the host time each decode
+    dispatch takes (enqueueing the cell's launches), and the time from a
+    dispatch to its fetch (``_generate`` fetches every step before the
+    next, so there this is its ms a step)."""
+
+    def __init__(self, engine):
+        self._engine, self.dispatch_ms, self.step_ms, self._t0 = engine, [], [], {}
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def decode(self, *args):
+        t0 = time.monotonic()
+        handle = self._engine.decode(*args)
+        self.dispatch_ms.append((time.monotonic() - t0) * 1e3)
+        self._t0[id(handle)] = t0
+        return handle
+
+    def fetch_step(self, handle):
+        out = self._engine.fetch_step(handle)
+        t0 = self._t0.pop(id(handle), None)
+        if t0 is not None:
+            self.step_ms.append((time.monotonic() - t0) * 1e3)
+        return out
+
+
+def _payload(r: dict) -> dict:
+    return {"input_ids": r["input_ids"], "max_new_tokens": r["budget"],
+            "temperature": r["temperature"], "seed": r["seed"]}
+
+
+def _serve(client, requests, n_threads: int = 1) -> tuple[dict, list, float]:
+    """Every request through ``client`` (``n_threads`` submitters, or all
+    submitted at once from this thread); returns ``({id: tokens},
+    [per-request phases], wall seconds)``."""
+    t0 = time.monotonic()
+    if n_threads > 1:
+        out, errs = {}, []
+
+        def worker(part):
+            try:
+                for r in part:
+                    fut = client.submit(_payload(r))
+                    out[r["id"]] = (fut.result(timeout=300), fut.phases)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errs.append(e)
+
+        threads = [threading.Thread(target=worker, args=(requests[i::n_threads],))
+                   for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not errs, f"batcher submitters failed: {errs[:2]}")
+    else:
+        futs = [(r["id"], client.submit(_payload(r))) for r in requests]
+        out = {i: (f.result(timeout=300), f.phases) for i, f in futs}
+    wall = time.monotonic() - t0
+    return ({i: res["tokens"] for i, (res, _) in out.items()},
+            [dict(ph, n_tokens=res["n_tokens"]) for res, ph in out.values()], wall)
+
+
+def _batcher_rates(phases: list, wall: float) -> dict:
+    """Tokens a second over the run, ms a decode step (each request's
+    decode phase over its decode steps, median over requests) and the
+    exact TTFT percentiles (queue wait + prefill, per request)."""
+    steps = [p["decode"] / (p["n_tokens"] - 1) * 1e3 for p in phases if p["n_tokens"] > 1]
+    ttft = [(p["queue_wait"] + p["prefill"]) * 1e3 for p in phases]
+    return {"tokens_per_s": sum(p["n_tokens"] for p in phases) / wall,
+            "decode_ms_a_step": statistics.median(steps), "wall_s": wall,
+            "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p99": float(np.percentile(ttft, 99))}
+
+
+def _prefix_requests(vocab: int, n: int = 12, head: int = 64, max_position: int = 128):
+    """``n`` seeded prompts sharing a ``head``-token prefix, tails of 1-40
+    tokens, every other one sampled; budgets fill the cache pages."""
+    rng = np.random.default_rng(SEED + 41)
+    shared = rng.integers(4, vocab, head)
+    out = []
+    for i in range(n):
+        ids = np.concatenate([shared, rng.integers(4, vocab, int(rng.integers(1, 41)))])
+        out.append({"id": 1000 + i, "input_ids": ids, "temperature": 0.8 if i % 2 else 0.0,
+                    "seed": 300 + i, "budget": min(LM_NEW, max_position - len(ids))})
+    return out
+
+
+def _preempt_requests(vocab: int, n_victims: int):
+    """``n_victims`` priority-2 requests of 33-64 tokens with full budgets
+    (every other one sampled), then one priority-0 request."""
+    rng = np.random.default_rng(SEED + 43)
+    out = [{"id": 2000 + i, "input_ids": rng.integers(4, vocab, int(rng.integers(33, 65))),
+            "temperature": 0.8 if i % 2 else 0.0, "seed": 400 + i, "budget": LM_NEW,
+            "priority": 2} for i in range(n_victims)]
+    out.append({"id": 2000 + n_victims, "input_ids": rng.integers(4, vocab, 20),
+                "temperature": 0.0, "seed": 0, "budget": 8, "priority": 0})
+    return out
+
+
+def _draftable_requests(engine, vocab: int, n: int = 4):
+    """Prompts the n-gram drafter has proposals for, so the verify path
+    runs: a 12-token segment three times and its first 4 tokens again
+    (the drafter proposes the segment's next tokens), and the model's own
+    greedy continuation ``c`` embedded after a marker ``t`` with the prompt
+    ending in ``t`` (re-run to a fixed point, at most 4 times: the
+    drafter then proposes ``c``). Greedy and sampled in turn."""
+    rng = np.random.default_rng(SEED + 53)
+    out = []
+    for i in range(n):
+        if i % 2 == 0:
+            seg = rng.integers(4, vocab, 12)
+            ids = np.concatenate([seg, seg, seg, seg[:4]])
+        else:
+            x, t = (int(v) for v in rng.integers(4, vocab, 2))
+            probe = {"id": 0, "input_ids": rng.integers(4, vocab, 12), "temperature": 0.0,
+                     "seed": 0, "budget": 8}
+            c = _generate(engine, [probe])[0]
+            for _ in range(4):
+                ids = np.array([x, t, *c, *rng.integers(4, vocab, 6), t])
+                c2 = _generate(engine, [dict(probe, input_ids=ids)])[0]
+                if c2 == c:
+                    break
+                c = c2
+        out.append({"id": 4000 + i, "input_ids": ids, "temperature": 0.8 if i >= 2 else 0.0,
+                    "seed": 500 + i, "budget": LM_NEW})
+    return out
+
+
+def _serve_cli_lm(ckpt_dir: Path, vocab: int, device: str, extra: list) -> dict:
+    """``python -m distributed_tensorflow_tpu_torch.cli.serve --config lm_base``
+    as a server process: 16 concurrent ``POST /v1/generate``, every reply
+    200 with ``n_tokens`` equal to its budget, and the prom text's decode
+    families. The process is stopped before this returns."""
+    port = _free_port()
+    t0 = time.monotonic()
+    log = ROOT / "build" / "chip_smoke_serve_lm.log"
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "distributed_tensorflow_tpu_torch.cli.serve",
+             "--config", "lm_base", "--ckpt-dir", str(ckpt_dir), "--device", device,
+             "--port", str(port), "--buckets", *map(str, LM_BUCKETS), "--slots", str(LM_SLOTS),
+             "--max-batch", str(LM_TIER), "--batch-tiers", "1", "2", "4",
+             "--max-new-tokens", str(LM_NEW), *extra],
+            cwd=ROOT, env=_repo_env(), stdout=fh, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            check(proc.poll() is None,
+                  f"cli.serve exited {proc.returncode}:\n{log.read_text()[-4000:]}")
+            check(time.monotonic() - t0 < 300, "cli.serve not ready within 300 s")
+            try:
+                with urllib.request.urlopen(base + "/healthz", timeout=5) as resp:
+                    if resp.status == 200:
+                        break
+            except OSError:
+                time.sleep(0.5)
+        ready_s = time.monotonic() - t0
+        reqs = _lm_requests(vocab, 16)
+        replies = {}
+
+        def post(r):
+            req = urllib.request.Request(
+                base + "/v1/generate", headers={"Content-Type": "application/json"},
+                data=json.dumps({**_payload(r), "input_ids": r["input_ids"].tolist()}).encode())
+            try:
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    replies[r["id"]] = (resp.status, json.loads(resp.read()))
+            except urllib.error.HTTPError as e:
+                replies[r["id"]] = (e.code, {"error": e.read().decode()[:500]})
+
+        t1 = time.monotonic()
+        threads = [threading.Thread(target=post, args=(r,)) for r in reqs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        burst_s = time.monotonic() - t1
+        bad = {i: rep for i, rep in replies.items() if rep[0] != 200}
+        check(len(replies) == 16 and not bad, f"cli.serve /v1/generate: {bad or len(replies)}")
+        short = [r["id"] for r in reqs if replies[r["id"]][1]["n_tokens"] != r["budget"]]
+        check(not short, f"cli.serve: n_tokens off budget for {short}")
+        with urllib.request.urlopen(base + "/metrics?format=prom", timeout=30) as resp:
+            prom = resp.read().decode()
+        missing = [f for f in ("serve_ttft", "serve_tokens_total", "serve_kv_bytes_per_token")
+                   if f not in prom]
+        check(not missing, f"cli.serve prom text lacks {missing}")
+        with urllib.request.urlopen(base + "/statusz", timeout=30) as resp:
+            status = json.loads(resp.read())["batcher"]
+        check(status["mode"] == "continuous" and status["served"] == 16,
+              f"cli.serve statusz {status}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    return {"ready_s": ready_s, "burst_s": burst_s,
+            "tokens": sum(rep[1]["n_tokens"] for rep in replies.values())}
+
+
+def phase_serve_lm_batcher(torch, ckpt_dir: Path, *, device="cuda", cfg=None, n_requests=24,
+                           cli_extra=()):
+    """The decode engine behind the continuous batcher, on the resumed
+    ``lm_base`` checkpoint (buckets 64/128, 8 slots, tiers 1/2/4, 32 new
+    tokens). Checks, each against the direct driver :func:`_generate` on
+    an fp32 engine (one request's stream does not depend on its batchmates
+    in fp32; bf16 is not batch-invariant, so bf16 is measured only):
+
+    - 24 seeded requests (half sampled at 0.8) through ``Client``
+      (``max_in_flight=2``) from 8 threads: every stream equal;
+    - the same plus 4 prompts the drafter has proposals for
+      (:func:`_draftable_requests`) through an engine with
+      ``spec_tokens=4``: equal, and drafts were verified;
+    - 12 requests sharing a 64-token prefix through the prefix cache (one
+      first, then 11 at once): hit tokens > 0 on ``/statusz`` and equal
+      streams;
+    - ``sched="edf", preempt=True``: 8 priority-2 requests fill the slots,
+      a priority-0 request with a 1 ms deadline parks at least one of
+      them; every stream, the parked ones' included, equal;
+    - ``cli.serve --config lm_base`` as a server process: 16 concurrent
+      ``/v1/generate`` all 200, ``n_tokens`` equal to each budget, the prom
+      text's ``ttft``, ``tokens`` and ``kv_bytes_per_token`` families.
+
+    Prints bf16 tokens/s and ms a decode step through the batcher under
+    continuous admission (``max_in_flight`` 2 and 1) and flush admission,
+    beside ``_generate``'s, on 16 requests at 8 live slots, with the host
+    ms each decode dispatch takes (:class:`_DecodeTimer`); TTFT p50/p99;
+    tokens a step with speculation; the prefix hit rate; the seconds."""
+    from distributed_tensorflow_tpu_torch.ckpt import restore_serving_state
+    from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLM, CausalLMConfig
+    from distributed_tensorflow_tpu_torch.serve import (
+        BatcherConfig,
+        CausalLMEngine,
+        Client,
+        build_http_server,
+    )
+
+    cfg = cfg or CausalLMConfig(max_position=128, dtype=torch.bfloat16)  # lm_base
+    t0 = time.monotonic()
+    params, _, step = restore_serving_state(ckpt_dir)
+
+    def engine(dtype, **kw):
+        model = CausalLM(dataclasses.replace(cfg, dtype=dtype), device="cpu")
+        return CausalLMEngine(model, dict(params), device, buckets=LM_BUCKETS, slots=LM_SLOTS,
+                              max_batch=LM_TIER, max_new_tokens=LM_NEW, **kw)
+
+    def client(eng, admission="continuous", max_in_flight=2, **kw):
+        return Client(eng, BatcherConfig(max_batch=LM_TIER, max_in_flight=max_in_flight,
+                                         max_queue=64, **kw), admission=admission)
+
+    vocab = cfg.vocab_size
+    requests = _lm_requests(vocab, n_requests, cfg.max_position)
+    prefix_reqs = _prefix_requests(vocab, max_position=cfg.max_position)
+    preempt_reqs = _preempt_requests(vocab, LM_SLOTS)
+    out = {"phase": "serve_lm_batcher", "ckpt_step": step, "requests": len(requests)}
+    violations = {}
+
+    fp32 = engine(torch.float32)
+    draftable = _draftable_requests(fp32, vocab)
+    want = _generate(fp32, requests + prefix_reqs + preempt_reqs + draftable)
+    with client(fp32) as c:
+        got, phases, wall = _serve(c, requests, n_threads=8)
+    violations["client_fp32"] = [i for i in got if got[i] != want[i]]
+    out["fp32"] = _batcher_rates(phases, wall)
+
+    spec = engine(torch.float32, spec_tokens=4)
+    with client(spec) as c:
+        got, _, _ = _serve(c, requests + draftable, n_threads=8)
+        st = c.batcher.status()
+    violations["spec_fp32"] = [i for i in got if got[i] != want[i]]
+    if not st["speculation"]["draft_tokens"]:
+        violations["spec_drafts"] = [st["speculation"]]
+    out["spec"] = {"tokens_per_step": st["tokens_per_step"],
+                   **{k: st["speculation"][k] for k in ("draft_tokens", "accepted_tokens",
+                                                        "rejects", "acceptance_rate")}}
+    del spec
+
+    prefix = engine(torch.float32, prefix_cache_mb=64, block_tokens=16, prefill_chunk=32)
+    c = client(prefix)
+    server = build_http_server(c, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        got, _, _ = _serve(c, prefix_reqs[:1])
+        more, _, _ = _serve(c, prefix_reqs[1:])
+        got.update(more)
+        with urllib.request.urlopen("http://{}:{}/statusz".format(*server.server_address),
+                                    timeout=30) as resp:
+            pc = json.loads(resp.read())["batcher"]["prefix_cache"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        c.close()
+        thread.join(timeout=10)
+    violations["prefix_fp32"] = [i for i in got if got[i] != want[i]]
+    if not pc["tokens_saved"] > 0:
+        violations["prefix_hits"] = [pc]
+    out["prefix_cache"] = pc
+
+    with client(prefix, sched="edf", preempt=True, preempt_margin_ms=20.0) as c:
+        futs = {r["id"]: c.submit({**_payload(r), "priority": r["priority"]})
+                for r in preempt_reqs[:-1]}
+        deadline = time.monotonic() + 120
+        while c.batcher.status()["slots_active"] < LM_SLOTS:
+            check(time.monotonic() < deadline, "preempt: the victims never filled the slots")
+            time.sleep(0.002)
+        urgent = preempt_reqs[-1]
+        futs[urgent["id"]] = c.submit({**_payload(urgent), "priority": 0, "deadline_ms": 1})
+        got = {i: f.result(timeout=300)["tokens"] for i, f in futs.items()}
+        sched = c.batcher.status()["sched"]
+    violations["preempt_fp32"] = [i for i in got if got[i] != want[i]]
+    if sched["preempt_parked"] < 1 or sched["preempt_resumed"] != sched["preempt_parked"]:
+        violations["preempt_parked"] = [sched]
+    out["preempt"] = {k: sched[k] for k in ("preempt_parked", "preempt_resumed",
+                                            "preempt_aborted")}
+    del prefix, fp32
+
+    # bf16 timing: 16 requests of 33-64 tokens, 32 new each, so all 8
+    # slots stay live; a warm-up run first.
+    rng = np.random.default_rng(SEED + 47)
+    timing = [{"id": 3000 + i, "input_ids": rng.integers(4, vocab, int(rng.integers(33, 65))),
+               "temperature": 0.0, "seed": 0, "budget": LM_NEW} for i in range(2 * LM_SLOTS)]
+    bf16 = engine(torch.bfloat16)
+    rates = {}
+    for name, kw in (("warmup", {}), ("continuous", {}),
+                     ("continuous_in_flight_1", {"max_in_flight": 1}),
+                     ("flush", {"admission": "flush"})):
+        timed = _DecodeTimer(bf16)
+        with client(timed, **kw) as c:
+            _, phases, wall = _serve(c, timing)
+        rates[name] = {**_batcher_rates(phases, wall),
+                       "dispatch_ms": statistics.median(timed.dispatch_ms)}
+    del rates["warmup"]
+    timed = _DecodeTimer(bf16)
+    t1 = time.monotonic()
+    streams = _generate(timed, timing)
+    wall = time.monotonic() - t1
+    rates["generate"] = {"tokens_per_s": sum(map(len, streams.values())) / wall,
+                         "decode_ms_a_step": statistics.median(timed.step_ms), "wall_s": wall,
+                         "dispatch_ms": statistics.median(timed.dispatch_ms)}
+    out["bf16_16_requests_8_slots"] = rates
+    del bf16, timed
+
+    out["cli"] = _serve_cli_lm(ckpt_dir, vocab, device, list(cli_extra))
+    out["seconds"] = time.monotonic() - t0
+    out["violations"] = {k: v for k, v in violations.items() if v}
+    emit(out)
+    check(not out["violations"], f"serve_lm_batcher: {out['violations']}")
+    return out
+
+
 def phase_serve_bert_int8(fm, torch):
     """BERT-base at 512 positions in bf16 (``phase_serve``'s checkpoint)
     served with ``weight_dtype="int8"``: restored packed, behind ``Client``,
@@ -2932,6 +3303,10 @@ def main() -> int:
         t_phase = time.monotonic()
         phase_serve_lm(torch, lm_ckpt)
         seconds["serve_lm"] = time.monotonic() - t_phase
+        torch.cuda.empty_cache()
+        t_phase = time.monotonic()
+        phase_serve_lm_batcher(torch, lm_ckpt)
+        seconds["serve_lm_batcher"] = time.monotonic() - t_phase
         torch.cuda.empty_cache()
         phase_train_cli_image(torch)
         t_phase = time.monotonic()

@@ -8,12 +8,17 @@ and expose it over HTTP (serve/server.py routes).
 
 Port of the JAX package's ``cli/serve.py`` for ``bert_base`` (``POST
 /v1/mlm`` and ``/v1/embed``; ``--weight-dtype int8`` packs the kernels at
-restore) and the image presets ``mnist_lenet``, ``cifar_resnet20``,
+restore), the image presets ``mnist_lenet``, ``cifar_resnet20``,
 ``imagenet_resnet50`` and ``imagenet_inception_async`` (``POST
 /v1/classify``: top-k through :class:`ImageClassifierEngine`, BatchNorm
-from the checkpoint's running statistics). ``lm_base`` and the decode
-flags are refused until the continuous batcher is ported: the decode
-engine (:class:`CausalLMEngine`) exists, its batcher does not yet.
+from the checkpoint's running statistics) and ``lm_base`` (``POST
+/v1/generate``: :class:`CausalLMEngine` behind the continuous batcher,
+with the decode flags ``--slots --max-new-tokens --prefix-cache-mb
+--block-tokens --prefill-chunk --spec-tokens --spec-min-match
+--spec-backoff --kv-dtype --flush-admission --sched --preempt
+--preempt-margin-ms --default-priority``). The fleet-serving flags
+(``--disagg-role --kv-transfer-budget-mb --stream-migrate --fault-plan
+--fault-steps``) are refused until Queue A item 7 of ROADMAP.md.
 
 ``--selftest N`` runs N synthetic requests through the in-process
 :class:`Client` instead of binding a port and prints the metrics snapshot.
@@ -39,6 +44,7 @@ class ServePreset:
 
     name: str
     bert_kwargs: dict | None = None
+    causal_kwargs: dict | None = None  # a decode (causal-LM) preset
     image_factory: str = ""  # a model factory of cli/train.py
     image_shape: tuple[int, int, int] = (0, 0, 0)
 
@@ -47,6 +53,10 @@ PRESETS = {
     "bert_base": ServePreset(
         name="bert_base",
         bert_kwargs=dict(max_position=128, dropout_rate=0.1, dtype=torch.bfloat16),
+    ),
+    "lm_base": ServePreset(
+        name="lm_base",
+        causal_kwargs=dict(max_position=128, dtype=torch.bfloat16),
     ),
     "mnist_lenet": ServePreset("mnist_lenet", image_factory="_lenet",
                                image_shape=(28, 28, 1)),
@@ -59,27 +69,19 @@ PRESETS = {
                                             image_shape=(299, 299, 3)),
 }
 
-# Presets of the JAX package whose serving path is not ported yet.
-_UNPORTED_PRESETS = {
-    "lm_base": "decode serving needs the continuous batcher (ContinuousBatcher, "
-               "serve/kvpool.py and /v1/generate: Queue A item 4 of ROADMAP.md)",
-}
-
-# Decode-serving flags of the JAX CLI (causal-LM presets): refused here.
-_DECODE_FLAGS = {
-    "slots": 8, "max_new_tokens": 32, "prefix_cache_mb": 0.0,
-    "block_tokens": 16, "prefill_chunk": 0, "spec_tokens": 0,
-    "kv_dtype": "", "disagg_role": "", "stream_migrate": False,
-    "flush_admission": False, "sched": "fifo", "preempt": False,
+# Fleet-serving flags of the JAX CLI (disaggregated roles, stream
+# migration, serving fault injection): refused here until they are ported.
+_FLEET = "fleet serving is not ported to PyTorch yet (Queue A item 7 of ROADMAP.md)"
+_FLEET_FLAGS = {
+    "disagg_role": "", "kv_transfer_budget_mb": 64.0, "stream_migrate": False,
+    "fault_plan": "", "fault_steps": 1000,
 }
 
 
-def bert_config(preset: ServePreset, args):
-    """The preset's :class:`BertConfig` with the CLI geometry overrides
-    (the JAX CLI's ``--bert-hidden`` also sets intermediate = 4x)."""
-    from distributed_tensorflow_tpu_torch.models.bert import BertConfig
-
-    kwargs = dict(preset.bert_kwargs)
+def _overridden(kwargs: dict, args) -> dict:
+    """A preset's model kwargs with the CLI geometry overrides (the JAX
+    CLI's ``--bert-hidden`` also sets intermediate = 4x)."""
+    kwargs = dict(kwargs)
     if args.bert_layers:
         kwargs["num_layers"] = args.bert_layers
     if args.bert_hidden:
@@ -87,7 +89,22 @@ def bert_config(preset: ServePreset, args):
         kwargs["intermediate_size"] = 4 * args.bert_hidden
     if args.bert_vocab:
         kwargs["vocab_size"] = args.bert_vocab
-    return BertConfig(**kwargs)
+    return kwargs
+
+
+def bert_config(preset: ServePreset, args):
+    """The preset's :class:`BertConfig` with the CLI geometry overrides."""
+    from distributed_tensorflow_tpu_torch.models.bert import BertConfig
+
+    return BertConfig(**_overridden(preset.bert_kwargs, args))
+
+
+def causal_config(preset: ServePreset, args):
+    """The decode preset's :class:`CausalLMConfig` with the same overrides
+    (the train CLI's ``lm_base`` reads the ``--bert-*`` flags too)."""
+    from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLMConfig
+
+    return CausalLMConfig(**_overridden(preset.causal_kwargs, args))
 
 
 def image_shape(preset: ServePreset, args) -> tuple[int, int, int]:
@@ -107,6 +124,32 @@ def _build_engine(preset: ServePreset, args, recorder):
     )
 
     weight_dtype = args.weight_dtype or None
+    if preset.causal_kwargs is not None:
+        from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLM
+        from distributed_tensorflow_tpu_torch.serve import CausalLMEngine
+
+        cfg = causal_config(preset, args)
+        params, _, step = restore_serving_state(
+            args.ckpt_dir, weight_dtype=weight_dtype, num_heads=cfg.num_heads,
+            recorder=recorder)
+        engine = CausalLMEngine(
+            CausalLM(cfg, device="cpu"), params, args.device,
+            buckets=tuple(args.buckets), slots=args.slots, max_batch=args.max_batch,
+            batch_tiers=tuple(args.batch_tiers), max_new_tokens=args.max_new_tokens,
+            prefix_cache_mb=args.prefix_cache_mb, block_tokens=args.block_tokens,
+            prefill_chunk=args.prefill_chunk, spec_tokens=args.spec_tokens,
+            spec_min_match=args.spec_min_match, spec_backoff=args.spec_backoff,
+            weight_dtype=weight_dtype, kv_dtype=args.kv_dtype or None)
+        vocab = cfg.vocab_size
+
+        def make_payload(rng: np.random.Generator) -> dict:
+            # Prompt + budget must fit the slot pages (max_position caps
+            # them below the largest bucket + --max-new-tokens).
+            new = int(rng.integers(1, args.max_new_tokens + 1))
+            n = int(rng.integers(4, min(engine.buckets[-1], engine.cache_len - new) + 1))
+            return {"input_ids": rng.integers(5, vocab, size=n), "max_new_tokens": new}
+
+        return engine, make_payload, step
     if preset.image_factory:
         from distributed_tensorflow_tpu_torch.cli import train as train_cli
 
@@ -168,14 +211,20 @@ def build_serving_client(preset: ServePreset, args):
     client = Client(
         engine,
         BatcherConfig(
-            max_batch=args.max_batch,
+            # A decode engine admits at most a slot table's worth at once.
+            max_batch=min(args.max_batch, engine.max_batch),
             max_delay_ms=args.max_delay_ms,
             max_queue=args.max_queue,
             max_in_flight=args.max_in_flight,
             bucket_queues=args.bucket_queues,
+            sched=args.sched,
+            preempt=args.preempt,
+            preempt_margin_ms=args.preempt_margin_ms,
+            default_priority=args.default_priority,
         ),
         tracer=Tracer(buffer_size=buf, enabled=buf > 0),
         slo=slo,
+        admission="flush" if args.flush_admission else "continuous",
         recorder=recorder,
         warmup_ready_fraction=args.warmup_ready_fraction,
         tag=args.tag or f"ckpt-{step}",
@@ -189,14 +238,17 @@ def _selftest(client, make_payload, n: int) -> int:
     results = [f.result(timeout=120) for f in futures]
     assert len(results) == n
     print(json.dumps(client.metrics.snapshot(), indent=2, default=float))
-    logger.info("selftest ok: %d requests served", n)
+    # The batcher's /statusz digest: admission mode, slots, prefix cache,
+    # speculation and scheduling state for a decode engine.
+    logger.info("selftest ok: %d requests served; batcher status %s", n,
+                json.dumps(client.batcher.status(), default=float))
     return 0
 
 
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="serve a saved BERT or image-classifier checkpoint "
-                    "(dynamic-batching inference)"
+        description="serve a saved BERT, image-classifier or causal-LM checkpoint "
+                    "(dynamic- and continuous-batching inference)"
     )
     p.add_argument("--config", required=True,
                    help=f"workload preset; ported: {sorted(PRESETS)}")
@@ -233,6 +285,52 @@ def make_parser() -> argparse.ArgumentParser:
                         "absmax packing at restore); empty keeps the checkpoint dtype")
     p.add_argument("--top-k", type=int, default=5,
                    help="image presets: classes returned per image")
+    # Decode engine (lm_base): requests admit into KV-cache slots between
+    # decode steps unless --flush-admission pins static batching.
+    p.add_argument("--slots", type=int, default=8,
+                   help="KV-cache slots = most sequences decoding at once (one "
+                        "decode cell at this width)")
+    p.add_argument("--max-new-tokens", type=int, default=32,
+                   help="generation cap per request (requests may ask for less; "
+                        "also sizes the per-slot cache pages)")
+    p.add_argument("--prefix-cache-mb", type=float, default=0.0,
+                   help="device MiB for the prefix-cache KV page pool; shared "
+                        "prompt heads prefill once (0 disables)")
+    p.add_argument("--block-tokens", type=int, default=16,
+                   help="tokens per prefix-cache page; prompts share whole pages")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="prefill prompts in chunks of at most this many tokens, "
+                        "interleaved with decode steps (0 = monolithic prefill "
+                        "unless --prefix-cache-mb is set)")
+    p.add_argument("--spec-tokens", type=int, default=0,
+                   help="speculative-decoding draft length k: verify up to k "
+                        "n-gram-drafted tokens a slot in one [slots, k+1] forward "
+                        "(0 disables; the output is the same either way)")
+    p.add_argument("--spec-min-match", type=int, default=2,
+                   help="shortest history n-gram the drafter may match")
+    p.add_argument("--spec-backoff", type=float, default=0.25,
+                   help="per-slot acceptance-EMA threshold below which "
+                        "speculation backs off to plain decode (re-probing)")
+    p.add_argument("--kv-dtype", default="",
+                   choices=["", "float32", "bfloat16", "int8"],
+                   help="KV-cache storage dtype (lm_base only): int8 pages carry "
+                        "per-position scales; empty keeps the config dtype")
+    p.add_argument("--flush-admission", action="store_true",
+                   help="admit new requests only when the slot table is EMPTY "
+                        "(static batching; the baseline for continuous admission)")
+    p.add_argument("--sched", default="fifo", choices=["fifo", "edf"],
+                   help="admission order: fifo (arrival) or edf (earliest "
+                        "deadline first within priority class)")
+    p.add_argument("--preempt", action="store_true",
+                   help="preempt a lower-priority decode slot when a queued "
+                        "deadline holder would miss its deadline (needs --sched "
+                        "edf; preempted streams resume bit-identically)")
+    p.add_argument("--preempt-margin-ms", type=float, default=20.0,
+                   help="preempt when now + margin crosses a queued request's "
+                        "deadline")
+    p.add_argument("--default-priority", type=int, default=1,
+                   help="priority class of requests that send none (0 = most "
+                        "urgent)")
     p.add_argument("--bert-layers", type=int, default=0)
     p.add_argument("--bert-hidden", type=int, default=0)
     p.add_argument("--bert-vocab", type=int, default=0)
@@ -257,7 +355,7 @@ def make_parser() -> argparse.ArgumentParser:
                         "the grid is warm")
     p.add_argument("--selftest", type=int, default=0,
                    help="serve N synthetic requests in-process and exit")
-    for name, default in _DECODE_FLAGS.items():
+    for name, default in _FLEET_FLAGS.items():
         flag = "--" + name.replace("_", "-")
         if isinstance(default, bool):
             p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
@@ -271,21 +369,20 @@ def main(argv: list[str] | None = None):
     parser = make_parser()
     args = parser.parse_args(argv)
     if args.config not in PRESETS:
-        if args.config in _UNPORTED_PRESETS:
-            parser.error(f"--config {args.config}: not ported to PyTorch yet: "
-                         f"{_UNPORTED_PRESETS[args.config]} (ported: {sorted(PRESETS)})")
         parser.error(f"--config {args.config}: unknown preset "
                      f"(ported: {sorted(PRESETS)})")
-    set_decode = [
-        "--" + k.replace("_", "-") for k, d in _DECODE_FLAGS.items()
+    set_fleet = [
+        "--" + k.replace("_", "-") for k, d in _FLEET_FLAGS.items()
         if getattr(args, k) != d
     ]
-    if set_decode:
-        parser.error(f"{', '.join(set_decode)}: decode serving is not ported to "
-                     f"PyTorch yet: {_UNPORTED_PRESETS['lm_base']}")
+    if set_fleet:
+        parser.error(f"{', '.join(set_fleet)}: {_FLEET}")
     if args.weight_dtype and PRESETS[args.config].image_factory:
         parser.error("--weight-dtype is not supported for image serving (the "
                      "classifier forward has no dequantize step)")
+    if args.kv_dtype and PRESETS[args.config].causal_kwargs is None:
+        parser.error("--kv-dtype only applies to causal-LM decode serving "
+                     "(nothing else owns a KV cache)")
 
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(name)s: %(message)s"
@@ -299,10 +396,13 @@ def main(argv: list[str] | None = None):
         server = build_http_server(client, args.host, args.port,
                                    trace_dir=args.trace_dir or None)
         logger.info(
-            "ready on http://%s:%d (POST /v1/mlm /v1/embed /v1/classify; GET /healthz "
-            "/sloz /statusz /memz /compilez /tracez /metrics?format=prom, "
-            "POST /profilez /drainz /debugz/dump)",
+            "ready on http://%s:%d (POST /v1/%s; GET /healthz /sloz /statusz /memz "
+            "/compilez /tracez /metrics?format=prom, POST /profilez /drainz "
+            "/debugz/dump)",
             *server.server_address,
+            "classify" if hasattr(client.engine, "image_shape")
+            else "generate" if hasattr(client.engine, "decode")
+            else "mlm",
         )
         try:
             server.serve_forever()

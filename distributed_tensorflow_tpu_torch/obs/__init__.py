@@ -1,5 +1,6 @@
 """Observability for the port: serving and feed metrics, SLOs, health,
-tracing, profiling, the flight recorder and device-memory accounting."""
+tracing, profiling, the flight recorder, device-memory accounting and the
+opt-in lock-order and race sanitizers the concurrency soaks run under."""
 
 from distributed_tensorflow_tpu_torch.obs.export import (  # noqa: F401
     PROM_CONTENT_TYPE,
@@ -34,6 +35,12 @@ from distributed_tensorflow_tpu_torch.obs.metrics import (  # noqa: F401
 from distributed_tensorflow_tpu_torch.obs.profile import (  # noqa: F401
     profile_window,
     trace_steps,
+)
+from distributed_tensorflow_tpu_torch.obs.sanitizer import (  # noqa: F401
+    LockOrderSanitizer,
+    RaceSanitizer,
+    sanitize_locks,
+    sanitize_races,
 )
 from distributed_tensorflow_tpu_torch.obs.slo import (  # noqa: F401
     SloSpec,

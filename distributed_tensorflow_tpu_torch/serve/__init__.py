@@ -1,14 +1,28 @@
-"""Serving: dynamic-batching inference over saved checkpoints.
+"""Serving: dynamic-batching and continuous-batching inference over saved
+checkpoints.
 
 - ``engine.py``  — the BERT engine over a warmed batch-tier x sequence-bucket
   grid, with a non-blocking ``dispatch``/``fetch`` split over pooled
   (pinned) staging buffers; the image classifier engine; and the causal-LM
   decode engine (slot-addressed KV cache, prefill/chunk/decode/verify
-  cells; its continuous batcher comes with a later slice).
-- ``batcher.py`` — dynamic micro-batcher: flush on max-batch-size or
-  max-delay, bounded queue with explicit backpressure, optional
-  per-bucket queues, and up to ``max_in_flight`` overlapped batches.
+  cells, the prefix-cache page pool).
+- ``batcher.py`` — dynamic micro-batcher (flush on max-batch-size or
+  max-delay, bounded queue with explicit backpressure, optional per-bucket
+  queues, up to ``max_in_flight`` overlapped batches) and the continuous
+  batcher of the decode engines (slot table, prefix-cache admission,
+  chunked prefill, speculation, EDF admission and slot preemption).
+- ``kvpool.py``  — prefix-cache bookkeeping for the decode path: a radix
+  trie over prompt-token blocks mapping shared heads to refcounted,
+  LRU-evicted chains of device KV pages (the engine owns the pages, this
+  owns what they mean).
+- ``spec.py``    — speculative decoding for the decode path: host-side
+  n-gram drafting over each slot's own history, exact-match acceptance
+  against one batched verify forward, and per-slot adaptive backoff
+  (output stays bit-identical to plain decode).
 - ``server.py``  — in-process :class:`Client` plus a stdlib-HTTP front end.
+
+Fleet serving (disaggregated prefill/decode, stream migration, the router)
+is not ported yet (ROADMAP.md Queue A item 7).
 
 Entry point: ``python -m distributed_tensorflow_tpu_torch.cli.serve``.
 """
@@ -16,6 +30,7 @@ Entry point: ``python -m distributed_tensorflow_tpu_torch.cli.serve``.
 from distributed_tensorflow_tpu_torch.serve.batcher import (  # noqa: F401
     Backpressure,
     BatcherConfig,
+    ContinuousBatcher,
     DynamicBatcher,
     drain_retry_after_s,
 )
@@ -28,8 +43,18 @@ from distributed_tensorflow_tpu_torch.serve.engine import (  # noqa: F401
     RequestError,
     plan_serve_mesh,
 )
+from distributed_tensorflow_tpu_torch.serve.kvpool import (  # noqa: F401
+    KVBlockPool,
+    PrefixMatch,
+)
 from distributed_tensorflow_tpu_torch.serve.server import (  # noqa: F401
     Client,
     Draining,
     build_http_server,
+)
+from distributed_tensorflow_tpu_torch.serve.spec import (  # noqa: F401
+    Drafter,
+    NGramDrafter,
+    SlotSpec,
+    SpecConfig,
 )

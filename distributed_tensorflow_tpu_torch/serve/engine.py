@@ -49,6 +49,8 @@ from distributed_tensorflow_tpu_torch.models.quant import (
     torch_dtype,
 )
 from distributed_tensorflow_tpu_torch.obs.memory import default_registry, tree_nbytes
+from distributed_tensorflow_tpu_torch.serve.kvpool import KVBlockPool
+from distributed_tensorflow_tpu_torch.serve.spec import SpecConfig
 
 logger = logging.getLogger(__name__)
 
@@ -787,11 +789,16 @@ class CausalLMEngine(_AotEngine):
     page-gather prologue plus one absolute-position chunk
     (:func:`_make_causal_chunk_prefill`). With a prefix-cache budget the
     engine also owns a pool of KV pages ``[nl, n_blocks + 1, block_tokens,
-    heads, head_dim]`` and the ``insert`` cell that publishes a finished
-    slot's prefix into it; the host trie that hands out block ids
-    (``serve/kvpool.py``) comes with the continuous batcher, so callers
-    pass block ids directly. ``kv_transfer`` adds the pool export/import
-    cells and ``stream_migrate`` the slot export/import cells.
+    heads, head_dim]``, the ``insert`` cell that publishes a finished
+    slot's prefix into it, and the host trie that hands out block ids
+    (``self.prefix_cache``, a :class:`~.kvpool.KVBlockPool` over blocks
+    ``0..n_blocks-1``; the continuous batcher matches and inserts through
+    it). ``kv_transfer`` adds the pool export/import cells and
+    ``stream_migrate`` the slot export/import cells.
+
+    ``spec_tokens > 0`` also sets ``self.spec``, the
+    :class:`~.spec.SpecConfig` the batcher drafts against (``spec_backoff``
+    is its acceptance-EMA threshold).
 
     ``weight_dtype="int8"`` packs kernels (idempotent: a tree
     ``restore_serving_state`` packed passes through); ``kv_dtype="int8"``
@@ -816,6 +823,7 @@ class CausalLMEngine(_AotEngine):
         prefill_chunk: int = 0,
         spec_tokens: int = 0,
         spec_min_match: int = 2,
+        spec_backoff: float = 0.25,
         kv_transfer: bool = False,
         stream_migrate: bool = False,
         weight_dtype: str | None = None,
@@ -847,6 +855,13 @@ class CausalLMEngine(_AotEngine):
         self.spec_tokens = self._plan_spec(cfg, spec_tokens=spec_tokens,
                                            min_match=spec_min_match,
                                            max_new_tokens=max_new_tokens)
+        # The continuous batcher drafts against this config (serve/spec.py)
+        # when the engine also has a verify cell.
+        self.spec = (
+            SpecConfig(spec_tokens=self.spec_tokens, min_match=spec_min_match,
+                       backoff_threshold=spec_backoff)
+            if self.spec_tokens > 0 else None
+        )
 
         heads, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
         cache_shape = (cfg.num_layers, slots, self.cache_len + 1, heads, hd)
@@ -869,7 +884,10 @@ class CausalLMEngine(_AotEngine):
 
         self.block_tokens = int(block_tokens)
         self._chunked_mode = prefix_cache_mb > 0 or prefill_chunk > 0
-        self.prefix_cache = None  # the host trie comes with serve/kvpool.py
+        # The host trie over the pool's pages (serve/kvpool.py): blocks
+        # 0..n_blocks-1 only; the pool's spare row n_blocks is never handed
+        # out.
+        self.prefix_cache = None
         self._pool_k = self._pool_v = None
         self._pool_blocks = 0
         if self._chunked_mode:
@@ -882,7 +900,10 @@ class CausalLMEngine(_AotEngine):
             n_blocks, self._bytes_per_block = self._plan_prefix_cache(
                 cfg, prefix_cache_mb=prefix_cache_mb, block_tokens=self.block_tokens,
                 kv_dtype=self.kv_dtype)
-            if prefix_cache_mb <= 0:
+            if prefix_cache_mb > 0:
+                self.prefix_cache = KVBlockPool(n_blocks, self.block_tokens,
+                                                self._bytes_per_block, dtype=self.kv_dtype)
+            else:
                 n_blocks = 1  # a dummy pool keeps one chunk operand layout
             self._pool_blocks = n_blocks
             pool_shape = (cfg.num_layers, n_blocks + 1, self.block_tokens, heads, hd)
@@ -1219,13 +1240,17 @@ class CausalLMEngine(_AotEngine):
         M = self._max_chain
         if len(blocks) > M:
             raise ValueError(f"inserting {len(blocks)} blocks exceeds max chain {M}")
-        ids = np.full((M,), self._pool_blocks, np.int64)  # the spare block
-        pos = np.zeros((M,), np.int64)
+        host = self._host_empty((2, M), torch.int64)
+        ids, pos = host.numpy()
+        ids.fill(self._pool_blocks)  # the spare block
+        pos.fill(0)
         for j, (bid, bix) in enumerate(blocks):
             ids[j], pos[j] = int(bid), int(bix)
+        # A pinned source copies without waiting on the device: the loop
+        # thread that publishes never stalls behind the steps in flight.
+        ids_d, pos_d = host.to(self.device, non_blocking=True)
         self._insert_cell(self._pool_k, self._pool_v, self._cache_k, self._cache_v, int(slot),
-                          torch.from_numpy(ids).to(self.device),
-                          torch.from_numpy(pos).to(self.device))
+                          ids_d, pos_d)
 
     @torch.inference_mode()
     def export_prefix_pages(self, blocks: list[int]):

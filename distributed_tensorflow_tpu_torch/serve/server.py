@@ -1,14 +1,16 @@
 """Serving front ends: in-process :class:`Client` and a stdlib HTTP server.
 
 ``Client`` is the canonical surface — validate-at-submit, enqueue into the
-:class:`DynamicBatcher`, block on the Future. The HTTP server is a thin
+:class:`DynamicBatcher` (or, for a decode engine, the
+:class:`ContinuousBatcher`), block on the Future. The HTTP server is a thin
 JSON adapter over the same client (``ThreadingHTTPServer``: one thread per
 connection blocks on its Future while the flusher thread batches across
 them — exactly the concurrency the micro-batcher exists to exploit).
 
-Routes (port of the JAX package's ``serve/server.py``; the decode,
-KV-transfer and stream-migration routes answer 404 until the continuous
-batcher's slice)::
+Routes (port of the JAX package's ``serve/server.py``; the KV-transfer
+and stream-migration routes belong to fleet serving, ROADMAP.md Queue A
+item 7, and answer 503 as the JAX server does when built without a
+receiver or migrator)::
 
     GET  /healthz    -> readiness probe: 200 {"status": "ready", ...} only
                         when the stack serves; 503 with the state string
@@ -37,6 +39,17 @@ batcher's slice)::
     POST /v1/mlm     -> BERT: pred_ids / score / nsp_probs for one example
     POST /v1/embed   -> BERT: pooled [CLS] embedding for one example
     POST /v1/classify-> image engine: top_ids / top_probs for one image
+    POST /v1/generate-> causal LM: generated tokens for one prompt
+                        (continuous batching: the request joins the
+                        in-flight decode batch between steps; optional
+                        "priority" class + "deadline_ms" TTFT deadline
+                        drive EDF admission and slot preemption when the
+                        batcher runs --sched edf / --preempt)
+    POST /v1/kv_transfer, /v1/stream_migrate, /v1/stream_wait, /migratez
+                     -> 503: fleet serving is not ported
+
+A request route the engine cannot answer (``/v1/generate`` on a BERT or
+image engine, the others on a decode engine) answers 404.
 
 Every request gets a ``request_id`` (honoring an ``X-Request-Id`` header
 when the client sends one) that rides through the batcher and comes back
@@ -73,6 +86,7 @@ from distributed_tensorflow_tpu_torch.obs.timeseries import bounds_with
 from distributed_tensorflow_tpu_torch.obs.trace import Tracer
 from distributed_tensorflow_tpu_torch.serve.batcher import (
     BatcherConfig,
+    ContinuousBatcher,
     DynamicBatcher,
 )
 from distributed_tensorflow_tpu_torch.serve.engine import RequestError
@@ -98,6 +112,10 @@ class Client:
 
     The resolved Future carries ``future.request_id`` and
     ``future.phases`` (the per-phase latency breakdown in seconds).
+
+    A decode engine (one with ``prefill`` and ``decode``) is served by the
+    :class:`ContinuousBatcher`; ``admission`` picks continuous admission
+    or the flush baseline (admit only into an empty slot table).
     """
 
     def __init__(
@@ -107,16 +125,12 @@ class Client:
         metrics: ServeMetrics | None = None,
         tracer: Tracer | None = None,
         slo: SloSpec | None = None,
+        admission: str = "continuous",
         recorder=None,
         memory=None,
         warmup_ready_fraction: float = 1.0,
         tag: str | None = None,
     ):
-        if hasattr(engine, "prefill") and hasattr(engine, "decode"):
-            raise NotImplementedError(
-                "decode engines need the continuous batcher (ContinuousBatcher, "
-                "serve/kvpool.py and the decode routes: Queue A item 4 of ROADMAP.md)"
-            )
         self.engine = engine
         self.tag = tag
         self._shed_ids = itertools.count()
@@ -143,29 +157,43 @@ class Client:
         # Engines that expose the split hot path (dispatch/fetch) get the
         # overlapped batcher; engines that expose a bucket key get
         # bucket-aware queues when the config asks for them. Stub engines
-        # with only run_batch keep the serial path.
+        # with only run_batch keep the serial path. Decode engines
+        # (prefill + per-step decode over a slot table) get the
+        # continuous batcher, and nothing else: bucket_queues is moot
+        # there (admission groups pad per group, not per flush).
         if getattr(engine, "metrics", False) is None:
             engine.metrics = self.metrics  # per-tier/bucket instruments
-        bucket_for = (
-            getattr(engine, "request_bucket", None)
-            if config.bucket_queues
-            else None
-        )
-        if config.bucket_queues and bucket_for is None:
-            raise ValueError(
-                "bucket_queues=True needs an engine with request_bucket()"
+        if hasattr(engine, "prefill") and hasattr(engine, "decode"):
+            self.batcher = ContinuousBatcher(
+                engine,
+                config,
+                metrics=self.metrics,
+                admission=admission,
+                tracer=self.tracer,
+                recorder=self.recorder,
+                layout=getattr(engine, "layout", ""),
             )
-        self.batcher = DynamicBatcher(
-            engine.run_batch,
-            config,
-            metrics=self.metrics,
-            dispatch=getattr(engine, "dispatch", None),
-            fetch=getattr(engine, "fetch", None),
-            bucket_for=bucket_for,
-            tracer=self.tracer,
-            recorder=self.recorder,
-            layout=getattr(engine, "layout", ""),
-        )
+        else:
+            bucket_for = (
+                getattr(engine, "request_bucket", None)
+                if config.bucket_queues
+                else None
+            )
+            if config.bucket_queues and bucket_for is None:
+                raise ValueError(
+                    "bucket_queues=True needs an engine with request_bucket()"
+                )
+            self.batcher = DynamicBatcher(
+                engine.run_batch,
+                config,
+                metrics=self.metrics,
+                dispatch=getattr(engine, "dispatch", None),
+                fetch=getattr(engine, "fetch", None),
+                bucket_for=bucket_for,
+                tracer=self.tracer,
+                recorder=self.recorder,
+                layout=getattr(engine, "layout", ""),
+            )
         self.slo = SloTracker(
             self.metrics, slo or SloSpec(), recorder=self.recorder
         )
@@ -287,6 +315,24 @@ def build_http_server(
             "/v1/mlm": ("pred_ids", "score", "nsp_probs", "bucket"),
             "/v1/embed": ("embedding", "bucket"),
             "/v1/classify": ("top_ids", "top_probs"),
+            # status/target surface only on a stream that migrated away
+            # mid-generation (fleet serving); ordinary results carry
+            # neither key.
+            "/v1/generate": ("tokens", "n_tokens", "prompt_len", "bucket",
+                             "status", "target"),
+        }
+        # Fleet-serving mounts (ROADMAP.md Queue A item 7): this server is
+        # built without a KV receiver, stream receiver or migrator, and
+        # answers them as the JAX server does then.
+        _unmounted = {
+            "/v1/kv_transfer": "kv transfer disabled: server built "
+                               "without a receiver (decode role only)",
+            "/v1/stream_migrate": "stream migration disabled: server built "
+                                  "without a stream receiver",
+            "/v1/stream_wait": "stream migration disabled: server built "
+                               "without a stream receiver",
+            "/migratez": "stream migration disabled: server built "
+                         "without a migrator",
         }
 
         def log_message(self, fmt, *args):  # route access logs into logging
@@ -413,15 +459,22 @@ def build_http_server(
             if url.path == "/profilez":
                 self._profilez(url)
                 return
+            if url.path in self._unmounted:
+                self._reply(503, {"error": self._unmounted[url.path]})
+                return
             if url.path == "/drainz":
                 client.start_draining()
                 code, body = client.health.probe()
+                # Drain progress: how much work remains (the decode
+                # batcher adds occupied slots and the tokens they owe).
                 st = client.batcher.status()
                 self._reply(200, {
                     "draining": True,
                     "progress": {
+                        "slots_active": st.get("slots_active", 0),
                         "queued": st.get("queue_depth", 0),
                         "in_flight": st.get("in_flight", 0),
+                        "tokens_remaining": st.get("tokens_remaining", 0),
                     },
                     **body,
                 })
@@ -441,7 +494,10 @@ def build_http_server(
                     self._reply(200, {"reason": "manual", "path": str(out)})
                 return
             fields = self._routes.get(url.path)
-            if fields is None:
+            # /v1/generate fronts decode engines only, the other request
+            # routes the rest: a route the engine cannot answer is absent.
+            decode = hasattr(client.engine, "prefill") and hasattr(client.engine, "decode")
+            if fields is None or (url.path == "/v1/generate") != decode:
                 self._reply(404, {"error": f"no route {url.path}"})
                 return
             rid = self.headers.get("X-Request-Id") or None
@@ -492,7 +548,14 @@ def build_http_server(
             else:
                 body = {k: result[k] for k in fields if k in result}
                 body["request_id"] = rid
-                body["batching"] = {"mode": client.batcher.status()["mode"]}
+                # Which batching served this (flush vs continuous) + slot
+                # occupancy on decode replicas: one consistent status read.
+                st = client.batcher.status()
+                body["batching"] = {
+                    "mode": st["mode"],
+                    **({"slots": st["slots"], "slots_active": st["slots_active"]}
+                       if "slots" in st else {}),
+                }
                 phases = getattr(fut, "phases", None)
                 if phases is not None:
                     body["phases"] = {

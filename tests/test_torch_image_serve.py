@@ -139,8 +139,8 @@ def test_serve_cli_selftest_and_classify_route(image_ckpt, capsys):
 @pytest.mark.parametrize(
     "argv,message",
     [(["--config=cifar_resnet20", "--weight-dtype=int8"], "not supported for image serving"),
-     (["--config=lm_base"], "continuous batcher"),
-     (["--config=bert_base", "--slots=4"], "continuous batcher")],
+     (["--config=lm_base", "--stream-migrate"], "Queue A item 7"),
+     (["--config=bert_base", "--kv-dtype=int8"], "only applies to causal-LM decode serving")],
     ids=["image-int8", "lm_base", "decode-flag"],
 )
 def test_serve_cli_refusals(argv, message, capsys, tmp_path):

@@ -77,6 +77,29 @@ def test_port_never_touches_the_jax_native_directory():
     assert path.name.startswith("libdata_pipeline-") and path.exists()
 
 
+def test_serving_host_modules_import_without_jax():
+    """The prefix-cache trie, the speculation state machine and the
+    sanitizers are the port's own copies: importing them in a fresh
+    interpreter leaves ``jax`` out of ``sys.modules``."""
+    import subprocess
+    import sys
+
+    # Measured against what the interpreter held before the imports, in
+    # case a site hook loads a package at startup.
+    code = ("import sys\n"
+            "before = set(sys.modules)\n"
+            "import distributed_tensorflow_tpu_torch.serve.kvpool\n"
+            "import distributed_tensorflow_tpu_torch.serve.spec\n"
+            "import distributed_tensorflow_tpu_torch.obs.sanitizer\n"
+            "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r})\n"
+            "assert not bad, bad\n"
+            "assert 'jax' not in sys.modules or 'jax' in before\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.fixture()
 def no_cuda():
     if torch.cuda.is_available():

@@ -254,8 +254,44 @@ Phases (any failure exits non-zero before the result lines):
    zeros), moved by the first stored gradient at step K + 1 and again at
    K + 2, and a loss that moves with them.
 
-Before the result lines, ``feed_summary`` gives the added phases' seconds,
-the cores the host pipeline needs to keep up with this run's ResNet-50
+17. train_resilient_fused — full-width ResNet-50 ``fused`` at 224x224, 128
+   images (the train_resnet50 recipe) through ``run_resilient`` with a
+   ``Checkpointer`` every 4 steps, under a fault plan (a feeder error that
+   costs one restart, a checkpoint-write error the retry absorbs, a slow
+   step, a poisoned loss under ``nonfinite="skip"``) and a SIGTERM the
+   phase sends itself after step 9: preempted with a durable checkpoint,
+   resumed by a fresh model to step 12, bit for bit an uninterrupted
+   ``fit`` from the same step-0 checkpoint (losses, params, momentum,
+   batch_stats; deterministic cuDNN for this part only), 29 launches of
+   each fused kernel in every step, every injected event in the dump.
+   Prints ms a step with and without a ``StepTimeline`` on batches on the
+   card (``scripts/torch_timeline_cost.py``, two pairs of 5-step runs), one
+   checkpoint's write ms and bytes, and the restart's seconds.
+18. train_chaos — ``scripts/torch_dp_train.py --chaos``: two ResNet-50
+   ``fused`` processes at 64 images sharing no process group; rank 0's
+   ``host_drop`` SIGKILLs it (exit -9, its dump names the events), the
+   beacons drive ``FleetSupervisor`` to ``re_mesh``, and its last durable
+   checkpoint (at most 4 steps lost) resumes under ``run_resilient`` with a
+   feeder fault, bit for bit an uninterrupted ``fit`` from it.
+19. train_cli_resilient — ``cli.train --config imagenet_resnet50
+   --image-size 64`` with ``--resilient --fault-plan --beacon-dir
+   --dump-dir``: it completes across the faults; an outside SIGTERM stops
+   a bounded run with exit 0 and a durable checkpoint that a second launch
+   resumes;
+   ``--nonfinite abort`` fails with a dump; ``--resilient --device-pool``
+   is refused.
+20. serve_lm_faults — serving fault injection on the serve_lm_batcher
+   checkpoint: a ``dispatch_error`` fails exactly its step's slots (fp32
+   streams of the rest equal the direct driver's), over HTTP through
+   ``cli.serve --fault-plan`` (500 for those, 200 with full budgets for the
+   rest, the fault in a dump), and ``replica_kill`` ends a server with -9
+   and a dump.
+
+Phases run one after another, but for train_cli, train_cli_image,
+train_cli_inception and train_cli_bert_corpus: four CLI runs that time
+nothing the records keep, run at once on threads of their own (their
+``seconds`` are then the group's). Before the result lines,
+``feed_summary`` gives every phase's seconds and the total, the cores the host pipeline needs to keep up with this run's ResNet-50
 ``fused`` step, and the CLI's median step ms and host_wait_ms under each
 feed. The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs one card; without CUDA it exits 1.
@@ -263,11 +299,14 @@ feed. The last two lines are the kernels' JSON record and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import importlib.util
+import io
 import itertools
 import json
+import math
 import os
 import shutil
 import statistics
@@ -297,8 +336,26 @@ def check(cond, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line on stdout, whole even when phases run at once."""
+    with _EMIT_LOCK:
+        sys.stdout.write(json.dumps(obj) + "\n")
+        sys.stdout.flush()
+
+
+def concurrently(*calls) -> list:
+    """Run each ``(fn, *args)`` of ``calls`` on a thread of its own, all at
+    once; wait for every one, then return their results in order, or
+    raise the first failure in that order."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(len(calls)) as pool:
+        futures = [pool.submit(fn, *args) for fn, *args in calls]
+        concurrent.futures.wait(futures)
+    return [f.result() for f in futures]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -621,14 +678,18 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def load_pw_bench():
-    """``scripts/torch_pw_bench.py`` as a module: the timers and the shape
-    tables that the 1x1 phases share with it."""
-    spec = importlib.util.spec_from_file_location(
-        "torch_pw_bench", ROOT / "scripts" / "torch_pw_bench.py")
+def load_script(name: str):
+    """``scripts/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def load_pw_bench():
+    """``scripts/torch_pw_bench.py`` as a module: the timers and the shape
+    tables that the 1x1 phases share with it."""
+    return load_script("torch_pw_bench")
 
 
 def pw_tables(pwb) -> tuple[dict, dict, list, dict]:
@@ -1437,18 +1498,16 @@ def _repo_env() -> dict:
 def load_dp_train():
     """``scripts/torch_dp_train.py`` as a module: the DP phases' model,
     recipe and fixed batch."""
-    spec = importlib.util.spec_from_file_location(
-        "torch_dp_train", ROOT / "scripts" / "torch_dp_train.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    return load_script("torch_dp_train")
 
 
-def _dp_launch(world: int, backend: str, *extra: str, timeout: int = 600) -> list[dict]:
+def _dp_launch(world: int, backend: str, *extra: str, timeout: int = 600,
+               codes: tuple[int, ...] | None = None) -> list:
     """``scripts/torch_dp_train.py`` as ``world`` processes on a fresh port,
     under one deadline of ``timeout`` seconds for them all; each rank's
     output goes to files under ``build/chip_smoke_dp_logs/`` (no pipe to
-    fill). Returns each rank's JSON line."""
+    fill). Every rank must exit 0, or ``codes[rank]`` when given. Returns
+    the JSON line of each rank that exited 0 (None for the others)."""
     port = _free_port()
     log_dir = ROOT / "build" / "chip_smoke_dp_logs"
     shutil.rmtree(log_dir, ignore_errors=True)
@@ -1474,10 +1533,12 @@ def _dp_launch(world: int, backend: str, *extra: str, timeout: int = 600) -> lis
                 p.kill()
                 p.wait()
     logs = [(out.read_text(), err.read_text()) for out, err in paths]
+    codes = codes or (0,) * world
     for r, (p, (out, err)) in enumerate(zip(procs, logs)):
-        check(p.returncode == 0, f"torch_dp_train rank {r} of {world} ({backend}) exited "
-                                 f"{p.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
-    return [json.loads(out.strip().splitlines()[-1]) for out, _ in logs]
+        check(p.returncode == codes[r], f"torch_dp_train rank {r} of {world} ({backend}) "
+                                        f"exited {p.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) if code == 0 else None
+            for (out, _), code in zip(logs, codes)]
 
 
 DP_LAUNCHES = RESNET50_LAUNCHES["fused"]
@@ -1504,12 +1565,32 @@ def phase_train_cli_dp(torch):
     args = [sys.executable, "-m", "distributed_tensorflow_tpu_torch.cli.train",
             "--config", "imagenet_resnet50", "--image-size", "64", "--global-batch", "16",
             "--steps", "3", "--lr", "0.05", "--log-every", "1"]
-    t0 = time.monotonic()
-    proc = subprocess.run(
-        args + ["--ckpt-dir", str(ckpt_dir), "--coordinator-address",
-                f"127.0.0.1:{_free_port()}", "--num-processes", "1", "--process-id", "0"],
-        cwd=ROOT, env=_repo_env(), capture_output=True, text=True, timeout=600)
-    seconds = time.monotonic() - t0
+    # A declared cluster that cannot form (rank 1 of 2, nobody at the
+    # coordinator) fails the run; it never trains alone. It waits out its
+    # init timeout beside the run of the group of one.
+    port = _free_port()
+    bad_port = next(p for p in iter(_free_port, None) if p != port)
+    t1 = time.monotonic()
+    bad = subprocess.Popen(
+        args + ["--coordinator-address", f"127.0.0.1:{bad_port}", "--num-processes", "2",
+                "--process-id", "1", "--init-timeout", "5"],
+        cwd=ROOT, env=_repo_env(), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            args + ["--ckpt-dir", str(ckpt_dir), "--coordinator-address",
+                    f"127.0.0.1:{port}", "--num-processes", "1", "--process-id", "0"],
+            cwd=ROOT, env=_repo_env(), capture_output=True, text=True, timeout=600)
+        seconds = time.monotonic() - t0
+        _, bad_err = bad.communicate(timeout=300)
+    finally:
+        if bad.poll() is None:
+            bad.kill()
+            bad.wait()
+    bad_seconds = time.monotonic() - t1
+    check(bad.returncode != 0 and "train.loop: step" not in bad_err,
+          f"cli.train with an unreachable coordinator exited {bad.returncode}")
     check(proc.returncode == 0, f"cli.train exited {proc.returncode}:\n{proc.stderr[-4000:]}")
     group = [ln for ln in proc.stderr.splitlines() if "process group:" in ln]
     check(len(group) == 1 and "backend=nccl world=1 rank=0 device=cuda:0" in group[0],
@@ -1526,16 +1607,6 @@ def phase_train_cli_dp(torch):
           and all(not torch.equal(stats[k], model_state["batch_stats"][k]) for k in stats),
           f"restored step {step} and its batch_stats")
     del model, params, model_state, state
-    # A declared cluster that cannot form (rank 1 of 2, nobody at the
-    # coordinator) fails the run; it never trains alone.
-    t1 = time.monotonic()
-    bad = subprocess.run(
-        args + ["--coordinator-address", f"127.0.0.1:{_free_port()}", "--num-processes", "2",
-                "--process-id", "1", "--init-timeout", "5"],
-        cwd=ROOT, env=_repo_env(), capture_output=True, text=True, timeout=300)
-    bad_seconds = time.monotonic() - t1
-    check(bad.returncode != 0 and "train.loop: step" not in bad.stderr,
-          f"cli.train with an unreachable coordinator exited {bad.returncode}")
     (rank,) = _dp_launch(1, "nccl", "--steps", "3", "--rows", str(DP_ROWS))
     check(len(rank["losses"]) == 3 and all(np.isfinite(rank["losses"])),
           f"world-1 losses {rank['losses']}")
@@ -1545,7 +1616,7 @@ def phase_train_cli_dp(torch):
     emit({"phase": "train_cli_dp", "seconds": seconds, "group": group[0].split(": ", 1)[-1],
           "last_log": steps[-1].split(": ", 1)[-1], "restored_step": step,
           "bad_coordinator_exit": bad.returncode, "bad_coordinator_seconds": bad_seconds,
-          "bad_coordinator_error": (bad.stderr.strip().splitlines() or [""])[-1][-300:]})
+          "bad_coordinator_error": (bad_err.strip().splitlines() or [""])[-1][-300:]})
     emit({"phase": "train_dp_world1", **{k: v for k, v in rank.items() if k != "digests"}})
     return rank
 
@@ -1903,11 +1974,7 @@ FEED_IMAGES, FEED_HW, FEED_OUT, FEED_BATCH = 1280, 256, 224, 128
 def load_feed_bench():
     """``scripts/torch_feed_bench.py`` as a module: the seeded u8 cache, the
     preset's augmentation and the host-rate timers."""
-    spec = importlib.util.spec_from_file_location(
-        "torch_feed_bench", ROOT / "scripts" / "torch_feed_bench.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    return load_script("torch_feed_bench")
 
 
 def _kernel_names(trace: Path) -> list[str]:
@@ -2838,14 +2905,11 @@ def _draftable_requests(engine, vocab: int, n: int = 4):
     return out
 
 
-def _serve_cli_lm(ckpt_dir: Path, vocab: int, device: str, extra: list) -> dict:
-    """``python -m distributed_tensorflow_tpu_torch.cli.serve --config lm_base``
-    as a server process: 16 concurrent ``POST /v1/generate``, every reply
-    200 with ``n_tokens`` equal to its budget, and the prom text's decode
-    families. The process is stopped before this returns."""
+def _spawn_serve_cli(ckpt_dir: Path, device: str, extra: list, log: Path):
+    """``python -m distributed_tensorflow_tpu_torch.cli.serve --config
+    lm_base`` as a server process (output in ``log``); returns ``(proc,
+    base_url, start_time)``. The caller stops it (:func:`_stop`)."""
     port = _free_port()
-    t0 = time.monotonic()
-    log = ROOT / "build" / "chip_smoke_serve_lm.log"
     with open(log, "w") as fh:
         proc = subprocess.Popen(
             [sys.executable, "-m", "distributed_tensorflow_tpu_torch.cli.serve",
@@ -2854,7 +2918,12 @@ def _serve_cli_lm(ckpt_dir: Path, vocab: int, device: str, extra: list) -> dict:
              "--max-batch", str(LM_TIER), "--batch-tiers", "1", "2", "4",
              "--max-new-tokens", str(LM_NEW), *extra],
             cwd=ROOT, env=_repo_env(), stdout=fh, stderr=subprocess.STDOUT)
-    base = f"http://127.0.0.1:{port}"
+    return proc, f"http://127.0.0.1:{port}", time.monotonic()
+
+
+def _await_serve_cli(proc, base: str, t0: float, log: Path) -> float:
+    """Wait until the server's ``/healthz`` answers 200, at most 300 s from
+    ``t0``; returns the seconds from ``t0``. Stops it on failure."""
     try:
         while True:
             check(proc.poll() is None,
@@ -2866,27 +2935,70 @@ def _serve_cli_lm(ckpt_dir: Path, vocab: int, device: str, extra: list) -> dict:
                         break
             except OSError:
                 time.sleep(0.5)
-        ready_s = time.monotonic() - t0
-        reqs = _lm_requests(vocab, 16)
-        replies = {}
+    except BaseException:
+        _stop(proc)
+        raise
+    return time.monotonic() - t0
 
-        def post(r):
-            req = urllib.request.Request(
-                base + "/v1/generate", headers={"Content-Type": "application/json"},
-                data=json.dumps({**_payload(r), "input_ids": r["input_ids"].tolist()}).encode())
+
+def _start_serve_cli(ckpt_dir: Path, device: str, extra: list, log: Path):
+    """:func:`_spawn_serve_cli`, once ``/healthz`` answers 200; returns
+    ``(proc, base_url, ready_seconds)``."""
+    proc, base, t0 = _spawn_serve_cli(ckpt_dir, device, extra, log)
+    return proc, base, _await_serve_cli(proc, base, t0, log)
+
+
+def _stop(proc) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def _post_generates(base: str, reqs: list) -> tuple[dict, float]:
+    """Every request as one concurrent ``POST /v1/generate``; returns
+    ``({id: (status, body)}, seconds)``, a status of None when the
+    connection failed."""
+    replies = {}
+
+    def post(r):
+        req = urllib.request.Request(
+            base + "/v1/generate", headers={"Content-Type": "application/json"},
+            data=json.dumps({**_payload(r), "input_ids": r["input_ids"].tolist()}).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                replies[r["id"]] = (resp.status, json.loads(resp.read()))
+        except urllib.error.HTTPError as e:
+            body = e.read().decode()
             try:
-                with urllib.request.urlopen(req, timeout=300) as resp:
-                    replies[r["id"]] = (resp.status, json.loads(resp.read()))
-            except urllib.error.HTTPError as e:
-                replies[r["id"]] = (e.code, {"error": e.read().decode()[:500]})
+                replies[r["id"]] = (e.code, json.loads(body))
+            except ValueError:
+                replies[r["id"]] = (e.code, {"error": body[:500]})
+        except OSError as e:
+            replies[r["id"]] = (None, {"error": repr(e)[:500]})
 
-        t1 = time.monotonic()
-        threads = [threading.Thread(target=post, args=(r,)) for r in reqs]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        burst_s = time.monotonic() - t1
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=post, args=(r,)) for r in reqs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return replies, time.monotonic() - t0
+
+
+def _serve_cli_lm(ckpt_dir: Path, vocab: int, device: str, extra: list) -> dict:
+    """``cli.serve --config lm_base`` as a server process: 16 concurrent
+    ``POST /v1/generate``, every reply 200 with ``n_tokens`` equal to its
+    budget, and the prom text's decode families. The process is stopped
+    before this returns."""
+    proc, base, ready_s = _start_serve_cli(ckpt_dir, device, extra,
+                                           ROOT / "build" / "chip_smoke_serve_lm.log")
+    try:
+        reqs = _lm_requests(vocab, 16)
+        replies, burst_s = _post_generates(base, reqs)
         bad = {i: rep for i, rep in replies.items() if rep[0] != 200}
         check(len(replies) == 16 and not bad, f"cli.serve /v1/generate: {bad or len(replies)}")
         short = [r["id"] for r in reqs if replies[r["id"]][1]["n_tokens"] != r["budget"]]
@@ -2901,12 +3013,7 @@ def _serve_cli_lm(ckpt_dir: Path, vocab: int, device: str, extra: list) -> dict:
         check(status["mode"] == "continuous" and status["served"] == 16,
               f"cli.serve statusz {status}")
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=30)
+        _stop(proc)
     return {"ready_s": ready_s, "burst_s": burst_s,
             "tokens": sum(rep[1]["n_tokens"] for rep in replies.values())}
 
@@ -3216,6 +3323,621 @@ def phase_serve_image(torch):
           "top_probs_max_err": err, "batch_ms_per_tier": tiers})
 
 
+FUSED = tuple(RESNET50_LAUNCHES["fused"])
+RESILIENT_STEPS, RESILIENT_CKPT_EVERY, RESILIENT_SIGTERM_AT = 12, 4, 9
+CHAOS_STEPS = 12
+CLI_TERM_STEPS = 200  # bounds the CLI run that is sent SIGTERM after its step 3
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """Deterministic cuDNN algorithms (``scripts/torch_dp_train.py``'s
+    ``numerics``: bitwise repeatable steps) for one phase, then the
+    settings as they were; TF32 stays off throughout the smoke."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    load_dp_train().numerics()
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def _counted(step, per_step: list):
+    """``step`` that appends each call's fused-kernel launches to
+    ``per_step`` (the counters move on the host, at each launch)."""
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+
+    def run(state, batch, rng):
+        before = {k: fcb.LAUNCHES.get(k, 0) for k in FUSED}
+        out = step(state, batch, rng)
+        per_step.append({k: fcb.LAUNCHES.get(k, 0) - before[k] for k in FUSED})
+        return out
+
+    return run
+
+
+def _tree_diff(a: dict, b: dict, torch) -> list:
+    """Names of the leaves of two flat tensor dicts that differ."""
+    if a.keys() != b.keys():
+        return ["<keys>"]
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def _compare_states(got, want, torch, what: str) -> None:
+    """Params, momentum slots and BatchNorm statistics, bit for bit."""
+    dp = load_dp_train()
+    params = _tree_diff({k: v.detach() for k, v in got.params.items()},
+                         {k: v.detach() for k, v in want.params.items()}, torch)
+    stats = _tree_diff(got.model_state["batch_stats"], want.model_state["batch_stats"], torch)
+    gs, ws = dp.slots(got), dp.slots(want)
+    slots = [k for k in ws if k not in gs or gs[k].keys() != ws[k].keys()
+             or not all(torch.equal(gs[k][n], t) for n, t in ws[k].items())]
+    check(not params and not stats and not slots and gs.keys() == ws.keys(),
+          f"{what}: differs from the uninterrupted run at params {params[:4]}, "
+          f"batch_stats {stats[:4]}, momentum {slots[:4]}")
+
+
+def _check_launches(per_step: list, what: str, on_card: bool) -> int:
+    want = {k: 29 for k in FUSED} if on_card else {k: 0 for k in FUSED}
+    bad = [i for i, got in enumerate(per_step) if got != want]
+    check(per_step and not bad, f"{what}: fused launches a step {per_step[bad[0]] if bad else []}"
+                                f" at step calls {bad[:4]}, expected {want}")
+    return len(per_step)
+
+
+def phase_train_resilient_fused(torch, *, device="cuda", rows=128, hw=224) -> dict:
+    """Full-width ResNet-50 ``fused`` (the train_resnet50 recipe) through
+    ``run_resilient`` with a ``Checkpointer`` every 4 steps over
+    ``prefetch(device_batches(..., start_step=s))``, under a fault plan:
+    ``feeder_error`` at stream index 2 (a restart from the step-0
+    checkpoint), ``ckpt_write_error`` at 4 (absorbed by the retry),
+    ``slow_step`` at 5, ``nonfinite_loss`` at 6 (``nonfinite="skip"``), and
+    a SIGTERM a hook sends this process after step 9. Checks: one restart,
+    preempted, the newest checkpoint at the final step; a fresh model
+    resumed from it to step 12; every logged loss but the poisoned one,
+    and the final params, momentum and BatchNorm statistics, bit for bit
+    those of an uninterrupted ``fit`` from the same step-0 checkpoint
+    (deterministic cuDNN for this part); 29 launches of each fused kernel
+    in every step of every segment; every injected event in the flight
+    recorder's dump. Before that, with the smoke's usual numerics: ms a
+    step with and without a ``StepTimeline`` on batches on the card (two
+    pairs of 5-step runs, ``scripts/torch_timeline_cost.py``), and one
+    checkpoint's snapshot and write ms and bytes. Prints the restart's
+    seconds from the fault to the end of the first step after it."""
+    import signal
+
+    from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
+    from distributed_tensorflow_tpu_torch.data.loader import device_batches
+    from distributed_tensorflow_tpu_torch.data.prefetch import prefetch
+    from distributed_tensorflow_tpu_torch.data.synthetic import synthetic_image_classification
+    from distributed_tensorflow_tpu_torch.obs.fleet import StepTimeline
+    from distributed_tensorflow_tpu_torch.obs.flightrec import FlightRecorder
+    from distributed_tensorflow_tpu_torch.ops import fused_conv_bn as fcb
+    from distributed_tensorflow_tpu_torch.train import (
+        FaultEvent,
+        FaultInjector,
+        FaultPlan,
+        ResilienceConfig,
+        fit,
+        make_rng,
+        make_train_step,
+        run_resilient,
+    )
+    from distributed_tensorflow_tpu_torch.train.objectives import make_classification_loss
+
+    dp = load_dp_train()
+    on_card = device == "cuda"
+    work = ROOT / "build" / "chip_smoke_resilient"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.monotonic()
+    data = synthetic_image_classification(4 * rows, (hw, hw, 3), 1000, seed=SEED)
+
+    def stream(start, injector=None):
+        return prefetch(device_batches(data, rows, device=device, seed=1, start_step=start), 2,
+                        fault_injector=injector)
+
+    def build():
+        model, state, tx = dp.build(device)
+        return state, make_train_step(make_classification_loss(model), tx)
+
+    out = {"phase": "train_resilient_fused", "rows": rows, "image": hw}
+    # ms a step with and without a timeline on batches already on the card
+    # (scripts/torch_timeline_cost.py at a small count, after 2 steps of
+    # warm-up), then one checkpoint of the trained state: the caller's
+    # snapshot, then the write until durable.
+    state, step = build()
+    rng = make_rng(SEED, device)
+    on_device = list(itertools.islice(device_batches(data, rows, device=device, seed=1), 2))
+    fit(state, step, itertools.cycle(on_device), num_steps=2, rng=rng, log_every=2)
+    out["timeline_cost"] = load_script("torch_timeline_cost").timeline_cost(
+        state, step, on_device, rng, pairs=2, steps=5,
+        sync=torch.cuda.synchronize if on_card else lambda: None)
+    del on_device
+    with Checkpointer(work / "write") as ck:
+        t1 = time.perf_counter()
+        ck.save(state.step, state, generator=rng)
+        t2 = time.perf_counter()
+        ck.wait()
+        t3 = time.perf_counter()
+    size = (work / "write" / f"step_{state.step:08d}.pt").stat().st_size
+    out["ckpt"] = {"snapshot_ms": (t2 - t1) * 1e3, "write_ms": (t3 - t1) * 1e3, "bytes": size}
+    del state, step
+    if on_card:
+        torch.cuda.empty_cache()
+
+    with _deterministic(torch):
+        state, step = build()
+        rng = make_rng(SEED, device)
+        with Checkpointer(work / "a") as ck0:
+            ck0.save(0, state, generator=rng)
+        shutil.copytree(work / "a", work / "b")  # the reference's origin
+        rec = FlightRecorder(dump_dir=work / "dumps")
+        plan = FaultPlan((FaultEvent("feeder_error", 2), FaultEvent("ckpt_write_error", 4),
+                          FaultEvent("slow_step", 5, duration_s=0.05),
+                          FaultEvent("nonfinite_loss", 6)))
+        inj = FaultInjector(plan, recorder=rec)
+        losses, wall, per_step = {}, {}, []
+
+        def log(s, st, m):
+            losses[s] = m["loss"]
+            wall[s] = time.time()
+
+        def sigterm(s, st, m):
+            if s == RESILIENT_SIGTERM_AT:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        common = dict(num_steps=RESILIENT_STEPS, ckpt_every=RESILIENT_CKPT_EVERY,
+                      config=ResilienceConfig(), recorder=rec, fault_injector=inj,
+                      log_every=1, nonfinite="skip")
+        fcb.reset_launch_counts()
+        with Checkpointer(work / "a", fault_injector=inj) as ck:
+            state, start = ck.restore_latest(state, generator=rng)
+            check(start == 0, f"restored step {start}")
+            report = run_resilient(state, _counted(step, per_step), lambda s: stream(s, inj),
+                                   checkpointer=ck, rng=rng, hooks=(log, sigterm),
+                                   timeline=StepTimeline(), **common)
+            latest = ck.latest_step()
+        check(report.restarts == 1 and report.preempted and not report.completed
+              and report.final_step == RESILIENT_SIGTERM_AT == latest,
+              f"resilient run: restarts {report.restarts}, preempted {report.preempted}, "
+              f"final step {report.final_step}, newest checkpoint {latest}")
+        first = _check_launches(per_step, "resilient run", on_card)
+        check(first == 2 + RESILIENT_SIGTERM_AT, f"{first} step calls before the stop")
+        del state, step, report
+        # The resume: a fresh model, the run's newest checkpoint.
+        state, step = build()
+        rng = make_rng(SEED + 1, device)  # restored from the checkpoint
+        with Checkpointer(work / "a", fault_injector=inj) as ck:
+            state, start = ck.restore_latest(state, generator=rng)
+            check(start == RESILIENT_SIGTERM_AT, f"resumed at {start}")
+            resumed = run_resilient(state, _counted(step, per_step), lambda s: stream(s, inj),
+                                    checkpointer=ck, rng=rng, hooks=(log,), **common)
+            latest = ck.latest_step()
+        check(resumed.completed and resumed.final_step == RESILIENT_STEPS == latest
+              and resumed.restarts == 0, f"resume: {resumed.final_step}, {latest}")
+        total = _check_launches(per_step, "resilient run and resume", on_card)
+        launches = dict(fcb.LAUNCHES)
+        dump = json.loads(Path(rec.dump("train_resilient_end", force=True)).read_text())
+        # The reference: uninterrupted, no faults, from the same checkpoint.
+        ref_state, ref_step = build()
+        ref_rng = make_rng(SEED, device)
+        ref_losses, ref_per_step = {}, []
+        with Checkpointer(work / "b") as ckb:
+            ref_state, _ = ckb.restore_latest(ref_state, generator=ref_rng)
+        batches = stream(0)
+        try:
+            fit(ref_state, _counted(ref_step, ref_per_step), batches,
+                num_steps=RESILIENT_STEPS, rng=ref_rng, log_every=1,
+                hooks=(lambda s, st, m: ref_losses.__setitem__(s, m["loss"]),))
+        finally:
+            batches.close()
+        _check_launches(ref_per_step, "uninterrupted run", on_card)
+        poisoned = 7  # nonfinite_loss at step index 6 poisons the loss logged as step 7
+        check(sorted(losses) == sorted(ref_losses) == list(range(1, RESILIENT_STEPS + 1)),
+              f"logged steps {sorted(losses)}")
+        check(math.isnan(losses[poisoned]) and math.isfinite(ref_losses[poisoned]),
+              f"step {poisoned}: {losses[poisoned]} against {ref_losses[poisoned]}")
+        differ = [s for s in losses if s != poisoned and losses[s] != ref_losses[s]]
+        check(not differ, f"losses differ from the uninterrupted run at steps {differ}: "
+                          f"{[(losses[s], ref_losses[s]) for s in differ[:3]]}")
+        _compare_states(state, ref_state, torch, "the resumed run")
+    injected = sorted(e["fault"] for e in dump["events"] if e["kind"] == "fault_injected")
+    kinds = {e["kind"] for e in dump["events"]}
+    check(injected == ["ckpt_write_error", "feeder_error", "nonfinite_loss", "slow_step"]
+          and {"train_restart", "ckpt_save_error", "nonfinite_loss", "preempt_exit"} <= kinds,
+          f"dump: injected {injected}, kinds {sorted(kinds)}")
+    t_fault = next(e["t"] for e in dump["events"] if e.get("fault") == "feeder_error")
+    backoff = next(e["backoff_s"] for e in dump["events"] if e["kind"] == "train_restart")
+    out.update({
+        "restart_s": wall[1] - t_fault, "restart_backoff_s": backoff,
+        "step_calls": total, "launches": launches,
+        "losses": [None if s == poisoned else losses[s] for s in range(1, RESILIENT_STEPS + 1)],
+        "vs_uninterrupted": "bitwise: losses but the poisoned one, params, momentum, "
+                            "batch_stats",
+        "seconds": time.monotonic() - t0})
+    emit(out)
+    del state, step, ref_state, ref_step
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_chaos(torch, pad_s: float, *, rows=64) -> dict:
+    """``scripts/torch_dp_train.py --chaos``: two independent processes on
+    the one card (no process group: beacons, checkpoints and dumps are
+    their only channels), each full-width ResNet-50 ``fused`` at ``rows``
+    images a step, ``CHAOS_STEPS`` steps, a checkpoint every
+    ``CHAOS_CKPT_EVERY`` (4), each step padded by ``pad_s`` (the
+    train_resilient_fused phase's measured write time). Rank 0's plan kills
+    it by SIGKILL (``host_drop``) at ``CHAOS_HOST_DROP_AT`` (11) after a
+    ``slow_step`` at 5: it must exit -9 and its dump name both events.
+    Its stale beacon and the survivor's fresh one drive
+    ``FleetSupervisor.poll()`` to ``re_mesh`` with ``lost_hosts == [0]``.
+    Then, in this process under deterministic cuDNN, the victim's last
+    durable checkpoint (at most ``CHAOS_CKPT_EVERY`` steps lost) resumes under
+    ``run_resilient`` with a ``feeder_error`` at stream index 2, and its
+    losses, params, momentum and BatchNorm statistics equal bit for bit an
+    uninterrupted ``fit`` from the same checkpoint; 29 launches of each
+    fused kernel a step, in the survivor and in both runs here."""
+    from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
+    from distributed_tensorflow_tpu_torch.data.prefetch import prefetch
+    from distributed_tensorflow_tpu_torch.obs.fleet import FleetSupervisor, read_beacons
+    from distributed_tensorflow_tpu_torch.obs.flightrec import FlightRecorder
+    from distributed_tensorflow_tpu_torch.train import (
+        FaultEvent,
+        FaultInjector,
+        FaultPlan,
+        ResilienceConfig,
+        fit,
+        make_rng,
+        make_train_step,
+        run_resilient,
+    )
+    from distributed_tensorflow_tpu_torch.train.objectives import make_classification_loss
+
+    dp = load_dp_train()
+    work = ROOT / "build" / "chip_smoke_chaos"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.monotonic()
+    _, survivor = _dp_launch(2, "gloo", "--chaos", str(work), "--steps", str(CHAOS_STEPS),
+                             "--rows", str(rows), "--pad-s", f"{pad_s:.4f}", codes=(-9, 0))
+    launch_s = time.monotonic() - t0
+    check(survivor["step"] == survivor["latest_ckpt"] == survivor["last_step"] == CHAOS_STEPS,
+          f"survivor {survivor}")
+    check({k: v for k, v in survivor["launches"].items() if v}
+          == {k: 29 * CHAOS_STEPS for k in FUSED}, f"survivor launches {survivor['launches']}")
+    dumps = sorted((work / "dumps_0").glob("flightrec-*.json"))
+    check(len(dumps) == 1, f"victim dumps {dumps}")
+    payload = json.loads(dumps[0].read_text())
+    injected = [e["fault"] for e in payload["events"] if e["kind"] == "fault_injected"]
+    check(payload["reason"] == "host_drop" and injected == ["slow_step", "host_drop"],
+          f"victim dump: {payload['reason']}, {injected}")
+    beacons = {b["host"]: b for b in read_beacons(work / "beacons")}
+    check(set(beacons) == {0, 1} and beacons[0]["injected_faults"] == {"slow_step": 1},
+          f"beacons {sorted(beacons)}")
+    t_dead, t_alive = beacons[0]["wall_time"], beacons[1]["wall_time"]
+    now = t_alive + 1e-3
+    verdict = FleetSupervisor(work / "beacons", expected_hosts=2,
+                              heartbeat_timeout_s=0.5 * (now - t_dead), clock=lambda: now).poll()
+    check(t_alive > t_dead and verdict["action"] == "re_mesh"
+          and verdict["lost_hosts"] == [0] and verdict["alive_hosts"] == [1],
+          f"supervisor {verdict}")
+
+    def build():
+        model, state, tx = dp.build("cuda")
+        return state, make_train_step(make_classification_loss(model), tx)
+
+    with _deterministic(torch):
+        ref_state, ref_step = build()
+        with Checkpointer(work / "ckpt_0") as ck:
+            ref_state, start = ck.restore_latest(ref_state)
+        lost = dp.CHAOS_HOST_DROP_AT - start
+        check(0 <= lost <= dp.CHAOS_CKPT_EVERY,
+              f"the victim's last durable checkpoint is step {start}")
+        ref_losses, ref_per_step = {}, []
+        batches = prefetch(dp.chaos_batches(rows, "cuda", start), 2)
+        try:
+            fit(ref_state, _counted(ref_step, ref_per_step), batches, num_steps=CHAOS_STEPS,
+                rng=make_rng(SEED, "cuda"), log_every=1,
+                hooks=(lambda s, st, m: ref_losses.__setitem__(s, m["loss"]),))
+        finally:
+            batches.close()
+        shutil.copytree(work / "ckpt_0", work / "ckpt_resume")
+        rec = FlightRecorder(dump_dir=None)
+        inj = FaultInjector(FaultPlan((FaultEvent("feeder_error", 2),)), recorder=rec)
+        state, step = build()
+        losses, per_step = {}, []
+        with Checkpointer(work / "ckpt_resume") as ck:
+            state, _ = ck.restore_latest(state)
+            report = run_resilient(
+                state, _counted(step, per_step),
+                lambda s: prefetch(dp.chaos_batches(rows, "cuda", s), 2, fault_injector=inj),
+                num_steps=CHAOS_STEPS, checkpointer=ck, ckpt_every=dp.CHAOS_CKPT_EVERY,
+                config=ResilienceConfig(), recorder=rec, fault_injector=inj,
+                rng=make_rng(SEED, "cuda"), log_every=1,
+                hooks=(lambda s, st, m: losses.__setitem__(s, m["loss"]),))
+        check(report.completed and report.restarts == 1 and report.final_step == CHAOS_STEPS,
+              f"resume: {report.final_step}, {report.restarts} restarts")
+        kinds = [e["kind"] for e in rec.events()]
+        check("fault_injected" in kinds and "train_restart" in kinds, f"resume events {kinds}")
+        check(losses == ref_losses and sorted(losses) == list(range(start + 1, CHAOS_STEPS + 1)),
+              f"resumed losses {losses} against {ref_losses}")
+        _compare_states(state, ref_state, torch, "the chaos resume")
+        _check_launches(per_step, "chaos resume", True)
+        _check_launches(ref_per_step, "chaos reference", True)
+    out = {"phase": "train_chaos", "rows": rows, "pad_s": pad_s, "victim_exit": -9,
+           "lost_steps": lost, "resumed_from": start, "survivor_step_ms": survivor[
+               "step_ms_median"], "survivor_launches": survivor["launches"],
+           "launch_seconds": launch_s, "verdict": verdict["action"],
+           "seconds": time.monotonic() - t0}
+    emit(out)
+    del state, step, ref_state, ref_step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _signal_on_line(proc, needle: str, sig, timeout: float) -> str:
+    """Send ``sig`` to ``proc`` once a line of its stderr (a text pipe)
+    holds ``needle``, then wait for its end; returns its stderr. A reader
+    thread drains the pipe, so the deadline holds whatever the process
+    prints: past ``timeout`` seconds in all, or at an end with no such
+    line, the process is killed and the phase fails."""
+    lines, seen = [], threading.Event()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line)
+            if needle in line:
+                seen.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while not seen.wait(0.05):
+            check(proc.poll() is None and time.monotonic() < deadline,
+                  f"no {needle!r} from the process within {timeout} s "
+                  f"(exit {proc.poll()}):\n{''.join(lines)[-3000:]}")
+        proc.send_signal(sig)
+        proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    return "".join(lines)
+
+
+def phase_train_cli_resilient(torch) -> dict:
+    """``cli.train --config imagenet_resnet50 --image-size 64 --global-batch
+    16``: a process with ``--resilient`` for at most ``CLI_TERM_STEPS``
+    steps, sent SIGTERM from here after its third step (exit 0,
+    ``preempted`` logged, a durable checkpoint at the stop step), then a
+    second launch that resumes it to two steps past it. While that one
+    starts, in this process (``main`` as the ``-m`` entry calls it): with
+    ``--resilient --fault-plan
+    seed=7,feeder_error=1,ckpt_write_error=1,slow_step=1 --ckpt-every 1
+    --beacon-dir --dump-dir --ckpt-dir`` for 5 steps (0 after one restart,
+    the beacon's injected counts, no dump); with ``--nonfinite abort`` and
+    ``nonfinite_loss=1`` (``NonFiniteLossError`` out of ``main``, a
+    ``train_failure`` dump); ``--resilient --device-pool 4`` refused (exit
+    2). Every process runs under a deadline."""
+    import logging
+    import signal
+
+    from distributed_tensorflow_tpu_torch.ckpt.checkpoint import latest_step
+    from distributed_tensorflow_tpu_torch.cli.train import main as train_main
+    from distributed_tensorflow_tpu_torch.train import NonFiniteLossError
+
+    work = ROOT / "build" / "chip_smoke_cli_resilient"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    base = [sys.executable, "-m", "distributed_tensorflow_tpu_torch.cli.train",
+            "--config", "imagenet_resnet50", "--image-size", "64", "--global-batch", "16",
+            "--lr", "0.05", "--lr-schedule", "constant", "--log-every", "1"]
+    spec = "seed=7,feeder_error=1,ckpt_write_error=1,slow_step=1"
+    ck = work / "ck_term"
+    t0 = time.monotonic()
+    term = subprocess.Popen(
+        base + ["--steps", str(CLI_TERM_STEPS), "--resilient", "--ckpt-dir", str(ck)],
+        cwd=ROOT, env=_repo_env(), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    err = _signal_on_line(term, "train.loop: step 3:", signal.SIGTERM, timeout=300)
+    stop = latest_step(ck)
+    check(term.returncode == 0 and stop is not None and 3 <= stop < CLI_TERM_STEPS
+          and f"preempted at step {stop}" in err,
+          f"SIGTERM: exit {term.returncode}, checkpoint {stop}:\n{err[-3000:]}")
+    log = work / "resume.log"
+    with open(log, "w") as fh:
+        resume = subprocess.Popen(base + ["--steps", str(stop + 2), "--resilient", "--ckpt-dir",
+                                          str(ck)], cwd=ROOT, env=_repo_env(), stdout=fh,
+                                  stderr=subprocess.STDOUT)
+    try:
+        # In this process, while the resume starts: the CLI's own logs.
+        logs = io.StringIO()
+        handler = logging.StreamHandler(logs)
+        root = logging.getLogger()
+        saved_level = root.level
+        root.addHandler(handler)
+        root.setLevel(logging.INFO)
+        t1 = time.monotonic()
+        try:
+            code = train_main(base[3:] + [
+                "--steps", "5", "--ckpt-every", "1", "--resilient", "--fault-plan", spec,
+                "--beacon-dir", str(work / "beacons"), "--dump-dir", str(work / "dumps"),
+                "--ckpt-dir", str(work / "ck")])
+            nonfinite = None
+            try:
+                train_main(base[3:] + ["--steps", "4", "--fault-plan", "seed=3,nonfinite_loss=1",
+                                       "--nonfinite", "abort", "--dump-dir",
+                                       str(work / "dumps_nf")])
+            except NonFiniteLossError as e:
+                nonfinite = e
+        finally:
+            root.removeHandler(handler)
+            root.setLevel(saved_level)
+            torch.cuda.empty_cache()
+        in_process_s = time.monotonic() - t1
+        resume_code = resume.wait(timeout=600)
+    finally:
+        if resume.poll() is None:
+            resume.kill()
+            resume.wait()
+    beacon = json.loads((work / "beacons" / "host_0.json").read_text())
+    check(code == 0 and "restart 1 in" in logs.getvalue()
+          and latest_step(work / "ck") == 5 and not list((work / "dumps").glob("*.json"))
+          and beacon["injected_faults"] == {"feeder_error": 1, "ckpt_write_error": 1,
+                                            "slow_step": 1} and beacon["last_step"] == 5,
+          f"the faulted CLI run: {code}, beacon {beacon.get('injected_faults')} at "
+          f"{beacon.get('last_step')}:\n{logs.getvalue()[-3000:]}")
+    dumps = list((work / "dumps_nf").glob("flightrec-*.json"))
+    check(nonfinite is not None and len(dumps) == 1
+          and json.loads(dumps[0].read_text())["reason"] == "train_failure",
+          f"--nonfinite abort: {nonfinite!r}, dumps {dumps}")
+    resumed = log.read_text()
+    check(resume_code == 0 and f"restored checkpoint at step {stop}" in resumed
+          and latest_step(ck) == stop + 2,
+          f"the second launch did not resume to the end (exit {resume_code}):\n"
+          f"{resumed[-3000:]}")
+    # The refusal is an argument check.
+    err_io = io.StringIO()
+    code = None
+    with contextlib.redirect_stderr(err_io):
+        try:
+            train_main(base[3:] + ["--resilient", "--device-pool", "4"])
+        except SystemExit as e:
+            code = e.code
+    check(code == 2 and "does not compose with --device-pool" in err_io.getvalue(),
+          f"--resilient --device-pool: exit {code}")
+    out = {"phase": "train_cli_resilient", "beacon_injected": beacon["injected_faults"],
+           "sigterm_stop_step": stop, "in_process_seconds": in_process_s,
+           "seconds": time.monotonic() - t0}
+    emit(out)
+    return out
+
+
+SERVE_FAULT_PLAN = {"seed": None, "events": [
+    {"kind": "slow_decode_step", "step": 3, "duration_s": 0.05},
+    {"kind": "dispatch_error", "step": 6, "duration_s": 0.0}]}
+
+
+def phase_serve_lm_faults(torch, ckpt_dir: Path, *, device="cuda", cfg=None,
+                          cli_extra=()) -> dict:
+    """Serving fault injection on the ``serve_lm_batcher`` checkpoint, with
+    the plan ``SERVE_FAULT_PLAN`` (``slow_decode_step`` at decode step 3,
+    ``dispatch_error`` at 6): an fp32 engine behind ``Client`` with the
+    injector, 16 requests at once: exactly the slots of the failed step
+    fail, and every other stream equals the direct driver's. Then
+    ``cli.serve --config lm_base --fault-plan <that plan> --dump-dir``: 16
+    concurrent ``/v1/generate``, the failed step's requests answered 500
+    naming the fault, every other 200 with its full budget, the fault in
+    a dump. A second server with ``replica_kill`` at step 4 dies with -9
+    and leaves a dump. Both servers start first and load while the
+    in-process part runs."""
+    from distributed_tensorflow_tpu_torch.ckpt import restore_serving_state
+    from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLM, CausalLMConfig
+    from distributed_tensorflow_tpu_torch.serve import BatcherConfig, CausalLMEngine, Client
+    from distributed_tensorflow_tpu_torch.serve.faultinject import (
+        FaultInjector,
+        FaultPlan,
+        InjectedFault,
+    )
+
+    cfg = cfg or CausalLMConfig(max_position=128, dtype=torch.bfloat16)  # lm_base
+    work = ROOT / "build" / "chip_smoke_serve_faults"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    plans = {"faults": SERVE_FAULT_PLAN, "kill": {"seed": None, "events": [
+        {"kind": "replica_kill", "step": 4, "duration_s": 0.0}]}}
+    t0 = time.monotonic()
+    servers = {}
+    try:
+        for name, plan in plans.items():
+            (work / f"{name}.json").write_text(json.dumps(plan))
+            servers[name] = _spawn_serve_cli(
+                ckpt_dir, device, [*cli_extra, "--fault-plan", str(work / f"{name}.json"),
+                                   "--dump-dir", str(work / f"dumps_{name}")],
+                work / f"serve_{name}.log")
+
+        params, _, _ = restore_serving_state(ckpt_dir)
+        engine = CausalLMEngine(CausalLM(dataclasses.replace(cfg, dtype=torch.float32),
+                                         device="cpu"), dict(params), device,
+                                buckets=LM_BUCKETS, slots=LM_SLOTS, max_batch=LM_TIER,
+                                max_new_tokens=LM_NEW)
+        requests = _lm_requests(cfg.vocab_size, 16, cfg.max_position)
+        want = _generate(engine, requests)
+        sleeps, failed = [], []
+        with Client(engine, BatcherConfig(max_batch=LM_TIER, max_in_flight=2,
+                                          max_queue=64)) as c:
+            c.batcher.fault_injector = FaultInjector(
+                FaultPlan.from_file(work / "faults.json"),
+                sleep=lambda s: (sleeps.append(s), time.sleep(s)))
+            fail = c.batcher._fail_slots
+
+            def recording(tags, exc):
+                failed.append(len(tags))
+                fail(tags, exc)
+
+            c.batcher._fail_slots = recording
+            futs = [(r["id"], c.submit(_payload(r))) for r in requests]
+            got, errors = {}, {}
+            for i, f in futs:
+                try:
+                    got[i] = f.result(timeout=300)["tokens"]
+                except InjectedFault as e:
+                    errors[i] = e
+            failed_by_batcher = c.batcher.metrics.rejected_by_cause.snapshot()
+        # The failed step's occupants, less any that finished on an earlier
+        # step while it was planned: the batcher counts the ones it failed.
+        check(sleeps == [0.05] and len(failed) == 1 and 1 <= len(errors) <= failed[0]
+              and failed_by_batcher == {"engine_failure": len(errors)},
+              f"in-process: sleeps {sleeps}, failed steps {failed}, errors {sorted(errors)}, "
+              f"batcher {failed_by_batcher}")
+        differ = [i for i in got if got[i] != want[i]]
+        check(not differ and len(got) + len(errors) == 16,
+              f"in-process fp32 streams differ from the direct driver's: {differ}")
+        del engine
+        torch.cuda.empty_cache()
+        in_process = {"failed_requests": len(errors), "equal_streams": len(got)}
+
+        proc, base, t_spawn = servers["faults"]
+        ready_s = _await_serve_cli(proc, base, t_spawn, work / "serve_faults.log")
+        replies, burst_s = _post_generates(base, requests)
+        _stop(proc)  # its dump is on disk once it has ended
+        bad = {i: rep for i, rep in replies.items() if rep[0] != 200}
+        check(1 <= len(bad) <= LM_SLOTS and all(
+            code == 500 and "dispatch_error" in body.get("error", "")
+            for code, body in bad.values()), f"cli.serve failed requests: {bad}")
+        short = [r["id"] for r in requests if r["id"] not in bad
+                 and replies[r["id"]][1]["n_tokens"] != r["budget"]]
+        check(not short and len(replies) == 16, f"cli.serve: n_tokens off budget for {short}")
+        dumps = sorted((work / "dumps_faults").glob("flightrec-*.json"))
+        faults = [e["fault"] for d in dumps for e in json.loads(d.read_text())["events"]
+                  if e["kind"] == "fault_injected"]
+        check("dispatch_error" in faults, f"cli.serve dumps {dumps}: faults {faults}")
+
+        proc, base, t_spawn = servers["kill"]
+        _await_serve_cli(proc, base, t_spawn, work / "serve_kill.log")
+        t1 = time.monotonic()
+        _post_generates(base, requests[:4])
+        code = proc.wait(timeout=120)
+        kill_s = time.monotonic() - t1
+    finally:
+        for proc, _, _ in servers.values():
+            _stop(proc)
+    dumps = sorted((work / "dumps_kill").glob("flightrec-*.json"))
+    check(code == -9 and len(dumps) == 1
+          and json.loads(dumps[0].read_text())["reason"] == "replica_kill",
+          f"replica_kill: exit {code}, dumps {dumps}")
+    out = {"phase": "serve_lm_faults", "in_process_fp32": in_process,
+           "cli_failed_requests": len(bad), "cli": {"ready_s": ready_s, "burst_s": burst_s},
+           "replica_kill_exit": code, "replica_kill_seconds": kill_s,
+           "seconds": time.monotonic() - t0}
+    emit(out)
+    return out
+
+
 def _step_record(rows: list, counts: list, field: str) -> dict:
     """One kernel's times per ResNet-50 training step: each shape's row
     (``rows``, one per shape) weighted by its launches per step
@@ -3251,18 +3973,26 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     t_start = time.monotonic()
-    try:
-        occupancy, ptxas = phase_build(fm, pc, fcb)
+    seconds = {}  # each phase's wall seconds, in the order run
+
+    def timed(name, fn, *args, **kwargs):
         t_phase = time.monotonic()
-        cache, feed_rows = phase_feed_native(torch)
-        seconds = {"feed_native": time.monotonic() - t_phase}
-        fwd_row, fwd_err = phase_kernel(fm, torch)
-        bwd_row, bwd_err = phase_kernel_bwd(fm, pwb, torch)
-        pw_rows = phase_kernel_conv1x1(pc, pwb, torch, r50, n64)
-        wgrad_rows = phase_kernel_wgrad(pc, pwb, torch,
-                                        list(dict.fromkeys([*r50, *n64, *bench_shapes])))
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds[name] = time.monotonic() - t_phase
+
+    try:
+        occupancy, ptxas = timed("build", phase_build, fm, pc, fcb)
+        cache, feed_rows = timed("feed_native", phase_feed_native, torch)
+        fwd_row, fwd_err = timed("kernel", phase_kernel, fm, torch)
+        bwd_row, bwd_err = timed("kernel_bwd", phase_kernel_bwd, fm, pwb, torch)
+        pw_rows = timed("kernel_conv1x1", phase_kernel_conv1x1, pc, pwb, torch, r50, n64)
+        wgrad_rows = timed("kernel_wgrad", phase_kernel_wgrad, pc, pwb, torch,
+                           list(dict.fromkeys([*r50, *n64, *bench_shapes])))
         bf16, f32 = torch.bfloat16, torch.float32
         both = (True, False)
+        t_phase = time.monotonic()
         bn_rows = phase_kernel_bn_bwd(
             fcb, pc, pwb, torch, [(m, k, n, bf16, both, True) for m, k, n in r50]
             + [(25091, 1024, 256, bf16, both, True), (6275, 512, 256, f32, both, True)]
@@ -3278,60 +4008,55 @@ def main() -> int:
                                                   for m, k, n in pwb.BN_RISK_SHAPES
                                                   for dt in (bf16, f32)], "risk")
         phase_kernel_bn_dz(fcb, torch)
+        seconds["kernel_bn_bwd"] = time.monotonic() - t_phase
         torch.cuda.empty_cache()
-        bench_launches, bench_rows = phase_pw_bench(torch)
-        phase_serve(fm, torch)
+        bench_launches, bench_rows = timed("pw_bench", phase_pw_bench, torch)
+        timed("serve", phase_serve, fm, torch)
         torch.cuda.empty_cache()
-        t_phase = time.monotonic()
-        int8_launches = phase_serve_bert_int8(fm, torch)
-        seconds["serve_bert_int8"] = time.monotonic() - t_phase
+        int8_launches = timed("serve_bert_int8", phase_serve_bert_int8, fm, torch)
         torch.cuda.empty_cache()
-        launches = phase_train(fm, torch)
+        launches = timed("train", phase_train, fm, torch)
         torch.cuda.empty_cache()
-        image_launches, image_results = phase_train_resnet50(pc, fcb, torch)
+        image_launches, image_results = timed("train_resnet50", phase_train_resnet50,
+                                              pc, fcb, torch)
         torch.cuda.empty_cache()
-        t_phase = time.monotonic()
-        native_launches = phase_train_fused_native(pc, fcb, torch, cache)
-        seconds["train_fused_native"] = time.monotonic() - t_phase
+        native_launches = timed("train_fused_native", phase_train_fused_native,
+                                pc, fcb, torch, cache)
         torch.cuda.empty_cache()
-        inception_launches, _ = phase_train_inception(fcb, pc, torch, inception)
+        inception_launches, _ = timed("train_inception", phase_train_inception,
+                                      fcb, pc, torch, inception)
         torch.cuda.empty_cache()
-        phase_train_cli(torch)
-        t_phase = time.monotonic()
-        lm_ckpt = phase_train_cli_lm(torch)
-        seconds["train_cli_lm"] = time.monotonic() - t_phase
-        t_phase = time.monotonic()
-        phase_serve_lm(torch, lm_ckpt)
-        seconds["serve_lm"] = time.monotonic() - t_phase
+        # Four CLI runs whose checks need no quiet card (no phase of
+        # theirs times anything that PERF.md reports): at once.
+        timed("train_cli_group", concurrently, (phase_train_cli, torch),
+              (phase_train_cli_image, torch), (phase_train_cli_inception, torch),
+              (phase_train_cli_bert_corpus, torch))
         torch.cuda.empty_cache()
-        t_phase = time.monotonic()
-        phase_serve_lm_batcher(torch, lm_ckpt)
-        seconds["serve_lm_batcher"] = time.monotonic() - t_phase
+        lm_ckpt = timed("train_cli_lm", phase_train_cli_lm, torch)
+        timed("serve_lm", phase_serve_lm, torch, lm_ckpt)
         torch.cuda.empty_cache()
-        phase_train_cli_image(torch)
-        t_phase = time.monotonic()
-        phase_serve_image(torch)
-        seconds["serve_image"] = time.monotonic() - t_phase
+        timed("serve_lm_batcher", phase_serve_lm_batcher, torch, lm_ckpt)
         torch.cuda.empty_cache()
-        phase_train_cli_inception(torch)
+        timed("serve_image", phase_serve_image, torch)
         torch.cuda.empty_cache()
-        t_phase = time.monotonic()
-        cli_real = phase_train_cli_imagenet_real(torch, cache)
-        seconds["train_cli_imagenet_real"] = time.monotonic() - t_phase
-        t_phase = time.monotonic()
-        phase_train_cli_bert_corpus(torch)
-        seconds["train_cli_bert_corpus"] = time.monotonic() - t_phase
-        dp_world1 = phase_train_cli_dp(torch)
-        dp_ranks = phase_train_dp_resnet50(torch)
+        cli_real = timed("train_cli_imagenet_real", phase_train_cli_imagenet_real, torch, cache)
+        dp_world1 = timed("train_cli_dp", phase_train_cli_dp, torch)
+        dp_ranks = timed("train_dp_resnet50", phase_train_dp_resnet50, torch)
+        torch.cuda.empty_cache()
+        resilient = timed("train_resilient_fused", phase_train_resilient_fused, torch)
+        chaos = timed("train_chaos", phase_train_chaos, torch,
+                      resilient["ckpt"]["write_ms"] / 1e3)
+        timed("train_cli_resilient", phase_train_cli_resilient, torch)
+        timed("serve_lm_faults", phase_serve_lm_faults, torch, lm_ckpt)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    print(f"chip_smoke: all phases passed in {time.monotonic() - t_start:.1f} s",
-          file=sys.stderr)
+    total_s = time.monotonic() - t_start
+    print(f"chip_smoke: all phases passed in {total_s:.1f} s", file=sys.stderr)
     # The feed against the ResNet-50 `fused` step of this run: the cores
     # the host pipeline needs to keep up with it.
     fused_img_s = image_results["fused"]["images_per_s"]
-    emit({"phase": "feed_summary", "phase_seconds": seconds,
+    emit({"phase": "feed_summary", "phase_seconds": seconds, "total_seconds": total_s,
           "resnet50_fused_images_per_s": fused_img_s,
           "cores_needed_for_resnet50_fused": {
               f"{r['mode']}_{r['threads']}_threads": fused_img_s / r["img_per_s_per_core"]
@@ -3406,6 +4131,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"][part] for r in bn_rows.values()),
             **_step_record(sel, units, f"{part}_"), "library_ms": None, "cell": cell,
             "native_feed_launches": native_launches[name],
+            "resilient_launches": {"train_resilient_fused": resilient["launches"][name],
+                                   "train_chaos_survivor": chaos["survivor_launches"][name]},
             "dp_launches": {"world1_nccl": dp_world1["launches"][name],
                             **{f"world2_gloo_rank{r['rank']}": r["launches"][name]
                                for r in dp_ranks}},

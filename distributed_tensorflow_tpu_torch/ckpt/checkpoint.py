@@ -101,16 +101,24 @@ class Checkpointer:
         ckpt.close()
     """
 
-    def __init__(self, directory: str | Path, *, max_to_keep: int = 3):
+    def __init__(self, directory: str | Path, *, max_to_keep: int = 3, fault_injector=None):
         self.directory = Path(directory).absolute()
         self.max_to_keep = max_to_keep
+        self._injector = fault_injector
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
 
     def save(self, step: int, state, *, generator: torch.Generator | None = None) -> None:
         """Save ``state`` (a :class:`~..train.state.TrainState`) as ``step``,
         with ``generator``'s state when one is given. Only rank 0 writes;
-        every rank returns after rank 0 has taken its snapshot."""
+        every rank returns after rank 0 has taken its snapshot.
+
+        ``fault_injector`` (:mod:`..train.faultinject`) may raise a
+        scheduled ``ckpt_write_error`` here, first thing: every rank holds
+        the same plan, so every rank raises at the same step and none waits
+        at the barrier alone."""
+        if self._injector is not None:
+            self._injector.check_ckpt_save(step)
         if process_index() != 0:
             barrier()
             return

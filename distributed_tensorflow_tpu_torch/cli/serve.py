@@ -16,9 +16,11 @@ from the checkpoint's running statistics) and ``lm_base`` (``POST
 with the decode flags ``--slots --max-new-tokens --prefix-cache-mb
 --block-tokens --prefill-chunk --spec-tokens --spec-min-match
 --spec-backoff --kv-dtype --flush-admission --sched --preempt
---preempt-margin-ms --default-priority``). The fleet-serving flags
-(``--disagg-role --kv-transfer-budget-mb --stream-migrate --fault-plan
---fault-steps``) are refused until Queue A item 7 of ROADMAP.md.
+--preempt-margin-ms --default-priority``) and serving fault injection
+(``--fault-plan``, placed within ``--fault-steps`` decode steps; its
+events fire in the continuous batcher's decode loop). The fleet-serving
+flags (``--disagg-role --kv-transfer-budget-mb --stream-migrate``) are
+refused until Queue A item 7 of ROADMAP.md.
 
 ``--selftest N`` runs N synthetic requests through the in-process
 :class:`Client` instead of binding a port and prints the metrics snapshot.
@@ -70,12 +72,9 @@ PRESETS = {
 }
 
 # Fleet-serving flags of the JAX CLI (disaggregated roles, stream
-# migration, serving fault injection): refused here until they are ported.
+# migration): refused here until they are ported.
 _FLEET = "fleet serving is not ported to PyTorch yet (Queue A item 7 of ROADMAP.md)"
-_FLEET_FLAGS = {
-    "disagg_role": "", "kv_transfer_budget_mb": 64.0, "stream_migrate": False,
-    "fault_plan": "", "fault_steps": 1000,
-}
+_FLEET_FLAGS = {"disagg_role": "", "kv_transfer_budget_mb": 64.0, "stream_migrate": False}
 
 
 def _overridden(kwargs: dict, args) -> dict:
@@ -229,6 +228,13 @@ def build_serving_client(preset: ServePreset, args):
         warmup_ready_fraction=args.warmup_ready_fraction,
         tag=args.tag or f"ckpt-{step}",
     )
+    if args.fault_plan:
+        from distributed_tensorflow_tpu_torch.serve.faultinject import FaultInjector, FaultPlan
+
+        plan = FaultPlan.parse(args.fault_plan, num_steps=args.fault_steps)
+        client.batcher.fault_injector = FaultInjector(plan, recorder=client.recorder)
+        logger.info("serving fault plan armed: %d scheduled events (seed %s)",
+                    len(plan.events), plan.seed)
     return client, make_payload
 
 
@@ -355,6 +361,14 @@ def make_parser() -> argparse.ArgumentParser:
                         "the grid is warm")
     p.add_argument("--selftest", type=int, default=0,
                    help="serve N synthetic requests in-process and exit")
+    p.add_argument("--fault-plan", default="",
+                   help="serving fault-injection plan (drills): 'seed=..,dispatch_error=N,"
+                        "slow_decode_step=N,replica_kill=N,slow_step_s=S' or a FaultPlan "
+                        "JSON path; its events fire in the continuous batcher's decode loop "
+                        "(lm_base only)")
+    p.add_argument("--fault-steps", type=int, default=1000,
+                   help="decode-step horizon --fault-plan events are placed within when the "
+                        "spec is key=value form")
     for name, default in _FLEET_FLAGS.items():
         flag = "--" + name.replace("_", "-")
         if isinstance(default, bool):
@@ -380,6 +394,9 @@ def main(argv: list[str] | None = None):
     if args.weight_dtype and PRESETS[args.config].image_factory:
         parser.error("--weight-dtype is not supported for image serving (the "
                      "classifier forward has no dequantize step)")
+    if args.fault_plan and PRESETS[args.config].causal_kwargs is None:
+        parser.error("--fault-plan only applies to causal-LM decode serving (its hooks "
+                     "sit in the continuous batcher's decode loop)")
     if args.kv_dtype and PRESETS[args.config].causal_kwargs is None:
         parser.error("--kv-dtype only applies to causal-LM decode serving "
                      "(nothing else owns a KV cache)")

@@ -35,6 +35,16 @@ metrics, ``--trace-dir`` the host span trace (``train_trace.json``), and
 ``--profile-dir`` (``--profile-steps N``: the first N steps only) a
 ``torch.profiler`` Chrome trace with the card's kernels.
 
+Resilience: ``--resilient`` (``--max-restarts N``) runs the loop under
+:func:`..train.resilience.run_resilient`: SIGTERM/SIGINT stop at the next
+step with a final synchronous checkpoint and exit 0, and transient feeder
+or checkpoint-IO failures restore the newest checkpoint and retry with
+backoff. ``--fault-plan`` arms seeded fault injection in the loop, the feed
+and the checkpointer; ``--nonfinite abort|skip`` is the NaN-loss policy;
+``--beacon-dir`` writes this rank's health beacon at the log cadence and at
+the end; ``--dump-dir`` arms the flight recorder, which an unhandled
+failure dumps.
+
 The other presets and the flags of the paths not ported yet are refused
 with a message naming the slice that brings them. The JAX CLI trains
 ResNet-50 and Inception-v3 with plain convolutions, so this one has no
@@ -540,8 +550,6 @@ _UNPORTED_FLAGS = {
                      "--moe-dispatch", "--moe-topk", "--pipeline-parallel",
                      "--pipeline-microbatches", "--expert-parallel"),
                     "comes with the model-parallel slice"),
-    **dict.fromkeys(("--resilient", "--max-restarts", "--fault-plan", "--nonfinite",
-                     "--beacon-dir", "--dump-dir"), "comes with the resilient-training slice"),
     "--rng-impl": "dropout draws from a torch.Generator seeded by --seed",
 }
 
@@ -586,13 +594,37 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
     step = make_train_step(pieces["loss_fn"], tx, mode=cfg.mode, staleness=staleness,
                            clip_norm=cfg.clip_norm, grad_accum=cfg.grad_accum)
     rng = make_rng(args.seed, device)
-    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+    # Flight recorder (--dump-dir): the resilience and fault-injection paths
+    # record their events here and an unhandled failure dumps the ring.
+    # Built before the checkpointer and the feed, which carry the injector.
+    recorder = None
+    if args.dump_dir:
+        from distributed_tensorflow_tpu_torch.obs.flightrec import FlightRecorder
+        from distributed_tensorflow_tpu_torch.obs.memory import default_registry
+
+        recorder = FlightRecorder(dump_dir=args.dump_dir)
+        recorder.attach(memz_fn=default_registry().snapshot)
+    # Deterministic fault injection (--fault-plan): one seeded schedule for
+    # the loop, the feed stage and the checkpointer; every rank holds the
+    # same plan.
+    fault_injector = None
+    if args.fault_plan:
+        from distributed_tensorflow_tpu_torch.train.faultinject import FaultInjector, FaultPlan
+
+        plan = FaultPlan.parse(args.fault_plan, num_steps=cfg.num_steps)
+        fault_injector = FaultInjector(plan, recorder=recorder)
+        logger.info("fault plan armed: %d scheduled events", len(plan.events))
+    ckpt = (Checkpointer(args.ckpt_dir, fault_injector=fault_injector)
+            if args.ckpt_dir else None)
     start = 0
     if ckpt is not None:
         state, start = ckpt.restore_latest(state, generator=rng)
     feed_metrics = FeedMetrics()
     # Resume-correct stream: a restored run consumes batches N.., not 0..
-    batches = pieces["batches"](0 if cfg.device_pool > 0 else start)
+    # Resilient runs build one stream a segment through make_batches below.
+    batches = None
+    if not args.resilient:
+        batches = pieces["batches"](0 if cfg.device_pool > 0 else start)
     if cfg.device_pool > 0:
         # Device-resident pool: the first N batches on the card once, then
         # cycled, so the host leaves the hot loop. The step never writes
@@ -616,7 +648,9 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
     else:
         # Feed stage: assembly and the host->device copy run on a feeder
         # thread, cfg.prefetch batches ahead (0: synchronous, same metrics).
-        batches = prefetch(batches, cfg.prefetch, metrics=feed_metrics)
+        if not args.resilient:
+            batches = prefetch(batches, cfg.prefetch, metrics=feed_metrics,
+                               fault_injector=fault_injector)
 
     evaluate = None
     if args.eval_every:
@@ -633,9 +667,24 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
             metrics["lr"] = float(lr_schedule(step_ - 1))
 
     hook = make_metric_hook(logdir=args.tb_dir, jsonl=args.metrics_jsonl)
+    hooks = (lr_hook, hook)
+    # Fleet health beacon (--beacon-dir): the step timeline and straggler
+    # detector in one atomically replaced JSON file a rank, refreshed at the
+    # log cadence; aggregation is pull (obs/fleet.py read_beacons).
+    timeline = beacon = None
+    if args.beacon_dir:
+        from distributed_tensorflow_tpu_torch.obs.fleet import HostBeacon, StepTimeline
+
+        timeline = StepTimeline()
+        beacon = HostBeacon(
+            args.beacon_dir, process_index(), timeline,
+            extras=fault_injector.summary if fault_injector is not None else None)
+        hooks = (*hooks, lambda step_, state_, metrics_: beacon.write())
     # Host span trace (obs/trace.py), exported at the end of the run; the
     # device side is --profile-dir's torch.profiler trace.
     tracer = Tracer(buffer_size=args.trace_buffer) if args.trace_dir else None
+    if recorder is not None and tracer is not None:
+        recorder.attach(tracer_fn=tracer.summary)
     profile_cm = (trace_steps(args.profile_dir, num_steps=args.profile_steps or None,
                               device=device)
                   if args.profile_dir else contextlib.nullcontext())
@@ -650,21 +699,51 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
                     win.after_step(out)
                     return out
 
-            state, last = fit(
-                state, step_fn, batches,
+            common = dict(
                 num_steps=cfg.num_steps,
                 rng=rng,
                 log_every=cfg.log_every,
-                hooks=(lr_hook, hook),
+                hooks=hooks,
                 checkpointer=ckpt,
                 ckpt_every=args.ckpt_every,
                 evaluate=evaluate,
                 eval_every=args.eval_every,
                 feed_metrics=feed_metrics,
                 tracer=tracer,
+                timeline=timeline,
+                recorder=recorder,
+                nonfinite=args.nonfinite,
+                fault_injector=fault_injector,
             )
+            if args.resilient:
+                # SIGTERM/SIGINT -> final synchronous checkpoint and a clean
+                # exit; transient feeder/checkpoint-IO failures restore the
+                # newest checkpoint and re-enter the loop with backoff.
+                from distributed_tensorflow_tpu_torch.train.resilience import (
+                    ResilienceConfig,
+                    run_resilient,
+                )
+
+                def make_batches(start_step: int):
+                    return prefetch(pieces["batches"](start_step), cfg.prefetch,
+                                    metrics=feed_metrics, fault_injector=fault_injector)
+
+                report = run_resilient(
+                    state, step_fn, make_batches,
+                    config=ResilienceConfig(max_restarts=args.max_restarts), **common)
+                state, last = report.state, report.metrics
+                if report.preempted and process_index() == 0:
+                    logger.info("preempted at step %d after %d restart(s); checkpoint is "
+                                "durable", report.final_step, report.restarts)
+            else:
+                state, last = fit(state, step_fn, batches, **common)
         if ckpt is not None and ckpt.latest_step() != state.step:
             ckpt.save(state.step, state, generator=rng)
+    except Exception as e:
+        if recorder is not None:
+            recorder.record("engine_failure", error=type(e).__name__)
+            recorder.dump("train_failure", force=True)
+        raise
     finally:
         if ckpt is not None:
             ckpt.close()
@@ -673,6 +752,8 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
         close = getattr(batches, "close", None)
         if close is not None:
             close()
+        if beacon is not None:
+            beacon.write()  # the final state, even for runs shorter than log_every
         if tracer is not None and process_index() == 0:
             out = tracer.export(Path(args.trace_dir) / "train_trace.json")
             logger.info("wrote host span trace to %s", out)
@@ -760,6 +841,34 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-buffer", type=int, default=4096,
                    help="span ring-buffer size for --trace-dir (the export holds the most "
                         "recent N spans)")
+    p.add_argument("--beacon-dir", default="",
+                   help="shared directory for per-rank health beacons (host_<rank>.json, "
+                        "atomically replaced at the log cadence and at the end): step-time "
+                        "and host-wait windows and straggler anomalies, aggregated by "
+                        "obs.fleet.fleet_summary")
+    p.add_argument("--dump-dir", default="",
+                   help="flight-recorder dump directory: an unhandled training failure "
+                        "writes one timestamped JSON with the event ring and the memory "
+                        "and tracer digests (empty = disabled)")
+    p.add_argument("--resilient", action="store_true",
+                   help="preemption-safe supervised training: SIGTERM/SIGINT writes a "
+                        "final synchronous checkpoint and exits cleanly; transient "
+                        "feeder/checkpoint-IO failures restore the newest checkpoint and "
+                        "retry with capped exponential backoff; a non-finite loss and "
+                        "shape errors stay fatal")
+    p.add_argument("--max-restarts", type=int, default=3,
+                   help="consecutive no-progress restart budget for --resilient (a "
+                        "restart that resumes from a newer checkpoint resets the count)")
+    p.add_argument("--fault-plan", default="",
+                   help="deterministic fault injection: a seeded spec like "
+                        "'seed=7,feeder_error=2,ckpt_write_error=1,slow_step=1,"
+                        "slow_step_s=0.1' or a path to a JSON plan; events fire in the "
+                        "train loop, the feed stage and the checkpointer, and are recorded "
+                        "to the flight recorder and the beacon")
+    p.add_argument("--nonfinite", default="abort", choices=["abort", "skip"],
+                   help="NaN/Inf step-loss policy, checked at the log cadence: abort "
+                        "(default) raises NonFiniteLossError (a flight-recorder event and a "
+                        "forced dump with --dump-dir); skip records the event and trains on")
     p.add_argument("--seed", type=int, default=0, help="seed of the run's dropout generator")
     return p
 
@@ -784,6 +893,9 @@ def main(argv: list[str] | None = None) -> int:
         parser.error("--profile-steps requires --profile-dir")
     if args.device_pool < 0:
         parser.error("--device-pool must be >= 0")
+    if args.resilient and args.device_pool > 0:
+        parser.error("--resilient does not compose with --device-pool (the pool is rebuilt "
+                     "per restart and would replay positions 0..N-1)")
     if args.tb_dir and importlib.util.find_spec("tensorboard") is None:
         parser.error("--tb-dir: the tensorboard package is not installed here "
                      "(--metrics-jsonl writes the same records without it)")

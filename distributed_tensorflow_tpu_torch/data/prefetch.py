@@ -69,11 +69,13 @@ class PrefetchIterator:
         *,
         metrics: FeedMetrics | None = None,
         name: str = "feed-prefetch",
+        fault_injector=None,
     ):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self.metrics = metrics if metrics is not None else FeedMetrics()
         self.depth = depth
+        self._injector = fault_injector
         self._source = source
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
@@ -93,7 +95,14 @@ class PrefetchIterator:
         m = self.metrics
         try:
             it = iter(self._source)
+            index = 0
             while not self._stop.is_set():
+                if self._injector is not None:
+                    # Injected feeder fault (train/faultinject.py): raised
+                    # HERE on the feeder thread so it reaches the consumer
+                    # through the real _ERROR channel below.
+                    self._injector.check_feeder(index)
+                index += 1
                 t0 = time.perf_counter()
                 try:
                     item = next(it)
@@ -197,9 +206,12 @@ class _SyncFeed:
         source: Iterable,
         *,
         metrics: FeedMetrics | None = None,
+        fault_injector=None,
     ):
         self.metrics = metrics if metrics is not None else FeedMetrics()
         self.depth = 0
+        self._injector = fault_injector
+        self._index = 0
         self._source = source
         self._it = iter(source)
 
@@ -207,6 +219,9 @@ class _SyncFeed:
         return self
 
     def __next__(self):
+        if self._injector is not None:
+            self._injector.check_feeder(self._index)
+        self._index += 1
         t0 = time.perf_counter()
         item = next(self._it)
         self.metrics.assembly.observe(time.perf_counter() - t0)
@@ -224,6 +239,7 @@ def prefetch(
     depth: int = 2,
     *,
     metrics: FeedMetrics | None = None,
+    fault_injector=None,
 ) -> PrefetchIterator | _SyncFeed:
     """Wrap a batch producer with ``depth`` batches of background prefetch.
 
@@ -233,7 +249,14 @@ def prefetch(
     need no branching. Default depth 2: one batch in host→device flight
     while the next assembles — deeper queues only buy slack against
     assembly-time jitter, at ``depth`` batches of extra host RAM.
+
+    ``fault_injector`` (:mod:`..train.faultinject`) is consulted before each
+    produced batch: a scheduled ``feeder_error`` fires inside the feed stage
+    exactly where a real producer failure would, on either path. Event
+    indices count the batches of THIS wrapper from 0 (a resumed run's new
+    wrapper counts from 0 again, which is what lets a replayed position
+    proceed after a restart).
     """
     if depth <= 0:
-        return _SyncFeed(source, metrics=metrics)
-    return PrefetchIterator(source, depth, metrics=metrics)
+        return _SyncFeed(source, metrics=metrics, fault_injector=fault_injector)
+    return PrefetchIterator(source, depth, metrics=metrics, fault_injector=fault_injector)

@@ -1,5 +1,6 @@
 """Observability for the port: serving and feed metrics, SLOs, health,
-tracing, profiling, the flight recorder, device-memory accounting and the
+tracing, profiling, the flight recorder, fleet health (step timelines,
+straggler detection, host beacons), device-memory accounting and the
 opt-in lock-order and race sanitizers the concurrency soaks run under."""
 
 from distributed_tensorflow_tpu_torch.obs.export import (  # noqa: F401
@@ -9,6 +10,14 @@ from distributed_tensorflow_tpu_torch.obs.export import (  # noqa: F401
 from distributed_tensorflow_tpu_torch.obs.flightrec import (  # noqa: F401
     NULL_RECORDER,
     FlightRecorder,
+)
+from distributed_tensorflow_tpu_torch.obs.fleet import (  # noqa: F401
+    HostBeacon,
+    StepTimeline,
+    StragglerDetector,
+    detect_fleet_stragglers,
+    fleet_summary,
+    read_beacons,
 )
 from distributed_tensorflow_tpu_torch.obs.health import (  # noqa: F401
     HealthTracker,

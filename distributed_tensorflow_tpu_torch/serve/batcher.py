@@ -31,10 +31,12 @@ with admission between decode steps (or flush admission, the static
 baseline), the prefix-cache trie, chunked prefill, n-gram speculation,
 EDF admission and slot preemption.
 
-Port of the JAX package's ``serve/batcher.py``. Left for fleet serving
-(ROADMAP.md Queue A item 7): KV-chain adoption, live stream export and
-adoption (``adopt_chain``, ``adopt_stream`` and ``export_streams`` raise
-``NotImplementedError``) and the serving fault injector.
+Port of the JAX package's ``serve/batcher.py``, with the serving fault
+injector's decode-step hook (``ContinuousBatcher.fault_injector``, a
+:class:`~distributed_tensorflow_tpu_torch.serve.faultinject.FaultInjector`).
+Left for fleet serving (ROADMAP.md Queue A item 7): KV-chain adoption and
+live stream export and adoption (``adopt_chain``, ``adopt_stream`` and
+``export_streams`` raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -839,6 +841,10 @@ class ContinuousBatcher:
         self._gens = itertools.count(1)
         self._cv = threading.Condition()
         self._queue: deque[_Pending] = deque()
+        # Serving-side fault injection (serve/faultinject.py): hooks fire
+        # on the decode-step dispatch clock. None = no chaos.
+        self.fault_injector = None
+        self._dispatched_steps = 0
         # Priority scheduling state (all under _cv): per-class queued
         # counts backing the serve_sched_queue_depth gauge, plus lifetime
         # park / resume / aborted-park totals for status()["sched"].
@@ -1748,6 +1754,18 @@ class ContinuousBatcher:
                     )
             if step:
                 lengths, active, temps, seeds, tags = step
+                inj = self.fault_injector
+                if inj is not None:
+                    # Chaos hooks fire on the decode-step DISPATCH clock:
+                    # slow_decode_step sleeps here, replica_kill dumps and
+                    # SIGKILLs, dispatch_error raises and exactly this
+                    # step's slots fail like a real engine blow-up.
+                    self._dispatched_steps += 1
+                    try:
+                        inj.on_decode_step(self._dispatched_steps)
+                    except Exception as e:  # noqa: BLE001 — injected: fail the step's slots
+                        self._fail_slots(tags, e)
+                        continue
                 self._inflight_sem.acquire()
                 try:
                     handle = engine.decode(lengths, active, temps, seeds)

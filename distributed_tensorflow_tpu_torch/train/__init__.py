@@ -1,8 +1,8 @@
 """Training engine of the port: the train step and the training loop.
 
 Port of the JAX package's ``train`` package for synchronous and K-stale
-data parallelism. Fault injection and resilient (supervised) training come
-with a later slice.
+data parallelism, with deterministic fault injection (:mod:`.faultinject`)
+and resilient, preemption-safe training (:mod:`.resilience`).
 """
 
 from distributed_tensorflow_tpu_torch.train.state import (  # noqa: F401
@@ -18,3 +18,14 @@ from distributed_tensorflow_tpu_torch.train.step import (  # noqa: F401
     make_train_step,
 )
 from distributed_tensorflow_tpu_torch.train.loop import NonFiniteLossError, fit  # noqa: F401
+from distributed_tensorflow_tpu_torch.train.faultinject import (  # noqa: F401
+    FaultEvent,
+    FaultInjector,
+    FaultPlan,
+    InjectedFault,
+)
+from distributed_tensorflow_tpu_torch.train.resilience import (  # noqa: F401
+    ResilienceConfig,
+    ResilienceReport,
+    run_resilient,
+)

@@ -96,22 +96,28 @@ def fit(
     (default the process-wide registry) receives the ``params`` and
     ``grad_ring`` byte counts at loop entry and ``opt_state`` after the
     first step (torch's optimizers create their slots at the first update).
-    ``recorder`` receives ``nonfinite_loss`` events.
+    ``recorder`` receives the loop's failure-path events
+    (``nonfinite_loss``); ``fault_injector`` (:mod:`.faultinject`) is
+    consulted once per step before dispatch: a ``slow_step`` sleeps there,
+    a ``host_drop`` dumps the recorder and kills the process, and a
+    ``nonfinite_loss`` poisons the FETCHED loss at the next log cadence
+    (the state is untouched), so the guard below runs on the real signal
+    path.
+
+    ``timeline`` (:class:`~..obs.fleet.StepTimeline`) records every step's
+    whole-iteration wall time (eval and checkpoint saves included), its
+    pull-ahead ``next(it)`` wait and its dispatch time, and runs the
+    in-line straggler detector: the per-host view the fleet beacons
+    publish. ``None`` records nothing; ``scripts/torch_timeline_cost.py``
+    measures what a timeline costs a training step.
 
     ``nonfinite`` is the NaN/Inf-loss policy, checked at the log cadence
     (no extra device syncs; up to ``log_every - 1`` poisoned steps can run
     before detection): ``"abort"`` raises :class:`NonFiniteLossError`,
     ``"skip"`` records the event and trains on. ``should_stop`` is polled
-    once per step; True ends the loop cleanly with the current state.
-
-    ``timeline`` (fleet step timelines) and ``fault_injector`` come with the
-    resilient-training slice and raise ``NotImplementedError`` here.
+    once per step; True ends the loop cleanly with the current state (the
+    preemption path: :mod:`.resilience` wires its SIGTERM/SIGINT flag here).
     """
-    if timeline is not None or fault_injector is not None:
-        raise NotImplementedError(
-            "fit(timeline=..., fault_injector=...): fleet timelines and fault "
-            "injection are ported with the resilient-training slice"
-        )
     if tracer is None:
         tracer = NULL_TRACER
     if recorder is None:
@@ -134,6 +140,7 @@ def fit(
     start_step = int(state.step)
     if start_step >= num_steps:
         return state, None  # restored at (or past) the final step
+    poison_step = None  # injected nonfinite_loss pending detection
     t0 = time.perf_counter()  # run origin (only used if the run is 1 step)
     t_steady = None           # reset after the first step: excludes warm-up
     t_fetch = time.perf_counter()
@@ -144,8 +151,16 @@ def fit(
         if should_stop is not None and should_stop():
             logger.info("stop requested before step %d; leaving the loop", step)
             break
+        poison = fault_injector.on_step(step) if fault_injector is not None else False
+        t_iter = time.perf_counter()
+        wait_s = 0.0
         with tracer.span("dispatch", "train", step=step):
             state, metrics = train_step(state, batch, rng)
+        if poison and poison_step is None:
+            # Injected nonfinite_loss: the FETCHED loss is poisoned at the
+            # next log cadence, where the guard runs; the state is not.
+            poison_step = step + 1
+        dispatch_s = time.perf_counter() - t_iter
         if t_steady is None:
             t_steady = time.perf_counter()
             memory.register_tree("opt_state", state.opt_state.slots())
@@ -154,7 +169,8 @@ def fit(
             t_fetch = time.perf_counter()
             with tracer.span("host_wait", "train", step=step + 1):
                 batch = next(it)
-            feed_metrics.observe_wait(time.perf_counter() - t_fetch)
+            wait_s = time.perf_counter() - t_fetch
+            feed_metrics.observe_wait(wait_s)
         if log_every and ((step + 1) % log_every == 0 or step + 1 == num_steps):
             # The one point the loop waits for the card: a single copy of
             # every metric.
@@ -163,6 +179,9 @@ def fit(
                 host = torch.stack([metrics[k].float().reshape(()) for k in keys]).cpu()
             with tracer.span("metrics_fetch", "train", step=step + 1):
                 fetched = dict(zip(keys, host.tolist()))
+            if poison_step is not None and "loss" in fetched:
+                fetched["loss"] = float("nan")
+                poison_step = None
             loss = fetched.get("loss")
             if loss is not None and not math.isfinite(loss):
                 recorder.record(
@@ -206,6 +225,12 @@ def fit(
         if checkpointer is not None and ckpt_every and (step + 1) % ckpt_every == 0:
             with tracer.span("checkpoint_save", "train", step=step + 1):
                 checkpointer.save(step + 1, state, generator=rng)
+        if timeline is not None:
+            # Whole-iteration wall time: a step slowed by eval or a save IS
+            # slow to the fleet; the detector's trailing median keeps such
+            # periodic spikes out of the baseline.
+            timeline.record_step(step + 1, time.perf_counter() - t_iter,
+                                 host_wait_s=wait_s, dispatch_s=dispatch_s)
     if checkpointer is not None:
         checkpointer.wait()
     barrier()

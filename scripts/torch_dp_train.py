@@ -38,6 +38,17 @@ BatchNorm statistics after steps 1 and 2 to ``DIR/dp_step{1,2}.pt``. cuDNN
 picks deterministic algorithms only and no product runs in TF32
 (:func:`numerics`), so another process can repeat a rank's step bit for
 bit. Needs a card.
+
+``--chaos DIR`` runs the chaos rehearsal instead: each process trains
+alone (no process group: ``--rank`` is its host id; the processes share
+only ``DIR``), ``--steps`` steps of ``--rows`` rows of a seeded synthetic
+stream (:func:`chaos_batches`), each step padded by ``--pad-s`` seconds of
+sleep, through ``fit`` with the flight recorder (``DIR/dumps_<rank>``), a
+fault injector, checkpoints every ``CHAOS_CKPT_EVERY`` steps into
+``DIR/ckpt_<rank>`` and a health beacon in ``DIR/beacons``. Rank 0's plan
+holds ``slow_step`` at 5 and ``host_drop`` at ``CHAOS_HOST_DROP_AT``: it
+dumps its recorder and dies by SIGKILL. A survivor prints one JSON line with its
+step, newest checkpoint, losses and kernel launches.
 """
 
 from __future__ import annotations
@@ -81,6 +92,8 @@ from distributed_tensorflow_tpu_torch.train.objectives import (  # noqa: E402
 
 SEED = 0
 HW = 224
+CHAOS_CKPT_EVERY = 4  # --chaos: the checkpoint cadence
+CHAOS_HOST_DROP_AT = 11  # --chaos: the step rank 0 is killed at
 
 
 def recipe():
@@ -148,12 +161,68 @@ def allreduce_ms(params: dict, world: int, iters: int = 5) -> tuple[float, bool]
     return statistics.median(times), torch.allclose(flat, want, rtol=1e-6, atol=0.0)
 
 
+def chaos_batches(rows: int, device, start_step: int = 0):
+    """The chaos rehearsal's stream: ``rows`` rows a step of a seeded
+    synthetic set, resumable at ``start_step``."""
+    data = synthetic_image_classification(4 * rows, (HW, HW, 3), 1000, seed=SEED)
+    return device_batches(data, rows, device=device, seed=1, start_step=start_step)
+
+
+def chaos(args) -> dict:
+    """One host of the chaos rehearsal (see the module docstring)."""
+    from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
+    from distributed_tensorflow_tpu_torch.data.prefetch import prefetch
+    from distributed_tensorflow_tpu_torch.obs.fleet import HostBeacon, StepTimeline
+    from distributed_tensorflow_tpu_torch.obs.flightrec import FlightRecorder
+    from distributed_tensorflow_tpu_torch.train import FaultEvent, FaultInjector, FaultPlan
+
+    work = Path(args.chaos)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    model, state, tx = build(device)
+    step = make_train_step(make_classification_loss(model), tx)
+    recorder = FlightRecorder(dump_dir=work / f"dumps_{args.rank}")
+    plan = FaultPlan((FaultEvent("slow_step", 5, duration_s=0.05),
+                      FaultEvent("host_drop", CHAOS_HOST_DROP_AT)) if args.rank == 0 else ())
+    injector = FaultInjector(plan, recorder=recorder)
+    timeline = StepTimeline()
+    beacon = HostBeacon(work / "beacons", args.rank, timeline, extras=injector.summary)
+    losses, marks = [], []
+
+    def padded(state_, batch_, rng_):
+        # Wall time a step, so the checkpoint writer finishes between steps.
+        time.sleep(args.pad_s)
+        return step(state_, batch_, rng_)
+
+    def hook(s, st, metrics):
+        losses.append(metrics["loss"])
+        marks.append(time.perf_counter())
+        beacon.write()
+
+    fcb.reset_launch_counts()
+    batches = prefetch(chaos_batches(args.rows, device), 2)
+    try:
+        with Checkpointer(work / f"ckpt_{args.rank}", fault_injector=injector) as ckpt:
+            fit(state, padded, batches, num_steps=args.steps, rng=make_rng(SEED, device),
+                log_every=1, hooks=(hook,), checkpointer=ckpt, ckpt_every=CHAOS_CKPT_EVERY,
+                timeline=timeline, recorder=recorder, fault_injector=injector)
+            latest = ckpt.latest_step()
+    finally:
+        batches.close()
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    return {"rank": args.rank, "step": state.step, "latest_ckpt": latest,
+            "last_step": timeline.last_step, "losses": losses, "launches": dict(fcb.LAUNCHES),
+            "step_ms_median": statistics.median(step_ms), "pad_s": args.pad_s}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--world", type=int, required=True)
     p.add_argument("--rank", type=int, required=True)
-    p.add_argument("--port", type=int, required=True)
-    p.add_argument("--backend", choices=["nccl", "gloo"], required=True)
+    p.add_argument("--port", type=int, default=0, help="the process group's port")
+    p.add_argument("--backend", choices=["nccl", "gloo"], default="nccl")
+    p.add_argument("--chaos", default="", help="run the chaos rehearsal in this directory")
+    p.add_argument("--pad-s", type=float, default=0.0, help="--chaos: sleep a step")
     p.add_argument("--mode", choices=["sync", "stale"], default="sync")
     p.add_argument("--staleness", type=int, default=0)
     p.add_argument("--steps", type=int, default=3)
@@ -161,10 +230,15 @@ def main(argv=None) -> int:
     p.add_argument("--rows", type=int, default=128, help="global batch")
     p.add_argument("--save", default="", help="rank 0 saves steps 1 and 2 here")
     args = p.parse_args(argv)
+    if not args.chaos and not args.port:
+        p.error("--port is required (the process group's port) unless --chaos")
     if not torch.cuda.is_available():
         print("torch_dp_train: needs a CUDA card", file=sys.stderr)
         return 1
     numerics()
+    if args.chaos:
+        print(json.dumps(chaos(args)), flush=True)
+        return 0
     device = initialize_runtime(f"127.0.0.1:{args.port}", args.world, args.rank,
                                 device="cuda", backend=args.backend, timeout_s=300)
     try:

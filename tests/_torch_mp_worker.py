@@ -16,7 +16,18 @@ torch, numpy and the port, and saves its results to
 - ``cli``: ``cli.train.main`` once for each argv of ``ARGV_JSON`` (a JSON
   list of lists), each as a new process group on the next port, and the
   final state of each run with the number of checkpoint files this rank
-  wrote.
+  wrote;
+- ``chaos``: LeNet trained 16 steps through ``fit`` with the flight
+  recorder, a fault injector, checkpoints every 4 steps into
+  ``OUT_DIR/ckpt_<RANK>`` and a health beacon into ``OUT_DIR/beacons``. The
+  two processes share NO process group: the beacons, checkpoints and dumps
+  are their only channels, so the survivor cannot hang in a collective.
+  Rank 0's plan holds ``slow_step`` at 5 and ``host_drop`` at 11: it dumps
+  its recorder into ``OUT_DIR/dumps_0`` and dies by SIGKILL mid-run; rank 1
+  runs fault-free to the end;
+- ``elastic``: LeNet trained 2 steps as two gloo ranks (16 rows each of a
+  global batch of 32), rank 0 checkpointing step 2 into
+  ``OUT_DIR/elastic_ckpt``.
 """
 
 from __future__ import annotations
@@ -168,14 +179,106 @@ def job_cli(rank: int, world: int, ports: list[int], argv) -> dict:
     return {"runs": runs}
 
 
+CHAOS_STEPS, CHAOS_CKPT_EVERY, CHAOS_ROWS = 16, 4, 32
+
+
+def lenet_run(global_batch: int = CHAOS_ROWS, grad_accum: int = 1):
+    """``(state, step, make_batches)``: seeded LeNet on the CPU with SGD 0.05
+    and momentum 0.9, over a seeded synthetic MNIST-shaped stream;
+    ``make_batches(start_step, injector=None)`` is the prefetched stream at
+    ``start_step`` (``run_resilient``'s contract)."""
+    from distributed_tensorflow_tpu_torch.data.loader import device_batches
+    from distributed_tensorflow_tpu_torch.data.prefetch import prefetch
+    from distributed_tensorflow_tpu_torch.data.synthetic import synthetic_image_classification
+    from distributed_tensorflow_tpu_torch.models import LeNet5
+    from distributed_tensorflow_tpu_torch.train import create_train_state, make_train_step
+    from distributed_tensorflow_tpu_torch.train.objectives import (
+        init_model,
+        make_classification_loss,
+    )
+    from distributed_tensorflow_tpu_torch.train.state import Transform
+
+    model = LeNet5(device="cpu")
+    params, model_state = init_model(model)
+    tx = Transform(lambda p: torch.optim.SGD(list(p.values()), lr=0.05, momentum=0.9),
+                   lambda count: 0.05)
+    state = create_train_state(params, tx, model_state)
+    step = make_train_step(make_classification_loss(model), tx, grad_accum=grad_accum)
+    ds = synthetic_image_classification(256, (28, 28, 1), 10, seed=0)
+
+    def make_batches(start_step: int, injector=None):
+        return prefetch(device_batches(ds, global_batch, device="cpu", seed=1,
+                                       start_step=start_step), 2, fault_injector=injector)
+
+    return state, step, make_batches
+
+
+def job_chaos(rank: int, world: int, ports: list[int], argv, out_dir: Path) -> dict:
+    import time
+
+    from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
+    from distributed_tensorflow_tpu_torch.obs.fleet import HostBeacon, StepTimeline
+    from distributed_tensorflow_tpu_torch.obs.flightrec import FlightRecorder
+    from distributed_tensorflow_tpu_torch.train import (
+        FaultEvent,
+        FaultInjector,
+        FaultPlan,
+        fit,
+    )
+
+    state, step, make_batches = lenet_run()
+    recorder = FlightRecorder(dump_dir=out_dir / f"dumps_{rank}")
+    plan = FaultPlan((FaultEvent("slow_step", 5, duration_s=0.05),
+                      FaultEvent("host_drop", 11)) if rank == 0 else ())
+    injector = FaultInjector(plan, recorder=recorder)
+    timeline = StepTimeline()
+    beacon = HostBeacon(out_dir / "beacons", rank, timeline, extras=injector.summary)
+
+    def padded_step(state_, batch_, rng_):
+        # Real wall time a step, so the checkpoint writer runs between steps
+        # and the beacons' wall times order cleanly.
+        time.sleep(0.12)
+        return step(state_, batch_, rng_)
+
+    with Checkpointer(out_dir / f"ckpt_{rank}", fault_injector=injector) as ckpt:
+        batches = make_batches(0)
+        try:
+            state, _ = fit(state, padded_step, batches, num_steps=CHAOS_STEPS,
+                           rng=torch.Generator().manual_seed(0), log_every=1,
+                           hooks=(lambda s, st, m: beacon.write(),), checkpointer=ckpt,
+                           ckpt_every=CHAOS_CKPT_EVERY, timeline=timeline,
+                           recorder=recorder, fault_injector=injector)
+        finally:
+            batches.close()
+        latest = ckpt.latest_step()
+    return {"step": state.step, "latest_ckpt": latest, "last_step": timeline.last_step}
+
+
+def job_elastic(rank: int, world: int, ports: list[int], argv, out_dir: Path) -> dict:
+    from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
+    from distributed_tensorflow_tpu_torch.train import fit
+
+    initialize_runtime(f"127.0.0.1:{ports[0]}", world, rank, device="cpu", timeout_s=60)
+    state, step, make_batches = lenet_run()
+    batches = make_batches(0)
+    with Checkpointer(out_dir / "elastic_ckpt") as ckpt:
+        state, _ = fit(state, step, batches, num_steps=2, rng=torch.Generator().manual_seed(0),
+                       log_every=0, checkpointer=ckpt, ckpt_every=2)
+    batches.close()
+    out = {"step": state.step, "params": _cpu(state.params)}
+    shutdown_runtime()
+    return out
+
+
 def main() -> int:
     job, rank, world, out_dir, ports = sys.argv[1:6]
     argv = json.loads(sys.argv[6]) if len(sys.argv) > 6 else None
     rank, world, out_dir = int(rank), int(world), Path(out_dir)
     ports = [int(p) for p in ports.split(",")]
     torch.set_num_threads(1)
-    if job == "dropout":
-        out = job_dropout(rank, world, ports, argv, out_dir)
+    if job in ("dropout", "chaos", "elastic"):
+        job_fn = {"dropout": job_dropout, "chaos": job_chaos, "elastic": job_elastic}[job]
+        out = job_fn(rank, world, ports, argv, out_dir)
     else:
         out = {"collectives": job_collectives, "cli": job_cli}[job](rank, world, ports, argv)
     torch.save(out, out_dir / f"{job}_rank{rank}.pt")

@@ -193,8 +193,24 @@ def test_fit_nonfinite_loss_guard(policy):
         assert state.step == 3
     events = [e["kind"] for e in recorder.events()]
     assert "nonfinite_loss" in events
-    with pytest.raises(NotImplementedError, match="resilient-training slice"):
-        fit(state, step, batches(0), num_steps=5, fault_injector=object())
+    # An injected nonfinite_loss reaches the same guard through the fetched
+    # loss, under the same policy, and leaves the state finite.
+    from distributed_tensorflow_tpu_torch.train import FaultEvent, FaultInjector, FaultPlan
+
+    injector = FaultInjector(FaultPlan((FaultEvent("nonfinite_loss", state.step),)),
+                             recorder=recorder)
+    start = state.step
+    if policy == "abort":
+        with pytest.raises(NonFiniteLossError, match=f"step {start + 1}"):
+            fit(state, step, batches(start), num_steps=start + 2, log_every=1,
+                fault_injector=injector, recorder=recorder)
+    else:
+        state, _ = fit(state, step, batches(start), num_steps=start + 2, log_every=1,
+                       nonfinite=policy, fault_injector=injector, recorder=recorder)
+        assert state.step == start + 2
+    assert all(torch.isfinite(p).all() for p in state.params.values())
+    assert [e["fault"] for e in recorder.events() if e["kind"] == "fault_injected"] == [
+        "nonfinite_loss"]
 
 
 def test_train_cli_bert_base_on_cpu_then_serve(tmp_path):

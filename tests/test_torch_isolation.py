@@ -20,6 +20,11 @@ def _port_files():
     return files + sorted((ROOT / "scripts").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
+# The resilient-training slice's pure-Python modules: the port's own copies.
+RESILIENCE_MODULES = ("train/faultinject.py", "train/resilience.py", "obs/fleet.py",
+                      "serve/faultinject.py")
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -42,8 +47,12 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 20 and all(f.exists() for f in files)
     for name in ("distributed_tensorflow_tpu_torch/models/inception.py",
                  "distributed_tensorflow_tpu_torch/models/flops.py",
-                 "scripts/torch_pw_bench.py"):
+                 "scripts/torch_pw_bench.py",
+                 *(f"distributed_tensorflow_tpu_torch/{m}" for m in RESILIENCE_MODULES)):
         assert ROOT / name in files
+    # The multi-process worker (its chaos job included) runs torch and the
+    # port only.
+    files = files + [ROOT / "tests" / "_torch_mp_worker.py"]
     bad = [
         f"{f.relative_to(ROOT)}:{line} imports {root}"
         for f in files
@@ -78,20 +87,21 @@ def test_port_never_touches_the_jax_native_directory():
 
 
 def test_serving_host_modules_import_without_jax():
-    """The prefix-cache trie, the speculation state machine and the
-    sanitizers are the port's own copies: importing them in a fresh
+    """The prefix-cache trie, the speculation state machine, the
+    sanitizers and the resilience modules (fault injection, fleet health,
+    ``run_resilient``) are the port's own copies: importing them in a fresh
     interpreter leaves ``jax`` out of ``sys.modules``."""
     import subprocess
     import sys
 
+    modules = ["serve/kvpool.py", "serve/spec.py", "obs/sanitizer.py", *RESILIENCE_MODULES]
     # Measured against what the interpreter held before the imports, in
     # case a site hook loads a package at startup.
     code = ("import sys\n"
             "before = set(sys.modules)\n"
-            "import distributed_tensorflow_tpu_torch.serve.kvpool\n"
-            "import distributed_tensorflow_tpu_torch.serve.spec\n"
-            "import distributed_tensorflow_tpu_torch.obs.sanitizer\n"
-            "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "
+            + "".join(f"import distributed_tensorflow_tpu_torch.{m[:-3].replace('/', '.')}\n"
+                      for m in modules)
+            + "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n"
             "assert 'jax' not in sys.modules or 'jax' in before\n")

@@ -19,7 +19,14 @@ devices:
 - rank 0 alone writes the checkpoint, both ranks restore it, and the
   resumed run equals the uninterrupted one bit for bit;
 - dropout masks differ across ranks, and a restored rank redraws its own;
-- a cluster that cannot form makes the CLI exit non-zero.
+- a cluster that cannot form makes the CLI exit non-zero;
+- the chaos proof (the JAX package's ``test_two_process_chaos_sigkill_resume``):
+  two LeNet processes that share no process group, one SIGKILLed by its
+  fault plan's ``host_drop``; its dump names the injected events, the
+  beacons drive the ``FleetSupervisor`` to ``re_mesh``, and the resume from
+  its last checkpoint (at most ``ckpt_every`` steps lost) under
+  ``run_resilient`` with a further feeder fault equals an uninterrupted
+  ``fit`` from the same checkpoint within 1e-6.
 """
 
 from __future__ import annotations
@@ -73,10 +80,13 @@ def _env() -> dict:
     return env
 
 
-def _launch(out_dir: Path, job: str, n_groups: int = 1, argv=None, world: int = 2) -> list:
+def _launch(out_dir: Path, job: str, n_groups: int = 1, argv=None, world: int = 2,
+            codes: tuple[int, ...] | None = None) -> list:
     """Run ``job`` on ``world`` ranks under one deadline of ``TIMEOUT_S``
     for them all, each rank's output in files under ``out_dir`` (no pipe
-    to fill). Returns the ranks' saved results."""
+    to fill). Every rank must exit 0, or ``codes[rank]`` when given.
+    Returns the saved results of the ranks that exited 0 (None for the
+    others)."""
     ports = ",".join(map(str, _free_ports(n_groups)))
     extra = [json.dumps(argv)] if argv is not None else []
     logs = [out_dir / f"{job}_rank{r}.log" for r in range(world)]
@@ -96,10 +106,12 @@ def _launch(out_dir: Path, job: str, n_groups: int = 1, argv=None, world: int = 
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    codes = codes or (0,) * world
     for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"{job} rank {r} exited {p.returncode}:\n{log.read_text()[-4000:]}"
+        assert p.returncode == codes[r], (
+            f"{job} rank {r} exited {p.returncode}:\n{log.read_text()[-4000:]}")
     return [torch.load(out_dir / f"{job}_rank{r}.pt", weights_only=False)
-            for r in range(world)]
+            if codes[r] == 0 else None for r in range(world)]
 
 
 def _assert_equal(a, b, path=""):
@@ -296,3 +308,86 @@ def test_cli_exits_nonzero_when_the_cluster_cannot_form(tmp_path):
         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=TIMEOUT_S)
     assert proc.returncode != 0
     assert "Traceback" in proc.stderr and "step 1:" not in proc.stderr
+
+
+def test_two_process_chaos_sigkill_resume(tmp_path):
+    """Rank 0's plan SIGKILLs it at step 11 (``host_drop``) after a
+    ``slow_step`` at 5; rank 1 runs to 16. The victim's dump holds both
+    injected events, the beacons (the dead host's stale, the survivor's
+    fresh) drive the supervisor to ``re_mesh``, and the resume from the
+    victim's last checkpoint (step 8: 3 steps lost, within ckpt_every=4)
+    under ``run_resilient`` with a feeder fault equals an uninterrupted
+    ``fit`` from the same checkpoint, step for step."""
+    import shutil
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_mp_worker import CHAOS_CKPT_EVERY, CHAOS_STEPS, lenet_run
+
+    from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
+    from distributed_tensorflow_tpu_torch.obs.fleet import FleetSupervisor, read_beacons
+    from distributed_tensorflow_tpu_torch.obs.flightrec import FlightRecorder
+    from distributed_tensorflow_tpu_torch.train import (
+        FaultEvent,
+        FaultInjector,
+        FaultPlan,
+        ResilienceConfig,
+        fit,
+        run_resilient,
+    )
+
+    _, survivor = _launch(tmp_path, "chaos", codes=(-9, 0))
+    assert survivor == {"step": 16, "latest_ckpt": 16, "last_step": 16}
+    (dump,) = (tmp_path / "dumps_0").glob("flightrec-*.json")
+    payload = json.loads(dump.read_text())
+    assert payload["reason"] == "host_drop"
+    assert [e["fault"] for e in payload["events"] if e["kind"] == "fault_injected"] == [
+        "slow_step", "host_drop"]
+
+    beacons = {b["host"]: b for b in read_beacons(tmp_path / "beacons")}
+    assert set(beacons) == {0, 1}
+    assert beacons[0]["injected_faults"] == {"slow_step": 1}
+    t_dead, t_alive = beacons[0]["wall_time"], beacons[1]["wall_time"]
+    assert t_alive > t_dead
+    now = t_alive + 1e-3
+    verdict = FleetSupervisor(tmp_path / "beacons", expected_hosts=2,
+                              heartbeat_timeout_s=0.5 * (now - t_dead),
+                              clock=lambda: now).poll()
+    assert verdict["action"] == "re_mesh"
+    assert verdict["lost_hosts"] == [0] and verdict["alive_hosts"] == [1]
+
+    # B: plain fit from the victim's last durable checkpoint, no faults.
+    losses_b = {}
+    state_b, step, make_batches = lenet_run()
+    with Checkpointer(tmp_path / "ckpt_0") as ck:
+        state_b, start = ck.restore_latest(state_b)
+    assert start == 8 and 11 - start <= CHAOS_CKPT_EVERY
+    batches = make_batches(start)
+    state_b, _ = fit(state_b, step, batches, num_steps=CHAOS_STEPS,
+                     rng=torch.Generator().manual_seed(0), log_every=1,
+                     hooks=(lambda s, st, m: losses_b.__setitem__(s, m["loss"]),))
+    batches.close()
+
+    # A: run_resilient from a copy of it, with a feeder fault mid-resume.
+    shutil.copytree(tmp_path / "ckpt_0", tmp_path / "ckpt_A")
+    rec = FlightRecorder(dump_dir=None)
+    inj = FaultInjector(FaultPlan((FaultEvent("feeder_error", 2),)), recorder=rec)
+    losses_a = {}  # replayed steps overwrite
+    state_a, step_a, make_batches_a = lenet_run()
+    with Checkpointer(tmp_path / "ckpt_A") as ck_a:
+        state_a, start_a = ck_a.restore_latest(state_a)
+        assert start_a == 8
+        report = run_resilient(
+            state_a, step_a, lambda s: make_batches_a(s, inj), num_steps=CHAOS_STEPS,
+            checkpointer=ck_a, ckpt_every=CHAOS_CKPT_EVERY,
+            config=ResilienceConfig(sleep=lambda s: None), recorder=rec, fault_injector=inj,
+            rng=torch.Generator().manual_seed(0), log_every=1,
+            hooks=(lambda s, st, m: losses_a.__setitem__(s, m["loss"]),))
+    assert report.completed and report.final_step == 16 and report.restarts == 1
+    kinds = [e["kind"] for e in rec.dump("chaos_resume_end", force=True)["events"]]
+    assert "fault_injected" in kinds and "train_restart" in kinds
+    assert set(losses_a) == set(losses_b) == set(range(9, 17))
+    np.testing.assert_allclose([losses_a[s] for s in range(9, 17)],
+                               [losses_b[s] for s in range(9, 17)], atol=1e-6)
+    for name, p in report.state.params.items():
+        np.testing.assert_allclose(p.detach().numpy(), state_b.params[name].detach().numpy(),
+                                   atol=1e-6, err_msg=name)

@@ -194,8 +194,9 @@ Phases (any failure exits non-zero before the result lines):
    ``/statusz``); EDF with preemption (8 priority-2 requests fill the
    slots, a priority-0 request with a 1 ms deadline parks one). Then
    ``cli.serve --config lm_base`` as a server process with 16 concurrent
-   ``/v1/generate``: all 200, ``n_tokens`` equal to each budget, the prom
-   text's ``ttft``, ``tokens`` and ``kv_bytes_per_token``. Prints bf16
+   ``/v1/generate`` (the server loads while the in-process checks run):
+   all 200, ``n_tokens`` equal to each budget, the prom text's ``ttft``,
+   ``tokens`` and ``kv_bytes_per_token``. Prints bf16
    tokens/s and ms a decode step on 16 requests under continuous
    (``max_in_flight`` 2 and 1) and flush admission beside the direct
    driver's, TTFT p50/p99, tokens a step with speculation, the prefix hit
@@ -231,10 +232,10 @@ Phases (any failure exits non-zero before the result lines):
    --process-id 0``): the log must show an NCCL group of world size 1, and
    a ``Checkpointer`` restores its checkpoint on the card; the same run as
    rank 1 of 2 with nobody at the coordinator (``--init-timeout 5``) must
-   exit non-zero; then ``scripts/torch_dp_train.py`` at world 1 over NCCL
-   (full-width ResNet-50 ``fused``, 128 rows, 3 steps, 29 launches of each
-   fused kernel a step) and one real NCCL all-reduce of its flat gradient
-   bucket (25.6 M f32), timed.
+   exit non-zero. train_dp_world1: ``scripts/torch_dp_train.py`` at world 1
+   over NCCL (full-width ResNet-50 ``fused``, 128 rows, 3 steps, 29
+   launches of each fused kernel a step) and one real NCCL all-reduce of
+   its flat gradient bucket (25.6 M f32), timed.
 16. train_dp_resnet50 — ``scripts/torch_dp_train.py`` as two processes on
    the one card over gloo (NCCL refuses two ranks on one device; gloo
    stages CUDA tensors through the host), full-width ResNet-50 ``fused``,
@@ -249,10 +250,11 @@ Phases (any failure exits non-zero before the result lines):
    shards through the plain ``conv`` backend, at the train_resnet50
    phase's tolerances; 29 launches of each fused kernel a step per rank;
    the loss falls. Prints ms a step (5 more steps with no digest) and the
-   all-reduce's ms. Then K = 4 stale gradients for K + 2 = 6 steps:
-   lockstep, launches, params still for the first K steps (the ring gives
-   zeros), moved by the first stored gradient at step K + 1 and again at
-   K + 2, and a loss that moves with them.
+   all-reduce's ms. Then K = 4 stale gradients for K + 2 = 6 steps
+   (started beside the in-process checks above): lockstep, launches,
+   params still for the first K steps (the ring gives zeros), moved by the
+   first stored gradient at step K + 1 and again at K + 2, and a loss that
+   moves with them.
 
 17. train_resilient_fused — full-width ResNet-50 ``fused`` at 224x224, 128
    images (the train_resnet50 recipe) through ``run_resilient`` with a
@@ -287,10 +289,40 @@ Phases (any failure exits non-zero before the result lines):
    rest, the fault in a dump), and ``replica_kill`` ends a server with -9
    and a dump.
 
+21. train_bert_mp — ``scripts/torch_mp_train.py`` as two gloo processes
+   on the one card (NCCL refuses two ranks on one device). First
+   collectives_gloo_cuda: the port's ``psum``, ``ppermute``,
+   ``all_to_all``, ``all_gather`` (values and gradients) and
+   ``pmean_tree`` on CUDA tensors between the two ranks, exact; gloo's
+   ``all_reduce`` (f32, bf16), ``all_gather`` and ``all_to_all_single``
+   tried raw on CUDA tensors, and the ops staged through pinned host
+   memory printed (``ppermute``: gloo's ``send`` hands the device pointer
+   to its socket, which fails with ``Bad address`` on an H100). Then
+   full-width BERT-base (12 layers, 768, 12 heads, 512 positions), 8 rows x
+   L=512, bf16, from the same seeded global parameters and fixed batch,
+   under ``{"model": 2}`` (TP), the ``{"seq": 2}`` ring and ``{"seq": 2}``
+   Ulysses: step 1 with dropout off against a single-process run made in
+   this process meanwhile (loss within 1e-2 relative, grad_norm within
+   2e-2: bf16 partial sums meet at other points), the gathered
+   parameters after one fp32 SGD step within 1e-5 relative (and within
+   1e-3 of the reference's update), then 3 steps with dropout 0.1:
+   finite losses, 12 launches a step a rank of each flash kernel under TP
+   and Ulysses and 24 on the ring (2 blocks x 12 layers, with the lse
+   cotangent), ms a step and the collectives' ms a step (each collective
+   between two synchronisations; gloo through host memory, not NVLink).
+22. train_cli_tp_sp — ``cli.train``'s ``main`` (through
+   ``scripts/torch_mp_train.py --cli``: the bert_base recipe at 512
+   positions, the group on gloo) as four processes on the one card with
+   ``--tensor-parallel 2 --seq-parallel 2 --sp-impl ring``, 8 rows, 3
+   steps, its checkpoint the global tree; restored here at TP 1 into
+   ``BertInferenceEngine`` (bucket 512) and one ``/v1/mlm`` answered: 12
+   ``flash_fwd`` launches.
+
 Phases run one after another, but for train_cli, train_cli_image,
-train_cli_inception and train_cli_bert_corpus: four CLI runs that time
-nothing the records keep, run at once on threads of their own (their
-``seconds`` are then the group's). Before the result lines,
+train_cli_inception, train_cli_bert_corpus, train_cli_dp and
+train_cli_tp_sp: CLI runs that time nothing the records keep, run at once
+on threads of their own (their ``seconds`` are then the group's; 80 GB
+holds these six at once, not the lm_base resume as well). Before the result lines,
 ``feed_summary`` gives every phase's seconds and the total, the cores the host pipeline needs to keep up with this run's ResNet-50
 ``fused`` step, and the CLI's median step ms and host_wait_ms under each
 feed. The last two lines are the kernels' JSON record and
@@ -299,6 +331,7 @@ feed. The last two lines are the kernels' JSON record and
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import importlib
@@ -1551,9 +1584,8 @@ def phase_train_cli_dp(torch):
     """``cli.train --config imagenet_resnet50 --image-size 64`` as one rank
     of an NCCL group of one (the cluster flags), with a checkpoint that a
     ``Checkpointer`` restores; the same CLI with a coordinator nobody
-    serves must exit non-zero; then ``scripts/torch_dp_train.py`` at world
-    1 over NCCL: full-width ResNet-50 at 128 rows, and one real NCCL
-    all-reduce of its flat gradient bucket."""
+    serves must exit non-zero. Times nothing (it runs beside the other CLI
+    phases); :func:`phase_train_dp_world1` is the timed half."""
     from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
     from distributed_tensorflow_tpu_torch.cli.train import PRESETS, _make_tx
     from distributed_tensorflow_tpu_torch.models import ResNet50
@@ -1607,16 +1639,22 @@ def phase_train_cli_dp(torch):
           and all(not torch.equal(stats[k], model_state["batch_stats"][k]) for k in stats),
           f"restored step {step} and its batch_stats")
     del model, params, model_state, state
+    emit({"phase": "train_cli_dp", "seconds": seconds, "group": group[0].split(": ", 1)[-1],
+          "last_log": steps[-1].split(": ", 1)[-1], "restored_step": step,
+          "bad_coordinator_exit": bad.returncode, "bad_coordinator_seconds": bad_seconds,
+          "bad_coordinator_error": (bad_err.strip().splitlines() or [""])[-1][-300:]})
+
+
+def phase_train_dp_world1(torch):
+    """``scripts/torch_dp_train.py`` at world 1 over NCCL: full-width
+    ResNet-50 ``fused`` at 128 rows, 3 steps, and one real NCCL all-reduce
+    of its flat gradient bucket, timed."""
     (rank,) = _dp_launch(1, "nccl", "--steps", "3", "--rows", str(DP_ROWS))
     check(len(rank["losses"]) == 3 and all(np.isfinite(rank["losses"])),
           f"world-1 losses {rank['losses']}")
     check({k: v for k, v in rank["launches"].items() if v}
           == {k: 3 * v for k, v in DP_LAUNCHES.items()}, f"world-1 launches {rank['launches']}")
     check(rank["allreduce_ok"], "the NCCL all-reduce of a group of one changed the bucket")
-    emit({"phase": "train_cli_dp", "seconds": seconds, "group": group[0].split(": ", 1)[-1],
-          "last_log": steps[-1].split(": ", 1)[-1], "restored_step": step,
-          "bad_coordinator_exit": bad.returncode, "bad_coordinator_seconds": bad_seconds,
-          "bad_coordinator_error": (bad_err.strip().splitlines() or [""])[-1][-300:]})
     emit({"phase": "train_dp_world1", **{k: v for k, v in rank.items() if k != "digests"}})
     return rank
 
@@ -1665,71 +1703,80 @@ def phase_train_dp_resnet50(torch):
     check(losses == ranks[1]["losses"] and all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"losses {[r['losses'] for r in ranks]}")
 
-    # Steps 1 and 2 in this process, under the ranks' numerics: the two
-    # shards' gradients and statistics averaged by hand, then the same SGD
-    # update. The ranks ran the same kernels on the same shards, so rank 0's
-    # state must match bit for bit.
-    dp.numerics()
-    model, state, _ = dp.build("cuda")
-    batch = dp.fixed_batch(DP_ROWS, "cuda")
-    for step in (1, 2):
-        grads, stats = _hand_mean_step(model, state.params, state.model_state, batch, torch)
-        for name, p in state.params.items():
-            p.grad = grads[name]
-        state.opt_state.apply()
-        for p in state.params.values():
-            p.grad = None
-        if step == 1:
-            # The state step 2 starts from, for the plain backend below.
-            start = ({k: v.detach().clone() for k, v in state.params.items()},
-                     {k: v.clone() for k, v in stats.items()})
-        state.model_state = {"batch_stats": stats}
-        saved = torch.load(out_dir / f"dp_step{step}.pt", weights_only=True)
-        mine = {"params": {k: v.detach() for k, v in state.params.items()},
-                "slots": dp.slots(state), "batch_stats": stats}
-        for part in ("params", "batch_stats"):
-            differ = [k for k, v in mine[part].items()
-                      if not torch.equal(saved[part][k].cuda(), v)]
-            check(not differ and mine[part].keys() == saved[part].keys(),
-                  f"DP step {step}: {part} differ from the hand-averaged shards' "
-                  f"at {len(differ)} leaves, {differ[:4]}")
-        differ = [k for k, slot in mine["slots"].items()
-                  if slot.keys() != saved["slots"][k].keys()
-                  or not all(torch.equal(saved["slots"][k][n].cuda(), t) for n, t in slot.items())]
-        check(not differ and mine["slots"].keys() == saved["slots"].keys(),
-              f"DP step {step}: momentum differs at {len(differ)} leaves, {differ[:4]}")
-    fused_grads, fused_stats = grads, stats
-    del model, state, saved, mine
+    def hand_checks():
+        """Steps 1 and 2 by hand, then step 2 through the plain backend."""
+        # Steps 1 and 2 in this process, under the ranks' numerics: the two
+        # shards' gradients and statistics averaged by hand, then the same SGD
+        # update. The ranks ran the same kernels on the same shards, so rank 0's
+        # state must match bit for bit.
+        dp.numerics()
+        model, state, _ = dp.build("cuda")
+        batch = dp.fixed_batch(DP_ROWS, "cuda")
+        for step in (1, 2):
+            grads, stats = _hand_mean_step(model, state.params, state.model_state, batch, torch)
+            for name, p in state.params.items():
+                p.grad = grads[name]
+            state.opt_state.apply()
+            for p in state.params.values():
+                p.grad = None
+            if step == 1:
+                # The state step 2 starts from, for the plain backend below.
+                start = ({k: v.detach().clone() for k, v in state.params.items()},
+                         {k: v.clone() for k, v in stats.items()})
+            state.model_state = {"batch_stats": stats}
+            saved = torch.load(out_dir / f"dp_step{step}.pt", weights_only=True)
+            mine = {"params": {k: v.detach() for k, v in state.params.items()},
+                    "slots": dp.slots(state), "batch_stats": stats}
+            for part in ("params", "batch_stats"):
+                differ = [k for k, v in mine[part].items()
+                          if not torch.equal(saved[part][k].cuda(), v)]
+                check(not differ and mine[part].keys() == saved[part].keys(),
+                      f"DP step {step}: {part} differ from the hand-averaged shards' "
+                      f"at {len(differ)} leaves, {differ[:4]}")
+            differ = [k for k, slot in mine["slots"].items()
+                      if slot.keys() != saved["slots"][k].keys()
+                      or not all(torch.equal(saved["slots"][k][n].cuda(), t)
+                                 for n, t in slot.items())]
+            check(not differ and mine["slots"].keys() == saved["slots"].keys(),
+                  f"DP step {step}: momentum differs at {len(differ)} leaves, {differ[:4]}")
+        fused_grads, fused_stats = grads, stats
+        del model, state, saved, mine
 
-    # Step 2's averaged gradients and statistics through the plain backend
-    # from the same state: the fused kernels at the 64-row shapes against
-    # cuDNN and PyTorch's BatchNorm.
-    conv_model, conv_state, _ = dp.build("cuda", pw_backend="conv")
-    check(conv_state.params.keys() == start[0].keys(), "conv and fused parameter names differ")
-    with torch.no_grad():
-        for k, v in conv_state.params.items():
-            v.copy_(start[0][k])
-    conv_grads, conv_stats = _hand_mean_step(conv_model, conv_state.params,
-                                             {"batch_stats": start[1]}, batch, torch)
-    total, per = _rel_errors(fused_grads, conv_grads, torch)
-    stat_total, _ = _rel_errors(fused_stats, conv_stats, torch)
-    worst = max(per, key=per.get)
-    median = statistics.median(per.values())
-    zero = sum(int(not g.any()) for g in conv_grads.values())
-    del conv_model, conv_state, conv_grads, conv_stats, fused_grads, fused_stats, start
-    torch.cuda.empty_cache()
-    check(zero == 0, f"{zero} leaves have an all-zero plain gradient at step 2")
-    # The train_resnet50 phase's tolerances.
-    check(total <= 5e-2 and median <= 5e-2 and per[worst] <= 0.5,
-          f"DP step 2's gradients differ from the plain backend's: total {total}, "
-          f"median {median}, worst {worst} {per[worst]}")
-    check(stat_total <= 1e-2, f"DP step 2's batch_stats differ from the plain backend's: "
-                              f"{stat_total}")
+        # Step 2's averaged gradients and statistics through the plain backend
+        # from the same state: the fused kernels at the 64-row shapes against
+        # cuDNN and PyTorch's BatchNorm.
+        conv_model, conv_state, _ = dp.build("cuda", pw_backend="conv")
+        check(conv_state.params.keys() == start[0].keys(),
+              "conv and fused parameter names differ")
+        with torch.no_grad():
+            for k, v in conv_state.params.items():
+                v.copy_(start[0][k])
+        conv_grads, conv_stats = _hand_mean_step(conv_model, conv_state.params,
+                                                 {"batch_stats": start[1]}, batch, torch)
+        total, per = _rel_errors(fused_grads, conv_grads, torch)
+        stat_total, _ = _rel_errors(fused_stats, conv_stats, torch)
+        worst = max(per, key=per.get)
+        median = statistics.median(per.values())
+        zero = sum(int(not g.any()) for g in conv_grads.values())
+        del conv_model, conv_state, conv_grads, conv_stats, fused_grads, fused_stats, start
+        torch.cuda.empty_cache()
+        check(zero == 0, f"{zero} leaves have an all-zero plain gradient at step 2")
+        # The train_resnet50 phase's tolerances.
+        check(total <= 5e-2 and median <= 5e-2 and per[worst] <= 0.5,
+              f"DP step 2's gradients differ from the plain backend's: total {total}, "
+              f"median {median}, worst {worst} {per[worst]}")
+        check(stat_total <= 1e-2, f"DP step 2's batch_stats differ from the plain backend's: "
+                                  f"{stat_total}")
+        return total, median, worst, per, stat_total
 
+    # The stale run starts beside the checks in this process: its timed
+    # steps come last, after its own start and K + 2 digest steps.
     depth = DP_STALENESS
     t1 = time.monotonic()
-    stale = _dp_launch(2, "gloo", "--steps", str(depth + 2), "--rows", str(DP_ROWS), "--mode",
-                       "stale", "--staleness", str(depth))
+    (total, median, worst, per, stat_total), stale = concurrently(
+        (hand_checks,),
+        (_dp_launch, 2, "gloo", "--steps", str(depth + 2), "--rows", str(DP_ROWS), "--mode",
+         "stale", "--staleness", str(depth)))
     stale_seconds = time.monotonic() - t1
     check(stale[0]["digests"] == stale[1]["digests"] and len(stale[0]["digests"]) == depth + 2,
           f"stale ranks' states differ: {[r['digests'] for r in stale]}")
@@ -2066,15 +2113,15 @@ def _cli_train(args: list[str], timeout: int = 900) -> subprocess.CompletedProce
 def phase_train_cli_imagenet_real(torch, cache: Path):
     """``cli.train --config imagenet_resnet50 --data-dir <u8 cache>`` at the
     preset's width and batch (224x224, 256 images, plain convolutions) for
-    12 steps with ``--metrics-jsonl``, ``--trace-dir`` and ``--profile-dir
+    8 steps with ``--metrics-jsonl``, ``--trace-dir`` and ``--profile-dir
     --profile-steps 3``; then with ``--no-native-input`` and with
     ``--device-pool 8``. Checks: the cache was read (no fallback), finite
     losses, one JSONL record a logged step, the span trace's host_wait /
     dispatch / device spans, the profile's CUDA kernel events. Prints each
-    run's median step ms and host_wait_ms (steps 3-12)."""
+    run's median step ms and host_wait_ms (steps 3-8)."""
     out = ROOT / "build" / "chip_smoke_cli_real"
     shutil.rmtree(out, ignore_errors=True)
-    n_steps = 12
+    n_steps = 8
     base = ["--config", "imagenet_resnet50", "--data-dir", str(cache), "--steps", str(n_steps),
             "--log-every", "1"]
     runs = {}
@@ -2941,13 +2988,6 @@ def _await_serve_cli(proc, base: str, t0: float, log: Path) -> float:
     return time.monotonic() - t0
 
 
-def _start_serve_cli(ckpt_dir: Path, device: str, extra: list, log: Path):
-    """:func:`_spawn_serve_cli`, once ``/healthz`` answers 200; returns
-    ``(proc, base_url, ready_seconds)``."""
-    proc, base, t0 = _spawn_serve_cli(ckpt_dir, device, extra, log)
-    return proc, base, _await_serve_cli(proc, base, t0, log)
-
-
 def _stop(proc) -> None:
     if proc.poll() is None:
         proc.terminate()
@@ -2989,13 +3029,14 @@ def _post_generates(base: str, reqs: list) -> tuple[dict, float]:
     return replies, time.monotonic() - t0
 
 
-def _serve_cli_lm(ckpt_dir: Path, vocab: int, device: str, extra: list) -> dict:
-    """``cli.serve --config lm_base`` as a server process: 16 concurrent
-    ``POST /v1/generate``, every reply 200 with ``n_tokens`` equal to its
-    budget, and the prom text's decode families. The process is stopped
-    before this returns."""
-    proc, base, ready_s = _start_serve_cli(ckpt_dir, device, extra,
-                                           ROOT / "build" / "chip_smoke_serve_lm.log")
+def _serve_cli_lm(server: tuple, vocab: int) -> dict:
+    """``cli.serve --config lm_base`` as a server process (``server``, from
+    :func:`_spawn_serve_cli`, once it is ready): 16 concurrent ``POST
+    /v1/generate``, every reply 200 with ``n_tokens`` equal to its budget,
+    and the prom text's decode families. The process is stopped before this
+    returns."""
+    proc, base, t0 = server
+    ready_s = _await_serve_cli(proc, base, t0, ROOT / "build" / "chip_smoke_serve_lm.log")
     try:
         reqs = _lm_requests(vocab, 16)
         replies, burst_s = _post_generates(base, reqs)
@@ -3057,111 +3098,117 @@ def phase_serve_lm_batcher(torch, ckpt_dir: Path, *, device="cuda", cfg=None, n_
 
     cfg = cfg or CausalLMConfig(max_position=128, dtype=torch.bfloat16)  # lm_base
     t0 = time.monotonic()
-    params, _, step = restore_serving_state(ckpt_dir)
-
-    def engine(dtype, **kw):
-        model = CausalLM(dataclasses.replace(cfg, dtype=dtype), device="cpu")
-        return CausalLMEngine(model, dict(params), device, buckets=LM_BUCKETS, slots=LM_SLOTS,
-                              max_batch=LM_TIER, max_new_tokens=LM_NEW, **kw)
-
-    def client(eng, admission="continuous", max_in_flight=2, **kw):
-        return Client(eng, BatcherConfig(max_batch=LM_TIER, max_in_flight=max_in_flight,
-                                         max_queue=64, **kw), admission=admission)
-
-    vocab = cfg.vocab_size
-    requests = _lm_requests(vocab, n_requests, cfg.max_position)
-    prefix_reqs = _prefix_requests(vocab, max_position=cfg.max_position)
-    preempt_reqs = _preempt_requests(vocab, LM_SLOTS)
-    out = {"phase": "serve_lm_batcher", "ckpt_step": step, "requests": len(requests)}
-    violations = {}
-
-    fp32 = engine(torch.float32)
-    draftable = _draftable_requests(fp32, vocab)
-    want = _generate(fp32, requests + prefix_reqs + preempt_reqs + draftable)
-    with client(fp32) as c:
-        got, phases, wall = _serve(c, requests, n_threads=8)
-    violations["client_fp32"] = [i for i in got if got[i] != want[i]]
-    out["fp32"] = _batcher_rates(phases, wall)
-
-    spec = engine(torch.float32, spec_tokens=4)
-    with client(spec) as c:
-        got, _, _ = _serve(c, requests + draftable, n_threads=8)
-        st = c.batcher.status()
-    violations["spec_fp32"] = [i for i in got if got[i] != want[i]]
-    if not st["speculation"]["draft_tokens"]:
-        violations["spec_drafts"] = [st["speculation"]]
-    out["spec"] = {"tokens_per_step": st["tokens_per_step"],
-                   **{k: st["speculation"][k] for k in ("draft_tokens", "accepted_tokens",
-                                                        "rejects", "acceptance_rate")}}
-    del spec
-
-    prefix = engine(torch.float32, prefix_cache_mb=64, block_tokens=16, prefill_chunk=32)
-    c = client(prefix)
-    server = build_http_server(c, port=0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
+    # The server process loads while the in-process checks run.
+    cli_server = _spawn_serve_cli(ckpt_dir, device, list(cli_extra),
+                                  ROOT / "build" / "chip_smoke_serve_lm.log")
     try:
-        got, _, _ = _serve(c, prefix_reqs[:1])
-        more, _, _ = _serve(c, prefix_reqs[1:])
-        got.update(more)
-        with urllib.request.urlopen("http://{}:{}/statusz".format(*server.server_address),
-                                    timeout=30) as resp:
-            pc = json.loads(resp.read())["batcher"]["prefix_cache"]
-    finally:
-        server.shutdown()
-        server.server_close()
-        c.close()
-        thread.join(timeout=10)
-    violations["prefix_fp32"] = [i for i in got if got[i] != want[i]]
-    if not pc["tokens_saved"] > 0:
-        violations["prefix_hits"] = [pc]
-    out["prefix_cache"] = pc
+        params, _, step = restore_serving_state(ckpt_dir)
 
-    with client(prefix, sched="edf", preempt=True, preempt_margin_ms=20.0) as c:
-        futs = {r["id"]: c.submit({**_payload(r), "priority": r["priority"]})
-                for r in preempt_reqs[:-1]}
-        deadline = time.monotonic() + 120
-        while c.batcher.status()["slots_active"] < LM_SLOTS:
-            check(time.monotonic() < deadline, "preempt: the victims never filled the slots")
-            time.sleep(0.002)
-        urgent = preempt_reqs[-1]
-        futs[urgent["id"]] = c.submit({**_payload(urgent), "priority": 0, "deadline_ms": 1})
-        got = {i: f.result(timeout=300)["tokens"] for i, f in futs.items()}
-        sched = c.batcher.status()["sched"]
-    violations["preempt_fp32"] = [i for i in got if got[i] != want[i]]
-    if sched["preempt_parked"] < 1 or sched["preempt_resumed"] != sched["preempt_parked"]:
-        violations["preempt_parked"] = [sched]
-    out["preempt"] = {k: sched[k] for k in ("preempt_parked", "preempt_resumed",
-                                            "preempt_aborted")}
-    del prefix, fp32
+        def engine(dtype, **kw):
+            model = CausalLM(dataclasses.replace(cfg, dtype=dtype), device="cpu")
+            return CausalLMEngine(model, dict(params), device, buckets=LM_BUCKETS, slots=LM_SLOTS,
+                                  max_batch=LM_TIER, max_new_tokens=LM_NEW, **kw)
 
-    # bf16 timing: 16 requests of 33-64 tokens, 32 new each, so all 8
-    # slots stay live; a warm-up run first.
-    rng = np.random.default_rng(SEED + 47)
-    timing = [{"id": 3000 + i, "input_ids": rng.integers(4, vocab, int(rng.integers(33, 65))),
-               "temperature": 0.0, "seed": 0, "budget": LM_NEW} for i in range(2 * LM_SLOTS)]
-    bf16 = engine(torch.bfloat16)
-    rates = {}
-    for name, kw in (("warmup", {}), ("continuous", {}),
-                     ("continuous_in_flight_1", {"max_in_flight": 1}),
-                     ("flush", {"admission": "flush"})):
+        def client(eng, admission="continuous", max_in_flight=2, **kw):
+            return Client(eng, BatcherConfig(max_batch=LM_TIER, max_in_flight=max_in_flight,
+                                             max_queue=64, **kw), admission=admission)
+
+        vocab = cfg.vocab_size
+        requests = _lm_requests(vocab, n_requests, cfg.max_position)
+        prefix_reqs = _prefix_requests(vocab, max_position=cfg.max_position)
+        preempt_reqs = _preempt_requests(vocab, LM_SLOTS)
+        out = {"phase": "serve_lm_batcher", "ckpt_step": step, "requests": len(requests)}
+        violations = {}
+
+        fp32 = engine(torch.float32)
+        draftable = _draftable_requests(fp32, vocab)
+        want = _generate(fp32, requests + prefix_reqs + preempt_reqs + draftable)
+        with client(fp32) as c:
+            got, phases, wall = _serve(c, requests, n_threads=8)
+        violations["client_fp32"] = [i for i in got if got[i] != want[i]]
+        out["fp32"] = _batcher_rates(phases, wall)
+
+        spec = engine(torch.float32, spec_tokens=4)
+        with client(spec) as c:
+            got, _, _ = _serve(c, requests + draftable, n_threads=8)
+            st = c.batcher.status()
+        violations["spec_fp32"] = [i for i in got if got[i] != want[i]]
+        if not st["speculation"]["draft_tokens"]:
+            violations["spec_drafts"] = [st["speculation"]]
+        out["spec"] = {"tokens_per_step": st["tokens_per_step"],
+                       **{k: st["speculation"][k] for k in ("draft_tokens", "accepted_tokens",
+                                                            "rejects", "acceptance_rate")}}
+        del spec
+
+        prefix = engine(torch.float32, prefix_cache_mb=64, block_tokens=16, prefill_chunk=32)
+        c = client(prefix)
+        server = build_http_server(c, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            got, _, _ = _serve(c, prefix_reqs[:1])
+            more, _, _ = _serve(c, prefix_reqs[1:])
+            got.update(more)
+            with urllib.request.urlopen("http://{}:{}/statusz".format(*server.server_address),
+                                        timeout=30) as resp:
+                pc = json.loads(resp.read())["batcher"]["prefix_cache"]
+        finally:
+            server.shutdown()
+            server.server_close()
+            c.close()
+            thread.join(timeout=10)
+        violations["prefix_fp32"] = [i for i in got if got[i] != want[i]]
+        if not pc["tokens_saved"] > 0:
+            violations["prefix_hits"] = [pc]
+        out["prefix_cache"] = pc
+
+        with client(prefix, sched="edf", preempt=True, preempt_margin_ms=20.0) as c:
+            futs = {r["id"]: c.submit({**_payload(r), "priority": r["priority"]})
+                    for r in preempt_reqs[:-1]}
+            deadline = time.monotonic() + 120
+            while c.batcher.status()["slots_active"] < LM_SLOTS:
+                check(time.monotonic() < deadline, "preempt: the victims never filled the slots")
+                time.sleep(0.002)
+            urgent = preempt_reqs[-1]
+            futs[urgent["id"]] = c.submit({**_payload(urgent), "priority": 0, "deadline_ms": 1})
+            got = {i: f.result(timeout=300)["tokens"] for i, f in futs.items()}
+            sched = c.batcher.status()["sched"]
+        violations["preempt_fp32"] = [i for i in got if got[i] != want[i]]
+        if sched["preempt_parked"] < 1 or sched["preempt_resumed"] != sched["preempt_parked"]:
+            violations["preempt_parked"] = [sched]
+        out["preempt"] = {k: sched[k] for k in ("preempt_parked", "preempt_resumed",
+                                                "preempt_aborted")}
+        del prefix, fp32
+
+        # bf16 timing: 16 requests of 33-64 tokens, 32 new each, so all 8
+        # slots stay live; a warm-up run first.
+        rng = np.random.default_rng(SEED + 47)
+        timing = [{"id": 3000 + i, "input_ids": rng.integers(4, vocab, int(rng.integers(33, 65))),
+                   "temperature": 0.0, "seed": 0, "budget": LM_NEW} for i in range(2 * LM_SLOTS)]
+        bf16 = engine(torch.bfloat16)
+        rates = {}
+        for name, kw in (("warmup", {}), ("continuous", {}),
+                         ("continuous_in_flight_1", {"max_in_flight": 1}),
+                         ("flush", {"admission": "flush"})):
+            timed = _DecodeTimer(bf16)
+            with client(timed, **kw) as c:
+                _, phases, wall = _serve(c, timing)
+            rates[name] = {**_batcher_rates(phases, wall),
+                           "dispatch_ms": statistics.median(timed.dispatch_ms)}
+        del rates["warmup"]
         timed = _DecodeTimer(bf16)
-        with client(timed, **kw) as c:
-            _, phases, wall = _serve(c, timing)
-        rates[name] = {**_batcher_rates(phases, wall),
-                       "dispatch_ms": statistics.median(timed.dispatch_ms)}
-    del rates["warmup"]
-    timed = _DecodeTimer(bf16)
-    t1 = time.monotonic()
-    streams = _generate(timed, timing)
-    wall = time.monotonic() - t1
-    rates["generate"] = {"tokens_per_s": sum(map(len, streams.values())) / wall,
-                         "decode_ms_a_step": statistics.median(timed.step_ms), "wall_s": wall,
-                         "dispatch_ms": statistics.median(timed.dispatch_ms)}
-    out["bf16_16_requests_8_slots"] = rates
-    del bf16, timed
-
-    out["cli"] = _serve_cli_lm(ckpt_dir, vocab, device, list(cli_extra))
+        t1 = time.monotonic()
+        streams = _generate(timed, timing)
+        wall = time.monotonic() - t1
+        rates["generate"] = {"tokens_per_s": sum(map(len, streams.values())) / wall,
+                             "decode_ms_a_step": statistics.median(timed.step_ms), "wall_s": wall,
+                             "dispatch_ms": statistics.median(timed.dispatch_ms)}
+        out["bf16_16_requests_8_slots"] = rates
+        del bf16, timed
+    except BaseException:
+        _stop(cli_server[0])
+        raise
+    out["cli"] = _serve_cli_lm(cli_server, vocab)
     out["seconds"] = time.monotonic() - t0
     out["violations"] = {k: v for k, v in violations.items() if v}
     emit(out)
@@ -3938,6 +3985,212 @@ def phase_serve_lm_faults(torch, ckpt_dir: Path, *, device="cuda", cfg=None,
     return out
 
 
+# Flash launches a step a rank of each kernel: 12 layers, 2 blocks a layer
+# on the 2-way ring (its local length, 256, picks flash).
+MP_LAUNCHES = {"tp": 12, "ring": 24, "ulysses": 12}
+MP_LOSS_RTOL, MP_NORM_RTOL = 1e-2, 2e-2  # bf16 step 1 against the single process
+MP_PARAM_RTOL, MP_UPDATE_RTOL = 1e-5, 1e-3  # fp32 step 1's parameters, and its update
+
+
+def _run_ranks(argvs: list, log_dir: Path, timeout: float) -> list:
+    """Each argv as a process (output in ``log_dir/rank<r>.{out,err}``),
+    all under one deadline of ``timeout`` seconds. Returns ``(returncode,
+    out, err)`` a process."""
+    shutil.rmtree(log_dir, ignore_errors=True)
+    log_dir.mkdir(parents=True)
+    paths = [(log_dir / f"rank{r}.out", log_dir / f"rank{r}.err") for r in range(len(argvs))]
+    procs = []
+    try:
+        for argv, (out, err) in zip(argvs, paths):
+            with open(out, "w") as fo, open(err, "w") as fe:
+                procs.append(subprocess.Popen(argv, cwd=ROOT, env=_repo_env(), stdout=fo,
+                                              stderr=fe, text=True))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                raise SmokeFailure(f"{argvs[0][1:3]} passed {timeout} s")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, out.read_text(), err.read_text()) for p, (out, err) in zip(procs, paths)]
+
+
+def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
+    """Full-width BERT-base at L=512 under TP, the ring and Ulysses as two
+    gloo processes on the one card (``scripts/torch_mp_train.py``), after
+    the collectives on CUDA tensors; held against the single process here.
+    ``device="cpu"`` with ``cut`` (the script's geometry flags, e.g.
+    ``{"layers": 2, "hidden": 64, "heads": 4, "vocab": 128, "seq_len": 64}``)
+    rehearses it on the CPU, where no kernel launches."""
+    mp = load_script("torch_mp_train")
+    cut = dict(cut or {})
+    geom = mp.geometry(argparse.Namespace(**{f: cut.get(f, 0) for f in
+                                             ("layers", "hidden", "heads", "vocab",
+                                              "seq_len")}))
+    out_dir = ROOT / "build" / "chip_smoke_mp"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+
+    def reference():
+        """The unsharded held steps and initial parameters, made here while
+        the ranks start (their held steps are untimed)."""
+        t0 = time.monotonic()
+        ref = mp.single_process_reference(geom, mp.ROWS, device)
+        init = {k: v.detach() for k, v in mp.bert.BertForPreTraining(
+            mp.bert.BertConfig(**geom), device=device, seed=mp.SEED).state_dict().items()}
+        return ref, init, time.monotonic() - t0
+
+    port = _free_port()
+    flags = [f"--{k.replace('_', '-')}={v}" for k, v in cut.items()]
+    argvs = [[sys.executable, str(ROOT / "scripts" / "torch_mp_train.py"), "--world", "2",
+              "--rank", str(r), "--port", str(port), "--out", str(out_dir),
+              "--device", device, *flags]
+             for r in range(2)]
+    t0 = time.monotonic()
+    procs, (ref, init, ref_s) = concurrently(
+        (_run_ranks, argvs, ROOT / "build" / "chip_smoke_mp_logs", 600), (reference,))
+    wall = time.monotonic() - t0
+    for r, (code, out, err) in enumerate(procs):
+        check(code == 0, f"torch_mp_train rank {r} exited {code}:\n{err[-4000:]}")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2)]
+
+    coll = [r["collectives"] for r in ranks]
+    for c in coll:
+        for name, err in c["max_abs_err"].items():
+            check(err <= 1e-6, f"collective {name} on CUDA tensors off by {err}")
+    emit({"phase": "collectives_gloo_cuda", "seconds": max(c["seconds"] for c in coll),
+          "max_abs_err": coll[0]["max_abs_err"], "raw_device_ops": [c["raw_device_ops"]
+                                                                     for c in coll],
+          "host_staged": coll[0]["host_staged"]})
+
+    records = {}
+    for name, expect in MP_LAUNCHES.items():
+        expect = expect if device == "cuda" else 0
+        params = torch.load(out_dir / f"params_{name}.pt", map_location=device,
+                            weights_only=True)
+        # ||p - p_ref|| against ||p_ref|| and against the reference's
+        # update ||p_ref - p_0||, in f64.
+        num = den = upd = 0.0
+        for k, p in params.items():
+            want = ref["fp32"][k].to(device).double()
+            num += float((p.double() - want).square().sum())
+            den += float(want.square().sum())
+            upd += float((want - init[k].double()).square().sum())
+        param_rel, update_rel = math.sqrt(num / den), math.sqrt(num / max(upd, 1e-30))
+        rec = {"param_rel_err": param_rel, "update_rel_err": update_rel, "ranks": []}
+        for r in ranks:
+            c = r["configs"][name]
+            held = c["held_bf16"]
+            loss_rel = abs(held["loss"] - ref["bf16"]["loss"]) / abs(ref["bf16"]["loss"])
+            norm_rel = abs(held["grad_norm"] - ref["bf16"]["grad_norm"]) / ref["bf16"]["grad_norm"]
+            check(loss_rel <= MP_LOSS_RTOL and norm_rel <= MP_NORM_RTOL,
+                  f"{name} rank {r['rank']}: step-1 loss/grad_norm {held} against the "
+                  f"single process's {ref['bf16']}")
+            check(all(math.isfinite(x) for x in c["losses"]), f"{name}: losses {c['losses']}")
+            for counts in c["launches"]:
+                check(all(counts[k] == expect for k in mp.FLASH),
+                      f"{name} rank {r['rank']}: flash launches {counts}, expected {expect} each")
+            rec["ranks"].append({"rank": r["rank"], "loss_rel_err": loss_rel,
+                                 "grad_norm_rel_err": norm_rel, "launches": c["launches"],
+                                 "step_ms": c["step_ms"], "comm_ms": c["comm_ms"],
+                                 "step_ms_median": c["step_ms_median"],
+                                 "comm_ms_median": c["comm_ms_median"],
+                                 "collective_calls": c["collective_calls"],
+                                 "losses": c["losses"], "seconds": c["seconds"]})
+        check(param_rel <= MP_PARAM_RTOL and update_rel <= MP_UPDATE_RTOL,
+              f"{name}: fp32 step's params off by {param_rel} (update {update_rel})")
+        records[name] = rec
+        emit({"phase": "train_bert_mp", "config": name, **rec})
+    emit({"phase": "train_bert_mp_summary", "reference_s": ref_s, "ranks_wall_s": wall,
+          "init_s": [r["init_s"] for r in ranks], "exit_codes": [p[0] for p in procs],
+          "reference": ref["bf16"],
+          "max_memory_allocated": [r.get("max_memory_allocated") for r in ranks]})
+    return {"launches": {name: [r["launches"] for r in rec["ranks"]]
+                         for name, rec in records.items()},
+            "collectives_s": max(c["seconds"] for c in coll)}
+
+
+def phase_train_cli_tp_sp(torch, fm, *, device="cuda", cli_extra=(), cfg=None):
+    """``cli.train`` (the bert_base recipe at 512 positions) as four gloo
+    processes on the one card under ``--tensor-parallel 2 --seq-parallel 2
+    --sp-impl ring``, its global checkpoint restored here at TP 1 and
+    served through ``BertInferenceEngine`` (bucket 512) and ``/v1/mlm``.
+    ``device="cpu"`` with ``cli_extra`` (geometry flags) and the matching
+    ``cfg`` rehearses it on the CPU."""
+    from distributed_tensorflow_tpu_torch.ckpt import restore_serving_state
+    from distributed_tensorflow_tpu_torch.models.bert import BertConfig, BertForPreTraining
+    from distributed_tensorflow_tpu_torch.serve import (
+        BatcherConfig,
+        BertInferenceEngine,
+        Client,
+        build_http_server,
+    )
+
+    ckpt_dir = ROOT / "build" / "chip_smoke_cli_tp_sp"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    port, world, steps = _free_port(), 4, 3
+    argvs = [[sys.executable, str(ROOT / "scripts" / "torch_mp_train.py"), "--cli",
+              "--config", "bert_base_l512", "--tensor-parallel", "2", "--seq-parallel", "2",
+              "--sp-impl", "ring", "--steps", str(steps), "--global-batch", "8",
+              "--log-every", "1", "--ckpt-dir", str(ckpt_dir), "--coordinator-address",
+              f"127.0.0.1:{port}", "--num-processes", str(world), "--process-id", str(r),
+              "--device", device, *cli_extra]
+             for r in range(world)]
+    t0 = time.monotonic()
+    procs = _run_ranks(argvs, ROOT / "build" / "chip_smoke_cli_tp_sp_logs", 600)
+    cli_s = time.monotonic() - t0
+    for r, (code, _, err) in enumerate(procs):
+        check(code == 0, f"cli.train --tensor-parallel 2 --seq-parallel 2 rank {r} exited "
+                         f"{code}:\n{err[-4000:]}")
+    log = procs[0][2]
+    lines = [ln for ln in log.splitlines() if "train.loop: step" in ln]
+    check(len(lines) == steps and all("loss=nan" not in ln for ln in lines), f"log: {lines}")
+    check("layout=sp2-tp2" in log and "backend=gloo world=4" in log,
+          "the CLI's log names the layout and the 4-rank gloo group")
+    t0 = time.monotonic()
+    params, _, step = restore_serving_state(ckpt_dir)
+    check(step == steps, f"restored step {step}")
+    cfg = cfg or BertConfig(dropout_rate=0.1, dtype=torch.bfloat16)  # TP 1, 512 positions
+    h = cfg.hidden_size
+    check(params["bert.layers.0.attention.query.weight"].shape == (h, h)
+          and params["bert.layers.0.intermediate.weight"].shape == (cfg.intermediate_size, h),
+          "the checkpoint holds the global tree")
+    engine = BertInferenceEngine(BertForPreTraining(cfg, device="cpu"), params, device,
+                                 buckets=(512,), max_batch=1, batch_tiers=(1,))
+    ids = np.random.default_rng(SEED).integers(5, cfg.vocab_size, size=300)
+    with Client(engine, BatcherConfig(max_batch=1, max_delay_ms=1.0)) as client:
+        server = build_http_server(client, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = "http://{}:{}".format(*server.server_address)
+            req = urllib.request.Request(base + "/v1/mlm",
+                                         data=json.dumps({"input_ids": ids.tolist()}).encode(),
+                                         headers={"Content-Type": "application/json"})
+            fm.reset_launch_counts()
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                check(resp.status == 200, f"/v1/mlm status {resp.status}")
+                out = json.loads(resp.read())
+            launches = fm.LAUNCHES["flash_fwd"]
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=10)
+    check(out["bucket"] == 512 and len(out["pred_ids"]) == len(ids)
+          and abs(sum(out["nsp_probs"]) - 1.0) < 1e-3,
+          "served answer from the TP x SP checkpoint")
+    check(launches == (cfg.num_layers if device == "cuda" else 0),
+          f"{launches} flash_fwd launches for one bucket-512 request")
+    emit({"phase": "train_cli_tp_sp", "cli_seconds": cli_s,
+          "serve_seconds": time.monotonic() - t0, "last_log": lines[-1].split(": ", 1)[-1],
+          "restored_step": step, "serve_flash_fwd_launches": launches,
+          "bucket": out["bucket"]})
+    return launches
+
+
 def _step_record(rows: list, counts: list, field: str) -> dict:
     """One kernel's times per ResNet-50 training step: each shape's row
     (``rows``, one per shape) weighted by its launches per step
@@ -4026,11 +4279,13 @@ def main() -> int:
         inception_launches, _ = timed("train_inception", phase_train_inception,
                                       fcb, pc, torch, inception)
         torch.cuda.empty_cache()
-        # Four CLI runs whose checks need no quiet card (no phase of
-        # theirs times anything that PERF.md reports): at once.
-        timed("train_cli_group", concurrently, (phase_train_cli, torch),
-              (phase_train_cli_image, torch), (phase_train_cli_inception, torch),
-              (phase_train_cli_bert_corpus, torch))
+        # CLI runs whose checks need no quiet card (no phase of theirs times
+        # anything that PERF.md reports): at once.
+        tp_sp_serve = timed(
+            "train_cli_group", concurrently, (phase_train_cli, torch),
+            (phase_train_cli_image, torch), (phase_train_cli_inception, torch),
+            (phase_train_cli_bert_corpus, torch), (phase_train_cli_dp, torch),
+            (phase_train_cli_tp_sp, torch, fm))[-1]
         torch.cuda.empty_cache()
         lm_ckpt = timed("train_cli_lm", phase_train_cli_lm, torch)
         timed("serve_lm", phase_serve_lm, torch, lm_ckpt)
@@ -4040,8 +4295,12 @@ def main() -> int:
         timed("serve_image", phase_serve_image, torch)
         torch.cuda.empty_cache()
         cli_real = timed("train_cli_imagenet_real", phase_train_cli_imagenet_real, torch, cache)
-        dp_world1 = timed("train_cli_dp", phase_train_cli_dp, torch)
+        dp_world1 = timed("train_dp_world1", phase_train_dp_world1, torch)
         dp_ranks = timed("train_dp_resnet50", phase_train_dp_resnet50, torch)
+        torch.cuda.empty_cache()
+        mp = timed("train_bert_mp", phase_train_bert_mp, torch)
+        # The collectives ran first in the same two processes.
+        seconds["collectives_gloo_cuda"] = mp["collectives_s"]
         torch.cuda.empty_cache()
         resilient = timed("train_resilient_fused", phase_train_resilient_fused, torch)
         chaos = timed("train_chaos", phase_train_chaos, torch,
@@ -4076,6 +4335,8 @@ def main() -> int:
                           for tile in ("q64", "q128")},
         # Launches on the int8 BERT serving path (bucket 512, 12 a forward).
         "int8_serve_launches": int8_launches,
+        # One bucket-512 request served from the TP x SP CLI's checkpoint.
+        "tp_sp_checkpoint_serve_launches": tp_sp_serve,
     }]
     for name, key, line in (("flash_bwd_dq", "dq", "490"), ("flash_bwd_dkv", "dkv", "559")):
         kernels.append({
@@ -4086,6 +4347,11 @@ def main() -> int:
             "library_ms": bwd_row[key]["library_ms"], "graph_ms": bwd_row[key]["graph_ms"],
             "blocks_per_sm": occupancy[name]["blocks_per_sm"],
         })
+    # Per rank, per step on the model-parallel paths (train_bert_mp).
+    for rec in kernels:
+        rec["model_parallel_launches"] = {
+            cfg: [[step[rec["name"]] for step in rank] for rank in ranks]
+            for cfg, ranks in mp["launches"].items()}
     # dQ: SDPA's whole backward beside its dq-only yardstick.
     kernels[1]["library_all_ms"] = bwd_row["dq"]["library_all_ms"]
     # The 1x1 kernels' numbers are per ResNet-50 step (b=128): each

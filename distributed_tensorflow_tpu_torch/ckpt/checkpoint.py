@@ -12,7 +12,13 @@ Under several processes (:mod:`..parallel.mesh`) the ranks hold the same
 replicated state, so rank 0 alone writes and prunes, every rank reads, and
 the ranks agree on the newest step by rank 0's word: the coordination the
 JAX package's orbax checkpointer does across its processes. The directory
-is one that every rank sees.
+is one that every rank sees. Under tensor parallelism
+(``Checkpointer(param_specs=...)``) the file holds the GLOBAL tree: every
+rank gathers the parameters, the optimizer's per-parameter slots and the
+stale ring over the model axis before rank 0 writes, and a restore keeps
+the slices of the mesh it runs on. So a checkpoint written at one
+``--tensor-parallel`` width restores at any other, and
+:func:`restore_serving_state` serves it unchanged.
 
 Importing an orbax checkpoint written by the JAX package needs JAX to read
 it and is left to a later slice: convert such params with :mod:`..interop`
@@ -81,6 +87,39 @@ def save(directory: str | Path, step: int, state_dict: dict) -> Path:
     return _write(Path(directory), int(step), {"step": int(step), "params": _to_cpu(state_dict)})
 
 
+def _slot_names(state) -> list[str]:
+    """The parameter name of each index of the optimizer's state dict (its
+    parameters numbered through the param groups in order)."""
+    name_of = {id(p): name for name, p in state.params.items()}
+    return [name_of[id(p)] for group in state.opt_state.optimizer.param_groups
+            for p in group["params"]]
+
+
+def _map_sharded(state, blob: dict, specs: dict, fn) -> dict:
+    """``blob`` (params, opt_state, grad_buffer as :meth:`Checkpointer.save`
+    lays them out) with ``fn(tree, specs)`` applied to the parameters, to
+    the optimizer slots shaped like them and to the stale ring (its leaves
+    sharded one dim further in)."""
+    out = dict(blob)
+    out["params"] = fn(blob["params"], specs)
+    names = _slot_names(state)
+    opt = blob["opt_state"]
+    slots = {}
+    for idx, entry in opt["optimizer"]["state"].items():
+        name = names[idx]
+        shape = blob["params"][name].shape
+        flat = {k: v for k, v in entry.items()
+                if isinstance(v, torch.Tensor) and v.dim() and v.shape == shape}
+        done = fn(flat, {k: specs.get(name) for k in flat})
+        slots[idx] = {**entry, **done}
+    out["opt_state"] = {**opt, "optimizer": {**opt["optimizer"], "state": slots}}
+    if blob.get("grad_buffer"):
+        ring_specs = {k: None if specs.get(k) is None else (specs[k][0], specs[k][1] + 1)
+                      for k in blob["grad_buffer"]}
+        out["grad_buffer"] = fn(blob["grad_buffer"], ring_specs)
+    return out
+
+
 class Checkpointer:
     """Periodic train-state checkpoints with restore-latest.
 
@@ -101,10 +140,15 @@ class Checkpointer:
         ckpt.close()
     """
 
-    def __init__(self, directory: str | Path, *, max_to_keep: int = 3, fault_injector=None):
+    def __init__(self, directory: str | Path, *, max_to_keep: int = 3, fault_injector=None,
+                 param_specs: dict | None = None):
         self.directory = Path(directory).absolute()
         self.max_to_keep = max_to_keep
         self._injector = fault_injector
+        # The model-axis sharding of the parameters (bert_param_specs), or
+        # None: the state is saved as it is.
+        self._specs = (param_specs if param_specs and any(v is not None for v in
+                                                           param_specs.values()) else None)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
 
@@ -119,15 +163,29 @@ class Checkpointer:
         at the barrier alone."""
         if self._injector is not None:
             self._injector.check_ckpt_save(step)
+        blob = None
+        if self._specs is not None:
+            # Every rank meets in the gathers over the model axis.
+            from distributed_tensorflow_tpu_torch.interop import gather_params
+            from distributed_tensorflow_tpu_torch.parallel.mesh import active_mesh
+
+            mesh = active_mesh()
+            blob = _map_sharded(state, {
+                "params": state.params, "opt_state": state.opt_state.state_dict(),
+                "grad_buffer": state.grad_buffer},
+                self._specs, lambda tree, specs: gather_params(tree, specs, mesh))
         if process_index() != 0:
             barrier()
             return
+        if blob is None:
+            blob = {"params": state.params, "opt_state": state.opt_state.state_dict(),
+                    "grad_buffer": state.grad_buffer}
         blob = {
             "step": int(step),
-            "params": _to_cpu(state.params),
-            "opt_state": _to_cpu(state.opt_state.state_dict()),
+            "params": _to_cpu(blob["params"]),
+            "opt_state": _to_cpu(blob["opt_state"]),
             "model_state": _to_cpu(state.model_state),
-            "grad_buffer": _to_cpu(state.grad_buffer),
+            "grad_buffer": _to_cpu(blob["grad_buffer"]),
             "buffer_index": state.buffer_index,
             "generator": None if generator is None else generator.get_state(),
         }
@@ -173,6 +231,13 @@ class Checkpointer:
             return state, 0
         blob = torch.load(_step_path(self.directory, step), map_location="cpu",
                           weights_only=True)
+        if self._specs is not None:
+            from distributed_tensorflow_tpu_torch.interop import shard_params
+            from distributed_tensorflow_tpu_torch.parallel.mesh import active_mesh
+
+            mesh = active_mesh()
+            blob = _map_sharded(state, blob, self._specs,
+                                lambda tree, specs: shard_params(tree, specs, mesh))
         with torch.no_grad():
             for name, p in state.params.items():
                 p.copy_(blob["params"][name])

@@ -35,6 +35,17 @@ metrics, ``--trace-dir`` the host span trace (``train_trace.json``), and
 ``--profile-dir`` (``--profile-steps N``: the first N steps only) a
 ``torch.profiler`` Chrome trace with the card's kernels.
 
+Model parallelism (``bert_base``): ``--tensor-parallel T`` shards heads and
+the FFN over a ``"model"`` axis (Megatron), ``--seq-parallel S --sp-impl
+ring|ulysses`` the sequence over a ``"seq"`` axis; the mesh is ``{"data":
+-1, "seq": S, "model": T}`` over the job's processes, as in the JAX CLI, and
+its layout (``dp2-sp2-tp2``) is in the log (the ``--metrics-jsonl``
+records keep the JAX CLI's keys). Checkpoints hold the global tree, so they restore at any width
+and serve unchanged. A requested axis over which the workload shards no
+parameter (or no sequence) and Ulysses over heads the axis does not divide
+exit 2; the causal LM's tensor parallelism comes with Queue A item 6c, and
+the MoE and pipeline flags with item 6b.
+
 Resilience: ``--resilient`` (``--max-restarts N``) runs the loop under
 :func:`..train.resilience.run_resilient`: SIGTERM/SIGINT stop at the next
 step with a final synchronous checkpoint and exit 0, and transient feeder
@@ -89,6 +100,9 @@ class WorkloadConfig:
     warmup_steps: int = 0
     mode: str = "sync"  # "sync" | "stale"
     staleness: int = 0
+    seq_parallel: int = 0  # > 0: "seq" axis size (BERT ring or Ulysses attention)
+    sp_impl: str = "ring"  # "ring" | "ulysses"
+    tensor_parallel: int = 0  # > 0: "model" axis size (BERT Megatron TP)
     remat: bool = False  # activation checkpointing over encoder layers
     bert_layers: int = 0  # > 0: override encoder depth (smoke runs)
     bert_hidden: int = 0  # > 0: override hidden size (intermediate = 4x)
@@ -211,11 +225,16 @@ def _build_bert_workload(cfg_kwargs: dict):
         from distributed_tensorflow_tpu_torch.models.bert import (
             BertConfig,
             BertForPreTraining,
+            bert_param_specs,
             make_bert_eval_metrics,
             make_bert_pretraining_loss,
         )
+        from distributed_tensorflow_tpu_torch.parallel.mesh import active_mesh
 
         def make(device):
+            mesh = active_mesh()
+            seq_parallel = mesh.shape.get("seq", 1) > 1
+            tp = mesh.shape.get("model", 1)
             kwargs = dict(cfg_kwargs)
             if cfg.bert_layers:
                 kwargs["num_layers"] = cfg.bert_layers
@@ -224,6 +243,10 @@ def _build_bert_workload(cfg_kwargs: dict):
                 kwargs["intermediate_size"] = 4 * cfg.bert_hidden
             if cfg.bert_vocab:
                 kwargs["vocab_size"] = cfg.bert_vocab
+            if seq_parallel:
+                kwargs.update(seq_axis="seq", sp_impl=cfg.sp_impl)
+            if tp > 1:
+                kwargs.update(model_axis="model", model_parallel=tp)
             model_cfg = BertConfig(**kwargs, remat=cfg.remat)
             model = BertForPreTraining(model_cfg, device=device)
             L = model_cfg.max_position
@@ -265,16 +288,21 @@ def _build_bert_workload(cfg_kwargs: dict):
                 # Held-out stream: the val corpus when one exists, else a
                 # disjoint seed over the training source.
                 it = mlm_device_batches(eval_data if eval_data is not None else data,
-                                        cfg.global_batch, device=device, seed=900_001)
+                                        cfg.global_batch, device=device, seed=900_001,
+                                        seq_sharded=seq_parallel)
                 for _ in range(n_batches):
                     yield next(it)
 
+            params = dict(model.named_parameters())
             return {
-                "params": dict(model.named_parameters()),
+                "params": params,
+                "param_specs": bert_param_specs(params) if tp > 1 else None,
+                "seq_sharded": seq_parallel,
                 "model_state": {},
                 "loss_fn": make_bert_pretraining_loss(model),
                 "batches": lambda start_step=0: mlm_device_batches(
-                    data, cfg.global_batch, device=device, seed=1, start_step=start_step),
+                    data, cfg.global_batch, device=device, seed=1, start_step=start_step,
+                    seq_sharded=seq_parallel),
                 "metric_fn": make_bert_eval_metrics(model),
                 "eval_batches": eval_batches,
             }
@@ -546,12 +574,15 @@ _UNPORTED_PRESETS: dict[str, str] = {}
 
 # Flags of the JAX CLI that this slice's path does not read, with why.
 _UNPORTED_FLAGS = {
-    **dict.fromkeys(("--seq-parallel", "--sp-impl", "--tensor-parallel", "--moe-experts",
-                     "--moe-dispatch", "--moe-topk", "--pipeline-parallel",
+    **dict.fromkeys(("--moe-experts", "--moe-dispatch", "--moe-topk", "--pipeline-parallel",
                      "--pipeline-microbatches", "--expert-parallel"),
-                    "comes with the model-parallel slice"),
+                    "MoE and pipeline parallelism come with Queue A item 6b"),
     "--rng-impl": "dropout draws from a torch.Generator seeded by --seed",
 }
+
+
+class _Refusal(ValueError):
+    """A request the CLI refuses with exit 2 once the workload is built."""
 
 
 def run(cfg: WorkloadConfig, args: argparse.Namespace):
@@ -564,6 +595,7 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
     from distributed_tensorflow_tpu_torch.parallel.mesh import (
         build_mesh,
         initialize_runtime,
+        layout_label,
         process_index,
     )
     from distributed_tensorflow_tpu_torch.train import (
@@ -584,15 +616,34 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
         device=args.device,
         timeout_s=args.init_timeout,
     )
-    mesh = build_mesh({"data": -1})
+    mesh_spec = {"data": -1}
+    if cfg.seq_parallel:
+        mesh_spec["seq"] = cfg.seq_parallel
+    if cfg.tensor_parallel:
+        mesh_spec["model"] = cfg.tensor_parallel
+    mesh = build_mesh(mesh_spec)
+    layout = layout_label(mesh)
     if process_index() == 0:
-        logger.info("workload=%s mesh=%s device=%s", cfg.name, dict(mesh.shape), device)
+        logger.info("workload=%s mesh=%s layout=%s device=%s", cfg.name, dict(mesh.shape),
+                    layout, device)
     pieces = cfg.build(cfg)(device)
+    # A model axis with no parameter sharded over it (or a seq axis over a
+    # workload that shards no sequence) means every group of those ranks
+    # computes identical gradients: silent N-fold waste, as the JAX CLI says.
+    specs = pieces.get("param_specs") or {}
+    if cfg.tensor_parallel > 1 and not any(s is not None and s[0] == "model"
+                                           for s in specs.values()):
+        raise _Refusal(f"a {cfg.tensor_parallel}-way 'model' axis was requested but "
+                       f"workload {cfg.name!r} shards no params over it")
+    if cfg.seq_parallel > 1 and not pieces.get("seq_sharded"):
+        raise _Refusal(f"a {cfg.seq_parallel}-way 'seq' axis was requested but "
+                       f"workload {cfg.name!r} shards no sequence over it")
     tx, lr_schedule = _make_tx(cfg)
     staleness = cfg.staleness if cfg.mode == "stale" else 0
     state = create_train_state(pieces["params"], tx, pieces["model_state"], staleness=staleness)
     step = make_train_step(pieces["loss_fn"], tx, mode=cfg.mode, staleness=staleness,
-                           clip_norm=cfg.clip_norm, grad_accum=cfg.grad_accum)
+                           clip_norm=cfg.clip_norm, grad_accum=cfg.grad_accum,
+                           param_specs=pieces.get("param_specs"))
     rng = make_rng(args.seed, device)
     # Flight recorder (--dump-dir): the resilience and fault-injection paths
     # record their events here and an unhandled failure dumps the ring.
@@ -614,7 +665,8 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
         plan = FaultPlan.parse(args.fault_plan, num_steps=cfg.num_steps)
         fault_injector = FaultInjector(plan, recorder=recorder)
         logger.info("fault plan armed: %d scheduled events", len(plan.events))
-    ckpt = (Checkpointer(args.ckpt_dir, fault_injector=fault_injector)
+    ckpt = (Checkpointer(args.ckpt_dir, fault_injector=fault_injector,
+                         param_specs=pieces.get("param_specs"))
             if args.ckpt_dir else None)
     start = 0
     if ckpt is not None:
@@ -796,6 +848,13 @@ def make_parser() -> argparse.ArgumentParser:
                    help="override BERT hidden size (intermediate = 4x)")
     p.add_argument("--bert-vocab", type=int, default=0,
                    help="override BERT vocab size (smoke runs)")
+    p.add_argument("--seq-parallel", type=int, default=-1,
+                   help="seq axis size for sequence parallelism (BERT)")
+    p.add_argument("--sp-impl", default="", choices=["", "ring", "ulysses"],
+                   help="sequence-parallel strategy: ring (K/V blocks passed around the "
+                        "seq axis) or ulysses (all-to-all head re-partition)")
+    p.add_argument("--tensor-parallel", type=int, default=-1,
+                   help="model axis size for Megatron-TP sharding (BERT)")
     p.add_argument("--staleness", type=int, default=-1,
                    help="K > 0: apply K-step-old gradients (async-stale emulation)")
     p.add_argument("--lr", type=float, default=0.0)
@@ -896,6 +955,16 @@ def main(argv: list[str] | None = None) -> int:
     if args.resilient and args.device_pool > 0:
         parser.error("--resilient does not compose with --device-pool (the pool is rebuilt "
                      "per restart and would replay positions 0..N-1)")
+    if args.tensor_parallel > 1 and args.config == "lm_base":
+        parser.error("--tensor-parallel: the causal LM's tensor parallelism is not ported "
+                     "to PyTorch yet (comes with Queue A item 6c)")
+    if args.sp_impl == "ulysses" and args.seq_parallel > 1:
+        from distributed_tensorflow_tpu_torch.models.bert import BertConfig
+
+        local_heads = BertConfig().num_heads // max(args.tensor_parallel, 1)
+        if local_heads % args.seq_parallel:
+            parser.error(f"--sp-impl ulysses: {local_heads} heads a model shard are not "
+                         f"divisible by --seq-parallel {args.seq_parallel}; use the ring")
     if args.tb_dir and importlib.util.find_spec("tensorboard") is None:
         parser.error("--tb-dir: the tensorboard package is not installed here "
                      "(--metrics-jsonl writes the same records without it)")
@@ -924,11 +993,20 @@ def main(argv: list[str] | None = None) -> int:
         overrides["device_pool"] = args.device_pool
     if args.prefetch >= 0:
         overrides["prefetch"] = args.prefetch
+    if args.seq_parallel >= 0:
+        overrides["seq_parallel"] = args.seq_parallel
+    if args.sp_impl:
+        overrides["sp_impl"] = args.sp_impl
+    if args.tensor_parallel >= 0:
+        overrides["tensor_parallel"] = args.tensor_parallel
     cfg = dataclasses.replace(PRESETS[args.config], **overrides)
     from distributed_tensorflow_tpu_torch.parallel.mesh import process_index, shutdown_runtime
 
     try:
-        _, last = run(cfg, args)
+        try:
+            _, last = run(cfg, args)
+        except _Refusal as e:
+            parser.error(str(e))
         if last is not None and process_index() == 0:
             logger.info("final: %s", last)
     finally:

@@ -228,3 +228,47 @@ def resnet_params_to_flax(state_dict: dict, batch_stats: dict | None = None):
 # The walkers map every image model's tree, not only ResNet's.
 image_params_from_flax = resnet_params_from_flax
 image_params_to_flax = resnet_params_to_flax
+
+
+def shard_params(state_dict: dict, specs: dict, mesh) -> dict:
+    """This rank's slice of a GLOBAL state dict: each leaf that ``specs``
+    shards (``(axis, dim)``, as :func:`.models.bert.bert_param_specs` gives
+    them) is cut into ``mesh.shape[axis]`` equal parts along ``dim`` and
+    the part at this rank's coordinate on ``axis`` kept (a contiguous copy);
+    the others are returned as they are. The JAX package's placement of a
+    global tree under ``PartitionSpec``s, for one rank."""
+    from distributed_tensorflow_tpu_torch.parallel.mesh import coordinate
+
+    out = {}
+    for name, t in state_dict.items():
+        spec = specs.get(name)
+        if spec is None:
+            out[name] = t
+            continue
+        axis, dim = spec
+        n = mesh.shape[axis]
+        if t.shape[dim] % n:
+            raise ValueError(f"{name}: dimension {dim} of size {t.shape[dim]} not "
+                             f"divisible by the {n}-way {axis!r} axis")
+        out[name] = t.chunk(n, dim)[coordinate(mesh, (axis,))].contiguous()
+    return out
+
+
+def gather_params(state_dict: dict, specs: dict, mesh) -> dict:
+    """The GLOBAL state dict rebuilt on every rank from each rank's slices
+    (the inverse of :func:`shard_params`): every sharded leaf is
+    all-gathered over its axis of ``mesh``, the job's active mesh, and
+    concatenated along its dim. Every rank of the job must call it."""
+    from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+    from distributed_tensorflow_tpu_torch.parallel.mesh import axis_group, axis_ranks
+
+    out = {}
+    for name, t in state_dict.items():
+        spec = specs.get(name)
+        if spec is None:
+            out[name] = t
+            continue
+        axis, dim = spec
+        n = len(axis_ranks(mesh, axis))
+        out[name] = t if n == 1 else coll._gather(t.detach(), axis_group(mesh, axis), n, dim)
+    return out

@@ -26,9 +26,26 @@ the layer started from, so the recomputed masks are the same.
 Training half: :func:`make_bert_pretraining_loss` (MLM + NSP) and
 :func:`make_bert_eval_metrics`, sharing :func:`_mlm_stats`.
 
-The tensor-, sequence-, expert- and pipeline-parallel fields of
-:class:`BertConfig` exist so configs carry over, and raise
-``NotImplementedError`` when set: they come with the model-parallel slice.
+Model parallelism, as in the JAX package, reads the active mesh
+(:func:`..parallel.mesh.active_mesh`) where the JAX modules read the axes
+their ``shard_map`` binds:
+
+- ``model_axis``/``model_parallel`` (Megatron tensor parallelism): each
+  rank holds ``num_heads / model_parallel`` heads of Q/K/V and the matching
+  rows of the attention output projection, and ``intermediate_size /
+  model_parallel`` of the FFN; the row-parallel outputs are summed over the
+  axis (:func:`_tp_psum`) and ``out_bias``/``output_bias`` are added after
+  the sum. Parameters are drawn global, as the unsharded model draws them,
+  and sliced (:func:`bert_param_specs`, :func:`..interop.shard_params`);
+- ``seq_axis`` with ``sp_impl`` ``"ring"`` or ``"ulysses"``: every
+  ``[B, L]`` input holds this rank's slice of the sequence; positions are
+  offset by the slice's start, attention runs over the global sequence
+  (:mod:`..parallel.ring_attention`, :mod:`..parallel.ulysses`), the pooler
+  takes the global ``[CLS]`` from the first slice, and the MLM sums are
+  summed over the axis.
+
+The expert and pipeline fields exist so configs carry over, and raise
+``NotImplementedError`` when set: they come with Queue A item 6b.
 """
 
 from __future__ import annotations
@@ -43,7 +60,12 @@ from torch.utils.checkpoint import checkpoint
 from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.models.quant import dequantize_leaf
 from distributed_tensorflow_tpu_torch.ops.flash_attention import flash_attention
-from distributed_tensorflow_tpu_torch.parallel.ring_attention import dense_attention
+from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
+    dense_attention,
+    ring_attention,
+)
+from distributed_tensorflow_tpu_torch.parallel.ulysses import ulysses_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,9 +101,6 @@ class BertConfig:
 
     def __post_init__(self):
         unported = {
-            "seq_axis": self.seq_axis is not None,
-            "model_axis": self.model_axis is not None,
-            "model_parallel": self.model_parallel != 1,
             "moe_experts": self.moe_experts != 0,
             "expert_axis": self.expert_axis is not None,
             "expert_parallel": self.expert_parallel != 1,
@@ -91,13 +110,42 @@ class BertConfig:
         bad = [name for name, is_set in unported.items() if is_set]
         if bad:
             raise NotImplementedError(
-                f"BertConfig fields {bad} (sequence/tensor/expert/pipeline "
-                "parallelism) are ported with the model-parallel slice"
+                f"BertConfig fields {bad} (mixture-of-experts/expert/pipeline "
+                "parallelism) are not ported yet: they come with Queue A item 6b"
             )
+        if self.sp_impl not in ("ring", "ulysses"):
+            raise ValueError(f"sp_impl must be 'ring' or 'ulysses', got {self.sp_impl!r}")
+        tp = self.model_parallel
+        if tp < 1 or self.num_heads % tp or self.intermediate_size % tp:
+            raise ValueError(
+                f"model_parallel {tp} must divide num_heads {self.num_heads} and "
+                f"intermediate_size {self.intermediate_size}")
+        if tp > 1 and self.model_axis is None:
+            raise ValueError("model_parallel > 1 needs a model_axis")
 
 
 def bert_base(**overrides) -> BertConfig:
     return BertConfig(**overrides)
+
+
+def _global_config(cfg: BertConfig) -> BertConfig:
+    """The unsharded model's config: what the parameters are drawn under."""
+    return dataclasses.replace(cfg, seq_axis=None, model_axis=None, model_parallel=1)
+
+
+def _seq_offset(cfg: BertConfig, l_local: int) -> int:
+    """Global position of this rank's first token (0 without a seq axis)."""
+    if cfg.seq_axis is None:
+        return 0
+    return coll.axis_index(cfg.seq_axis) * l_local
+
+
+def _tp_psum(cfg: BertConfig, y):
+    """Sum row-parallel partial outputs over the model axis (identity at
+    model_parallel 1)."""
+    if cfg.model_axis is not None and cfg.model_parallel > 1:
+        return coll.psum(y, cfg.model_axis)
+    return y
 
 
 def _kernel(layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -157,7 +205,9 @@ class BertEmbeddings(nn.Module):
 
     def forward(self, input_ids, token_type_ids, train=False, generator=None):
         dt = self.cfg.dtype
-        positions = torch.arange(input_ids.shape[1], device=input_ids.device)
+        l_local = input_ids.shape[1]
+        positions = _seq_offset(self.cfg, l_local) + torch.arange(
+            l_local, device=input_ids.device)
         x = (
             self.word(input_ids).to(dt)
             + self.position(positions).to(dt)[None]
@@ -167,12 +217,19 @@ class BertEmbeddings(nn.Module):
 
 
 class BertSelfAttention(nn.Module):
+    """Multi-head attention, Megatron-sharded over ``cfg.model_axis``:
+    column-parallel Q/K/V (this rank's ``num_heads / model_parallel``
+    heads), attention per local head (the seq ring or Ulysses compose), a
+    row-parallel output projection whose partial sums are summed over the
+    axis, and ``out_bias`` added once, after the sum."""
+
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
         self.head_dim = h // cfg.num_heads
-        width = cfg.num_heads * self.head_dim
+        self.local_heads = cfg.num_heads // cfg.model_parallel
+        width = self.local_heads * self.head_dim
         self.query = nn.Linear(h, width)
         self.key = nn.Linear(h, width)
         self.value = nn.Linear(h, width)
@@ -183,19 +240,32 @@ class BertSelfAttention(nn.Module):
     def forward(self, x, mask, train=False, generator=None):
         cfg = self.cfg
         b, l, _ = x.shape
-        shape = (b, l, cfg.num_heads, self.head_dim)
+        shape = (b, l, self.local_heads, self.head_dim)
         q = _linear(x, self.query, cfg.dtype).view(shape)
         k = _linear(x, self.key, cfg.dtype).view(shape)
         v = _linear(x, self.value, cfg.dtype).view(shape)
         impl = cfg.attn_impl
         if impl == "auto":
-            # The JAX package's measured crossover: flash from L = 256 up.
-            impl = "flash" if l >= 256 else "dense"
-        if impl == "flash":
+            # The JAX package's measured crossover: flash from L = 256 up,
+            # on the length the inner attention sees: the local shard for
+            # the ring (its inner runs per L_local block), the gathered
+            # sequence for Ulysses.
+            eff_l = l
+            if cfg.seq_axis is not None and cfg.sp_impl == "ulysses":
+                eff_l = l * coll.axis_size(cfg.seq_axis)
+            impl = "flash" if eff_l >= 256 else "dense"
+        if cfg.seq_axis is not None:
+            if cfg.sp_impl == "ulysses":
+                ctx = ulysses_attention(q, k, v, cfg.seq_axis, mask=mask,
+                                        inner="flash" if impl == "flash" else "dense")
+            else:
+                ctx = ring_attention(q, k, v, cfg.seq_axis, mask=mask,
+                                     inner="flash" if impl == "flash" else "einsum")
+        elif impl == "flash":
             ctx = flash_attention(q, k, v, mask=mask)
         else:
             ctx = dense_attention(q, k, v, mask=mask)
-        out = _linear(ctx.reshape(b, l, -1), self.out, cfg.dtype)
+        out = _tp_psum(cfg, _linear(ctx.reshape(b, l, -1), self.out, cfg.dtype))
         out = out + self.out_bias.to(out.dtype)
         out = dropout(out, cfg.dropout_rate, train, generator)
         return self.ln(x + out)
@@ -206,8 +276,11 @@ class BertLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.attention = BertSelfAttention(cfg)
-        self.intermediate = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.output = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False)
+        # Column-parallel up-projection, row-parallel down-projection with
+        # its bias added after the sum over the model axis.
+        ff = cfg.intermediate_size // cfg.model_parallel
+        self.intermediate = nn.Linear(cfg.hidden_size, ff)
+        self.output = nn.Linear(ff, cfg.hidden_size, bias=False)
         self.output_bias = nn.Parameter(torch.zeros(cfg.hidden_size))
         self.ln = LayerNorm(cfg.hidden_size, 1e-12, cfg.dtype)
 
@@ -215,7 +288,7 @@ class BertLayer(nn.Module):
         dt = self.cfg.dtype
         x = self.attention(x, mask, train, generator)
         y = F.gelu(_linear(x, self.intermediate, dt), approximate="tanh")
-        y = _linear(y, self.output, dt)
+        y = _tp_psum(self.cfg, _linear(y, self.output, dt))
         y = y + self.output_bias.to(y.dtype)
         y = dropout(y, self.cfg.dropout_rate, train, generator)
         return self.ln(x + y)
@@ -233,14 +306,21 @@ class BertModel(nn.Module):
 
     def forward(self, input_ids, attention_mask, token_type_ids, train=False,
                 generator=None):
-        mask = attention_mask.to(torch.bool)
+        mask = attention_mask.to(torch.bool).contiguous()
         x = self.embeddings(input_ids, token_type_ids, train, generator)
         for layer in self.layers:
             if self.cfg.remat and train and torch.is_grad_enabled():
                 x = _remat_layer(layer, x, mask, generator)
             else:
                 x = layer(x, mask, train, generator)
-        pooled = torch.tanh(_linear(x[:, 0], self.pooler, self.cfg.dtype))
+        first = x[:, 0]
+        if self.cfg.seq_axis is not None:
+            # The global [CLS] token lives on seq position 0: select it by a
+            # sum over the axis, so every rank pools the same vector (its
+            # gradient flows back to position 0 only).
+            is_first = float(coll.axis_index(self.cfg.seq_axis) == 0)
+            first = coll.psum(first * is_first, self.cfg.seq_axis)
+        pooled = torch.tanh(_linear(first, self.pooler, self.cfg.dtype))
         return x, pooled
 
 
@@ -269,6 +349,9 @@ class BertForPreTraining(nn.Module):
     drawn from ``generator`` (a ``torch.Generator`` on that device;
     default: seeded with ``seed``) with the JAX package's initialisers:
     normal(0.02) kernels and embeddings, zero biases, unit LayerNorm scales.
+    Under ``model_parallel > 1`` they are drawn for the unsharded model and
+    this rank's slices kept (the active mesh's coordinate on the model
+    axis), so every layout starts from the same global parameters.
     """
 
     def __init__(self, cfg: BertConfig, *, device="cuda", generator=None, seed: int = 0):
@@ -283,7 +366,16 @@ class BertForPreTraining(nn.Module):
         self.to(dev)
         if generator is None:
             generator = torch.Generator(dev).manual_seed(seed)
-        self._init_params(generator)
+        if cfg.model_parallel > 1:
+            from distributed_tensorflow_tpu_torch.interop import shard_params
+            from distributed_tensorflow_tpu_torch.parallel.mesh import active_mesh
+
+            full = BertForPreTraining(_global_config(cfg), device=dev, generator=generator)
+            local = shard_params(full.state_dict(), bert_param_specs(
+                full.state_dict(), cfg.model_axis), active_mesh())
+            self.load_state_dict(local)
+        else:
+            self._init_params(generator)
 
     @torch.no_grad()
     def _init_params(self, generator) -> None:
@@ -353,9 +445,11 @@ class _RowLogSumExp(torch.autograd.Function):
         return grad.view(logits.shape)
 
 
-def _mlm_stats(mlm_logits, batch):
+def _mlm_stats(mlm_logits, batch, seq_axis=None):
     """MLM statistics shared by the train loss and the eval metrics: CE
-    sum, masked-token count and correct count (targets < 0 are ignored).
+    sum, masked-token count and correct count (targets < 0 are ignored),
+    summed over ``seq_axis`` when the sequence is sharded, so every rank
+    holds the global sums.
 
     The CE is taken in f32 from the logits' storage dtype
     (:class:`_RowLogSumExp`), never upcasting ``[B, L, V]`` whole. A masked
@@ -371,6 +465,10 @@ def _mlm_stats(mlm_logits, batch):
     den = weights.sum()
     row_max = mlm_logits.detach().amax(dim=-1)
     correct = ((tgt_logit.detach() == row_max).to(torch.float32) * weights).sum()
+    if seq_axis is not None:
+        num = coll.psum(num, seq_axis)
+        den = coll.psum(den, seq_axis)
+        correct = coll.psum(correct, seq_axis)
     return num, den, correct
 
 
@@ -387,13 +485,16 @@ def make_bert_pretraining_loss(model: BertForPreTraining):
     token_type_ids, mlm_targets`` ``[B, L]`` and ``nsp_label [B]``.
     ``params`` are ``model``'s own parameters (the train state holds them
     by reference), so the forward reads them through ``model``; dropout
-    draws from ``generator``.
+    draws from ``generator``. With ``cfg.seq_axis`` the MLM sums are summed
+    over the axis, so every rank returns the global loss (the step's seq
+    contract, :mod:`..train.step`).
     """
+    seq_axis = model.cfg.seq_axis
 
     def loss_fn(params, model_state, batch, generator):
         del params
         mlm_logits, nsp_logits = _forward_batch(model, batch, True, generator)
-        num, den, correct = _mlm_stats(mlm_logits, batch)
+        num, den, correct = _mlm_stats(mlm_logits, batch, seq_axis)
         den = den.clamp_min(1.0)
         mlm_loss = num / den
         nsp_loss = F.cross_entropy(nsp_logits.float(), batch["nsp_label"].long())
@@ -411,13 +512,15 @@ def make_bert_eval_metrics(model: BertForPreTraining):
     """Eval ``metric_fn(params, model_state, batch)`` for
     :func:`~..train.step.make_eval_step`: MLM/NSP losses and accuracies on
     held-out batches, no dropout, no gradient. Every entry is a
-    ``(num, den)`` pair, reduced as a global ratio."""
+    ``(num, den)`` pair, reduced as a global ratio; the MLM sums are
+    summed over ``cfg.seq_axis`` first, as in the loss."""
+    seq_axis = model.cfg.seq_axis
 
     def metric_fn(params, model_state, batch):
         del params, model_state
         with torch.no_grad():
             mlm_logits, nsp_logits = _forward_batch(model, batch, False)
-            num, den, correct = _mlm_stats(mlm_logits, batch)
+            num, den, correct = _mlm_stats(mlm_logits, batch, seq_axis)
             labels = batch["nsp_label"].long()
             nsp_ce = F.cross_entropy(nsp_logits.float(), labels, reduction="sum")
             nsp_correct = (nsp_logits.argmax(-1) == labels).to(torch.float32).sum()
@@ -430,3 +533,39 @@ def make_bert_eval_metrics(model: BertForPreTraining):
         }
 
     return metric_fn
+
+
+# The leaves Megatron tensor parallelism shards: (module, leaf) suffix of
+# the parameter name -> the dimension of the torch tensor that the model
+# axis splits (flax's column-parallel kernels [H, heads, d] are rows of the
+# torch [heads*d, H] weight; the row-parallel ones are its columns).
+_TP_RULES = (
+    (("query", "weight"), 0), (("key", "weight"), 0), (("value", "weight"), 0),
+    (("query", "bias"), 0), (("key", "bias"), 0), (("value", "bias"), 0),
+    (("out", "weight"), 1),
+    (("intermediate", "weight"), 0), (("intermediate", "bias"), 0),
+    (("output", "weight"), 1),
+)
+
+
+def bert_param_specs(params, model_axis: str | None = "model") -> dict:
+    """The tensor-parallel sharding of BERT's parameters (JAX
+    ``bert_param_specs`` for the model axis), in the port's form: for each
+    name of ``params`` (a state dict of the GLOBAL model), ``(model_axis,
+    dim)`` for a leaf the axis shards along ``dim``, or None for a
+    replicated one. Q/K/V weights and biases and the FFN up-projection are
+    column-parallel, the attention output and FFN down-projection
+    row-parallel; embeddings, LayerNorms, the post-sum biases, the pooler
+    and the heads are replicated. ``model_axis=None`` replicates everything.
+    The expert and pipeline rules come with Queue A item 6b."""
+    specs = {}
+    for name in params:
+        parts = tuple(name.split("."))
+        spec = None
+        if model_axis is not None:
+            for suffix, dim in _TP_RULES:
+                if parts[-len(suffix):] == suffix:
+                    spec = (model_axis, dim)
+                    break
+        specs[name] = spec
+    return specs

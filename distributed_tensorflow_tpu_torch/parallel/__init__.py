@@ -1,13 +1,17 @@
 """Mesh, runtime bootstrap and collectives across processes, and the
-single-device attention."""
+attention of one device and across the sequence axis (ring, Ulysses)."""
 
 from distributed_tensorflow_tpu_torch.parallel.collectives import (  # noqa: F401
+    all_gather,
     all_gather_tree,
+    all_to_all,
     axis_index,
     axis_size,
     global_norm,
     pmean_tree,
+    ppermute,
     ppermute_ring,
+    psum,
     psum_tree,
     reduce_scatter_mean_tree,
     replicate,
@@ -16,6 +20,8 @@ from distributed_tensorflow_tpu_torch.parallel.collectives import (  # noqa: F40
 from distributed_tensorflow_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_ORDER,
     MeshSpec,
+    active_mesh,
+    axis_group,
     build_mesh,
     data_axes,
     initialize_runtime,
@@ -25,4 +31,6 @@ from distributed_tensorflow_tpu_torch.parallel.mesh import (  # noqa: F401
 )
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import (  # noqa: F401
     dense_attention,
+    ring_attention,
 )
+from distributed_tensorflow_tpu_torch.parallel.ulysses import ulysses_attention  # noqa: F401

@@ -1,14 +1,36 @@
-"""Collectives of the data-parallel step (port of ``parallel/collectives.py``).
+"""Collectives across the mesh's processes (port of ``parallel/collectives.py``).
 
 The JAX package averages gradients with ``lax.pmean`` over the mesh's data
 axes inside ``shard_map``, and XLA's combiner merges the per-leaf
-reductions into one AllReduce. Here the data axis is the default
-``torch.distributed`` process group (:mod:`.mesh`), and the merge is
-explicit: :func:`psum_tree` and :func:`pmean_tree` pack every leaf of one
-dtype into one flat buffer, reduce it with a single ``all_reduce`` and
-hand back views of it in the tree's structure. With no group (one
-process) or a group of one they are the identity. Trees are dicts, lists
-or tuples of tensors; results have the same structure.
+reductions into one AllReduce. Here each mesh axis line is a
+``torch.distributed`` subgroup (:func:`.mesh.axis_group`) of the active
+mesh (:func:`.mesh.active_mesh`), and the merge is explicit:
+:func:`psum_tree` and :func:`pmean_tree` pack every leaf of one dtype into
+one flat buffer, reduce it with a single ``all_reduce`` over the axes
+(default the data axes) and hand back views of it in the tree's
+structure. Over axes of size 1 they are the identity. Trees are dicts,
+lists or tuples of tensors; results have the same structure.
+
+The model-parallel collectives are differentiable, with the transposes
+JAX uses under ``shard_map(check_vma=False)``:
+
+- :func:`psum` (``lax.psum``): all-reduce forward, **all-reduce backward**
+  ("psum transposes to psum"). The train step's per-leaf contract
+  (:mod:`..train.step`) removes the factor of the axis size this puts on
+  every gradient, exactly as the JAX step does, so the final gradients
+  are JAX's;
+- :func:`ppermute` (``lax.ppermute`` by a shift along the axis): backward
+  is the inverse shift;
+- :func:`all_to_all` (``lax.all_to_all(..., tiled=True)``): backward is the
+  reverse all-to-all;
+- :func:`all_gather` (``lax.all_gather(..., tiled=True)``): backward sums
+  the cotangent over the axis and keeps this rank's slice
+  (``psum_scatter``).
+
+Under the gloo backend a CUDA tensor that gloo cannot take is staged
+through pinned host memory by the collective itself, for the ops named in
+:data:`GLOO_HOST_STAGED` and for gloo only; NCCL always gets the device
+tensor.
 """
 
 from __future__ import annotations
@@ -61,27 +83,187 @@ def _bucketed(tree, collective):
     return _map(lambda _: next(it), tree)
 
 
-def psum_tree(tree):
-    """Sum every leaf across the data-parallel processes: one all-reduce a
-    dtype."""
-    if mesh_lib.process_count() == 1:
+#: Collectives whose CUDA tensors go through pinned host memory under the
+#: gloo backend, by name: gloo's send/recv hand the tensor's pointer to the
+#: socket as host memory (``writev ... Bad address`` on an H100), so
+#: ``ppermute``. ``psum``, ``all_gather`` and ``all_to_all`` take CUDA
+#: tensors in gloo itself (``chip_smoke.py`` collectives_gloo_cuda tries
+#: them raw on the card).
+GLOO_HOST_STAGED = frozenset({"ppermute"})
+
+
+def _staged(op: str, group, x: torch.Tensor) -> bool:
+    return op in GLOO_HOST_STAGED and x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _host(x: torch.Tensor) -> torch.Tensor:
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    out.copy_(x)
+    return out
+
+
+def _resolve(axis: AxisName | None):
+    """``(group, size)`` of ``axis`` (None: the data axes) on the active mesh."""
+    mesh = mesh_lib.active_mesh()
+    axes = mesh_lib.data_axes(mesh) if axis is None else _axes(axis)
+    return mesh_lib.axis_group(mesh, axes), math.prod(mesh.shape[a] for a in axes)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``, in place."""
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def psum_tree(tree, axis: AxisName | None = None):
+    """Sum every leaf over ``axis`` (default the data axes): one all-reduce
+    a dtype."""
+    group, _ = _resolve(axis)
+    if group is None:
         return tree
-    return _bucketed(tree, lambda flat: dist.all_reduce(flat, op=dist.ReduceOp.SUM))
+    return _bucketed(tree, lambda flat: _all_reduce(flat, group))
 
 
-def pmean_tree(tree):
-    """Average every leaf across the data-parallel processes: the whole of
-    the synchronous step's gradient exchange (``SyncReplicasOptimizer``'s
-    accumulate-and-average, as one all-reduce a dtype)."""
-    n = mesh_lib.process_count()
-    if n == 1:
+def pmean_tree(tree, axis: AxisName | None = None):
+    """Average every leaf over ``axis`` (default the data axes): over the
+    data axes, the whole of the synchronous step's gradient exchange
+    (``SyncReplicasOptimizer``'s accumulate-and-average, as one all-reduce
+    a dtype)."""
+    group, n = _resolve(axis)
+    if group is None:
         return tree
+    return _bucketed(tree, lambda flat: _all_reduce(flat, group).div_(n))
 
-    def mean(flat):
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-        flat.div_(n)
 
-    return _bucketed(tree, mean)
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x.detach().clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+def psum(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
+    """``lax.psum(x, axis)``: the sum over the axis line, differentiable;
+    its backward is a psum too (JAX's transpose without replication
+    tracking). The identity on an axis of size 1."""
+    group, _ = _resolve(axis)
+    return x if group is None else _Psum.apply(x, group)
+
+
+def _shift(x: torch.Tensor, ranks: list[int], pos: int, shift: int, group) -> torch.Tensor:
+    n = len(ranks)
+    dst, src = ranks[(pos + shift) % n], ranks[(pos - shift) % n]
+    send = x.contiguous()
+    if _staged("ppermute", group, send):
+        out = torch.empty(send.shape, dtype=send.dtype, pin_memory=True)
+        ops = [dist.P2POp(dist.isend, _host(send), dst, group),
+               dist.P2POp(dist.irecv, out, src, group)]
+    else:
+        out = torch.empty(send.shape, dtype=send.dtype, device=send.device)
+        ops = [dist.P2POp(dist.isend, send, dst, group),
+               dist.P2POp(dist.irecv, out, src, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out.to(x.device, non_blocking=True)
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ranks, pos, shift, group):
+        ctx.args = (ranks, pos, shift, group)
+        return _shift(x, ranks, pos, shift, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        ranks, pos, shift, group = ctx.args
+        return _shift(g, ranks, pos, -shift, group), None, None, None, None
+
+
+def ppermute(x: torch.Tensor, axis: AxisName, shift: int = 1) -> torch.Tensor:
+    """Rotate ``x`` along the axis line: the rank at position ``i`` receives
+    position ``(i - shift) % n``'s tensor (``lax.ppermute`` with the
+    permutation ``i -> i + shift``). Differentiable: the backward rotates
+    the cotangent by ``-shift``. A clone on an axis of size 1."""
+    mesh = mesh_lib.active_mesh()
+    axes = _axes(axis)
+    ranks = mesh_lib.axis_ranks(mesh, axes)
+    if len(ranks) == 1:
+        return x.clone()
+    group = mesh_lib.axis_group(mesh, axes)
+    return _Ppermute.apply(x, ranks, ranks.index(mesh.rank), shift, group)
+
+
+def _a2a(x: torch.Tensor, group, n: int, split_axis: int, concat_axis: int) -> torch.Tensor:
+    if x.shape[split_axis] % n:
+        raise ValueError(
+            f"all_to_all: dimension {split_axis} of size {x.shape[split_axis]} "
+            f"not divisible by the axis size {n}")
+    send = torch.stack(x.chunk(n, split_axis)).contiguous()
+    recv = torch.empty(send.shape, dtype=send.dtype, device=send.device)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, split_axis, concat_axis):
+        ctx.args = (group, n, split_axis, concat_axis)
+        return _a2a(x, group, n, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, split_axis, concat_axis = ctx.args
+        return _a2a(g, group, n, concat_axis, split_axis), None, None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis: AxisName, split_axis: int, concat_axis: int):
+    """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``:
+    ``x`` splits into n chunks along ``split_axis``, chunk ``j`` goes to
+    the axis line's position ``j``, and the chunks received are
+    concatenated along ``concat_axis`` in position order. Differentiable:
+    the backward is the reverse all-to-all. The identity on an axis of size 1."""
+    group, n = _resolve(axis)
+    if group is None:
+        return x
+    split_axis, concat_axis = split_axis % x.dim(), concat_axis % x.dim()
+    return _AllToAll.apply(x, group, n, split_axis, concat_axis)
+
+
+def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    x = x.contiguous()
+    parts = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, pos, dim):
+        ctx.args = (group, n, pos, dim)
+        return _gather(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, pos, dim = ctx.args
+        total = _all_reduce(g.clone(memory_format=torch.contiguous_format), group)
+        return total.chunk(n, dim)[pos].contiguous(), None, None, None, None
+
+
+def all_gather(x: torch.Tensor, axis: AxisName, dim: int = 0) -> torch.Tensor:
+    """``lax.all_gather(x, axis, axis=dim, tiled=True)``: the axis line's
+    tensors concatenated along ``dim`` in position order. Differentiable
+    (the backward is ``psum_scatter``). The identity on an axis of size 1."""
+    mesh = mesh_lib.active_mesh()
+    axes = _axes(axis)
+    ranks = mesh_lib.axis_ranks(mesh, axes)
+    if len(ranks) == 1:
+        return x
+    group = mesh_lib.axis_group(mesh, axes)
+    return _AllGather.apply(x, group, len(ranks), ranks.index(mesh.rank), dim % x.dim())
 
 
 def all_gather_tree(tree, axis: int = 0, tiled: bool = True):
@@ -121,19 +303,10 @@ def reduce_scatter_mean_tree(tree, axis: int = 0):
 
 
 def ppermute_ring(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
-    """Rotate ``x`` around the ring of processes: process ``i`` receives
-    process ``(i - shift) % n``'s tensor (the primitive under ring
-    attention and ring pipelining)."""
-    n = mesh_lib.process_count()
-    if n == 1:
-        return x.clone()
-    rank = mesh_lib.process_index()
-    out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x.contiguous(), (rank + shift) % n),
-           dist.P2POp(dist.irecv, out, (rank - shift) % n)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return out
+    """Rotate ``x`` around the ring of the data axes: position ``i``
+    receives position ``(i - shift) % n``'s tensor (:func:`ppermute` over
+    the data axes)."""
+    return ppermute(x, mesh_lib.data_axes(mesh_lib.active_mesh()), shift)
 
 
 def _axes(axis_name: AxisName) -> tuple[str, ...]:
@@ -142,13 +315,14 @@ def _axes(axis_name: AxisName) -> tuple[str, ...]:
 
 def axis_index(axis_name: AxisName = "data") -> int:
     """This process's coordinate along ``axis_name`` (several axes:
-    flattened row-major) of the data-parallel mesh."""
-    return mesh_lib.coordinate(mesh_lib.build_mesh(), _axes(axis_name))
+    flattened row-major) of the active mesh (``lax.axis_index``)."""
+    return mesh_lib.coordinate(mesh_lib.active_mesh(), _axes(axis_name))
 
 
 def axis_size(axis_name: AxisName = "data") -> int:
-    """The number of processes along ``axis_name`` of the data-parallel mesh."""
-    shape = mesh_lib.build_mesh().shape
+    """The number of processes along ``axis_name`` of the active mesh
+    (``lax.axis_size``)."""
+    shape = mesh_lib.active_mesh().shape
     return math.prod(shape[a] for a in _axes(axis_name))
 
 
@@ -169,9 +343,26 @@ def shard_batch(tree):
     return _map(lambda x: x[start:stop], tree)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, axes=None) -> torch.Tensor:
     """L2 norm over every leaf of ``tree``, accumulated in f32 (for grad-norm
-    logging and clipping). Local arithmetic, as in the JAX package: the
-    tree it is given is already reduced."""
-    norms = [torch.linalg.vector_norm(x, dtype=torch.float32) for x in _leaves(tree)]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    logging and clipping).
+
+    Without ``axes`` it is local arithmetic, as in the JAX package: the
+    tree it is given is already reduced and replicated. ``axes`` (a list
+    beside ``tree``'s leaves, in their order: the mesh axis each leaf is
+    sharded over, or None) makes it the norm of the global tree on every
+    rank: the squared norms of the leaves sharded over an axis are summed
+    over that axis (one all-reduce an axis), as the JAX step's spec-aware
+    norm does (``train/step.py:361-386``)."""
+    leaves = list(_leaves(tree))
+    if axes is None or all(a is None for a in axes):
+        norms = [torch.linalg.vector_norm(x, dtype=torch.float32) for x in leaves]
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sums: dict = {}
+    for x, axis in zip(leaves, axes, strict=True):
+        sq = torch.linalg.vector_norm(x, dtype=torch.float32).square()
+        sums[axis] = sums[axis] + sq if axis in sums else sq
+    total = sums.pop(None, torch.zeros((), dtype=torch.float32, device=leaves[0].device))
+    for axis, part in sums.items():
+        total = total + psum(part, axis)
+    return total.sqrt()

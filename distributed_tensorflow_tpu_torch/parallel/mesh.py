@@ -13,15 +13,25 @@ the parameters and averages gradients with one all-reduce
 
 Axis names are the JAX package's: ``"data"`` (data parallelism),
 ``"model"``, ``"seq"``, ``"expert"``, ``"pipeline"`` and ``"replica"``
-(outermost). Training runs data-parallel only in this package: the other
-axes exist for the planners (:func:`plan_elastic_mesh`,
-:func:`plan_disagg_mesh`) and the layout labels.
+(outermost). Training runs on ``"data"`` (and ``"replica"``), ``"model"``
+(Megatron tensor parallelism) and ``"seq"`` (ring or Ulysses attention);
+``"expert"`` and ``"pipeline"`` exist for the planners
+(:func:`plan_elastic_mesh`, :func:`plan_disagg_mesh`) and the layout labels.
+
+The job's mesh is the one :func:`build_mesh` builds without an explicit
+``world_size``/``rank``: it becomes the *active* mesh
+(:func:`active_mesh`), which the collectives and the models read the way a
+JAX function reads the axes its ``shard_map`` binds, and it makes one
+``torch.distributed`` subgroup per line of every set of axes of size > 1
+(:func:`axis_group`). Ranks along ``"model"`` and ``"seq"`` hold the same
+batch rows; only the row axes (:func:`data_axes`) split them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import logging
 import math
 import os
@@ -153,6 +163,9 @@ def initialize_runtime(
     dist.init_process_group(
         backend, init_method=f"tcp://{address}", world_size=world, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s))
+    global _ACTIVE
+    _ACTIVE = None
+    _GROUPS.clear()
     logger.info("process group: backend=%s world=%d rank=%d device=%s",
                 backend, world, rank, dev)
     return dev
@@ -195,7 +208,11 @@ def _cluster_env_present() -> bool:
 
 
 def shutdown_runtime() -> None:
-    """Leave the process group, if one was started (``jax.distributed.shutdown``)."""
+    """Leave the process group, if one was started (``jax.distributed.shutdown``),
+    with the active mesh and its subgroups."""
+    global _ACTIVE
+    _ACTIVE = None
+    _GROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -252,16 +269,112 @@ def build_mesh(
 ) -> Mesh:
     """The mesh of ``spec`` (default ``{"data": -1}``: pure data
     parallelism over every rank) resolved against ``world_size`` ranks
-    (default the process group's), seen from ``rank`` (default this one)."""
+    (default the process group's), seen from ``rank`` (default this one).
+
+    Without ``world_size`` and ``rank`` it is the job's mesh: it becomes
+    the active mesh and, under a process group, makes its subgroups
+    (:func:`axis_group`). Every rank must then build the same meshes in the
+    same order, as ``dist.new_group`` requires."""
     if spec is None:
         spec = MeshSpec({"data": -1})
     elif not isinstance(spec, MeshSpec):
         spec = MeshSpec(dict(spec))
+    job = world_size is None and rank is None
     n = process_count() if world_size is None else int(world_size)
     r = process_index() if rank is None else int(rank)
     if not 0 <= r < n:
         raise ValueError(f"rank {r} outside [0, {n})")
-    return Mesh(spec.resolve(n), r)
+    mesh = Mesh(spec.resolve(n), r)
+    if job:
+        _activate(mesh)
+    return mesh
+
+
+# The job's mesh, and per mesh shape this rank's group of every set of
+# nontrivial axes (None: a set of size 1, or no process group).
+_ACTIVE: Mesh | None = None
+_GROUPS: dict[tuple, dict[tuple[str, ...], object]] = {}
+
+
+def _shape_key(mesh: Mesh) -> tuple:
+    return tuple(mesh.shape.items())
+
+
+def _activate(mesh: Mesh) -> None:
+    """Make ``mesh`` the job's active mesh, creating its subgroups on first
+    use of its shape: for every set of axes of size > 1 (in
+    :data:`AXIS_ORDER` order, smaller sets first), one ``dist.new_group``
+    per line, called on every rank in one order. A set spanning the whole
+    job uses the world group."""
+    global _ACTIVE
+    key = _shape_key(mesh)
+    if key not in _GROUPS and process_count() > 1:
+        live = [a for a in mesh.axis_names if mesh.shape[a] > 1]
+        groups: dict[tuple[str, ...], object] = {}
+        for k in range(1, len(live) + 1):
+            for axes in itertools.combinations(live, k):
+                if k == len(live):
+                    groups[axes] = dist.group.WORLD
+                    continue
+                for line in _lines(mesh, axes):
+                    group = dist.new_group(line)
+                    if mesh.rank in line:
+                        groups[axes] = group
+        _GROUPS[key] = groups
+    _ACTIVE = mesh
+
+
+def _lines(mesh: Mesh, axes: Sequence[str]) -> list[list[int]]:
+    """The ranks partitioned into lines along ``axes``: ranks that share
+    their coordinates on every other axis, each line in rank order (which
+    is row-major order along ``axes``)."""
+    others = [a for a in mesh.axis_names if a not in axes]
+    lines: dict[tuple, list[int]] = {}
+    for r in range(mesh.size):
+        coords = Mesh(mesh.shape, r).coords
+        lines.setdefault(tuple(coords[a] for a in others), []).append(r)
+    return [lines[k] for k in sorted(lines)]
+
+
+def active_mesh() -> Mesh:
+    """The job's mesh: the last one :func:`build_mesh` built for the process
+    group, or ``{"data": -1}`` over it when none was built."""
+    if _ACTIVE is None or _ACTIVE.size != process_count():
+        return build_mesh()
+    return _ACTIVE
+
+
+def _live_axes(mesh: Mesh, axes: str | Sequence[str]) -> tuple[str, ...]:
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    missing = [a for a in axes if a not in mesh.axis_names]
+    if missing:
+        raise ValueError(f"axes {missing} are not in the mesh {dict(mesh.shape)}")
+    return tuple(a for a in mesh.axis_names if a in axes and mesh.shape[a] > 1)
+
+
+def axis_ranks(mesh: Mesh, axes: str | Sequence[str]) -> list[int]:
+    """The global ranks of this rank's line along ``axes`` (several axes:
+    their product), in coordinate order; ``[mesh.rank]`` on axes of size 1."""
+    live = _live_axes(mesh, axes)
+    if not live:
+        return [mesh.rank]
+    return next(line for line in _lines(mesh, live) if mesh.rank in line)
+
+
+def axis_group(mesh: Mesh, axes: str | Sequence[str]):
+    """This rank's process group along ``axes`` (several axes: their
+    product) of the active job mesh ``mesh``: None when the axes have size
+    1, the world group when they span the job. Raises for a mesh that is not
+    the job's (a planning mesh built with ``world_size``/``rank``)."""
+    live = _live_axes(mesh, axes)
+    if not live:
+        return None
+    groups = _GROUPS.get(_shape_key(mesh))
+    if groups is None or mesh.size != process_count() or mesh.rank != process_index():
+        raise ValueError(
+            f"mesh {dict(mesh.shape)} at rank {mesh.rank} is not this job's mesh: "
+            "build it with build_mesh(spec) under the process group")
+    return groups[live]
 
 
 def data_axes(mesh: Mesh) -> tuple[str, ...]:
@@ -300,9 +413,10 @@ def local_batch_size(global_batch: int, mesh: Mesh, extra_axes: Sequence[str] = 
 
 def process_rows(global_batch: int, mesh: Mesh | None = None) -> tuple[int, int]:
     """``(start, stop)`` of this rank's contiguous rows of ``global_batch``
-    on ``mesh`` (default the job's data-parallel mesh)."""
+    on ``mesh`` (default the active mesh): ranks along ``"model"`` and
+    ``"seq"`` get the same rows."""
     if mesh is None:
-        mesh = build_mesh()
+        mesh = active_mesh()
     n = local_batch_size(global_batch, mesh)
     start = coordinate(mesh, data_axes(mesh)) * n
     return start, start + n

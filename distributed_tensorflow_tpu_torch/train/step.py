@@ -13,16 +13,32 @@ overwritten slot by slot, so no second copy of the parameters or the
 optimizer state is ever made.
 
 Randomness: the step is given a ``torch.Generator``; it never draws from
-it, but folds ``(initial_seed, step, rank)`` (and the micro-slice index
-under ``grad_accum``) into a fresh generator on the same device, as the JAX
-step folds ``state.step`` and the device's coordinate along the data axes
-into its key: every rank draws its own dropout masks for its own rows, and
-a resumed run draws the same masks as an uninterrupted one.
+it, but folds ``(initial_seed, step, coordinate)`` (and the micro-slice
+index under ``grad_accum``) into a fresh generator on the same device, as
+the JAX step folds ``state.step`` and the device's coordinate along the
+axes that carry different data: the data axes and ``"seq"``
+(``train/step.py:205-218``). The coordinate is this rank's, flattened
+row-major over those axes of the active mesh (under ``{"data": -1}``, the
+rank). So ranks with different rows or sequence slices draw their own
+dropout masks, the ranks of one ``"model"`` group draw the same masks on
+the activations they all hold, and a resumed run draws the same masks as
+an uninterrupted one.
 
-The exchange across ranks is one call: gradients, metrics and
-``model_state`` (BatchNorm statistics) go through one bucketed mean
+The exchange across ranks: gradients, metrics and ``model_state``
+(BatchNorm statistics) go through one bucketed mean over the data axes
 (:func:`..parallel.collectives.pmean_tree`, one all-reduce a dtype), the
-counterpart of the JAX step's combined AllReduce.
+counterpart of the JAX step's combined AllReduce. On a mesh with
+``"model"`` or ``"seq"`` the JAX step's grad contract comes first
+(``train/step.py:292-330``). Its collectives' backward sums are psums
+(:func:`..parallel.collectives.psum`), so every gradient carries one
+factor of the axis size: a leaf sharded over ``"model"`` (``param_specs``)
+keeps its slice's gradient divided by the axis size, and a replicated leaf
+is averaged over ``"model"``; every leaf is averaged over ``"seq"``. The
+replicated leaves' averages over ``"model"``, ``"seq"`` and the data axes
+are one all-reduce over their product, the sharded leaves' over
+``"seq"`` and the data axes another. ``grad_norm`` (and the clipping scale)
+is the global tree's on every rank: the squared norms of sharded leaves
+are summed over their axis.
 """
 
 from __future__ import annotations
@@ -35,7 +51,7 @@ import torch
 
 from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
-from distributed_tensorflow_tpu_torch.parallel.mesh import process_index
+from distributed_tensorflow_tpu_torch.parallel import mesh as mesh_lib
 from distributed_tensorflow_tpu_torch.train.state import TrainState, Transform
 
 # loss_fn(params, model_state, batch, generator) -> (loss, (model_state, metrics))
@@ -74,6 +90,7 @@ def make_train_step(
     staleness: int = 0,
     clip_norm: float = 0.0,
     grad_accum: int = 1,
+    param_specs: dict | None = None,
 ):
     """Build ``train_step(state, batch, generator) -> (state, metrics)``.
 
@@ -93,6 +110,10 @@ def make_train_step(
         averages their gradients (the mean of per-slice gradients: exact for
         row-mean losses, the mean of per-slice ratios for BERT's MLM), each
         slice with its own dropout generator.
+      param_specs: name -> ``(axis, dim)`` or None
+        (:func:`..models.bert.bert_param_specs`): the leaves sharded over
+        the model axis. None with a ``"model"`` axis in the mesh averages
+        every gradient over it, as the JAX step does without specs.
 
     The state is updated in place and returned (the counterpart of the JAX
     step's buffer donation: parameters, optimizer slots and the stale ring
@@ -127,7 +148,8 @@ def make_train_step(
             depth = next(iter(state.grad_buffer.values())).shape[0]
             if depth != staleness:
                 raise ValueError(f"state.grad_buffer depth {depth} != staleness {staleness}")
-        rank = process_index()
+        mesh = mesh_lib.active_mesh()
+        coord = mesh_lib.coordinate(mesh, _rng_axes(mesh))
         with torch.enable_grad():
             if grad_accum > 1:
                 rows = next(iter(batch.values())).shape[0]
@@ -137,7 +159,7 @@ def make_train_step(
                 size = rows // grad_accum
                 parts = [
                     grads_of(state, {k: v[a * size:(a + 1) * size] for k, v in batch.items()},
-                             _step_generator(generator, state.step, rank, a))
+                             _step_generator(generator, state.step, coord, a))
                     for a in range(grad_accum)
                 ]
                 inv = 1.0 / grad_accum
@@ -146,11 +168,21 @@ def make_train_step(
                 metrics = _mean_tree([p[2] for p in parts], inv)
             else:
                 grads, model_state, metrics = grads_of(
-                    state, batch, _step_generator(generator, state.step, rank))
+                    state, batch, _step_generator(generator, state.step, coord))
 
         # THE sync point: one bucketed all-reduce for the gradients, the
-        # metrics and the BatchNorm statistics together.
-        grads, metrics, model_state = coll.pmean_tree((grads, metrics, model_state))
+        # metrics and the BatchNorm statistics together. On a model or seq
+        # mesh the grad contract averages the gradients over their own
+        # groups, and the metrics go alone.
+        shard_axes = None
+        if _model_parallel(mesh):
+            grads, shard_axes = _model_contract(mesh, grads, state.params, param_specs)
+            metrics, model_state = coll.pmean_tree((metrics, model_state))
+        elif _live(mesh, "seq"):
+            grads = coll.pmean_tree(grads, ("seq", *mesh_lib.data_axes(mesh)))
+            metrics, model_state = coll.pmean_tree((metrics, model_state))
+        else:
+            grads, metrics, model_state = coll.pmean_tree((grads, metrics, model_state))
 
         if mode == "stale":
             # Ring: apply the gradient stored K steps ago, keep the fresh one
@@ -164,7 +196,7 @@ def make_train_step(
             state.buffer_index = (idx + 1) % staleness
             metrics["staleness"] = torch.tensor(float(staleness), device=grads[0].device)
 
-        grad_norm = coll.global_norm(grads)
+        grad_norm = coll.global_norm(grads, shard_axes)
         if clip_norm > 0:
             scale = clip_norm / torch.clamp_min(grad_norm, clip_norm)
             for g in grads:
@@ -181,6 +213,44 @@ def make_train_step(
         return state, metrics
 
     return train_step
+
+
+def _live(mesh, axis: str) -> bool:
+    return mesh.shape.get(axis, 1) > 1
+
+
+def _rng_axes(mesh) -> tuple[str, ...]:
+    """The axes whose ranks hold different data: the data axes and "seq"."""
+    return tuple(mesh_lib.data_axes(mesh)) + (("seq",) if "seq" in mesh.axis_names else ())
+
+
+def _model_parallel(mesh) -> bool:
+    for axis in ("pipeline", "expert"):
+        if _live(mesh, axis):
+            raise NotImplementedError(
+                f"the {axis!r} axis's grad contract comes with Queue A item 6b")
+    return _live(mesh, "model")
+
+
+def _model_contract(mesh, grads: list, params: dict, param_specs):
+    """The JAX step's per-leaf contract over ``"model"``, then its seq
+    contract and the data-parallel mean, as two bucketed all-reduces:
+    sharded leaves ``g / t`` averaged over ``"seq"`` and the data axes,
+    replicated leaves averaged over ``"model"`` too. Returns the gradients
+    and each leaf's sharding axis (for the global norm)."""
+    t = mesh.shape["model"]
+    specs = [None if param_specs is None else param_specs.get(name) for name in params]
+    for spec in specs:
+        if spec is not None and spec[0] != "model":
+            raise NotImplementedError(
+                f"parameters sharded over {spec[0]!r} come with Queue A item 6b")
+    row_axes = (*(("seq",) if "seq" in mesh.axis_names else ()), *mesh_lib.data_axes(mesh))
+    sharded = [g.div_(t) for g, spec in zip(grads, specs) if spec is not None]
+    replicated = [g for g, spec in zip(grads, specs) if spec is None]
+    sharded = iter(coll.pmean_tree(sharded, row_axes))
+    replicated = iter(coll.pmean_tree(replicated, ("model", *row_axes)))
+    out = [next(sharded) if spec is not None else next(replicated) for spec in specs]
+    return out, [None if spec is None else spec[0] for spec in specs]
 
 
 def make_eval_step(metric_fn: Callable[[Any, Any, Any], dict], *, return_sums: bool = False):

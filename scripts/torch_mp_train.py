@@ -1,0 +1,367 @@
+#!/usr/bin/env python3
+"""One rank of model-parallel BERT training (tensor parallelism, ring and
+Ulysses attention), and the model-parallel collectives checked on the
+rank's device.
+
+Run one process a rank, all with the same arguments but ``--rank``::
+
+    python3 scripts/torch_mp_train.py --world 2 --rank 0 --port 29500 --out DIR &
+    python3 scripts/torch_mp_train.py --world 2 --rank 1 --port 29500 --out DIR
+
+Each rank starts the process group through ``initialize_runtime`` over
+gloo (several ranks share one card, which NCCL refuses) on ``--device``
+(``cuda:<rank % device_count>``, or ``cpu``) and:
+
+1. ``collectives``: on a ``{"seq": world}`` mesh, :mod:`..parallel.collectives`'
+   ``psum``, ``ppermute``, ``all_to_all`` and ``all_gather`` (with the
+   gradients of a weighted sum of each output) and the bucketed
+   ``pmean_tree``, on seeded inputs of every rank, values checked against
+   the same arithmetic done here on the gathered inputs; then each of
+   gloo's ``all_reduce`` (f32 and bf16), ``all_gather`` and
+   ``all_to_all_single`` called raw on device tensors, recording whether
+   the backend takes them, and the collectives' list of ops staged
+   through host memory (``GLOO_HOST_STAGED``: ``send``/``recv``, which
+   gloo cannot do from device memory);
+2. for each of :data:`CONFIGS` (``{"model": world}`` Megatron TP, ``{"seq":
+   world}`` ring and Ulysses), BERT (``BertConfig()``'s widths unless
+   ``--layers/--hidden/--heads/--vocab/--seq-len`` cut them) from the
+   seeded global parameters on one fixed batch of :data:`ROWS` rows
+   (:func:`fixed_batch`, the sequence split over ``"seq"``):
+   ``held_bf16``: one bf16 step with dropout off (AdamW 1e-4, decay 0.01,
+   clip 1.0): loss and grad_norm; ``held_fp32``: one fp32 SGD 0.1 step with
+   dropout off, whose gathered global parameters rank 0 saves to
+   ``DIR/params_<config>.pt``; then :data:`STEPS` bf16 steps with dropout 0.1
+   (the AdamW recipe): the flash kernels' launches a step (counters set to
+   0 first), ms a step (synchronised) and the collectives' ms a step (each
+   collective call timed between two synchronisations); then writes
+   ``DIR/rank<R>.json``.
+
+:func:`single_process_reference` is the unsharded run of the held steps on
+the same parameters and batch, for the caller's comparison.
+
+``--cli ARGS...`` instead runs ``cli.train.main(ARGS)`` with the
+``bert_base`` recipe at ``BertConfig()``'s 512 positions registered as
+``bert_base_l512`` (the preset pins 128, where the ring's local 64 keys
+run dense attention) and the process group on gloo (``--backend`` is not a
+CLI flag: several ranks on one card need it).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import importlib
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from distributed_tensorflow_tpu_torch.data.text import (  # noqa: E402
+    SyntheticMLM,
+    SyntheticMLMConfig,
+    mlm_device_batches,
+)
+from distributed_tensorflow_tpu_torch.interop import gather_params  # noqa: E402
+from distributed_tensorflow_tpu_torch.models import bert  # noqa: E402
+from distributed_tensorflow_tpu_torch.parallel import collectives as coll  # noqa: E402
+from distributed_tensorflow_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
+from distributed_tensorflow_tpu_torch.train import create_train_state, make_train_step  # noqa: E402
+from distributed_tensorflow_tpu_torch.train.state import Transform  # noqa: E402
+
+# The module (``ops.flash_attention`` the attribute is the function).
+fm = importlib.import_module("distributed_tensorflow_tpu_torch.ops.flash_attention")
+SEED = 0
+ROWS, STEPS = 8, 3  # the fixed global batch (at 512 positions) and the timed steps
+# name -> (mesh axes with the world's size put in for -1, BertConfig fields)
+CONFIGS = {
+    "tp": ({"model": -1}, dict(model_axis="model")),
+    "ring": ({"seq": -1}, dict(seq_axis="seq", sp_impl="ring")),
+    "ulysses": ({"seq": -1}, dict(seq_axis="seq", sp_impl="ulysses")),
+}
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# The raw gloo calls of the collectives phase, by the name the port's
+# collective uses them under.
+RAW_OPS = ("psum", "psum_bf16", "all_gather", "all_to_all")
+
+
+def geometry(args) -> dict:
+    """BertConfig fields of the run: the defaults (BERT-base, 512
+    positions) unless cut."""
+    over = {}
+    for flag, field in (("layers", "num_layers"), ("hidden", "hidden_size"),
+                        ("heads", "num_heads"), ("vocab", "vocab_size"),
+                        ("seq_len", "max_position")):
+        if getattr(args, flag):
+            over[field] = getattr(args, flag)
+    if args.hidden:
+        over["intermediate_size"] = 4 * args.hidden
+    return over
+
+
+def config(geom: dict, name: str | None, world: int, *, dtype, dropout: float):
+    fields = dict(geom, dtype=dtype, dropout_rate=dropout)
+    if name is not None:
+        fields.update(CONFIGS[name][1])
+        if "model_axis" in fields:
+            fields["model_parallel"] = world
+    return bert.BertConfig(**fields)
+
+
+def fixed_batch(cfg, rows: int, device, seq_sharded: bool) -> dict:
+    """The run's one global batch (seeded ``SyntheticMLM``), this rank's
+    sequence slice of it when ``seq_sharded``."""
+    data = SyntheticMLM(SyntheticMLMConfig(vocab_size=cfg.vocab_size, seq_len=cfg.max_position,
+                                           seed=SEED))
+    return next(mlm_device_batches(data, rows, device=device, seed=SEED,
+                                   seq_sharded=seq_sharded))
+
+
+def recipe(fp32: bool) -> tuple[Transform, float]:
+    """``(tx, clip_norm)``: SGD 0.1 for the fp32 parameter check (the
+    update is the gradient, scaled), else bert_base's AdamW 1e-4 with decay
+    0.01 and clipping at 1.0."""
+    if fp32:
+        return Transform(lambda p: torch.optim.SGD(list(p.values()), lr=0.1),
+                         lambda c: 0.1), 0.0
+    from distributed_tensorflow_tpu_torch.cli.train import _decay_mask
+
+    def make(params):
+        mask = _decay_mask(params)
+        groups = [{"params": [p for n, p in params.items() if mask[n]], "weight_decay": 0.01},
+                  {"params": [p for n, p in params.items() if not mask[n]],
+                   "weight_decay": 0.0}]
+        return torch.optim.AdamW(groups, lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
+
+    return Transform(make, lambda c: 1e-4), 1.0
+
+
+def build(cfg, device):
+    """``(model, state, step)`` from the seeded global parameters."""
+    model = bert.BertForPreTraining(cfg, device=device, seed=SEED)
+    params = dict(model.named_parameters())
+    specs = bert.bert_param_specs(params) if cfg.model_parallel > 1 else None
+    tx, clip = recipe(cfg.dtype == torch.float32)
+    state = create_train_state(params, tx)
+    step = make_train_step(bert.make_bert_pretraining_loss(model), tx, clip_norm=clip,
+                           param_specs=specs)
+    return model, state, step, specs
+
+
+def held_steps(geom, name, world, rows, device):
+    """The two held steps of one layout (``name`` None: unsharded, one
+    process): bf16 ``(loss, grad_norm)`` and the fp32 step's global params."""
+    out = {}
+    for key, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        cfg = config(geom, name, world, dtype=dtype, dropout=0.0)
+        _, state, step, specs = build(cfg, device)
+        batch = fixed_batch(cfg, rows, device, cfg.seq_axis is not None)
+        state, m = step(state, batch, torch.Generator(device).manual_seed(SEED))
+        if key == "bf16":
+            out[key] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        else:
+            params = {k: v.detach() for k, v in state.params.items()}
+            if specs is not None:
+                params = gather_params(params, specs, mesh_lib.active_mesh())
+            out[key] = {k: v.cpu() for k, v in params.items()}
+        del state, step
+    return out
+
+
+def single_process_reference(geom: dict, rows: int, device="cuda") -> dict:
+    """:func:`held_steps` unsharded, in this process (no process group)."""
+    return held_steps(geom, None, 1, rows, device)
+
+
+class CommTimer:
+    """Times every call of the collectives' transport functions (the
+    all-reduce, the ring shift, the all-to-all and the all-gather, host
+    staging included), each between two synchronisations of the device,
+    while ``on``."""
+
+    NAMES = ("_all_reduce", "_shift", "_a2a", "_gather")
+
+    def __init__(self, device):
+        self.device, self.seconds, self.calls, self.on = device, 0.0, 0, False
+        for name in self.NAMES:
+            setattr(coll, name, self._wrap(getattr(coll, name)))
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _wrap(self, fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            if not self.on:
+                return fn(*args, **kwargs)
+            self._sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self._sync()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        return timed
+
+
+def timed_steps(geom, name, world, rows, device, n_steps, timer) -> dict:
+    """``n_steps`` bf16 steps with dropout 0.1: flash launches, ms and the
+    collectives' ms of each step, and the losses."""
+    cfg = config(geom, name, world, dtype=torch.bfloat16, dropout=0.1)
+    _, state, step, _ = build(cfg, device)
+    batch = fixed_batch(cfg, rows, device, cfg.seq_axis is not None)
+    gen = torch.Generator(device).manual_seed(SEED)
+    fm.reset_launch_counts()
+    launches, step_ms, comm_ms, losses = [], [], [], []
+    for _ in range(n_steps):
+        before = dict(fm.LAUNCHES)
+        timer.seconds, timer.calls, timer.on = 0.0, 0, True
+        timer._sync()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        losses.append(float(m["loss"]))
+        timer._sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        timer.on = False
+        comm_ms.append(timer.seconds * 1e3)
+        launches.append({k: fm.LAUNCHES[k] - before[k] for k in FLASH})
+    return {"launches": launches, "step_ms": step_ms, "comm_ms": comm_ms,
+            "collective_calls": timer.calls, "losses": losses,
+            "step_ms_median": statistics.median(step_ms[1:] or step_ms),
+            "comm_ms_median": statistics.median(comm_ms[1:] or comm_ms)}
+
+
+def _inputs(rank: int, device) -> torch.Tensor:
+    g = np.random.default_rng(100 + rank).standard_normal((4, 6)).astype(np.float32)
+    return torch.from_numpy(g).to(device)
+
+
+def collectives_check(rank: int, world: int, device) -> dict:
+    """Every model-parallel collective on device tensors over ``"seq"``,
+    values and gradients against the arithmetic done here on every rank's
+    inputs; then the raw backend calls."""
+    mesh_lib.build_mesh({"seq": world})
+    xs = [_inputs(r, device) for r in range(world)]
+    total = sum(xs)
+    w = {r: torch.arange(24.0, device=device).reshape(4, 6) + r for r in range(world)}
+    expect = {
+        "psum": (total, sum(w.values())),
+        "ppermute": (xs[(rank - 1) % world], w[(rank + 1) % world]),
+        "all_to_all": (torch.cat([x.chunk(world, 0)[rank] for x in xs], 1), None),
+        "all_gather": (torch.cat(xs, 1), None),
+    }
+    fns = {"psum": lambda x: coll.psum(x, "seq"),
+           "ppermute": lambda x: coll.ppermute(x, "seq", 1),
+           "all_to_all": lambda x: coll.all_to_all(x, "seq", 0, 1),
+           "all_gather": lambda x: coll.all_gather(x, "seq", 1)}
+    errors = {}
+    for name, fn in fns.items():
+        x = xs[rank].clone().requires_grad_()
+        y = fn(x)
+        weight = torch.arange(y.numel(), dtype=torch.float32, device=device).reshape(y.shape)
+        (y * (weight + rank)).sum().backward()
+        want_y, want_g = expect[name]
+        err = float((y.detach() - want_y).abs().max())
+        if want_g is not None:
+            err = max(err, float((x.grad - want_g).abs().max()))
+        errors[name] = err
+    tree = {"a": xs[rank], "b": [xs[rank].double()]}
+    mean = coll.pmean_tree(tree, "seq")
+    errors["pmean_tree"] = max(float((mean["a"] - total / world).abs().max()),
+                               float((mean["b"][0] - (total / world).double()).abs().max()))
+    raw = {}
+    for op in RAW_OPS:
+        try:
+            x = xs[rank].clone()
+            if op == "psum":
+                dist.all_reduce(x)
+                ok = torch.allclose(x, total, atol=1e-5)
+            elif op == "psum_bf16":
+                x = x.bfloat16()
+                dist.all_reduce(x)
+                ok = torch.allclose(x.float(), total, atol=0.1)
+            elif op == "all_gather":
+                parts = [torch.empty_like(x) for _ in range(world)]
+                dist.all_gather(parts, x)
+                ok = torch.equal(torch.cat(parts), torch.cat(xs))
+            else:
+                send = torch.stack(x.chunk(world, 0)).contiguous()
+                recv = torch.empty_like(send)
+                dist.all_to_all_single(recv, send)
+                ok = torch.equal(torch.cat(recv.unbind(0), 1), expect["all_to_all"][0])
+            raw[op] = "ok" if ok else "wrong values"
+        except Exception as e:  # the backend's refusal, recorded
+            raw[op] = f"refused: {type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    return {"max_abs_err": errors, "raw_device_ops": raw,
+            "host_staged": sorted(coll.GLOO_HOST_STAGED)}
+
+
+def run_cli(argv: list[str]) -> int:
+    from distributed_tensorflow_tpu_torch.cli import train as cli
+
+    base = cli.PRESETS["bert_base"]
+    cli.PRESETS["bert_base_l512"] = dataclasses.replace(
+        base, name="bert_base_l512", build=cli._build_bert_workload(
+            dict(max_position=512, dropout_rate=0.1, dtype=torch.bfloat16)))
+    mesh_lib.initialize_runtime = functools.partial(mesh_lib.initialize_runtime,
+                                                    backend="gloo")
+    return cli.main(argv)
+
+
+def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "--cli":
+        return run_cli(argv[1:])
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--world", type=int, required=True)
+    p.add_argument("--rank", type=int, required=True)
+    p.add_argument("--port", type=int, required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--device", default="cuda")
+    for flag in ("layers", "hidden", "heads", "vocab", "seq-len"):
+        p.add_argument(f"--{flag}", type=int, default=0)
+    args = p.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = Path(args.out)
+    t0 = time.perf_counter()
+    device = mesh_lib.initialize_runtime(f"127.0.0.1:{args.port}", args.world, args.rank,
+                                         device=args.device, backend="gloo", timeout_s=120)
+    timer = CommTimer(device)
+    result = {"rank": args.rank, "init_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    result["collectives"] = collectives_check(args.rank, args.world, device)
+    result["collectives"]["seconds"] = time.perf_counter() - t0
+    geom = geometry(args)
+    result["configs"] = {}
+    for name in CONFIGS:
+        t0 = time.perf_counter()
+        axes = {a: args.world if n == -1 else n for a, n in CONFIGS[name][0].items()}
+        mesh_lib.build_mesh(axes)
+        held = held_steps(geom, name, args.world, ROWS, device)
+        if args.rank == 0:
+            torch.save(held["fp32"], out_dir / f"params_{name}.pt")
+        rec = {"held_bf16": held["bf16"]}
+        rec.update(timed_steps(geom, name, args.world, ROWS, device, STEPS, timer))
+        rec["seconds"] = time.perf_counter() - t0
+        result["configs"][name] = rec
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    if device.type == "cuda":
+        result["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    (out_dir / f"rank{args.rank}.json").write_text(json.dumps(result))
+    mesh_lib.shutdown_runtime()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

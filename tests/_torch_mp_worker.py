@@ -27,7 +27,22 @@ torch, numpy and the port, and saves its results to
   runs fault-free to the end;
 - ``elastic``: LeNet trained 2 steps as two gloo ranks (16 rows each of a
   global batch of 32), rank 0 checkpointing step 2 into
-  ``OUT_DIR/elastic_ckpt``.
+  ``OUT_DIR/elastic_ckpt``;
+- ``mp_attn`` (2 ranks, ``tests/test_torch_model_parallel.py``): on a
+  ``{"seq": 2}`` mesh the differentiable collectives, ring attention (einsum
+  and flash inners, masks, fully masked rows, bf16) and Ulysses (dense and
+  flash inners, the refusal of indivisible heads), each with the gradients
+  of ``sum(sin(out))`` for q, k and v, on :func:`attn_inputs`; the dropout
+  masks of a ``{"model": 2}`` and a ``{"seq": 2}`` BERT step; then
+  ``cli.train.main`` with ``--tensor-parallel 2`` (the BERT preset with
+  dropout off, see :func:`no_dropout`) and with ``--config mnist_lenet
+  --tensor-parallel 2`` (refused, exit 2);
+- ``mp_bert`` (4 ranks): :data:`MP_GEOM` BERT trained 2 AdamW steps from
+  the global seeded parameters under each of :data:`MP_RUNS` (TP, TP with
+  clipping, the ring, Ulysses, TP x ring); per step loss and grad_norm, the
+  gathered global parameters, and for the TP run a checkpoint written
+  through ``Checkpointer(param_specs=...)`` into ``OUT_DIR/tp_ckpt`` and
+  restored into a fresh TP state.
 """
 
 from __future__ import annotations
@@ -179,6 +194,245 @@ def job_cli(rank: int, world: int, ports: list[int], argv) -> dict:
     return {"runs": runs}
 
 
+def attn_inputs(case: str):
+    """Seeded global ``(q, k, v, mask)`` numpy arrays of a ``mp_attn`` case
+    ``[B, L, H, D]`` (mask ``[B, L]`` or None)."""
+    b, l, h, d = (2, 32, 4, 16)
+    rng = np.random.default_rng({"ring": 0, "mask": 1, "bf16": 3, "flash": 4,
+                                 "uly": 5, "masked": 2}[case])
+    q, k, v = (rng.standard_normal((b, l, h, d)).astype(np.float32) for _ in range(3))
+    mask = None
+    if case in ("mask", "flash", "uly"):
+        mask = np.ones((b, l), bool)
+        mask[0, 22:] = False
+        mask[1, 5:9] = False
+    if case == "masked":
+        mask = np.ones((b, l), bool)
+        mask[1, :] = False
+    return q, k, v, mask
+
+
+# The attention cases of mp_attn: (inputs, implementation, inner, dtype).
+ATTN_CASES = {
+    "ring": ("ring", "ring", "einsum", "float32"),
+    "ring_mask": ("mask", "ring", "einsum", "float32"),
+    "ring_masked_rows": ("masked", "ring", "einsum", "float32"),
+    "ring_bf16": ("bf16", "ring", "einsum", "bfloat16"),
+    "ring_flash": ("flash", "ring", "flash", "float32"),
+    "ulysses_dense": ("uly", "ulysses", "dense", "float32"),
+    "ulysses_flash": ("uly", "ulysses", "flash", "float32"),
+}
+
+MP_GEOM = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
+               intermediate_size=128, max_position=32, dropout_rate=0.0)
+# mp_bert's runs: (mesh, BertConfig fields, clip_norm).
+MP_RUNS = {
+    "tp": ({"data": 2, "model": 2}, dict(model_axis="model", model_parallel=2), 0.0),
+    "tp_clip": ({"data": 2, "model": 2}, dict(model_axis="model", model_parallel=2), 0.05),
+    "ring": ({"data": 2, "seq": 2}, dict(seq_axis="seq"), 0.0),
+    "ulysses": ({"data": 2, "seq": 2}, dict(seq_axis="seq", sp_impl="ulysses"), 0.0),
+    "tp_sp": ({"seq": 2, "model": 2},
+              dict(model_axis="model", model_parallel=2, seq_axis="seq"), 0.0),
+}
+MP_BATCH, MP_STEPS, MP_LR = 16, 2, 1e-3
+TP_CLI_ARGS = ["--config", "bert_base", "--bert-layers", "1", "--bert-hidden", "48",
+               "--bert-vocab", "64", "--global-batch", "8", "--steps", "2",
+               "--lr-schedule", "constant", "--lr", "1e-3", "--log-every", "1"]
+
+
+def no_dropout(bert_module):
+    """Patch ``bert_module.BertConfig`` so every config built through it has
+    dropout off (the CLI presets' 0.1 would draw masks the two packages
+    cannot share); returns the undo."""
+    real = bert_module.BertConfig
+
+    def config(*args, **kwargs):
+        return real(*args, **{**kwargs, "dropout_rate": 0.0})
+
+    bert_module.BertConfig = config
+    return lambda: setattr(bert_module, "BertConfig", real)
+
+
+def _attn_case(name: str, axis: str = "seq") -> dict:
+    from distributed_tensorflow_tpu_torch.parallel import collectives as pc
+    from distributed_tensorflow_tpu_torch.parallel.ring_attention import ring_attention
+    from distributed_tensorflow_tpu_torch.parallel.ulysses import ulysses_attention
+
+    inputs, impl, inner, dtype = ATTN_CASES[name]
+    q, k, v, mask = attn_inputs(inputs)
+    n, i = pc.axis_size(axis), pc.axis_index(axis)
+    width = q.shape[1] // n
+    cols = slice(i * width, (i + 1) * width)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(x[:, cols])).to(dt).requires_grad_()
+               for x in (q, k, v))
+    m = None if mask is None else torch.from_numpy(np.ascontiguousarray(mask[:, cols]))
+    fn = ring_attention if impl == "ring" else ulysses_attention
+    out = fn(q, k, v, axis, mask=m, inner=inner)
+    torch.sin(out.float()).sum().backward()
+    return {"out": out.detach().float(), "dq": q.grad.float(), "dk": k.grad.float(),
+            "dv": v.grad.float()}
+
+
+def _collectives_on_seq(rank: int) -> dict:
+    """psum, ppermute, all_to_all and all_gather on a {"seq": 2} mesh, with
+    the gradients of a weighted sum of each output."""
+    from distributed_tensorflow_tpu_torch.parallel import collectives as pc
+
+    rng = np.random.default_rng(50 + rank)
+    out = {}
+    for name, fn in (("psum", lambda x: pc.psum(x, "seq")),
+                     ("ppermute", lambda x: pc.ppermute(x, "seq", 1)),
+                     ("all_to_all", lambda x: pc.all_to_all(x, "seq", 0, 1)),
+                     ("all_gather", lambda x: pc.all_gather(x, "seq", 1))):
+        x = torch.from_numpy(rng.standard_normal((4, 6)).astype(np.float32)).requires_grad_()
+        y = fn(x)
+        w = torch.arange(y.numel(), dtype=torch.float32).reshape(y.shape) + rank
+        (y * w).sum().backward()
+        out[name] = {"x": x.detach(), "y": y.detach(), "grad": x.grad}
+    return out
+
+
+def _dropout_masks(spec: dict, over: dict) -> list:
+    """The dropout masks one step of a tiny BERT draws on ``spec``'s mesh."""
+    from distributed_tensorflow_tpu_torch.data.text import (
+        SyntheticMLM,
+        SyntheticMLMConfig,
+        mlm_device_batches,
+    )
+    from distributed_tensorflow_tpu_torch.models import bert
+    from distributed_tensorflow_tpu_torch.parallel.mesh import build_mesh
+    from distributed_tensorflow_tpu_torch.train import create_train_state, make_train_step
+    from distributed_tensorflow_tpu_torch.train.state import Transform
+
+    build_mesh(spec)
+    masks: list[torch.Tensor] = []
+    draw = bert.dropout
+
+    def recording(x, rate, train, generator):
+        y = draw(x, rate, train, generator)
+        if train and rate > 0:
+            masks.append(y == 0)
+        return y
+
+    bert.dropout = recording
+    try:
+        cfg = bert.BertConfig(**{**MP_GEOM, "dropout_rate": 0.1, **over})
+        model = bert.BertForPreTraining(cfg, device="cpu", seed=0)
+        tx = Transform(lambda p: torch.optim.SGD(list(p.values()), lr=0.1), lambda c: 0.1)
+        state = create_train_state(dict(model.named_parameters()), tx)
+        step = make_train_step(bert.make_bert_pretraining_loss(model), tx)
+        data = SyntheticMLM(SyntheticMLMConfig(vocab_size=128, seq_len=32, seed=7))
+        batch = next(mlm_device_batches(data, 8, device="cpu", seed=1,
+                                        seq_sharded="seq_axis" in over))
+        step(state, batch, torch.Generator().manual_seed(0))
+    finally:
+        bert.dropout = draw
+    return masks
+
+
+def job_mp_attn(rank: int, world: int, ports: list[int], argv, out_dir: Path) -> dict:
+    from distributed_tensorflow_tpu_torch.cli import train as cli
+    from distributed_tensorflow_tpu_torch.models import bert
+    from distributed_tensorflow_tpu_torch.parallel.mesh import build_mesh
+    from distributed_tensorflow_tpu_torch.parallel.ulysses import ulysses_attention
+
+    initialize_runtime(f"127.0.0.1:{ports[0]}", world, rank, device="cpu", timeout_s=60)
+    build_mesh({"seq": 2})
+    out = {"collectives": _collectives_on_seq(rank),
+           "attn": {name: _attn_case(name) for name in ATTN_CASES}}
+    try:
+        x = torch.zeros((1, 4, 3, 8))
+        ulysses_attention(x, x, x, "seq")
+    except ValueError as e:
+        out["ulysses_refusal"] = str(e)
+    out["masks_model"] = _dropout_masks({"model": 2}, dict(model_axis="model",
+                                                           model_parallel=2))
+    out["masks_seq"] = _dropout_masks({"seq": 2}, dict(seq_axis="seq"))
+    shutdown_runtime()
+    codes, lines = [], []
+    undo = no_dropout(bert)
+    try:
+        for port, args in zip(ports[1:], (["--config", "mnist_lenet", "--global-batch", "8",
+                                          "--steps", "1", "--tensor-parallel", "2"],
+                                         TP_CLI_ARGS + ["--tensor-parallel", "2",
+                                                        "--metrics-jsonl",
+                                                        str(out_dir / f"tp_cli_{rank}.jsonl")])):
+            try:
+                codes.append(cli.main(args + [
+                    "--device", "cpu", "--coordinator-address", f"127.0.0.1:{port}",
+                    "--num-processes", str(world), "--process-id", str(rank),
+                    "--init-timeout", "60"]))
+            except SystemExit as e:
+                codes.append(e.code)
+    finally:
+        undo()
+    out["cli_codes"] = codes
+    return out
+
+
+def _gathered(params: dict, specs, mesh) -> dict:
+    from distributed_tensorflow_tpu_torch.interop import gather_params
+
+    params = {k: v.detach() for k, v in params.items()}
+    return _cpu(gather_params(params, specs, mesh) if specs else params)
+
+
+def job_mp_bert(rank: int, world: int, ports: list[int], argv, out_dir: Path) -> dict:
+    from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
+    from distributed_tensorflow_tpu_torch.data.text import (
+        SyntheticMLM,
+        SyntheticMLMConfig,
+        mlm_device_batches,
+    )
+    from distributed_tensorflow_tpu_torch.models import bert
+    from distributed_tensorflow_tpu_torch.parallel.mesh import build_mesh
+    from distributed_tensorflow_tpu_torch.train import create_train_state, make_train_step
+    from distributed_tensorflow_tpu_torch.train.state import Transform
+
+    initialize_runtime(f"127.0.0.1:{ports[0]}", world, rank, device="cpu", timeout_s=60)
+    tx = Transform(lambda p: torch.optim.Adam(list(p.values()), lr=MP_LR, betas=(0.9, 0.999),
+                                              eps=1e-8), lambda c: MP_LR)
+    data = SyntheticMLM(SyntheticMLMConfig(vocab_size=128, seq_len=32, seed=0))
+    out = {}
+    for name, (spec, over, clip) in MP_RUNS.items():
+        mesh = build_mesh(spec)
+        model = bert.BertForPreTraining(bert.BertConfig(**MP_GEOM, **over), device="cpu",
+                                        seed=0)
+        params = dict(model.named_parameters())
+        specs = bert.bert_param_specs(params) if "model_axis" in over else None
+        state = create_train_state(params, tx)
+        step = make_train_step(bert.make_bert_pretraining_loss(model), tx, clip_norm=clip,
+                               param_specs=specs)
+        batches = mlm_device_batches(data, MP_BATCH, device="cpu", seed=3,
+                                     seq_sharded="seq_axis" in over)
+        metrics = []
+        for _ in range(MP_STEPS):
+            state, m = step(state, next(batches), torch.Generator().manual_seed(1))
+            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        out[name] = {"metrics": metrics, "params": _gathered(state.params, specs, mesh)}
+        if name == "tp":
+            ckpt = Checkpointer(out_dir / "tp_ckpt", param_specs=specs)
+            ckpt.save(state.step, state)
+            ckpt.wait()
+            fresh = create_train_state(dict(bert.BertForPreTraining(
+                bert.BertConfig(**MP_GEOM, **over), device="cpu", seed=1).named_parameters()),
+                tx)
+            fresh, start = ckpt.restore_latest(fresh)
+            out["tp_restored"] = {
+                "start": start,
+                "params_equal": all(torch.equal(fresh.params[k], state.params[k])
+                                    for k in state.params),
+                "slots_equal": all(
+                    torch.equal(a, b) for sa, sb in zip(
+                        fresh.opt_state.optimizer.state_dict()["state"].values(),
+                        state.opt_state.optimizer.state_dict()["state"].values())
+                    for a, b in zip(sa.values(), sb.values()))}
+            ckpt.close()
+    shutdown_runtime()
+    return out
+
+
 CHAOS_STEPS, CHAOS_CKPT_EVERY, CHAOS_ROWS = 16, 4, 32
 
 
@@ -276,8 +530,9 @@ def main() -> int:
     rank, world, out_dir = int(rank), int(world), Path(out_dir)
     ports = [int(p) for p in ports.split(",")]
     torch.set_num_threads(1)
-    if job in ("dropout", "chaos", "elastic"):
-        job_fn = {"dropout": job_dropout, "chaos": job_chaos, "elastic": job_elastic}[job]
+    if job in ("dropout", "chaos", "elastic", "mp_attn", "mp_bert"):
+        job_fn = {"dropout": job_dropout, "chaos": job_chaos, "elastic": job_elastic,
+                  "mp_attn": job_mp_attn, "mp_bert": job_mp_bert}[job]
         out = job_fn(rank, world, ports, argv, out_dir)
     else:
         out = {"collectives": job_collectives, "cli": job_cli}[job](rank, world, ports, argv)

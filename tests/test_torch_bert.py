@@ -127,8 +127,11 @@ def test_layernorm_matches_flax_in_bf16():
 
 
 def test_unported_parallel_fields_raise():
-    for field, value in (("seq_axis", "seq"), ("model_parallel", 2),
-                         ("moe_experts", 4), ("pipeline_parallel", 2)):
-        with pytest.raises(NotImplementedError, match="model-parallel slice"):
+    for field, value in (("moe_experts", 4), ("expert_parallel", 2),
+                         ("pipeline_parallel", 2)):
+        with pytest.raises(NotImplementedError, match="Queue A item 6b"):
             BertConfig(**{field: value})
+    # Tensor and sequence parallelism are ported: their fields are accepted.
+    assert BertConfig(model_axis="model", model_parallel=2).model_parallel == 2
+    assert BertConfig(seq_axis="seq", sp_impl="ulysses").sp_impl == "ulysses"
     assert dataclasses.replace(BertConfig(), remat=True).remat

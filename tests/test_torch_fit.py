@@ -239,7 +239,7 @@ def test_train_cli_bert_base_on_cpu_then_serve(tmp_path):
 @pytest.mark.parametrize(
     "argv,message",
     [(["--config", "no_such_preset"], "unknown preset"),
-     (["--config", "bert_base", "--tensor-parallel", "2"], "model-parallel slice"),
+     (["--config", "bert_base", "--moe-experts", "4"], "Queue A item 6b"),
      (["--config", "bert_base", "--profile-steps", "2"],
       "--profile-steps requires --profile-dir")],
     ids=["preset", "parallel-flag", "profile-steps"],

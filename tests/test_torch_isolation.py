@@ -23,6 +23,11 @@ def _port_files():
 # The resilient-training slice's pure-Python modules: the port's own copies.
 RESILIENCE_MODULES = ("train/faultinject.py", "train/resilience.py", "obs/fleet.py",
                       "serve/faultinject.py")
+# The model-parallel slice's modules: the mesh's process groups, the
+# differentiable collectives, the ring, Ulysses, the sharded BERT.
+MODEL_PARALLEL_MODULES = ("parallel/mesh.py", "parallel/collectives.py",
+                          "parallel/ring_attention.py", "parallel/ulysses.py",
+                          "models/bert.py", "interop.py")
 
 
 def _imported_roots(path: Path):
@@ -48,7 +53,8 @@ def test_port_imports_nothing_of_jax():
     for name in ("distributed_tensorflow_tpu_torch/models/inception.py",
                  "distributed_tensorflow_tpu_torch/models/flops.py",
                  "scripts/torch_pw_bench.py",
-                 *(f"distributed_tensorflow_tpu_torch/{m}" for m in RESILIENCE_MODULES)):
+                 *(f"distributed_tensorflow_tpu_torch/{m}"
+                   for m in RESILIENCE_MODULES + MODEL_PARALLEL_MODULES)):
         assert ROOT / name in files
     # The multi-process worker (its chaos job included) runs torch and the
     # port only.
@@ -88,13 +94,16 @@ def test_port_never_touches_the_jax_native_directory():
 
 def test_serving_host_modules_import_without_jax():
     """The prefix-cache trie, the speculation state machine, the
-    sanitizers and the resilience modules (fault injection, fleet health,
-    ``run_resilient``) are the port's own copies: importing them in a fresh
-    interpreter leaves ``jax`` out of ``sys.modules``."""
+    sanitizers, the resilience modules (fault injection, fleet health,
+    ``run_resilient``) and the model-parallel ones (process groups,
+    collectives, ring and Ulysses attention) are the port's own copies:
+    importing them in a fresh interpreter leaves ``jax`` out of
+    ``sys.modules``."""
     import subprocess
     import sys
 
-    modules = ["serve/kvpool.py", "serve/spec.py", "obs/sanitizer.py", *RESILIENCE_MODULES]
+    modules = ["serve/kvpool.py", "serve/spec.py", "obs/sanitizer.py", *RESILIENCE_MODULES,
+               *MODEL_PARALLEL_MODULES]
     # Measured against what the interpreter held before the imports, in
     # case a site hook loads a package at startup.
     code = ("import sys\n"

@@ -334,6 +334,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import importlib
 import importlib.util
 import io
@@ -2113,15 +2114,15 @@ def _cli_train(args: list[str], timeout: int = 900) -> subprocess.CompletedProce
 def phase_train_cli_imagenet_real(torch, cache: Path):
     """``cli.train --config imagenet_resnet50 --data-dir <u8 cache>`` at the
     preset's width and batch (224x224, 256 images, plain convolutions) for
-    8 steps with ``--metrics-jsonl``, ``--trace-dir`` and ``--profile-dir
+    6 steps with ``--metrics-jsonl``, ``--trace-dir`` and ``--profile-dir
     --profile-steps 3``; then with ``--no-native-input`` and with
-    ``--device-pool 8``. Checks: the cache was read (no fallback), finite
+    ``--device-pool 6``. Checks: the cache was read (no fallback), finite
     losses, one JSONL record a logged step, the span trace's host_wait /
     dispatch / device spans, the profile's CUDA kernel events. Prints each
-    run's median step ms and host_wait_ms (steps 3-8)."""
+    run's median step ms and host_wait_ms (steps 3-6)."""
     out = ROOT / "build" / "chip_smoke_cli_real"
     shutil.rmtree(out, ignore_errors=True)
-    n_steps = 8
+    n_steps = 6
     base = ["--config", "imagenet_resnet50", "--data-dir", str(cache), "--steps", str(n_steps),
             "--log-every", "1"]
     runs = {}
@@ -2129,7 +2130,7 @@ def phase_train_cli_imagenet_real(torch, cache: Path):
             ("native", ["--trace-dir", str(out / "trace"), "--profile-dir", str(out / "prof"),
                         "--profile-steps", "3"]),
             ("numpy", ["--no-native-input"]),
-            ("device_pool", ["--device-pool", "8"])):
+            ("device_pool", ["--device-pool", "6"])):
         jsonl = out / f"{name}.jsonl"
         t0 = time.monotonic()
         proc = _cli_train(base + ["--metrics-jsonl", str(jsonl), *extra])
@@ -3987,7 +3988,11 @@ def phase_serve_lm_faults(torch, ckpt_dir: Path, *, device="cuda", cfg=None,
 
 # Flash launches a step a rank of each kernel: 12 layers, 2 blocks a layer
 # on the 2-way ring (its local length, 256, picks flash).
-MP_LAUNCHES = {"tp": 12, "ring": 24, "ulysses": 12}
+# Flash launches a step a rank of each kernel: 12 layers, the ring's two
+# blocks a layer, and the pipeline's 6 layers a stage x M = 8 microbatches
+# (fill and drain ticks skipped: mask_bubble="auto").
+MP_LAUNCHES = {"tp": 12, "ring": 24, "ulysses": 12, "ep_replicated": 12, "ep_alltoall": 12,
+               "ep_sharded": 12, "ep_sharded_top2": 12, "pp": 48}
 MP_LOSS_RTOL, MP_NORM_RTOL = 1e-2, 2e-2  # bf16 step 1 against the single process
 MP_PARAM_RTOL, MP_UPDATE_RTOL = 1e-5, 1e-3  # fp32 step 1's parameters, and its update
 
@@ -4019,12 +4024,19 @@ def _run_ranks(argvs: list, log_dir: Path, timeout: float) -> list:
 
 
 def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
-    """Full-width BERT-base at L=512 under TP, the ring and Ulysses as two
-    gloo processes on the one card (``scripts/torch_mp_train.py``), after
-    the collectives on CUDA tensors; held against the single process here.
-    ``device="cpu"`` with ``cut`` (the script's geometry flags, e.g.
-    ``{"layers": 2, "hidden": 64, "heads": 4, "vocab": 128, "seq_len": 64}``)
-    rehearses it on the CPU, where no kernel launches."""
+    """Full-width BERT-base at L=512 under TP, the ring, Ulysses, MoE (8
+    experts over ``{"expert": 2}``: replicated, all-to-all and sharded
+    dispatch, top-1, and sharded top-2) and the GPipe pipeline
+    (``{"pipeline": 2}``, M = 8) as two gloo processes on the one card
+    (``scripts/torch_mp_train.py``), after the collectives on CUDA tensors;
+    each held against its single-process reference here (the MoE's at a
+    capacity that drops nothing, over the sharded dispatch's two row groups
+    where it has them). ``device="cpu"`` with ``cut`` (the script's geometry
+    flags, e.g. ``{"layers": 2, "hidden": 64, "heads": 4, "vocab": 128,
+    "seq_len": 64}``) rehearses it on the CPU, where no kernel launches."""
+    from distributed_tensorflow_tpu_torch.interop import shard_params
+    from distributed_tensorflow_tpu_torch.parallel.mesh import build_mesh
+
     mp = load_script("torch_mp_train")
     cut = dict(cut or {})
     geom = mp.geometry(argparse.Namespace(**{f: cut.get(f, 0) for f in
@@ -4035,13 +4047,12 @@ def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
     out_dir.mkdir(parents=True)
 
     def reference():
-        """The unsharded held steps and initial parameters, made here while
-        the ranks start (their held steps are untimed)."""
+        """The unsharded held steps and initial parameters of every
+        reference kind, made here while the ranks start (their held steps
+        are untimed)."""
         t0 = time.monotonic()
-        ref = mp.single_process_reference(geom, mp.ROWS, device)
-        init = {k: v.detach() for k, v in mp.bert.BertForPreTraining(
-            mp.bert.BertConfig(**geom), device=device, seed=mp.SEED).state_dict().items()}
-        return ref, init, time.monotonic() - t0
+        refs = mp.single_process_references(geom, mp.ROWS, device)
+        return refs, time.monotonic() - t0
 
     port = _free_port()
     flags = [f"--{k.replace('_', '-')}={v}" for k, v in cut.items()]
@@ -4050,7 +4061,7 @@ def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
               "--device", device, *flags]
              for r in range(2)]
     t0 = time.monotonic()
-    procs, (ref, init, ref_s) = concurrently(
+    procs, (refs, ref_s) = concurrently(
         (_run_ranks, argvs, ROOT / "build" / "chip_smoke_mp_logs", 600), (reference,))
     wall = time.monotonic() - t0
     for r, (code, out, err) in enumerate(procs):
@@ -4069,16 +4080,34 @@ def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
     records = {}
     for name, expect in MP_LAUNCHES.items():
         expect = expect if device == "cuda" else 0
-        params = torch.load(out_dir / f"params_{name}.pt", map_location=device,
-                            weights_only=True)
+        ref = refs[mp.REFERENCE[name]]
+        want_all, init_all = ref["fp32"]["params"], ref["init"]
+        if mp.CONFIGS[name][1].get("pipeline_axis"):
+            # The pipeline's stacked tree is the module list stacked.
+            layers = mp.bert.BertConfig(**geom).num_layers
+            want_all, init_all = (mp.bert.stack_layer_state(t, layers)
+                                  for t in (want_all, init_all))
         # ||p - p_ref|| against ||p_ref|| and against the reference's
-        # update ||p_ref - p_0||, in f64.
+        # update ||p_ref - p_0||, in f64, over each rank's slices (rank 0
+        # holds the replicated leaves) against the same slices of the
+        # single process's tree.
         num = den = upd = 0.0
-        for k, p in params.items():
-            want = ref["fp32"][k].to(device).double()
-            num += float((p.double() - want).square().sum())
-            den += float(want.square().sum())
-            upd += float((want - init[k].double()).square().sum())
+        seen = set()
+        for r in range(2):
+            blob = torch.load(out_dir / f"params_{name}_rank{r}.pt", map_location=device,
+                              weights_only=True)
+            spec = {a: 2 if n == -1 else n for a, n in mp.CONFIGS[name][0].items()}
+            cut_r = functools.partial(shard_params, specs=blob["specs"], mesh=build_mesh(
+                spec, world_size=2, rank=r))
+            want = cut_r({k: want_all[k] for k in blob["params"]})
+            init = cut_r({k: init_all[k] for k in blob["params"]})
+            for k, p in blob["params"].items():
+                w = want[k].to(device).double()
+                num += float((p.double() - w).square().sum())
+                den += float(w.square().sum())
+                upd += float((w - init[k].to(device).double()).square().sum())
+            seen |= blob["params"].keys()
+        check(seen == want_all.keys(), f"{name}: the ranks' trees' names")
         param_rel, update_rel = math.sqrt(num / den), math.sqrt(num / max(upd, 1e-30))
         rec = {"param_rel_err": param_rel, "update_rel_err": update_rel, "ranks": []}
         for r in ranks:
@@ -4090,6 +4119,9 @@ def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
                   f"{name} rank {r['rank']}: step-1 loss/grad_norm {held} against the "
                   f"single process's {ref['bf16']}")
             check(all(math.isfinite(x) for x in c["losses"]), f"{name}: losses {c['losses']}")
+            if name.startswith("ep"):
+                check(len(c["moe_aux"]) == mp.steps(name) and all(a > 0 for a in c["moe_aux"]),
+                      f"{name}: moe_aux {c['moe_aux']}")
             for counts in c["launches"]:
                 check(all(counts[k] == expect for k in mp.FLASH),
                       f"{name} rank {r['rank']}: flash launches {counts}, expected {expect} each")
@@ -4098,30 +4130,33 @@ def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
                                  "step_ms": c["step_ms"], "comm_ms": c["comm_ms"],
                                  "step_ms_median": c["step_ms_median"],
                                  "comm_ms_median": c["comm_ms_median"],
+                                 "ppermute_ms_median": c["ppermute_ms_median"],
+                                 "ppermute_share": c["ppermute_ms_median"]
+                                 / c["step_ms_median"],
                                  "collective_calls": c["collective_calls"],
-                                 "losses": c["losses"], "seconds": c["seconds"]})
+                                 "losses": c["losses"], "moe_aux": c["moe_aux"],
+                                 "seconds": c["seconds"]})
         check(param_rel <= MP_PARAM_RTOL and update_rel <= MP_UPDATE_RTOL,
               f"{name}: fp32 step's params off by {param_rel} (update {update_rel})")
         records[name] = rec
-        emit({"phase": "train_bert_mp", "config": name, **rec})
+        emit({"phase": "train_bert_mp", "config": name, "reference": mp.REFERENCE[name],
+              **rec})
     emit({"phase": "train_bert_mp_summary", "reference_s": ref_s, "ranks_wall_s": wall,
           "init_s": [r["init_s"] for r in ranks], "exit_codes": [p[0] for p in procs],
-          "reference": ref["bf16"],
+          "reference": {k: v["bf16"] for k, v in refs.items()},
           "max_memory_allocated": [r.get("max_memory_allocated") for r in ranks]})
     return {"launches": {name: [r["launches"] for r in rec["ranks"]]
                          for name, rec in records.items()},
             "collectives_s": max(c["seconds"] for c in coll)}
 
 
-def phase_train_cli_tp_sp(torch, fm, *, device="cuda", cli_extra=(), cfg=None):
-    """``cli.train`` (the bert_base recipe at 512 positions) as four gloo
-    processes on the one card under ``--tensor-parallel 2 --seq-parallel 2
-    --sp-impl ring``, its global checkpoint restored here at TP 1 and
-    served through ``BertInferenceEngine`` (bucket 512) and ``/v1/mlm``.
-    ``device="cpu"`` with ``cli_extra`` (geometry flags) and the matching
-    ``cfg`` rehearses it on the CPU."""
+def _serve_checkpoint(torch, fm, ckpt_dir: Path, cfg, device, steps: int, what: str) -> int:
+    """The newest checkpoint under ``ckpt_dir`` (the global tree, at
+    ``steps``) restored at one process into ``BertInferenceEngine`` (bucket
+    512) and one ``/v1/mlm`` answered over HTTP; returns the request's
+    ``flash_fwd`` launches."""
     from distributed_tensorflow_tpu_torch.ckpt import restore_serving_state
-    from distributed_tensorflow_tpu_torch.models.bert import BertConfig, BertForPreTraining
+    from distributed_tensorflow_tpu_torch.models.bert import BertForPreTraining
     from distributed_tensorflow_tpu_torch.serve import (
         BatcherConfig,
         BertInferenceEngine,
@@ -4129,37 +4164,15 @@ def phase_train_cli_tp_sp(torch, fm, *, device="cuda", cli_extra=(), cfg=None):
         build_http_server,
     )
 
-    ckpt_dir = ROOT / "build" / "chip_smoke_cli_tp_sp"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    port, world, steps = _free_port(), 4, 3
-    argvs = [[sys.executable, str(ROOT / "scripts" / "torch_mp_train.py"), "--cli",
-              "--config", "bert_base_l512", "--tensor-parallel", "2", "--seq-parallel", "2",
-              "--sp-impl", "ring", "--steps", str(steps), "--global-batch", "8",
-              "--log-every", "1", "--ckpt-dir", str(ckpt_dir), "--coordinator-address",
-              f"127.0.0.1:{port}", "--num-processes", str(world), "--process-id", str(r),
-              "--device", device, *cli_extra]
-             for r in range(world)]
-    t0 = time.monotonic()
-    procs = _run_ranks(argvs, ROOT / "build" / "chip_smoke_cli_tp_sp_logs", 600)
-    cli_s = time.monotonic() - t0
-    for r, (code, _, err) in enumerate(procs):
-        check(code == 0, f"cli.train --tensor-parallel 2 --seq-parallel 2 rank {r} exited "
-                         f"{code}:\n{err[-4000:]}")
-    log = procs[0][2]
-    lines = [ln for ln in log.splitlines() if "train.loop: step" in ln]
-    check(len(lines) == steps and all("loss=nan" not in ln for ln in lines), f"log: {lines}")
-    check("layout=sp2-tp2" in log and "backend=gloo world=4" in log,
-          "the CLI's log names the layout and the 4-rank gloo group")
-    t0 = time.monotonic()
     params, _, step = restore_serving_state(ckpt_dir)
-    check(step == steps, f"restored step {step}")
-    cfg = cfg or BertConfig(dropout_rate=0.1, dtype=torch.bfloat16)  # TP 1, 512 positions
-    h = cfg.hidden_size
-    check(params["bert.layers.0.attention.query.weight"].shape == (h, h)
-          and params["bert.layers.0.intermediate.weight"].shape == (cfg.intermediate_size, h),
-          "the checkpoint holds the global tree")
-    engine = BertInferenceEngine(BertForPreTraining(cfg, device="cpu"), params, device,
-                                 buckets=(512,), max_batch=1, batch_tiers=(1,))
+    check(step == steps, f"{what}: restored step {step}")
+    model = BertForPreTraining(cfg, device="cpu")
+    want = {k: v.shape for k, v in model.state_dict().items()}
+    check({k: v.shape for k, v in params.items()} == want,
+          f"{what}: the checkpoint holds the global tree")
+    engine = BertInferenceEngine(model, params, device, buckets=(512,), max_batch=1,
+                                 batch_tiers=(1,))
+    del params
     ids = np.random.default_rng(SEED).integers(5, cfg.vocab_size, size=300)
     with Client(engine, BatcherConfig(max_batch=1, max_delay_ms=1.0)) as client:
         server = build_http_server(client, port=0)
@@ -4172,7 +4185,7 @@ def phase_train_cli_tp_sp(torch, fm, *, device="cuda", cli_extra=(), cfg=None):
                                          headers={"Content-Type": "application/json"})
             fm.reset_launch_counts()
             with urllib.request.urlopen(req, timeout=120) as resp:
-                check(resp.status == 200, f"/v1/mlm status {resp.status}")
+                check(resp.status == 200, f"{what}: /v1/mlm status {resp.status}")
                 out = json.loads(resp.read())
             launches = fm.LAUNCHES["flash_fwd"]
         finally:
@@ -4180,15 +4193,81 @@ def phase_train_cli_tp_sp(torch, fm, *, device="cuda", cli_extra=(), cfg=None):
             server.server_close()
             thread.join(timeout=10)
     check(out["bucket"] == 512 and len(out["pred_ids"]) == len(ids)
-          and abs(sum(out["nsp_probs"]) - 1.0) < 1e-3,
-          "served answer from the TP x SP checkpoint")
+          and abs(sum(out["nsp_probs"]) - 1.0) < 1e-3, f"{what}: the served answer")
     check(launches == (cfg.num_layers if device == "cuda" else 0),
-          f"{launches} flash_fwd launches for one bucket-512 request")
-    emit({"phase": "train_cli_tp_sp", "cli_seconds": cli_s,
-          "serve_seconds": time.monotonic() - t0, "last_log": lines[-1].split(": ", 1)[-1],
-          "restored_step": step, "serve_flash_fwd_launches": launches,
-          "bucket": out["bucket"]})
+          f"{what}: {launches} flash_fwd launches for one bucket-512 request")
+    del engine
     return launches
+
+
+def _cli_ranks(ckpt_dir: Path, flags: list, device, cli_extra, steps: int, layout: str,
+               what: str) -> tuple[float, str]:
+    """``cli.train --config bert_base_l512 <flags>`` as four gloo processes
+    on the one card (``scripts/torch_mp_train.py --cli``), 8 rows, ``steps``
+    steps, checkpointing into ``ckpt_dir``. Returns the wall seconds and the
+    last step's log line."""
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    port, world = _free_port(), 4
+    argvs = [[sys.executable, str(ROOT / "scripts" / "torch_mp_train.py"), "--cli",
+              "--config", "bert_base_l512", *flags, "--steps", str(steps), "--global-batch",
+              "8", "--log-every", "1", "--ckpt-dir", str(ckpt_dir), "--coordinator-address",
+              f"127.0.0.1:{port}", "--num-processes", str(world), "--process-id", str(r),
+              "--device", device, *cli_extra]
+             for r in range(world)]
+    t0 = time.monotonic()
+    procs = _run_ranks(argvs, ROOT / "build" / f"{ckpt_dir.name}_logs", 600)
+    cli_s = time.monotonic() - t0
+    for r, (code, _, err) in enumerate(procs):
+        check(code == 0, f"{what} rank {r} exited {code}:\n{err[-4000:]}")
+    log = procs[0][2]
+    lines = [ln for ln in log.splitlines() if "train.loop: step" in ln]
+    check(len(lines) == steps and all("loss=nan" not in ln for ln in lines), f"log: {lines}")
+    check(f"layout={layout}" in log and "backend=gloo world=4" in log,
+          f"{what}: the CLI's log names the layout and the 4-rank gloo group")
+    return cli_s, lines[-1].split(": ", 1)[-1]
+
+
+def phase_train_cli_tp_sp(torch, fm, *, device="cuda", cli_extra=(), cfg=None):
+    """``cli.train`` (the bert_base recipe at 512 positions) as four gloo
+    processes on the one card under ``--tensor-parallel 2 --seq-parallel 2
+    --sp-impl ring``, its global checkpoint restored here at TP 1 and served
+    through ``BertInferenceEngine`` (bucket 512) and ``/v1/mlm``; then the
+    same under ``--moe-experts 8 --expert-parallel 2 --pipeline-parallel 2``
+    (M = 8), its checkpoint (every expert, the whole stacked encoder) served
+    at one process with the stacked encoder run sequentially.
+    ``device="cpu"`` with ``cli_extra`` (geometry flags) and the matching
+    ``cfg`` rehearses it on the CPU."""
+    from distributed_tensorflow_tpu_torch.models.bert import BertConfig
+
+    steps = 3
+    cfg = cfg or BertConfig(dropout_rate=0.1, dtype=torch.bfloat16)  # 512 positions
+    tp_dir = ROOT / "build" / "chip_smoke_cli_tp_sp"
+    moe_dir = ROOT / "build" / "chip_smoke_cli_moe_pp"
+    # One after the other: side by side, with the rest of the CLI group,
+    # they ran the card out of memory (run 3 of PR 15).
+    cli_s, last = _cli_ranks(tp_dir, ["--tensor-parallel", "2", "--seq-parallel", "2",
+                                      "--sp-impl", "ring"], device, cli_extra, steps,
+                             "sp2-tp2", "cli.train --tensor-parallel 2 --seq-parallel 2")
+    t0 = time.monotonic()
+    launches = _serve_checkpoint(torch, fm, tp_dir, cfg, device, steps, "TP x SP checkpoint")
+    serve_s = time.monotonic() - t0
+    emit({"phase": "train_cli_tp_sp", "cli_seconds": cli_s, "serve_seconds": serve_s,
+          "last_log": last, "restored_step": steps, "serve_flash_fwd_launches": launches,
+          "bucket": 512})
+    cli_s, last = _cli_ranks(moe_dir, ["--moe-experts", "8", "--expert-parallel", "2",
+                                       "--pipeline-parallel", "2"], device, cli_extra, steps,
+                             "pp2-ep2", "cli.train --moe-experts 8 --expert-parallel 2 "
+                                        "--pipeline-parallel 2")
+    check("moe_aux=" in last, f"the MoE run logs its aux: {last}")
+    t0 = time.monotonic()
+    moe_launches = _serve_checkpoint(
+        torch, fm, moe_dir, dataclasses.replace(cfg, moe_experts=8, pipeline_parallel=2),
+        device, steps, "PP x EP checkpoint")
+    emit({"phase": "train_cli_moe_pp", "cli_seconds": cli_s,
+          "serve_seconds": time.monotonic() - t0, "last_log": last, "restored_step": steps,
+          "serve_flash_fwd_launches": moe_launches, "bucket": 512})
+    shutil.rmtree(moe_dir, ignore_errors=True)
+    return launches, moe_launches
 
 
 def _step_record(rows: list, counts: list, field: str) -> dict:
@@ -4335,8 +4414,10 @@ def main() -> int:
                           for tile in ("q64", "q128")},
         # Launches on the int8 BERT serving path (bucket 512, 12 a forward).
         "int8_serve_launches": int8_launches,
-        # One bucket-512 request served from the TP x SP CLI's checkpoint.
-        "tp_sp_checkpoint_serve_launches": tp_sp_serve,
+        # One bucket-512 request served from the TP x SP CLI's checkpoint,
+        # and from the MoE x PP x EP CLI's (stacked encoder, one process).
+        "tp_sp_checkpoint_serve_launches": tp_sp_serve[0],
+        "moe_pp_checkpoint_serve_launches": tp_sp_serve[1],
     }]
     for name, key, line in (("flash_bwd_dq", "dq", "490"), ("flash_bwd_dkv", "dkv", "559")):
         kernels.append({

@@ -12,12 +12,12 @@ Under several processes (:mod:`..parallel.mesh`) the ranks hold the same
 replicated state, so rank 0 alone writes and prunes, every rank reads, and
 the ranks agree on the newest step by rank 0's word: the coordination the
 JAX package's orbax checkpointer does across its processes. The directory
-is one that every rank sees. Under tensor parallelism
-(``Checkpointer(param_specs=...)``) the file holds the GLOBAL tree: every
-rank gathers the parameters, the optimizer's per-parameter slots and the
-stale ring over the model axis before rank 0 writes, and a restore keeps
-the slices of the mesh it runs on. So a checkpoint written at one
-``--tensor-parallel`` width restores at any other, and
+is one that every rank sees. Under sharded parameters (tensor, expert
+or pipeline parallelism, ``Checkpointer(param_specs=...)``) the file holds
+the GLOBAL tree: every rank gathers the parameters, the optimizer's
+per-parameter slots and the stale ring over every axis that shards them
+before rank 0 writes, and a restore keeps the slices of the mesh it runs
+on. So a checkpoint written at one layout restores at any other, and
 :func:`restore_serving_state` serves it unchanged.
 
 Importing an orbax checkpoint written by the JAX package needs JAX to read
@@ -114,7 +114,8 @@ def _map_sharded(state, blob: dict, specs: dict, fn) -> dict:
         slots[idx] = {**entry, **done}
     out["opt_state"] = {**opt, "optimizer": {**opt["optimizer"], "state": slots}}
     if blob.get("grad_buffer"):
-        ring_specs = {k: None if specs.get(k) is None else (specs[k][0], specs[k][1] + 1)
+        ring_specs = {k: None if specs.get(k) is None
+                      else tuple((axis, dim + 1) for axis, dim in specs[k])
                       for k in blob["grad_buffer"]}
         out["grad_buffer"] = fn(blob["grad_buffer"], ring_specs)
     return out
@@ -145,8 +146,8 @@ class Checkpointer:
         self.directory = Path(directory).absolute()
         self.max_to_keep = max_to_keep
         self._injector = fault_injector
-        # The model-axis sharding of the parameters (bert_param_specs), or
-        # None: the state is saved as it is.
+        # The sharding of the parameters (bert_param_specs), or None: the
+        # state is saved as it is.
         self._specs = (param_specs if param_specs and any(v is not None for v in
                                                            param_specs.values()) else None)
         self._thread: threading.Thread | None = None
@@ -165,15 +166,25 @@ class Checkpointer:
             self._injector.check_ckpt_save(step)
         blob = None
         if self._specs is not None:
-            # Every rank meets in the gathers over the model axis.
+            # Every rank meets in the gathers over the sharding axes, one leaf
+            # at a time: rank 0 moves each global leaf to the host at once
+            # and the others drop theirs, so no card ever holds the whole
+            # global tree.
             from distributed_tensorflow_tpu_torch.interop import gather_params
             from distributed_tensorflow_tpu_torch.parallel.mesh import active_mesh
 
             mesh = active_mesh()
+
+            def gather(tree, specs):
+                out = {}
+                for k, v in tree.items():
+                    g = gather_params({k: v}, {k: specs.get(k)}, mesh)[k]
+                    out[k] = g.to("cpu", copy=True) if process_index() == 0 else None
+                return out
+
             blob = _map_sharded(state, {
                 "params": state.params, "opt_state": state.opt_state.state_dict(),
-                "grad_buffer": state.grad_buffer},
-                self._specs, lambda tree, specs: gather_params(tree, specs, mesh))
+                "grad_buffer": state.grad_buffer}, self._specs, gather)
         if process_index() != 0:
             barrier()
             return
@@ -309,8 +320,10 @@ def restore_serving_state(
     step = latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint found under {directory}")
+    # Memory-mapped: only the leaves read (the params) come off the disk,
+    # never a training checkpoint's optimizer state.
     blob = torch.load(
-        _step_path(Path(directory), step), map_location="cpu", weights_only=True
+        _step_path(Path(directory), step), map_location="cpu", weights_only=True, mmap=True
     )
     params = blob["params"]
     model_state = blob.get("model_state") or {}

@@ -20,7 +20,11 @@ with the decode flags ``--slots --max-new-tokens --prefix-cache-mb
 (``--fault-plan``, placed within ``--fault-steps`` decode steps; its
 events fire in the continuous batcher's decode loop). The fleet-serving
 flags (``--disagg-role --kv-transfer-budget-mb --stream-migrate``) are
-refused until Queue A item 7 of ROADMAP.md.
+refused until Queue A item 7 of ROADMAP.md, and the serving layouts
+(``--mesh --tp --pp --ep --moe-experts --moe-topk``) until Queue A item 6c:
+a checkpoint of a mixture-of-experts or pipeline-trained model serves at
+one process through :class:`BertInferenceEngine`, its stacked encoder run
+sequentially.
 
 ``--selftest N`` runs N synthetic requests through the in-process
 :class:`Client` instead of binding a port and prints the metrics snapshot.
@@ -75,6 +79,10 @@ PRESETS = {
 # migration): refused here until they are ported.
 _FLEET = "fleet serving is not ported to PyTorch yet (Queue A item 7 of ROADMAP.md)"
 _FLEET_FLAGS = {"disagg_role": "", "kv_transfer_budget_mb": 64.0, "stream_migrate": False}
+# The JAX CLI's serving-layout flags (a mesh per engine, MoE serving).
+_LAYOUT = ("the serving mesh and MoE serving flags are not ported to PyTorch yet "
+           "(Queue A item 6c of ROADMAP.md)")
+_LAYOUT_FLAGS = {"mesh": "", "tp": 1, "pp": 1, "ep": 1, "moe_experts": 0, "moe_topk": 1}
 
 
 def _overridden(kwargs: dict, args) -> dict:
@@ -369,7 +377,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--fault-steps", type=int, default=1000,
                    help="decode-step horizon --fault-plan events are placed within when the "
                         "spec is key=value form")
-    for name, default in _FLEET_FLAGS.items():
+    for name, default in {**_FLEET_FLAGS, **_LAYOUT_FLAGS}.items():
         flag = "--" + name.replace("_", "-")
         if isinstance(default, bool):
             p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
@@ -391,6 +399,10 @@ def main(argv: list[str] | None = None):
     ]
     if set_fleet:
         parser.error(f"{', '.join(set_fleet)}: {_FLEET}")
+    set_layout = ["--" + k.replace("_", "-") for k, d in _LAYOUT_FLAGS.items()
+                  if getattr(args, k) != d]
+    if set_layout:
+        parser.error(f"{', '.join(set_layout)}: {_LAYOUT}")
     if args.weight_dtype and PRESETS[args.config].image_factory:
         parser.error("--weight-dtype is not supported for image serving (the "
                      "classifier forward has no dequantize step)")

@@ -37,14 +37,24 @@ metrics, ``--trace-dir`` the host span trace (``train_trace.json``), and
 
 Model parallelism (``bert_base``): ``--tensor-parallel T`` shards heads and
 the FFN over a ``"model"`` axis (Megatron), ``--seq-parallel S --sp-impl
-ring|ulysses`` the sequence over a ``"seq"`` axis; the mesh is ``{"data":
--1, "seq": S, "model": T}`` over the job's processes, as in the JAX CLI, and
-its layout (``dp2-sp2-tp2``) is in the log (the ``--metrics-jsonl``
-records keep the JAX CLI's keys). Checkpoints hold the global tree, so they restore at any width
-and serve unchanged. A requested axis over which the workload shards no
-parameter (or no sequence) and Ulysses over heads the axis does not divide
-exit 2; the causal LM's tensor parallelism comes with Queue A item 6c, and
-the MoE and pipeline flags with item 6b.
+ring|ulysses`` the sequence over a ``"seq"`` axis, ``--moe-experts N``
+makes every FFN a mixture of N experts (``--moe-topk 1|2``: Switch or
+GShard routing) which ``--expert-parallel E`` shards over an ``"expert"``
+axis (``--moe-dispatch replicated|alltoall|sharded``; ``sharded`` splits
+the batch rows over the expert axis too), and ``--pipeline-parallel P``
+stage-shards the encoder over a ``"pipeline"`` axis under the GPipe
+schedule (``--pipeline-microbatches M``, default 4P). The mesh is
+``{"data": -1, "pipeline": P, "expert": E, "seq": S, "model": T}`` over the
+job's processes, as in the JAX CLI, and its layout (``dp2-pp2-ep2``) is in
+the log (the ``--metrics-jsonl`` records keep the JAX CLI's keys).
+Parameters are drawn at the global expert count and layer stack, and
+checkpoints hold the global tree, so they restore at any layout and serve
+unchanged (a stacked encoder sequentially on one process). A requested
+axis over which the workload shards no parameter (or no sequence), Ulysses
+over heads the axis does not divide, ``--moe-dispatch sharded`` without
+``--expert-parallel`` > 1, a ``--moe-topk`` outside ``[1, experts]`` and
+per-shard rows the microbatches do not divide exit 2; the causal LM's
+tensor parallelism comes with Queue A item 6c.
 
 Resilience: ``--resilient`` (``--max-restarts N``) runs the loop under
 :func:`..train.resilience.run_resilient`: SIGTERM/SIGINT stop at the next
@@ -103,6 +113,14 @@ class WorkloadConfig:
     seq_parallel: int = 0  # > 0: "seq" axis size (BERT ring or Ulysses attention)
     sp_impl: str = "ring"  # "ring" | "ulysses"
     tensor_parallel: int = 0  # > 0: "model" axis size (BERT Megatron TP)
+    moe_experts: int = 0  # > 0: a switch-MoE FFN with this many experts (BERT)
+    expert_parallel: int = 0  # > 0: "expert" axis size (BERT MoE)
+    # "replicated" | "alltoall" (capacity buffers over replicated tokens) |
+    # "sharded" (the batch rows split over the expert axis too)
+    moe_dispatch: str = "replicated"
+    moe_topk: int = 1  # routing fan-out: 1 = Switch, 2 = GShard top-2
+    pipeline_parallel: int = 0  # > 0: "pipeline" axis size (BERT GPipe stages)
+    pipeline_microbatches: int = 0  # GPipe M; 0 -> 4 * pipeline_parallel
     remat: bool = False  # activation checkpointing over encoder layers
     bert_layers: int = 0  # > 0: override encoder depth (smoke runs)
     bert_hidden: int = 0  # > 0: override hidden size (intermediate = 4x)
@@ -158,11 +176,13 @@ def make_lr_schedule(cfg: WorkloadConfig) -> Callable[[int], float]:
 def _decay_mask(params: dict[str, torch.Tensor]) -> dict[str, bool]:
     """AdamW decoupled-weight-decay mask, the canonical BERT recipe: decay
     weight matrices and embeddings only. Parameters of rank < 2, anything
-    named like a bias, and anything under a LayerNorm module never decay."""
+    named like a bias (the MoE expert bias stacks ``experts_b1``/``_b2`` are
+    2-D), and anything under a LayerNorm module (a stacked encoder's scales
+    are 2-D too) never decay."""
 
     def decays(name: str, p: torch.Tensor) -> bool:
         parts = name.split(".")
-        if p.dim() < 2 or "bias" in parts[-1]:
+        if p.dim() < 2 or "bias" in parts[-1] or parts[-1] in ("experts_b1", "experts_b2"):
             return False
         return not any(
             n == "ln" or n.endswith("_ln") or n.endswith("_bn")
@@ -235,6 +255,8 @@ def _build_bert_workload(cfg_kwargs: dict):
             mesh = active_mesh()
             seq_parallel = mesh.shape.get("seq", 1) > 1
             tp = mesh.shape.get("model", 1)
+            ep = mesh.shape.get("expert", 1)
+            pp = mesh.shape.get("pipeline", 1)
             kwargs = dict(cfg_kwargs)
             if cfg.bert_layers:
                 kwargs["num_layers"] = cfg.bert_layers
@@ -247,6 +269,37 @@ def _build_bert_workload(cfg_kwargs: dict):
                 kwargs.update(seq_axis="seq", sp_impl=cfg.sp_impl)
             if tp > 1:
                 kwargs.update(model_axis="model", model_parallel=tp)
+            # The GShard token-sharded layout: the expert axis carries rows.
+            expert_sharded = cfg.moe_dispatch == "sharded" and ep > 1
+            if cfg.moe_dispatch == "sharded" and ep <= 1:
+                raise _Refusal("--moe-dispatch=sharded requires --expert-parallel > 1")
+            if cfg.moe_experts:
+                if cfg.moe_experts % ep:
+                    raise _Refusal(f"--moe-experts={cfg.moe_experts} not divisible by "
+                                   f"--expert-parallel={ep}")
+                if not 1 <= cfg.moe_topk <= cfg.moe_experts:
+                    raise _Refusal(f"--moe-topk={cfg.moe_topk} must be in [1, "
+                                   f"--moe-experts={cfg.moe_experts}]")
+                # The global expert count; the model draws it and keeps its slice.
+                kwargs.update(moe_experts=cfg.moe_experts, moe_topk=cfg.moe_topk)
+                if ep > 1:
+                    kwargs.update(expert_axis="expert", expert_parallel=ep,
+                                  moe_dispatch=cfg.moe_dispatch)
+            if pp > 1:
+                # Per-shard rows must split into the GPipe microbatches.
+                rows = cfg.global_batch // math.prod(
+                    mesh.shape[a] for a in mesh.axis_names if a in ("replica", "data")
+                    or (expert_sharded and a == "expert"))
+                micro = cfg.pipeline_microbatches or 4 * pp
+                if rows % micro:
+                    raise _Refusal(f"per-shard batch {rows} (global {cfg.global_batch}) not "
+                                   f"divisible by pipeline_microbatches {micro}")
+                kwargs.update(pipeline_axis="pipeline", pipeline_parallel=pp,
+                              pipeline_microbatches=micro)
+            elif cfg.pipeline_parallel > 1:
+                # A pipeline-trained config on a mesh without the axis: the
+                # stacked tree, run sequentially (serving a stacked checkpoint).
+                kwargs.update(pipeline_parallel=cfg.pipeline_parallel)
             model_cfg = BertConfig(**kwargs, remat=cfg.remat)
             model = BertForPreTraining(model_cfg, device=device)
             L = model_cfg.max_position
@@ -289,20 +342,27 @@ def _build_bert_workload(cfg_kwargs: dict):
                 # disjoint seed over the training source.
                 it = mlm_device_batches(eval_data if eval_data is not None else data,
                                         cfg.global_batch, device=device, seed=900_001,
-                                        seq_sharded=seq_parallel)
+                                        seq_sharded=seq_parallel,
+                                        expert_sharded=expert_sharded)
                 for _ in range(n_batches):
                     yield next(it)
 
             params = dict(model.named_parameters())
+            specs = None
+            if tp > 1 or ep > 1 or pp > 1:
+                specs = bert_param_specs(params, "model" if tp > 1 else None,
+                                         "expert" if ep > 1 else None,
+                                         "pipeline" if pp > 1 else None)
             return {
                 "params": params,
-                "param_specs": bert_param_specs(params) if tp > 1 else None,
+                "param_specs": specs,
                 "seq_sharded": seq_parallel,
+                "batch_axes": ("expert",) if expert_sharded else (),
                 "model_state": {},
                 "loss_fn": make_bert_pretraining_loss(model),
                 "batches": lambda start_step=0: mlm_device_batches(
                     data, cfg.global_batch, device=device, seed=1, start_step=start_step,
-                    seq_sharded=seq_parallel),
+                    seq_sharded=seq_parallel, expert_sharded=expert_sharded),
                 "metric_fn": make_bert_eval_metrics(model),
                 "eval_batches": eval_batches,
             }
@@ -574,9 +634,6 @@ _UNPORTED_PRESETS: dict[str, str] = {}
 
 # Flags of the JAX CLI that this slice's path does not read, with why.
 _UNPORTED_FLAGS = {
-    **dict.fromkeys(("--moe-experts", "--moe-dispatch", "--moe-topk", "--pipeline-parallel",
-                     "--pipeline-microbatches", "--expert-parallel"),
-                    "MoE and pipeline parallelism come with Queue A item 6b"),
     "--rng-impl": "dropout draws from a torch.Generator seeded by --seed",
 }
 
@@ -617,24 +674,31 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
         timeout_s=args.init_timeout,
     )
     mesh_spec = {"data": -1}
-    if cfg.seq_parallel:
-        mesh_spec["seq"] = cfg.seq_parallel
-    if cfg.tensor_parallel:
-        mesh_spec["model"] = cfg.tensor_parallel
-    mesh = build_mesh(mesh_spec)
+    for axis, width in (("pipeline", cfg.pipeline_parallel), ("expert", cfg.expert_parallel),
+                        ("seq", cfg.seq_parallel), ("model", cfg.tensor_parallel)):
+        if width:
+            mesh_spec[axis] = width
+    try:
+        mesh = build_mesh(mesh_spec)
+    except ValueError as e:
+        raise _Refusal(f"the mesh {mesh_spec} does not fit the job's processes: {e}") from e
     layout = layout_label(mesh)
     if process_index() == 0:
         logger.info("workload=%s mesh=%s layout=%s device=%s", cfg.name, dict(mesh.shape),
                     layout, device)
     pieces = cfg.build(cfg)(device)
-    # A model axis with no parameter sharded over it (or a seq axis over a
-    # workload that shards no sequence) means every group of those ranks
-    # computes identical gradients: silent N-fold waste, as the JAX CLI says.
+    # A model, expert or pipeline axis with no parameter sharded over it (or
+    # a seq axis over a workload that shards no sequence) means every group
+    # of those ranks computes identical gradients: silent N-fold waste, as
+    # the JAX CLI says.
+    from distributed_tensorflow_tpu_torch.models.bert import spec_axes
+
     specs = pieces.get("param_specs") or {}
-    if cfg.tensor_parallel > 1 and not any(s is not None and s[0] == "model"
-                                           for s in specs.values()):
-        raise _Refusal(f"a {cfg.tensor_parallel}-way 'model' axis was requested but "
-                       f"workload {cfg.name!r} shards no params over it")
+    for axis, width in (("model", cfg.tensor_parallel), ("expert", cfg.expert_parallel),
+                        ("pipeline", cfg.pipeline_parallel)):
+        if width > 1 and not any(axis in spec_axes(s) for s in specs.values()):
+            raise _Refusal(f"a {width}-way {axis!r} axis was requested but workload "
+                           f"{cfg.name!r} shards no params over it")
     if cfg.seq_parallel > 1 and not pieces.get("seq_sharded"):
         raise _Refusal(f"a {cfg.seq_parallel}-way 'seq' axis was requested but "
                        f"workload {cfg.name!r} shards no sequence over it")
@@ -643,7 +707,8 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
     state = create_train_state(pieces["params"], tx, pieces["model_state"], staleness=staleness)
     step = make_train_step(pieces["loss_fn"], tx, mode=cfg.mode, staleness=staleness,
                            clip_norm=cfg.clip_norm, grad_accum=cfg.grad_accum,
-                           param_specs=pieces.get("param_specs"))
+                           param_specs=pieces.get("param_specs"),
+                           batch_axes=pieces.get("batch_axes", ()))
     rng = make_rng(args.seed, device)
     # Flight recorder (--dump-dir): the resilience and fault-injection paths
     # record their events here and an unhandled failure dumps the ring.
@@ -706,7 +771,8 @@ def run(cfg: WorkloadConfig, args: argparse.Namespace):
 
     evaluate = None
     if args.eval_every:
-        eval_step = make_eval_step(pieces["metric_fn"], return_sums=True)
+        eval_step = make_eval_step(pieces["metric_fn"], return_sums=True,
+                                   batch_axes=pieces.get("batch_axes", ()))
 
         def evaluate(state):
             # (num, den) sums carry across the whole pass and divide once.
@@ -855,6 +921,23 @@ def make_parser() -> argparse.ArgumentParser:
                         "seq axis) or ulysses (all-to-all head re-partition)")
     p.add_argument("--tensor-parallel", type=int, default=-1,
                    help="model axis size for Megatron-TP sharding (BERT)")
+    p.add_argument("--moe-experts", type=int, default=-1,
+                   help="switch-MoE FFN with N experts (BERT; 0 = dense FFN)")
+    p.add_argument("--moe-dispatch", default="",
+                   choices=["", "replicated", "alltoall", "sharded"],
+                   help="MoE dispatch layout: alltoall = capacity-buffer exchange over "
+                        "replicated tokens; sharded = the GShard layout (batch rows split "
+                        "over the expert axis, no replicated non-MoE compute)")
+    p.add_argument("--moe-topk", type=int, default=-1,
+                   help="routing fan-out: 1 = Switch top-1 (default), 2 = GShard top-2 "
+                        "(renormalized gates, per-expert capacity unchanged)")
+    p.add_argument("--expert-parallel", type=int, default=-1,
+                   help="expert axis size for MoE sharding (BERT)")
+    p.add_argument("--pipeline-parallel", type=int, default=-1,
+                   help="pipeline-stage axis size for the BERT encoder (GPipe schedule; "
+                        "0 disables)")
+    p.add_argument("--pipeline-microbatches", type=int, default=0,
+                   help="GPipe microbatch count M (default 4x stages)")
     p.add_argument("--staleness", type=int, default=-1,
                    help="K > 0: apply K-step-old gradients (async-stale emulation)")
     p.add_argument("--lr", type=float, default=0.0)
@@ -999,6 +1082,20 @@ def main(argv: list[str] | None = None) -> int:
         overrides["sp_impl"] = args.sp_impl
     if args.tensor_parallel >= 0:
         overrides["tensor_parallel"] = args.tensor_parallel
+    if args.moe_experts >= 0:
+        overrides["moe_experts"] = args.moe_experts
+    if args.moe_dispatch:
+        overrides["moe_dispatch"] = args.moe_dispatch
+    if args.moe_topk == 0:
+        parser.error("--moe-topk must be >= 1")
+    if args.moe_topk > 0:
+        overrides["moe_topk"] = args.moe_topk
+    if args.expert_parallel >= 0:
+        overrides["expert_parallel"] = args.expert_parallel
+    if args.pipeline_parallel >= 0:
+        overrides["pipeline_parallel"] = args.pipeline_parallel
+    if args.pipeline_microbatches:
+        overrides["pipeline_microbatches"] = args.pipeline_microbatches
     cfg = dataclasses.replace(PRESETS[args.config], **overrides)
     from distributed_tensorflow_tpu_torch.parallel.mesh import process_index, shutdown_runtime
 

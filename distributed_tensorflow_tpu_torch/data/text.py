@@ -312,36 +312,36 @@ def mlm_device_batches(
     seed: int = 0,
     start_step: int = 0,
     seq_sharded: bool = False,
+    expert_sharded: bool = False,
 ):
     """Infinite iterator of BERT batches as tensors on ``device`` (the card
     by default).
 
     Batch k, global row r is a pure function of ``(seed, k, r //
     _ROW_CHUNK)``, whatever the number of processes: under several
-    processes each rank generates only the row chunks of its contiguous
-    slice of ``global_batch`` (:func:`..parallel.mesh.process_rows` on the
-    active mesh: ranks along ``"model"`` and ``"seq"`` share rows), and
-    one process generates them all. So a restored run resumes at
-    ``start_step`` with the batches an uninterrupted run would have seen.
-    ``seq_sharded=True`` (the JAX package's ``bert_batch_specs(...,
-    seq_sharded=True)`` layout) keeps this rank's contiguous slice of the
-    sequence of every ``[B, L]`` leaf along the mesh's ``"seq"`` axis; the
-    ``[B]`` NSP label stays whole. Generation runs inline in ``next()``;
-    wrap it in :func:`~.prefetch.prefetch` to move it off the step's
-    critical path.
+    processes each rank generates only the row chunks that overlap its
+    contiguous slice of ``global_batch`` (:func:`..parallel.mesh.process_rows`
+    on the active mesh: ranks along ``"model"``, ``"seq"`` and
+    ``"pipeline"`` share rows) and keeps its rows of them, and one process
+    generates them all. So a restored run resumes at ``start_step`` with
+    the batches an uninterrupted run would have seen. ``seq_sharded=True``
+    (the JAX package's ``bert_batch_specs(..., seq_sharded=True)`` layout)
+    keeps this rank's contiguous slice of the sequence of every ``[B, L]``
+    leaf along the mesh's ``"seq"`` axis; the ``[B]`` NSP label stays whole.
+    ``expert_sharded=True`` (``expert_sharded=True`` there: the token-sharded
+    MoE dispatch) splits the rows over the ``"expert"`` axis too.
+    Generation runs inline in ``next()``; wrap it in
+    :func:`~.prefetch.prefetch` to move it off the step's critical path.
     """
     from distributed_tensorflow_tpu_torch.parallel.mesh import active_mesh, coordinate
 
     dev = resolve_device(device)
-    start_row, stop_row = process_rows(global_batch)
-    local_b = stop_row - start_row
-    if start_row % _ROW_CHUNK or (local_b % _ROW_CHUNK and stop_row != global_batch):
-        raise ValueError(
-            f"per-process batch {local_b} (offset {start_row}) must align to "
-            f"the {_ROW_CHUNK}-row generation chunk"
-        )
-    cols = slice(None)
     mesh = active_mesh()
+    start_row, stop_row = process_rows(global_batch, mesh,
+                                       ("expert",) if expert_sharded else ())
+    first = start_row // _ROW_CHUNK * _ROW_CHUNK
+    rows = slice(start_row - first, stop_row - first)
+    cols = slice(None)
     if seq_sharded and "seq" in mesh.axis_names:
         n_seq, seq_len = mesh.shape["seq"], dataset.cfg.seq_len
         if seq_len % n_seq:
@@ -359,7 +359,7 @@ def mlm_device_batches(
     step = start_step
     while True:
         chunks = [dataset.batch(size, seed=(seed, step, c)) for c, size in chunk_sizes]
-        batch = {k: np.concatenate([c[k] for c in chunks], axis=0) for k in chunks[0]}
+        batch = {k: np.concatenate([c[k] for c in chunks], axis=0)[rows] for k in chunks[0]}
         yield {
             k: torch.from_numpy(np.ascontiguousarray(v if v.ndim == 1 else v[:, cols])).to(dev)
             for k, v in batch.items()

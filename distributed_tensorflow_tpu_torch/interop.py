@@ -18,7 +18,12 @@ BERT mappings:
   (its bias is the separate ``out_bias`` leaf, unchanged);
 - ``Embed.embedding`` <-> ``Embedding.weight``;
 - ``LayerNorm`` ``scale``/``bias`` <-> ``weight``/``bias``;
-- ``layer_<i>`` <-> ``layers.<i>``.
+- ``layer_<i>`` <-> ``layers.<i>``;
+- the mixture-of-experts FFN: ``moe/router/kernel`` <-> ``moe.router.weight``
+  (a Dense kernel); the ``experts_w1/b1/w2/b2`` stacks keep their layout;
+- the stacked encoder of a pipeline config (flax ``nn.scan``'s
+  ``encoder/layer/...``, every leaf with a leading ``[num_layers]``) <->
+  ``encoder.layer.*``: each layer's slice maps as above.
 
 Int8-packed kernels (``{"_q8", "_q8_scale"}``, :mod:`.models.quant`) carry
 over in both BERT-family directions: ``_q8`` moves like the kernel it
@@ -84,12 +89,18 @@ def _kernel_to_flax(parent: str, a: np.ndarray, num_heads: int) -> np.ndarray:
     return a.T
 
 
+def _per_layer(fn, a: np.ndarray, stacked: bool) -> np.ndarray:
+    """``fn`` of ``a``, or of each leading-dim slice of a stacked leaf."""
+    return np.stack([fn(x) for x in a]) if stacked else fn(a)
+
+
 def bert_params_from_flax(tree: dict) -> dict:
     """flax ``BertForPreTraining`` (or ``CausalLM``) params (numpy leaves)
     -> torch state dict; a packed kernel becomes ``{"_q8", "_q8_scale"}``
     tensors under the kernel's torch name."""
     out = {}
     for path, leaf in _flatten(tree, packed_leaves=True):
+        stacked = "encoder" in path
         names = [re.sub(r"^layer_(\d+)$", r"layers.\1", p) for p in path]
         parent, name = (path[-2] if len(path) > 1 else ""), path[-1]
         if _is_packed(leaf):
@@ -105,9 +116,9 @@ def bert_params_from_flax(tree: dict) -> dict:
             names[-1] = "weight"
         elif name == "kernel":
             names[-1] = "weight"
-            a = _kernel_from_flax(parent, a)
+            a = _per_layer(lambda k: _kernel_from_flax(parent, k), a, stacked)
         elif name == "bias" and parent in _HEAD_PROJ:  # [heads, d] -> [heads*d]
-            a = a.reshape(-1)
+            a = _per_layer(lambda b: b.reshape(-1), a, stacked)
         out[".".join(names)] = _to_tensor(np.ascontiguousarray(a))
     return out
 
@@ -138,6 +149,7 @@ def bert_params_to_flax(state_dict: dict, num_heads: int) -> dict:
             node[path[-1]] = a
             continue
         a = _to_numpy(t)
+        stacked = "encoder" in path
         if path[-1] == "weight":
             if parent in _EMBEDDINGS:
                 path[-1] = "embedding"
@@ -145,9 +157,9 @@ def bert_params_to_flax(state_dict: dict, num_heads: int) -> dict:
                 path[-1] = "scale"
             else:
                 path[-1] = "kernel"
-                a = _kernel_to_flax(parent, a, num_heads)
+                a = _per_layer(lambda k: _kernel_to_flax(parent, k, num_heads), a, stacked)
         elif path[-1] == "bias" and parent in _HEAD_PROJ:
-            a = a.reshape(num_heads, -1)
+            a = _per_layer(lambda b: b.reshape(num_heads, -1), a, stacked)
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
@@ -232,11 +244,12 @@ image_params_to_flax = resnet_params_to_flax
 
 def shard_params(state_dict: dict, specs: dict, mesh) -> dict:
     """This rank's slice of a GLOBAL state dict: each leaf that ``specs``
-    shards (``(axis, dim)``, as :func:`.models.bert.bert_param_specs` gives
-    them) is cut into ``mesh.shape[axis]`` equal parts along ``dim`` and
-    the part at this rank's coordinate on ``axis`` kept (a contiguous copy);
-    the others are returned as they are. The JAX package's placement of a
-    global tree under ``PartitionSpec``s, for one rank."""
+    shards (pairs of ``(axis, dim)``, as :func:`.models.bert.bert_param_specs`
+    gives them) is cut, for each pair, into ``mesh.shape[axis]`` equal parts
+    along ``dim`` and the part at this rank's coordinate on ``axis`` kept (a
+    contiguous copy); the others are returned as they are. The JAX
+    package's placement of a global tree under ``PartitionSpec``s, for one
+    rank."""
     from distributed_tensorflow_tpu_torch.parallel.mesh import coordinate
 
     out = {}
@@ -245,30 +258,31 @@ def shard_params(state_dict: dict, specs: dict, mesh) -> dict:
         if spec is None:
             out[name] = t
             continue
-        axis, dim = spec
-        n = mesh.shape[axis]
-        if t.shape[dim] % n:
-            raise ValueError(f"{name}: dimension {dim} of size {t.shape[dim]} not "
-                             f"divisible by the {n}-way {axis!r} axis")
-        out[name] = t.chunk(n, dim)[coordinate(mesh, (axis,))].contiguous()
+        for axis, dim in spec:
+            n = mesh.shape[axis]
+            if t.shape[dim] % n:
+                raise ValueError(f"{name}: dimension {dim} of size {t.shape[dim]} not "
+                                 f"divisible by the {n}-way {axis!r} axis")
+            t = t.chunk(n, dim)[coordinate(mesh, (axis,))]
+        out[name] = t.contiguous()
     return out
 
 
 def gather_params(state_dict: dict, specs: dict, mesh) -> dict:
     """The GLOBAL state dict rebuilt on every rank from each rank's slices
     (the inverse of :func:`shard_params`): every sharded leaf is
-    all-gathered over its axis of ``mesh``, the job's active mesh, and
-    concatenated along its dim. Every rank of the job must call it."""
+    all-gathered over each of its axes of ``mesh``, the job's active mesh,
+    and concatenated along the axis's dim. Every rank of the job must call
+    it."""
     from distributed_tensorflow_tpu_torch.parallel import collectives as coll
     from distributed_tensorflow_tpu_torch.parallel.mesh import axis_group, axis_ranks
 
     out = {}
     for name, t in state_dict.items():
-        spec = specs.get(name)
-        if spec is None:
-            out[name] = t
-            continue
-        axis, dim = spec
-        n = len(axis_ranks(mesh, axis))
-        out[name] = t if n == 1 else coll._gather(t.detach(), axis_group(mesh, axis), n, dim)
+        t = t.detach()
+        for axis, dim in specs.get(name) or ():
+            n = len(axis_ranks(mesh, axis))
+            if n > 1:
+                t = coll._gather(t, axis_group(mesh, axis), n, dim)
+        out[name] = t
     return out

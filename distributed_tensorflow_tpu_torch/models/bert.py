@@ -44,13 +44,28 @@ their ``shard_map`` binds:
   takes the global ``[CLS]`` from the first slice, and the MLM sums are
   summed over the axis.
 
-The expert and pipeline fields exist so configs carry over, and raise
-``NotImplementedError`` when set: they come with Queue A item 6b.
+- ``moe_experts`` > 0 replaces every layer's FFN with a Switch (top-1) or
+  GShard (``moe_topk=2``) mixture of experts (:class:`MoeFfn`,
+  :mod:`..parallel.moe`); ``expert_axis``/``expert_parallel`` shard the
+  experts, dispatched ``"replicated"``, ``"alltoall"`` or ``"sharded"``
+  (the batch rows split over the expert axis too). Each layer returns its
+  load-balance aux beside its output (flax ``sow``s it); the loss averages
+  it over the layers and adds ``moe_aux_weight`` times it;
+- ``pipeline_axis``/``pipeline_parallel``: the encoder's parameters are one
+  stacked ``[num_layers, ...]`` tree (``bert.encoder.layer.*``, flax's
+  ``nn.scan`` layout; :class:`StackedEncoder`), and with a live pipeline
+  axis each rank holds its stage's layers and the encoder runs the GPipe
+  schedule (:func:`..parallel.pipeline.pipeline_apply`) over
+  ``pipeline_microbatches`` (0: ``4 * pipeline_parallel``) microbatches,
+  each (layer, microbatch) with its slice of the attention mask and its own
+  dropout generator. With ``pipeline_parallel > 1`` and no axis the stacked
+  tree runs sequentially (serving a pipeline checkpoint on one process).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -61,6 +76,8 @@ from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.models.quant import dequantize_leaf
 from distributed_tensorflow_tpu_torch.ops.flash_attention import flash_attention
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+from distributed_tensorflow_tpu_torch.parallel.moe import moe_apply, moe_apply_a2a
+from distributed_tensorflow_tpu_torch.parallel.pipeline import pipeline_apply
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
     dense_attention,
     ring_attention,
@@ -100,19 +117,6 @@ class BertConfig:
     remat: bool = False
 
     def __post_init__(self):
-        unported = {
-            "moe_experts": self.moe_experts != 0,
-            "expert_axis": self.expert_axis is not None,
-            "expert_parallel": self.expert_parallel != 1,
-            "pipeline_axis": self.pipeline_axis is not None,
-            "pipeline_parallel": self.pipeline_parallel != 1,
-        }
-        bad = [name for name, is_set in unported.items() if is_set]
-        if bad:
-            raise NotImplementedError(
-                f"BertConfig fields {bad} (mixture-of-experts/expert/pipeline "
-                "parallelism) are not ported yet: they come with Queue A item 6b"
-            )
         if self.sp_impl not in ("ring", "ulysses"):
             raise ValueError(f"sp_impl must be 'ring' or 'ulysses', got {self.sp_impl!r}")
         tp = self.model_parallel
@@ -122,6 +126,43 @@ class BertConfig:
                 f"intermediate_size {self.intermediate_size}")
         if tp > 1 and self.model_axis is None:
             raise ValueError("model_parallel > 1 needs a model_axis")
+        if self.moe_dispatch not in ("replicated", "alltoall", "sharded"):
+            raise ValueError(f"unknown moe_dispatch {self.moe_dispatch!r}")
+        ep = self.expert_parallel
+        if self.moe_dispatch == "sharded" and ep <= 1:
+            raise ValueError("moe_dispatch='sharded' routes from the expert-sharded batch "
+                             "— it requires expert_parallel > 1")
+        if self.moe_experts < 0 or ep < 1 or (ep > 1 and (not self.moe_experts
+                                                          or self.moe_experts % ep)):
+            raise ValueError(f"expert_parallel {ep} must divide moe_experts "
+                             f"{self.moe_experts}")
+        if ep > 1 and self.expert_axis is None:
+            raise ValueError("expert_parallel > 1 needs an expert_axis")
+        if self.moe_experts and not 1 <= self.moe_topk <= self.moe_experts:
+            raise ValueError(f"moe_topk {self.moe_topk} must be in [1, moe_experts "
+                             f"{self.moe_experts}]")
+        pp = self.pipeline_parallel
+        if pp < 1 or self.num_layers % pp:
+            raise ValueError(f"num_layers {self.num_layers} not divisible by "
+                             f"pipeline_parallel {pp}")
+        if self.pipeline_microbatches < 0:
+            raise ValueError(f"pipeline_microbatches must be >= 0 (0: 4 x stages), got "
+                             f"{self.pipeline_microbatches}")
+
+    @property
+    def stacked(self) -> bool:
+        """The encoder's parameters are one stacked tree (a pipeline config)."""
+        return self.pipeline_axis is not None or self.pipeline_parallel > 1
+
+    @property
+    def pipelined(self) -> bool:
+        """The encoder runs the GPipe schedule over ``pipeline_axis``."""
+        return self.pipeline_axis is not None and self.pipeline_parallel > 1
+
+    @property
+    def local_layers(self) -> int:
+        """The encoder layers this rank holds."""
+        return self.num_layers // self.pipeline_parallel if self.pipelined else self.num_layers
 
 
 def bert_base(**overrides) -> BertConfig:
@@ -129,8 +170,16 @@ def bert_base(**overrides) -> BertConfig:
 
 
 def _global_config(cfg: BertConfig) -> BertConfig:
-    """The unsharded model's config: what the parameters are drawn under."""
-    return dataclasses.replace(cfg, seq_axis=None, model_axis=None, model_parallel=1)
+    """The unsharded model's config: what the parameters are drawn under
+    (every expert, every layer; a stacked encoder stays stacked)."""
+    return dataclasses.replace(
+        cfg, seq_axis=None, model_axis=None, model_parallel=1, expert_axis=None,
+        expert_parallel=1, moe_dispatch="replicated",
+        pipeline_axis=None if cfg.pipeline_parallel > 1 else cfg.pipeline_axis)
+
+
+def _sharded(cfg: BertConfig) -> bool:
+    return cfg.model_parallel > 1 or cfg.expert_parallel > 1 or cfg.pipelined
 
 
 def _seq_offset(cfg: BertConfig, l_local: int) -> int:
@@ -271,48 +320,221 @@ class BertSelfAttention(nn.Module):
         return self.ln(x + out)
 
 
+class MoeFfn(nn.Module):
+    """The mixture-of-experts FFN (JAX ``MoeFfn``): an f32 router with no
+    bias, and this rank's experts stacked ``[e_local, ...]``, each a
+    tanh-GELU FFN whose hidden dim is Megatron-sharded over
+    ``cfg.model_axis`` (``experts_w1``/``experts_b1`` column-parallel,
+    ``experts_w2`` row-parallel, ``experts_b2`` entering as ``b2 / tp`` so
+    the sum over the model axis adds it once). The attention mask is the
+    routing's ``valid``: pads take no capacity. The routing statistics are
+    summed over ``"seq"`` under sequence parallelism, and over the expert
+    axis under the all-to-all dispatch of replicated tokens; the sharded
+    dispatch keeps per-group statistics. ``forward`` returns ``(y, aux)``."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        ff = cfg.intermediate_size // cfg.model_parallel
+        e_local = cfg.moe_experts // cfg.expert_parallel
+        self.router = nn.Linear(h, cfg.moe_experts, bias=False)
+        self.experts_w1 = nn.Parameter(torch.empty(e_local, h, ff))
+        self.experts_b1 = nn.Parameter(torch.zeros(e_local, ff))
+        self.experts_w2 = nn.Parameter(torch.empty(e_local, ff, h))
+        self.experts_b2 = nn.Parameter(torch.zeros(e_local, h))
+
+    def _experts(self, p, tokens):
+        dt, tp = self.cfg.dtype, self.cfg.model_parallel
+        t = F.gelu(torch.bmm(tokens, p["w1"].to(dt)) + p["b1"].to(dt)[:, None],
+                   approximate="tanh")
+        return torch.bmm(t, p["w2"].to(dt)) + (p["b2"].to(dt) / tp)[:, None]
+
+    def forward(self, x, mask=None):
+        cfg = self.cfg
+        b, l, h = x.shape
+        tokens = x.reshape(b * l, h)
+        logits = F.linear(tokens.float(), self.router.weight.float())
+        stats_axes = () if cfg.seq_axis is None else (cfg.seq_axis,)
+        experts = {"w1": self.experts_w1, "b1": self.experts_b1, "w2": self.experts_w2,
+                   "b2": self.experts_b2}
+        kwargs = dict(capacity_factor=cfg.moe_capacity_factor,
+                      valid=None if mask is None else mask.reshape(b * l), topk=cfg.moe_topk)
+        if cfg.moe_dispatch == "sharded":
+            y, aux = moe_apply_a2a(self._experts, experts, logits, tokens,
+                                   axis_name=cfg.expert_axis, stats_axes=stats_axes,
+                                   tokens_sharded=True, **kwargs)
+        elif cfg.moe_dispatch == "alltoall" and cfg.expert_parallel > 1:
+            y, aux = moe_apply_a2a(self._experts, experts, logits, tokens,
+                                   axis_name=cfg.expert_axis,
+                                   stats_axes=stats_axes + (cfg.expert_axis,), **kwargs)
+        else:
+            y, aux = moe_apply(self._experts, experts, logits, tokens,
+                               axis_name=cfg.expert_axis if cfg.expert_parallel > 1 else None,
+                               stats_axes=stats_axes, **kwargs)
+        return _tp_psum(cfg, y).reshape(b, l, h), aux
+
+
 class BertLayer(nn.Module):
+    """Attention, then the dense FFN or :class:`MoeFfn`. ``forward`` returns
+    ``(x, aux)``: aux the MoE's load-balance loss, None for a dense FFN."""
+
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.cfg = cfg
         self.attention = BertSelfAttention(cfg)
-        # Column-parallel up-projection, row-parallel down-projection with
-        # its bias added after the sum over the model axis.
-        ff = cfg.intermediate_size // cfg.model_parallel
-        self.intermediate = nn.Linear(cfg.hidden_size, ff)
-        self.output = nn.Linear(ff, cfg.hidden_size, bias=False)
-        self.output_bias = nn.Parameter(torch.zeros(cfg.hidden_size))
+        if cfg.moe_experts:
+            self.moe = MoeFfn(cfg)
+        else:
+            # Column-parallel up-projection, row-parallel down-projection
+            # with its bias added after the sum over the model axis.
+            ff = cfg.intermediate_size // cfg.model_parallel
+            self.intermediate = nn.Linear(cfg.hidden_size, ff)
+            self.output = nn.Linear(ff, cfg.hidden_size, bias=False)
+            self.output_bias = nn.Parameter(torch.zeros(cfg.hidden_size))
         self.ln = LayerNorm(cfg.hidden_size, 1e-12, cfg.dtype)
 
     def forward(self, x, mask, train=False, generator=None):
         dt = self.cfg.dtype
         x = self.attention(x, mask, train, generator)
-        y = F.gelu(_linear(x, self.intermediate, dt), approximate="tanh")
-        y = _tp_psum(self.cfg, _linear(y, self.output, dt))
-        y = y + self.output_bias.to(y.dtype)
+        aux = None
+        if self.cfg.moe_experts:
+            # Dropped tokens emit 0 and ride the residual.
+            y, aux = self.moe(x, mask)
+        else:
+            y = F.gelu(_linear(x, self.intermediate, dt), approximate="tanh")
+            y = _tp_psum(self.cfg, _linear(y, self.output, dt))
+            y = y + self.output_bias.to(y.dtype)
         y = dropout(y, self.cfg.dropout_rate, train, generator)
-        return self.ln(x + y)
+        return self.ln(x + y), aux
+
+
+def _mean_aux(auxes: list):
+    return None if not auxes or auxes[0] is None else sum(auxes) / len(auxes)
+
+
+def _derived_generator(device, seed: int, *data: int) -> torch.Generator:
+    """A generator on ``device`` seeded by ``seed`` mixed with ``data``."""
+    from distributed_tensorflow_tpu_torch.train.step import fold_in
+
+    return torch.Generator(device).manual_seed(fold_in(seed, *data))
+
+
+class StackedEncoder(nn.Module):
+    """The encoder of a pipeline config: one :class:`BertLayer` whose every
+    parameter is stacked ``[cfg.local_layers, ...]`` (``encoder.layer.*``,
+    flax ``nn.scan``'s tree), layer ``i`` run on slice ``i`` through
+    ``torch.func.functional_call``. With ``cfg.pipelined`` the stack is this
+    stage's and the layers run the GPipe schedule; otherwise sequentially.
+    ``forward`` returns ``(x, aux)``, aux the mean over the layers."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.layer = BertLayer(cfg)
+        n = cfg.local_layers
+        for mod in self.layer.modules():
+            for name, p in list(mod.named_parameters(recurse=False)):
+                setattr(mod, name, nn.Parameter(p.detach()[None].repeat(n, *(1,) * p.dim())))
+
+    def _run(self, params: dict, x, mask, train, generator):
+        return torch.func.functional_call(self.layer, params, (x, mask, train, generator))
+
+    def _layer(self, i: int, x, mask, train, generator):
+        return self._run({n: p[i] for n, p in self.layer.named_parameters()}, x, mask,
+                         train, generator)
+
+    def forward(self, x, mask, train=False, generator=None):
+        cfg = self.cfg
+        if cfg.pipelined:
+            return self._pipelined(x, mask, train, generator)
+        auxes = []
+        for i in range(cfg.local_layers):
+            if cfg.remat and train and torch.is_grad_enabled():
+                x, aux = _remat_layer(functools.partial(self._layer, i), x, mask, generator)
+            else:
+                x, aux = self._layer(i, x, mask, train, generator)
+            auxes.append(aux)
+        return x, _mean_aux(auxes)
+
+    def _pipelined(self, x, mask, train, generator):
+        """The GPipe schedule over this stage's layers: each (layer,
+        microbatch) reads its microbatch's rows of ``mask`` and draws its
+        dropout from a generator derived from (one draw of ``generator``,
+        layer, microbatch), so a recompute or a skipped tick draws nothing
+        stray; under ``cfg.remat`` each (layer, microbatch) is
+        checkpointed."""
+        from distributed_tensorflow_tpu_torch.parallel.mesh import active_mesh
+
+        cfg = self.cfg
+        mesh = active_mesh()
+        if mesh.shape.get(cfg.pipeline_axis, 1) != cfg.pipeline_parallel:
+            raise ValueError(
+                f"pipeline_parallel {cfg.pipeline_parallel} needs a "
+                f"{cfg.pipeline_parallel}-way {cfg.pipeline_axis!r} axis on the active mesh, "
+                f"which is {dict(mesh.shape)}")
+        M = cfg.pipeline_microbatches or 4 * cfg.pipeline_parallel
+        B, L = mask.shape
+        if B % M:
+            raise ValueError(f"batch {B} not divisible by pipeline_microbatches {M}")
+        mask_mb = mask.reshape(M, B // M, L)
+        seed = None
+        if train and cfg.dropout_rate > 0.0:
+            if generator is None:
+                raise ValueError("dropout in train mode needs an explicit torch.Generator")
+            seed = int(torch.randint(0, 2**62, (), generator=generator,
+                                     device=generator.device))
+        moe = cfg.moe_experts > 0
+        remat = cfg.remat and train and torch.is_grad_enabled()
+
+        def call(p_one, h, ctx):
+            gen = (None if seed is None
+                   else _derived_generator(h.device, seed, ctx["layer"], ctx["microbatch"]))
+            return self._run(p_one, h, mask_mb[ctx["microbatch"]], train, gen)
+
+        def layer_fn(p_one, h, ctx):
+            if remat:
+                out = checkpoint(lambda h_: call(p_one, h_, ctx), h, use_reentrant=False)
+            else:
+                out = call(p_one, h, ctx)
+            return out if moe else out[0]
+
+        out = pipeline_apply(layer_fn, dict(self.layer.named_parameters()), x,
+                             axis_name=cfg.pipeline_axis, n_microbatches=M,
+                             with_context=True, with_aux=moe)
+        return out if moe else (out, None)
 
 
 class BertModel(nn.Module):
-    """Encoder + pooler. Returns (hidden [B,L,H], pooled [B,H])."""
+    """Encoder + pooler. Returns ``(hidden [B,L,H], pooled [B,H], aux)``,
+    aux the MoE load-balance loss averaged over the layers (None for dense
+    FFNs)."""
 
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.cfg = cfg
         self.embeddings = BertEmbeddings(cfg)
-        self.layers = nn.ModuleList(BertLayer(cfg) for _ in range(cfg.num_layers))
+        if cfg.stacked:
+            self.encoder = StackedEncoder(cfg)
+        else:
+            self.layers = nn.ModuleList(BertLayer(cfg) for _ in range(cfg.num_layers))
         self.pooler = nn.Linear(cfg.hidden_size, cfg.hidden_size)
 
     def forward(self, input_ids, attention_mask, token_type_ids, train=False,
                 generator=None):
         mask = attention_mask.to(torch.bool).contiguous()
         x = self.embeddings(input_ids, token_type_ids, train, generator)
-        for layer in self.layers:
-            if self.cfg.remat and train and torch.is_grad_enabled():
-                x = _remat_layer(layer, x, mask, generator)
-            else:
-                x = layer(x, mask, train, generator)
+        if self.cfg.stacked:
+            x, aux = self.encoder(x, mask, train, generator)
+        else:
+            auxes = []
+            for layer in self.layers:
+                if self.cfg.remat and train and torch.is_grad_enabled():
+                    x, a = _remat_layer(layer, x, mask, generator)
+                else:
+                    x, a = layer(x, mask, train, generator)
+                auxes.append(a)
+            aux = _mean_aux(auxes)
         first = x[:, 0]
         if self.cfg.seq_axis is not None:
             # The global [CLS] token lives on seq position 0: select it by a
@@ -321,12 +543,13 @@ class BertModel(nn.Module):
             is_first = float(coll.axis_index(self.cfg.seq_axis) == 0)
             first = coll.psum(first * is_first, self.cfg.seq_axis)
         pooled = torch.tanh(_linear(first, self.pooler, self.cfg.dtype))
-        return x, pooled
+        return x, pooled, aux
 
 
 def _remat_layer(layer, x, mask, generator):
-    """``layer`` under activation checkpointing (``nn.remat``'s
-    counterpart): its activations are recomputed in the backward. The
+    """``layer`` (a module or a function of the same arguments) under
+    activation checkpointing (``nn.remat``'s counterpart): its activations
+    are recomputed in the backward. The
     recompute first puts ``generator`` back to the state the layer started
     from, so it draws the same dropout masks."""
     start = None if generator is None else generator.get_state()
@@ -349,37 +572,52 @@ class BertForPreTraining(nn.Module):
     drawn from ``generator`` (a ``torch.Generator`` on that device;
     default: seeded with ``seed``) with the JAX package's initialisers:
     normal(0.02) kernels and embeddings, zero biases, unit LayerNorm scales.
-    Under ``model_parallel > 1`` they are drawn for the unsharded model and
-    this rank's slices kept (the active mesh's coordinate on the model
-    axis), so every layout starts from the same global parameters.
+    Under a sharded layout (``model_parallel``, ``expert_parallel`` or
+    ``pipeline_parallel`` > 1 with its axis) they are drawn for the
+    unsharded model and this rank's slices kept (the active mesh's
+    coordinates), so every layout starts from the same global parameters. A
+    stacked encoder is drawn as the module list and stacked, so a pipeline
+    config starts from the parameters of the same config without it.
     """
 
     def __init__(self, cfg: BertConfig, *, device="cuda", generator=None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.bert = BertModel(cfg)
-        self.mlm_transform = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.mlm_ln = LayerNorm(cfg.hidden_size, 1e-12, cfg.dtype)
-        self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
-        self.nsp_head = nn.Linear(cfg.hidden_size, 2)
-        self.to(dev)
+        # Made on the device: every value below is drawn or loaded anew,
+        # so the modules' own initialisation need not run on the host.
+        with dev:
+            self.bert = BertModel(cfg)
+            self.mlm_transform = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+            self.mlm_ln = LayerNorm(cfg.hidden_size, 1e-12, cfg.dtype)
+            self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+            self.nsp_head = nn.Linear(cfg.hidden_size, 2)
         if generator is None:
             generator = torch.Generator(dev).manual_seed(seed)
-        if cfg.model_parallel > 1:
+        if _sharded(cfg):
             from distributed_tensorflow_tpu_torch.interop import shard_params
             from distributed_tensorflow_tpu_torch.parallel.mesh import active_mesh
 
             full = BertForPreTraining(_global_config(cfg), device=dev, generator=generator)
             local = shard_params(full.state_dict(), bert_param_specs(
-                full.state_dict(), cfg.model_axis), active_mesh())
+                full.state_dict(), cfg.model_axis if cfg.model_parallel > 1 else None,
+                cfg.expert_axis if cfg.expert_parallel > 1 else None,
+                cfg.pipeline_axis if cfg.pipelined else None), active_mesh())
             self.load_state_dict(local)
+        elif cfg.stacked:
+            flat = BertForPreTraining(
+                dataclasses.replace(cfg, pipeline_axis=None, pipeline_parallel=1),
+                device=dev, generator=generator)
+            self.load_state_dict(stack_layer_state(flat.state_dict(), cfg.num_layers))
         else:
             self._init_params(generator)
 
     @torch.no_grad()
     def _init_params(self, generator) -> None:
         for mod in self.modules():
+            if isinstance(mod, MoeFfn):
+                mod.experts_w1.normal_(0.0, 0.02, generator=generator)
+                mod.experts_w2.normal_(0.0, 0.02, generator=generator)
             if isinstance(mod, (nn.Linear, nn.Embedding)):
                 mod.weight.normal_(0.0, 0.02, generator=generator)
             if isinstance(mod, nn.Linear) and mod.bias is not None:
@@ -398,13 +636,22 @@ class BertForPreTraining(nn.Module):
 
     def forward(self, input_ids, attention_mask, token_type_ids, *, train=False,
                 generator=None):
-        hidden, pooled = self.bert(input_ids, attention_mask, token_type_ids, train, generator)
-        return self._heads(hidden, pooled)
+        mlm_logits, nsp_logits, _ = self.forward_with_aux(
+            input_ids, attention_mask, token_type_ids, train=train, generator=generator)
+        return mlm_logits, nsp_logits
+
+    def forward_with_aux(self, input_ids, attention_mask, token_type_ids, *, train=False,
+                         generator=None):
+        """:meth:`forward` and the MoE load-balance aux averaged over the
+        layers (None for dense FFNs): ``(mlm_logits, nsp_logits, aux)``."""
+        hidden, pooled, aux = self.bert(input_ids, attention_mask, token_type_ids, train,
+                                        generator)
+        return (*self._heads(hidden, pooled), aux)
 
     def serve_outputs(self, input_ids, attention_mask, token_type_ids):
         """Inference forward for the serving engine: ``(mlm_logits,
         nsp_logits, pooled)`` from one encoder pass."""
-        hidden, pooled = self.bert(input_ids, attention_mask, token_type_ids)
+        hidden, pooled, _ = self.bert(input_ids, attention_mask, token_type_ids)
         mlm_logits, nsp_logits = self._heads(hidden, pooled)
         return mlm_logits, nsp_logits, pooled
 
@@ -473,8 +720,8 @@ def _mlm_stats(mlm_logits, batch, seq_axis=None):
 
 
 def _forward_batch(model, batch, train, generator=None):
-    return model(batch["input_ids"], batch["attention_mask"], batch["token_type_ids"],
-                 train=train, generator=generator)
+    return model.forward_with_aux(batch["input_ids"], batch["attention_mask"],
+                                  batch["token_type_ids"], train=train, generator=generator)
 
 
 def make_bert_pretraining_loss(model: BertForPreTraining):
@@ -487,13 +734,15 @@ def make_bert_pretraining_loss(model: BertForPreTraining):
     by reference), so the forward reads them through ``model``; dropout
     draws from ``generator``. With ``cfg.seq_axis`` the MLM sums are summed
     over the axis, so every rank returns the global loss (the step's seq
-    contract, :mod:`..train.step`).
+    contract, :mod:`..train.step`). A MoE model adds ``moe_aux_weight``
+    times the layers' mean load-balance aux, reported as ``moe_aux``.
     """
     seq_axis = model.cfg.seq_axis
+    moe = model.cfg.moe_experts > 0
 
     def loss_fn(params, model_state, batch, generator):
         del params
-        mlm_logits, nsp_logits = _forward_batch(model, batch, True, generator)
+        mlm_logits, nsp_logits, moe_aux = _forward_batch(model, batch, True, generator)
         num, den, correct = _mlm_stats(mlm_logits, batch, seq_axis)
         den = den.clamp_min(1.0)
         mlm_loss = num / den
@@ -503,7 +752,11 @@ def make_bert_pretraining_loss(model: BertForPreTraining):
             "nsp_loss": nsp_loss,
             "mlm_accuracy": correct / den,
         }
-        return mlm_loss + nsp_loss, (model_state, metrics)
+        loss = mlm_loss + nsp_loss
+        if moe:
+            loss = loss + model.cfg.moe_aux_weight * moe_aux
+            metrics["moe_aux"] = moe_aux
+        return loss, (model_state, metrics)
 
     return loss_fn
 
@@ -519,7 +772,7 @@ def make_bert_eval_metrics(model: BertForPreTraining):
     def metric_fn(params, model_state, batch):
         del params, model_state
         with torch.no_grad():
-            mlm_logits, nsp_logits = _forward_batch(model, batch, False)
+            mlm_logits, nsp_logits, _ = _forward_batch(model, batch, False)
             num, den, correct = _mlm_stats(mlm_logits, batch, seq_axis)
             labels = batch["nsp_label"].long()
             nsp_ce = F.cross_entropy(nsp_logits.float(), labels, reduction="sum")
@@ -538,34 +791,82 @@ def make_bert_eval_metrics(model: BertForPreTraining):
 # The leaves Megatron tensor parallelism shards: (module, leaf) suffix of
 # the parameter name -> the dimension of the torch tensor that the model
 # axis splits (flax's column-parallel kernels [H, heads, d] are rows of the
-# torch [heads*d, H] weight; the row-parallel ones are its columns).
+# torch [heads*d, H] weight; the row-parallel ones are its columns). The
+# expert stacks keep flax's [E, in, out] layout.
 _TP_RULES = (
     (("query", "weight"), 0), (("key", "weight"), 0), (("value", "weight"), 0),
     (("query", "bias"), 0), (("key", "bias"), 0), (("value", "bias"), 0),
     (("out", "weight"), 1),
     (("intermediate", "weight"), 0), (("intermediate", "bias"), 0),
     (("output", "weight"), 1),
+    (("experts_w1",), 2), (("experts_w2",), 1), (("experts_b1",), 1),
 )
+_EXPERT_LEAVES = ("experts_w1", "experts_b1", "experts_w2", "experts_b2")
 
 
-def bert_param_specs(params, model_axis: str | None = "model") -> dict:
-    """The tensor-parallel sharding of BERT's parameters (JAX
-    ``bert_param_specs`` for the model axis), in the port's form: for each
-    name of ``params`` (a state dict of the GLOBAL model), ``(model_axis,
-    dim)`` for a leaf the axis shards along ``dim``, or None for a
-    replicated one. Q/K/V weights and biases and the FFN up-projection are
-    column-parallel, the attention output and FFN down-projection
-    row-parallel; embeddings, LayerNorms, the post-sum biases, the pooler
-    and the heads are replicated. ``model_axis=None`` replicates everything.
-    The expert and pipeline rules come with Queue A item 6b."""
+def spec_axes(spec) -> tuple[str, ...]:
+    """The mesh axes a spec of :func:`bert_param_specs` shards over."""
+    return () if spec is None else tuple(axis for axis, _ in spec)
+
+
+def bert_param_specs(params, model_axis: str | None = "model",
+                     expert_axis: str | None = None,
+                     pipeline_axis: str | None = None) -> dict:
+    """BERT's parameter sharding (JAX ``bert_param_specs``) in the port's
+    form: for each name of ``params`` (a state dict of the GLOBAL model), a
+    tuple of ``(axis, dim)`` pairs, one for each mesh axis that splits the
+    torch tensor along ``dim``, or None for a replicated leaf. An axis given
+    as None shards nothing.
+
+    - ``model_axis`` (Megatron TP): Q/K/V weights and biases and the FFN
+      up-projection column-parallel, the attention output and FFN
+      down-projection row-parallel; the MoE experts' hidden dim
+      (``experts_w1``/``experts_b1`` column, ``experts_w2`` row);
+    - ``expert_axis``: dim 0 of every ``experts_*`` stack;
+    - ``pipeline_axis``: the leading ``[num_layers]`` dim of every leaf of
+      the stacked encoder (``encoder`` in the name), the other rules behind
+      it, one dim further in.
+
+    Embeddings, LayerNorms, the post-sum biases, the router, the pooler and
+    the heads are replicated."""
     specs = {}
     for name in params:
         parts = tuple(name.split("."))
-        spec = None
+        stacked = pipeline_axis is not None and "encoder" in parts
+        shift = 1 if "encoder" in parts else 0
+        pairs = []
+        if stacked:
+            pairs.append((pipeline_axis, 0))
+        if expert_axis is not None and parts[-1] in _EXPERT_LEAVES:
+            pairs.append((expert_axis, shift))
         if model_axis is not None:
             for suffix, dim in _TP_RULES:
                 if parts[-len(suffix):] == suffix:
-                    spec = (model_axis, dim)
+                    pairs.append((model_axis, dim + shift))
                     break
-        specs[name] = spec
+        specs[name] = tuple(pairs) or None
     return specs
+
+
+def stack_layer_state(state_dict: dict, num_layers: int) -> dict:
+    """A module-list state dict (``bert.layers.<i>.*``) in the stacked
+    encoder's form (``bert.encoder.layer.*``, leading ``[num_layers]``)."""
+    out = {k: v for k, v in state_dict.items() if not k.startswith("bert.layers.")}
+    rests = dict.fromkeys(k.split(".", 3)[3] for k in state_dict if k.startswith("bert.layers."))
+    for rest in rests:
+        out[f"bert.encoder.layer.{rest}"] = torch.stack(
+            [state_dict[f"bert.layers.{i}.{rest}"] for i in range(num_layers)])
+    return out
+
+
+def unstack_layer_state(state_dict: dict) -> dict:
+    """Inverse of :func:`stack_layer_state`."""
+    out = {}
+    for k, v in state_dict.items():
+        if k.startswith("bert.encoder.layer."):
+            rest = k.removeprefix("bert.encoder.layer.")
+            for i in range(v.shape[0]):
+                out[f"bert.layers.{i}.{rest}"] = v[i]
+        else:
+            out[k] = v
+    return out

@@ -102,10 +102,25 @@ def _host(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# The pipeline axis while a stage runs a tick that other stages may skip
+# (:func:`..parallel.pipeline.pipeline_apply` with ``mask_bubble``): a
+# collective over it there would wait for ranks that never call it.
+_STAGE_LOCAL: list[str] = []
+
+
+def _stage_local(axes: tuple[str, ...]) -> tuple[str, ...]:
+    if any(a in _STAGE_LOCAL for a in axes):
+        raise RuntimeError(
+            f"a collective over {axes} inside a pipeline stage's masked tick: the "
+            f"stages that skip the tick never join it; run pipeline_apply with "
+            "mask_bubble=False")
+    return axes
+
+
 def _resolve(axis: AxisName | None):
     """``(group, size)`` of ``axis`` (None: the data axes) on the active mesh."""
     mesh = mesh_lib.active_mesh()
-    axes = mesh_lib.data_axes(mesh) if axis is None else _axes(axis)
+    axes = mesh_lib.data_axes(mesh) if axis is None else _stage_local(_axes(axis))
     return mesh_lib.axis_group(mesh, axes), math.prod(mesh.shape[a] for a in axes)
 
 
@@ -189,7 +204,7 @@ def ppermute(x: torch.Tensor, axis: AxisName, shift: int = 1) -> torch.Tensor:
     permutation ``i -> i + shift``). Differentiable: the backward rotates
     the cotangent by ``-shift``. A clone on an axis of size 1."""
     mesh = mesh_lib.active_mesh()
-    axes = _axes(axis)
+    axes = _stage_local(_axes(axis))
     ranks = mesh_lib.axis_ranks(mesh, axes)
     if len(ranks) == 1:
         return x.clone()
@@ -258,7 +273,7 @@ def all_gather(x: torch.Tensor, axis: AxisName, dim: int = 0) -> torch.Tensor:
     tensors concatenated along ``dim`` in position order. Differentiable
     (the backward is ``psum_scatter``). The identity on an axis of size 1."""
     mesh = mesh_lib.active_mesh()
-    axes = _axes(axis)
+    axes = _stage_local(_axes(axis))
     ranks = mesh_lib.axis_ranks(mesh, axes)
     if len(ranks) == 1:
         return x
@@ -349,20 +364,23 @@ def global_norm(tree, axes=None) -> torch.Tensor:
 
     Without ``axes`` it is local arithmetic, as in the JAX package: the
     tree it is given is already reduced and replicated. ``axes`` (a list
-    beside ``tree``'s leaves, in their order: the mesh axis each leaf is
-    sharded over, or None) makes it the norm of the global tree on every
-    rank: the squared norms of the leaves sharded over an axis are summed
-    over that axis (one all-reduce an axis), as the JAX step's spec-aware
-    norm does (``train/step.py:361-386``)."""
+    beside ``tree``'s leaves, in their order: the mesh axes each leaf is
+    sharded over, a tuple, a single name or None) makes it the norm of the
+    global tree on every rank: a leaf's squared norm is summed over every
+    axis that shards it (one all-reduce a set of axes), as the JAX step's
+    spec-aware norm does (``train/step.py:361-386``)."""
     leaves = list(_leaves(tree))
-    if axes is None or all(a is None for a in axes):
+    if axes is None:
+        axes = [None] * len(leaves)
+    keys = [() if a is None else _axes(a) for a in axes]
+    if not any(keys):
         norms = [torch.linalg.vector_norm(x, dtype=torch.float32) for x in leaves]
         return torch.linalg.vector_norm(torch.stack(norms))
     sums: dict = {}
-    for x, axis in zip(leaves, axes, strict=True):
+    for x, key in zip(leaves, keys, strict=True):
         sq = torch.linalg.vector_norm(x, dtype=torch.float32).square()
-        sums[axis] = sums[axis] + sq if axis in sums else sq
-    total = sums.pop(None, torch.zeros((), dtype=torch.float32, device=leaves[0].device))
-    for axis, part in sums.items():
-        total = total + psum(part, axis)
+        sums[key] = sums[key] + sq if key in sums else sq
+    total = sums.pop((), torch.zeros((), dtype=torch.float32, device=leaves[0].device))
+    for key, part in sums.items():
+        total = total + psum(part, key)
     return total.sqrt()

@@ -13,18 +13,20 @@ the parameters and averages gradients with one all-reduce
 
 Axis names are the JAX package's: ``"data"`` (data parallelism),
 ``"model"``, ``"seq"``, ``"expert"``, ``"pipeline"`` and ``"replica"``
-(outermost). Training runs on ``"data"`` (and ``"replica"``), ``"model"``
-(Megatron tensor parallelism) and ``"seq"`` (ring or Ulysses attention);
-``"expert"`` and ``"pipeline"`` exist for the planners
-(:func:`plan_elastic_mesh`, :func:`plan_disagg_mesh`) and the layout labels.
+(outermost). Training runs on all of them: ``"data"`` (and
+``"replica"``), ``"model"`` (Megatron tensor parallelism), ``"seq"`` (ring
+or Ulysses attention), ``"expert"`` (mixture-of-experts; it also carries
+batch rows under the token-sharded dispatch) and ``"pipeline"`` (GPipe
+stages).
 
 The job's mesh is the one :func:`build_mesh` builds without an explicit
 ``world_size``/``rank``: it becomes the *active* mesh
 (:func:`active_mesh`), which the collectives and the models read the way a
 JAX function reads the axes its ``shard_map`` binds, and it makes one
 ``torch.distributed`` subgroup per line of every set of axes of size > 1
-(:func:`axis_group`). Ranks along ``"model"`` and ``"seq"`` hold the same
-batch rows; only the row axes (:func:`data_axes`) split them.
+(:func:`axis_group`). Ranks along ``"model"``, ``"seq"`` and
+``"pipeline"`` hold the same batch rows; only the row axes
+(:func:`data_axes`, and ``"expert"`` when a loader asks) split them.
 """
 
 from __future__ import annotations
@@ -411,14 +413,17 @@ def local_batch_size(global_batch: int, mesh: Mesh, extra_axes: Sequence[str] = 
     return global_batch // n_data
 
 
-def process_rows(global_batch: int, mesh: Mesh | None = None) -> tuple[int, int]:
+def process_rows(global_batch: int, mesh: Mesh | None = None,
+                 extra_axes: Sequence[str] = ()) -> tuple[int, int]:
     """``(start, stop)`` of this rank's contiguous rows of ``global_batch``
-    on ``mesh`` (default the active mesh): ranks along ``"model"`` and
-    ``"seq"`` get the same rows."""
+    on ``mesh`` (default the active mesh): the rows split over the data
+    axes and ``extra_axes`` (``("expert",)`` under the token-sharded MoE
+    layout), in mesh order; ranks along the other axes (``"model"``,
+    ``"seq"``, ``"pipeline"``) get the same rows."""
     if mesh is None:
         mesh = active_mesh()
-    n = local_batch_size(global_batch, mesh)
-    start = coordinate(mesh, data_axes(mesh)) * n
+    n = local_batch_size(global_batch, mesh, extra_axes)
+    start = coordinate(mesh, _row_axes(mesh, extra_axes)) * n
     return start, start + n
 
 

@@ -398,6 +398,11 @@ class BertInferenceEngine(_AotEngine):
         """Validate the weight-quantization knob and return the concrete
         dtype name (``None`` resolves to the model's compute dtype)."""
         w = normalize_quant_dtype(weight_dtype, "weight_dtype")
+        if w == "int8" and (getattr(cfg, "moe_experts", 0) or getattr(cfg, "stacked", False)):
+            # As the JAX engine rejects int8 for the stacked pipeline model:
+            # per-channel scales of a stacked kernel would span its layers.
+            raise ValueError("int8 weights serve the dense module-list BERT only, not a "
+                             "mixture-of-experts or stacked-encoder model")
         return w or str(cfg.dtype).removeprefix("torch.")
 
     @torch.inference_mode()

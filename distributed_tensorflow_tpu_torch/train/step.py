@@ -16,29 +16,32 @@ Randomness: the step is given a ``torch.Generator``; it never draws from
 it, but folds ``(initial_seed, step, coordinate)`` (and the micro-slice
 index under ``grad_accum``) into a fresh generator on the same device, as
 the JAX step folds ``state.step`` and the device's coordinate along the
-axes that carry different data: the data axes and ``"seq"``
+axes that carry different data: the data axes, ``batch_axes`` (the expert
+axis under the token-sharded MoE dispatch) and ``"seq"``
 (``train/step.py:205-218``). The coordinate is this rank's, flattened
 row-major over those axes of the active mesh (under ``{"data": -1}``, the
 rank). So ranks with different rows or sequence slices draw their own
-dropout masks, the ranks of one ``"model"`` group draw the same masks on
-the activations they all hold, and a resumed run draws the same masks as
-an uninterrupted one.
+dropout masks, the ranks of one ``"model"``, ``"expert"`` or
+``"pipeline"`` group draw the same masks on the activations they all hold,
+and a resumed run draws the same masks as an uninterrupted one.
 
 The exchange across ranks: gradients, metrics and ``model_state``
 (BatchNorm statistics) go through one bucketed mean over the data axes
 (:func:`..parallel.collectives.pmean_tree`, one all-reduce a dtype), the
-counterpart of the JAX step's combined AllReduce. On a mesh with
-``"model"`` or ``"seq"`` the JAX step's grad contract comes first
-(``train/step.py:292-330``). Its collectives' backward sums are psums
-(:func:`..parallel.collectives.psum`), so every gradient carries one
-factor of the axis size: a leaf sharded over ``"model"`` (``param_specs``)
-keeps its slice's gradient divided by the axis size, and a replicated leaf
-is averaged over ``"model"``; every leaf is averaged over ``"seq"``. The
-replicated leaves' averages over ``"model"``, ``"seq"`` and the data axes
-are one all-reduce over their product, the sharded leaves' over
-``"seq"`` and the data axes another. ``grad_norm`` (and the clipping scale)
-is the global tree's on every rank: the squared norms of sharded leaves
-are summed over their axis.
+counterpart of the JAX step's combined AllReduce. On a mesh with a live
+``"model"``, ``"pipeline"``, ``"expert"`` or ``"seq"`` axis the JAX step's
+grad contract comes first (``train/step.py:292-330``). Its collectives'
+backward sums are psums (:func:`..parallel.collectives.psum`), so every
+gradient carries one factor of each such axis's size. Axis by axis over
+``"model"``, ``"pipeline"`` and ``"expert"``: a leaf sharded over the axis
+(``param_specs``) keeps its slice's gradient divided by the axis size, a
+replicated leaf is averaged over the axis; then every leaf is averaged
+over ``"seq"`` and the data axes. The averages are linear, so the leaves
+that average over the same set of axes go through one bucketed all-reduce
+over their product. Metrics are averaged over the data axes and
+``batch_axes``. ``grad_norm`` (and the clipping scale) is the global
+tree's on every rank: a sharded leaf's squared norm is summed over the
+axes that shard it.
 """
 
 from __future__ import annotations
@@ -91,6 +94,7 @@ def make_train_step(
     clip_norm: float = 0.0,
     grad_accum: int = 1,
     param_specs: dict | None = None,
+    batch_axes: tuple[str, ...] = (),
 ):
     """Build ``train_step(state, batch, generator) -> (state, metrics)``.
 
@@ -110,10 +114,15 @@ def make_train_step(
         averages their gradients (the mean of per-slice gradients: exact for
         row-mean losses, the mean of per-slice ratios for BERT's MLM), each
         slice with its own dropout generator.
-      param_specs: name -> ``(axis, dim)`` or None
+      param_specs: name -> pairs of ``(axis, dim)``, or None
         (:func:`..models.bert.bert_param_specs`): the leaves sharded over
-        the model axis. None with a ``"model"`` axis in the mesh averages
-        every gradient over it, as the JAX step does without specs.
+        the model, pipeline and expert axes. None with such an axis in the
+        mesh averages every gradient over it, as the JAX step does without
+        specs.
+      batch_axes: mesh axes besides the data axes that carry batch rows
+        (``("expert",)`` under ``moe_dispatch="sharded"``, the JAX step's
+        ``_extra_batch_axes``): the dropout generator folds them and the
+        metrics are averaged over them.
 
     The state is updated in place and returned (the counterpart of the JAX
     step's buffer donation: parameters, optimizer slots and the stale ring
@@ -149,7 +158,7 @@ def make_train_step(
             if depth != staleness:
                 raise ValueError(f"state.grad_buffer depth {depth} != staleness {staleness}")
         mesh = mesh_lib.active_mesh()
-        coord = mesh_lib.coordinate(mesh, _rng_axes(mesh))
+        coord = mesh_lib.coordinate(mesh, _rng_axes(mesh, batch_axes))
         with torch.enable_grad():
             if grad_accum > 1:
                 rows = next(iter(batch.values())).shape[0]
@@ -171,16 +180,14 @@ def make_train_step(
                     state, batch, _step_generator(generator, state.step, coord))
 
         # THE sync point: one bucketed all-reduce for the gradients, the
-        # metrics and the BatchNorm statistics together. On a model or seq
-        # mesh the grad contract averages the gradients over their own
-        # groups, and the metrics go alone.
-        shard_axes = None
-        if _model_parallel(mesh):
-            grads, shard_axes = _model_contract(mesh, grads, state.params, param_specs)
-            metrics, model_state = coll.pmean_tree((metrics, model_state))
-        elif _live(mesh, "seq"):
-            grads = coll.pmean_tree(grads, ("seq", *mesh_lib.data_axes(mesh)))
-            metrics, model_state = coll.pmean_tree((metrics, model_state))
+        # metrics and the BatchNorm statistics together. On a mesh with a
+        # model, pipeline, expert or seq axis the grad contract averages the
+        # gradients over their own groups, and the metrics go alone.
+        norm_axes = None
+        row_axes = (*mesh_lib.data_axes(mesh), *(a for a in batch_axes if a in mesh.shape))
+        if any(_live(mesh, a) for a in (*_SHARD_AXES, "seq")):
+            grads, norm_axes = _grad_contract(mesh, grads, state.params, param_specs)
+            metrics, model_state = coll.pmean_tree((metrics, model_state), row_axes)
         else:
             grads, metrics, model_state = coll.pmean_tree((grads, metrics, model_state))
 
@@ -196,7 +203,7 @@ def make_train_step(
             state.buffer_index = (idx + 1) % staleness
             metrics["staleness"] = torch.tensor(float(staleness), device=grads[0].device)
 
-        grad_norm = coll.global_norm(grads, shard_axes)
+        grad_norm = coll.global_norm(grads, norm_axes)
         if clip_norm > 0:
             scale = clip_norm / torch.clamp_min(grad_norm, clip_norm)
             for g in grads:
@@ -219,43 +226,51 @@ def _live(mesh, axis: str) -> bool:
     return mesh.shape.get(axis, 1) > 1
 
 
-def _rng_axes(mesh) -> tuple[str, ...]:
-    """The axes whose ranks hold different data: the data axes and "seq"."""
-    return tuple(mesh_lib.data_axes(mesh)) + (("seq",) if "seq" in mesh.axis_names else ())
+def _rng_axes(mesh, batch_axes=()) -> tuple[str, ...]:
+    """The axes whose ranks hold different data: the data axes, the
+    row-carrying ``batch_axes`` and "seq"."""
+    return (*mesh_lib.data_axes(mesh), *(a for a in batch_axes if a in mesh.axis_names),
+            *(("seq",) if "seq" in mesh.axis_names else ()))
 
 
-def _model_parallel(mesh) -> bool:
-    for axis in ("pipeline", "expert"):
-        if _live(mesh, axis):
-            raise NotImplementedError(
-                f"the {axis!r} axis's grad contract comes with Queue A item 6b")
-    return _live(mesh, "model")
+# The axes parameters shard over, in the order the JAX step visits them.
+_SHARD_AXES = ("model", "pipeline", "expert")
 
 
-def _model_contract(mesh, grads: list, params: dict, param_specs):
-    """The JAX step's per-leaf contract over ``"model"``, then its seq
-    contract and the data-parallel mean, as two bucketed all-reduces:
-    sharded leaves ``g / t`` averaged over ``"seq"`` and the data axes,
-    replicated leaves averaged over ``"model"`` too. Returns the gradients
-    and each leaf's sharding axis (for the global norm)."""
-    t = mesh.shape["model"]
-    specs = [None if param_specs is None else param_specs.get(name) for name in params]
-    for spec in specs:
-        if spec is not None and spec[0] != "model":
-            raise NotImplementedError(
-                f"parameters sharded over {spec[0]!r} come with Queue A item 6b")
-    row_axes = (*(("seq",) if "seq" in mesh.axis_names else ()), *mesh_lib.data_axes(mesh))
-    sharded = [g.div_(t) for g, spec in zip(grads, specs) if spec is not None]
-    replicated = [g for g, spec in zip(grads, specs) if spec is None]
-    sharded = iter(coll.pmean_tree(sharded, row_axes))
-    replicated = iter(coll.pmean_tree(replicated, ("model", *row_axes)))
-    out = [next(sharded) if spec is not None else next(replicated) for spec in specs]
-    return out, [None if spec is None else spec[0] for spec in specs]
+def _grad_contract(mesh, grads: list, params: dict, param_specs):
+    """The JAX step's per-leaf contract over ``"model"``, ``"pipeline"`` and
+    ``"expert"`` (a leaf sharded over the axis ``g / t``, a replicated one
+    averaged over it), then its seq contract and the data-parallel mean:
+    one bucketed all-reduce for each set of axes a leaf is averaged over.
+    Returns the gradients and each leaf's sharding axes (for the global
+    norm)."""
+    from distributed_tensorflow_tpu_torch.models.bert import spec_axes
+
+    live = [a for a in _SHARD_AXES if _live(mesh, a)]
+    rows = (*(("seq",) if "seq" in mesh.axis_names else ()), *mesh_lib.data_axes(mesh))
+    shard_of, groups = [], {}
+    for i, (name, g) in enumerate(zip(params, grads)):
+        axes = spec_axes(None if param_specs is None else param_specs.get(name))
+        sharded = tuple(a for a in live if a in axes)
+        t = 1
+        for a in sharded:
+            t *= mesh.shape[a]
+        if t > 1:
+            g.div_(t)
+        shard_of.append(sharded)
+        groups.setdefault((*(a for a in live if a not in sharded), *rows), []).append(i)
+    out = list(grads)
+    for axes, idx in groups.items():
+        for i, g in zip(idx, coll.pmean_tree([grads[i] for i in idx], axes)):
+            out[i] = g
+    return out, shard_of
 
 
-def make_eval_step(metric_fn: Callable[[Any, Any, Any], dict], *, return_sums: bool = False):
+def make_eval_step(metric_fn: Callable[[Any, Any, Any], dict], *, return_sums: bool = False,
+                   batch_axes: tuple[str, ...] = ()):
     """Build ``eval_step(state, batch) -> metrics``, reduced over the
-    data-parallel processes.
+    data-parallel processes (and ``batch_axes``, as in
+    :func:`make_train_step`).
 
     ``metric_fn(params, model_state, batch) -> dict``. A ``(num, den)``
     value is reduced as a global ratio (both summed, then divided); a
@@ -265,13 +280,15 @@ def make_eval_step(metric_fn: Callable[[Any, Any, Any], dict], *, return_sums: b
     """
 
     def eval_step(state: TrainState, batch: dict) -> dict:
+        mesh = mesh_lib.active_mesh()
+        rows = (*mesh_lib.data_axes(mesh), *(a for a in batch_axes if a in mesh.shape))
         out = {}
         for k, v in dict(metric_fn(state.params, state.model_state, batch)).items():
             if isinstance(v, tuple):
-                num, den = coll.psum_tree(v)
+                num, den = coll.psum_tree(v, rows)
                 out[k] = (num, den) if return_sums else num / den.clamp_min(1.0)
             else:
-                val = coll.pmean_tree(v)
+                val = coll.pmean_tree(v, rows)
                 out[k] = (val, torch.ones_like(val)) if return_sums else val
         return out
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """One rank of model-parallel BERT training (tensor parallelism, ring and
-Ulysses attention), and the model-parallel collectives checked on the
-rank's device.
+Ulysses attention, mixture-of-experts under its three dispatches, the GPipe
+pipeline), and the model-parallel collectives checked on the rank's
+device.
 
 Run one process a rank, all with the same arguments but ``--rank``::
 
@@ -23,21 +24,33 @@ gloo (several ranks share one card, which NCCL refuses) on ``--device``
    through host memory (``GLOO_HOST_STAGED``: ``send``/``recv``, which
    gloo cannot do from device memory);
 2. for each of :data:`CONFIGS` (``{"model": world}`` Megatron TP, ``{"seq":
-   world}`` ring and Ulysses), BERT (``BertConfig()``'s widths unless
+   world}`` ring and Ulysses, ``{"expert": world}`` MoE of :data:`EXPERTS`
+   experts dispatched replicated, all-to-all and sharded (top-1, and
+   sharded top-2), ``{"pipeline": world}`` GPipe at ``4 * world``
+   microbatches), BERT (``BertConfig()``'s widths unless
    ``--layers/--hidden/--heads/--vocab/--seq-len`` cut them) from the
    seeded global parameters on one fixed batch of :data:`ROWS` rows
-   (:func:`fixed_batch`, the sequence split over ``"seq"``):
+   (:func:`fixed_batch`, the sequence split over ``"seq"``, the rows over
+   ``"expert"`` under the sharded dispatch):
    ``held_bf16``: one bf16 step with dropout off (AdamW 1e-4, decay 0.01,
    clip 1.0): loss and grad_norm; ``held_fp32``: one fp32 SGD 0.1 step with
-   dropout off, whose gathered global parameters rank 0 saves to
-   ``DIR/params_<config>.pt``; then :data:`STEPS` bf16 steps with dropout 0.1
-   (the AdamW recipe): the flash kernels' launches a step (counters set to
-   0 first), ms a step (synchronised) and the collectives' ms a step (each
-   collective call timed between two synchronisations); then writes
-   ``DIR/rank<R>.json``.
+   dropout off, whose parameters each rank saves to
+   ``DIR/params_<config>_rank<R>.pt`` (its slices, with their specs). The
+   held MoE steps run at capacity factor :data:`HELD_CAPACITY` (= the
+   expert count: no token is dropped, so the
+   grouped and the global capacity rules agree). Then :func:`steps` bf16
+   steps with dropout 0.1 (the AdamW recipe; MoE at capacity factor 1.25):
+   the flash kernels' launches a step (counters set to 0 first), ms a step
+   (synchronised), the collectives' ms a step (each collective call timed
+   between two synchronisations) and of it the pipeline hand-offs'
+   (``ppermute``), and ``moe_aux``; then writes ``DIR/rank<R>.json``.
 
-:func:`single_process_reference` is the unsharded run of the held steps on
-the same parameters and batch, for the caller's comparison.
+:func:`single_process_references` are the unsharded runs of the held steps
+on the same parameters and batch, for the caller's comparison, one for
+each of :data:`REFERENCE` 's kinds: dense BERT (the pipeline's stacked
+encoder is the module list stacked), the MoE in one routing group, and
+the MoE over two row groups with their losses averaged (the sharded
+dispatch's groups, one a rank).
 
 ``--cli ARGS...`` instead runs ``cli.train.main(ARGS)`` with the
 ``bert_base`` recipe at ``BertConfig()``'s 512 positions registered as
@@ -69,7 +82,6 @@ from distributed_tensorflow_tpu_torch.data.text import (  # noqa: E402
     SyntheticMLMConfig,
     mlm_device_batches,
 )
-from distributed_tensorflow_tpu_torch.interop import gather_params  # noqa: E402
 from distributed_tensorflow_tpu_torch.models import bert  # noqa: E402
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll  # noqa: E402
 from distributed_tensorflow_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
@@ -80,12 +92,38 @@ from distributed_tensorflow_tpu_torch.train.state import Transform  # noqa: E402
 fm = importlib.import_module("distributed_tensorflow_tpu_torch.ops.flash_attention")
 SEED = 0
 ROWS, STEPS = 8, 3  # the fixed global batch (at 512 positions) and the timed steps
+# Switch-Base-8's expert count (Fedus et al., 2021), its capacity factor in
+# the timed steps, and the held steps' (the expert count: nothing dropped).
+EXPERTS, CAPACITY, HELD_CAPACITY = 8, 1.25, 8.0
+_MOE = dict(moe_experts=EXPERTS, expert_axis="expert")
 # name -> (mesh axes with the world's size put in for -1, BertConfig fields)
 CONFIGS = {
     "tp": ({"model": -1}, dict(model_axis="model")),
     "ring": ({"seq": -1}, dict(seq_axis="seq", sp_impl="ring")),
     "ulysses": ({"seq": -1}, dict(seq_axis="seq", sp_impl="ulysses")),
+    "ep_replicated": ({"expert": -1}, dict(_MOE, moe_dispatch="replicated")),
+    "ep_alltoall": ({"expert": -1}, dict(_MOE, moe_dispatch="alltoall")),
+    "ep_sharded": ({"expert": -1}, dict(_MOE, moe_dispatch="sharded")),
+    "ep_sharded_top2": ({"expert": -1}, dict(_MOE, moe_dispatch="sharded", moe_topk=2)),
+    "pp": ({"pipeline": -1}, dict(pipeline_axis="pipeline")),
 }
+# Each config's single-process reference: (kind, BertConfig fields, row groups).
+REFERENCE = {"tp": "dense", "ring": "dense", "ulysses": "dense", "pp": "dense",
+             "ep_replicated": "moe1", "ep_alltoall": "moe1", "ep_sharded": "moe1_g2",
+             "ep_sharded_top2": "moe2_g2"}
+# TP, the ring and Ulysses time two steps: their third paid for the MoE
+# and pipeline layouts in chip_smoke.py's budget.
+SHORT = ("tp", "ring", "ulysses")
+
+
+def steps(name: str) -> int:
+    """The timed steps of a config."""
+    return STEPS - 1 if name in SHORT else STEPS
+
+
+REFERENCE_KINDS = {"dense": ({}, 1), "moe1": (dict(moe_experts=EXPERTS), 1),
+                   "moe1_g2": (dict(moe_experts=EXPERTS), 2),
+                   "moe2_g2": (dict(moe_experts=EXPERTS, moe_topk=2), 2)}
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # The raw gloo calls of the collectives phase, by the name the port's
 # collective uses them under.
@@ -106,22 +144,46 @@ def geometry(args) -> dict:
     return over
 
 
-def config(geom: dict, name: str | None, world: int, *, dtype, dropout: float):
-    fields = dict(geom, dtype=dtype, dropout_rate=dropout)
+def config(geom: dict, name: str | None, world: int, *, dtype, dropout: float,
+           capacity: float = CAPACITY, extra: dict | None = None):
+    fields = dict(geom, dtype=dtype, dropout_rate=dropout, moe_capacity_factor=capacity,
+                  **(extra or {}))
     if name is not None:
         fields.update(CONFIGS[name][1])
-        if "model_axis" in fields:
-            fields["model_parallel"] = world
+        for axis, size in (("model", "model_parallel"), ("expert", "expert_parallel"),
+                           ("pipeline", "pipeline_parallel")):
+            if f"{axis}_axis" in fields:
+                fields[size] = world
+        if "pipeline_axis" in fields:
+            fields["pipeline_microbatches"] = 4 * world
     return bert.BertConfig(**fields)
 
 
-def fixed_batch(cfg, rows: int, device, seq_sharded: bool) -> dict:
-    """The run's one global batch (seeded ``SyntheticMLM``), this rank's
-    sequence slice of it when ``seq_sharded``."""
+def fixed_batch(cfg, rows: int, device) -> dict:
+    """The run's one global batch (seeded ``SyntheticMLM``): this rank's
+    sequence slice of it under sequence parallelism, its rows under the
+    sharded MoE dispatch."""
     data = SyntheticMLM(SyntheticMLMConfig(vocab_size=cfg.vocab_size, seq_len=cfg.max_position,
                                            seed=SEED))
     return next(mlm_device_batches(data, rows, device=device, seed=SEED,
-                                   seq_sharded=seq_sharded))
+                                   seq_sharded=cfg.seq_axis is not None,
+                                   expert_sharded=cfg.moe_dispatch == "sharded"))
+
+
+def grouped(loss_fn, groups: int):
+    """``loss_fn`` averaged over ``groups`` equal row groups of the batch
+    (the sharded dispatch's routing groups and its mean over them)."""
+    if groups == 1:
+        return loss_fn
+
+    def fn(params, model_state, batch, generator):
+        n = batch["nsp_label"].shape[0] // groups
+        outs = [loss_fn(params, model_state, {k: v[i * n:(i + 1) * n] for k, v in batch.items()},
+                        generator) for i in range(groups)]
+        metrics = {k: sum(o[1][1][k] for o in outs) / groups for k in outs[0][1][1]}
+        return sum(o[0] for o in outs) / groups, (model_state, metrics)
+
+    return fn
 
 
 def recipe(fp32: bool) -> tuple[Transform, float]:
@@ -143,61 +205,82 @@ def recipe(fp32: bool) -> tuple[Transform, float]:
     return Transform(make, lambda c: 1e-4), 1.0
 
 
-def build(cfg, device):
-    """``(model, state, step)`` from the seeded global parameters."""
+def build(cfg, device, groups: int = 1):
+    """``(model, state, step, specs)`` from the seeded global parameters."""
     model = bert.BertForPreTraining(cfg, device=device, seed=SEED)
     params = dict(model.named_parameters())
-    specs = bert.bert_param_specs(params) if cfg.model_parallel > 1 else None
+    specs = None
+    if cfg.model_parallel > 1 or cfg.expert_parallel > 1 or cfg.pipelined:
+        specs = bert.bert_param_specs(params, cfg.model_axis, cfg.expert_axis,
+                                      cfg.pipeline_axis)
     tx, clip = recipe(cfg.dtype == torch.float32)
     state = create_train_state(params, tx)
-    step = make_train_step(bert.make_bert_pretraining_loss(model), tx, clip_norm=clip,
-                           param_specs=specs)
+    step = make_train_step(grouped(bert.make_bert_pretraining_loss(model), groups), tx,
+                           clip_norm=clip, param_specs=specs,
+                           batch_axes=("expert",) if cfg.moe_dispatch == "sharded" else ())
     return model, state, step, specs
 
 
-def held_steps(geom, name, world, rows, device):
+def held_steps(geom, name, world, rows, device, extra=None, groups: int = 1):
     """The two held steps of one layout (``name`` None: unsharded, one
-    process): bf16 ``(loss, grad_norm)`` and the fp32 step's global params."""
+    process, with ``extra`` fields over ``groups`` row groups): bf16
+    ``(loss, grad_norm)``, and the fp32 step's parameters with their specs:
+    on a rank its own slices (``specs`` says how they lie in the global
+    tree; rank 0 keeps the replicated leaves, the others only the sharded
+    ones), unsharded the whole tree."""
     out = {}
     for key, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        cfg = config(geom, name, world, dtype=dtype, dropout=0.0)
-        _, state, step, specs = build(cfg, device)
-        batch = fixed_batch(cfg, rows, device, cfg.seq_axis is not None)
-        state, m = step(state, batch, torch.Generator(device).manual_seed(SEED))
+        cfg = config(geom, name, world, dtype=dtype, dropout=0.0, capacity=HELD_CAPACITY,
+                     extra=extra)
+        _, state, step, specs = build(cfg, device, groups)
+        state, m = step(state, fixed_batch(cfg, rows, device),
+                        torch.Generator(device).manual_seed(SEED))
         if key == "bf16":
             out[key] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
         else:
-            params = {k: v.detach() for k, v in state.params.items()}
-            if specs is not None:
-                params = gather_params(params, specs, mesh_lib.active_mesh())
-            out[key] = {k: v.cpu() for k, v in params.items()}
+            specs = specs or {}
+            keep = mesh_lib.process_index() == 0
+            out[key] = {"params": {k: v.detach().cpu() for k, v in state.params.items()
+                                   if keep or specs.get(k)}, "specs": specs}
         del state, step
     return out
 
 
-def single_process_reference(geom: dict, rows: int, device="cuda") -> dict:
-    """:func:`held_steps` unsharded, in this process (no process group)."""
-    return held_steps(geom, None, 1, rows, device)
+def single_process_references(geom: dict, rows: int, device="cuda") -> dict:
+    """:func:`held_steps` unsharded, in this process (no process group),
+    for each kind of :data:`REFERENCE_KINDS`, with the kind's initial
+    parameters under ``"init"``."""
+    out = {}
+    for kind, (extra, groups) in REFERENCE_KINDS.items():
+        out[kind] = held_steps(geom, None, 1, rows, device, extra, groups)
+        cfg = config(geom, None, 1, dtype=torch.float32, dropout=0.0, extra=extra)
+        out[kind]["init"] = {k: v.detach().cpu() for k, v in bert.BertForPreTraining(
+            cfg, device=device, seed=SEED).state_dict().items()}
+        if device != "cpu" and torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 class CommTimer:
     """Times every call of the collectives' transport functions (the
     all-reduce, the ring shift, the all-to-all and the all-gather, host
     staging included), each between two synchronisations of the device,
-    while ``on``."""
+    while ``on``; ``by_name`` splits the seconds by function (``_shift``:
+    the ring's and the pipeline's hand-offs)."""
 
     NAMES = ("_all_reduce", "_shift", "_a2a", "_gather")
 
     def __init__(self, device):
         self.device, self.seconds, self.calls, self.on = device, 0.0, 0, False
+        self.by_name = dict.fromkeys(self.NAMES, 0.0)
         for name in self.NAMES:
-            setattr(coll, name, self._wrap(getattr(coll, name)))
+            setattr(coll, name, self._wrap(name, getattr(coll, name)))
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _wrap(self, fn):
+    def _wrap(self, name, fn):
         @functools.wraps(fn)
         def timed(*args, **kwargs):
             if not self.on:
@@ -206,7 +289,9 @@ class CommTimer:
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             self._sync()
-            self.seconds += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.seconds += dt
+            self.by_name[name] += dt
             self.calls += 1
             return out
 
@@ -218,26 +303,31 @@ def timed_steps(geom, name, world, rows, device, n_steps, timer) -> dict:
     collectives' ms of each step, and the losses."""
     cfg = config(geom, name, world, dtype=torch.bfloat16, dropout=0.1)
     _, state, step, _ = build(cfg, device)
-    batch = fixed_batch(cfg, rows, device, cfg.seq_axis is not None)
+    batch = fixed_batch(cfg, rows, device)
     gen = torch.Generator(device).manual_seed(SEED)
     fm.reset_launch_counts()
-    launches, step_ms, comm_ms, losses = [], [], [], []
+    launches, step_ms, comm_ms, shift_ms, losses, aux = [], [], [], [], [], []
     for _ in range(n_steps):
         before = dict(fm.LAUNCHES)
         timer.seconds, timer.calls, timer.on = 0.0, 0, True
+        timer.by_name = dict.fromkeys(timer.NAMES, 0.0)
         timer._sync()
         t0 = time.perf_counter()
         state, m = step(state, batch, gen)
         losses.append(float(m["loss"]))
+        if "moe_aux" in m:
+            aux.append(float(m["moe_aux"]))
         timer._sync()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         timer.on = False
         comm_ms.append(timer.seconds * 1e3)
+        shift_ms.append(timer.by_name["_shift"] * 1e3)
         launches.append({k: fm.LAUNCHES[k] - before[k] for k in FLASH})
     return {"launches": launches, "step_ms": step_ms, "comm_ms": comm_ms,
-            "collective_calls": timer.calls, "losses": losses,
-            "step_ms_median": statistics.median(step_ms[1:] or step_ms),
-            "comm_ms_median": statistics.median(comm_ms[1:] or comm_ms)}
+            "ppermute_ms": shift_ms, "collective_calls": timer.calls, "losses": losses,
+            "moe_aux": aux, "step_ms_median": statistics.median(step_ms[1:] or step_ms),
+            "comm_ms_median": statistics.median(comm_ms[1:] or comm_ms),
+            "ppermute_ms_median": statistics.median(shift_ms[1:] or shift_ms)}
 
 
 def _inputs(rank: int, device) -> torch.Tensor:
@@ -348,10 +438,9 @@ def main(argv=None) -> int:
         axes = {a: args.world if n == -1 else n for a, n in CONFIGS[name][0].items()}
         mesh_lib.build_mesh(axes)
         held = held_steps(geom, name, args.world, ROWS, device)
-        if args.rank == 0:
-            torch.save(held["fp32"], out_dir / f"params_{name}.pt")
+        torch.save(held["fp32"], out_dir / f"params_{name}_rank{args.rank}.pt")
         rec = {"held_bf16": held["bf16"]}
-        rec.update(timed_steps(geom, name, args.world, ROWS, device, STEPS, timer))
+        rec.update(timed_steps(geom, name, args.world, ROWS, device, steps(name), timer))
         rec["seconds"] = time.perf_counter() - t0
         result["configs"][name] = rec
         if device.type == "cuda":

@@ -42,7 +42,26 @@ torch, numpy and the port, and saves its results to
   clipping, the ring, Ulysses, TP x ring); per step loss and grad_norm, the
   gathered global parameters, and for the TP run a checkpoint written
   through ``Checkpointer(param_specs=...)`` into ``OUT_DIR/tp_ckpt`` and
-  restored into a fresh TP state.
+  restored into a fresh TP state;
+- ``mp_moe`` (2 ranks, ``tests/test_torch_moe.py``): on an ``{"expert": 2}``
+  mesh the toy MoE of :func:`moe_toy_params`: ``moe_apply`` top-1, top-2
+  and ``moe_apply_a2a`` top-2 on seeded tokens, and 3 SGD steps of the toy
+  classifier (router, experts, head) with its per-step loss, grad_norm and
+  gathered parameters;
+- ``mp_pipe`` (4 ranks, ``tests/test_torch_pipeline.py``): on a
+  ``{"pipeline": 4}`` mesh the toy stack of :func:`pipe_params` forward
+  under every ``mask_bubble``, the refusals of a bad microbatch split and
+  of ``mask_bubble="off"``, 3 SGD steps of the toy classifier; on a
+  ``{"pipeline": 2, "seq": 2}`` mesh a layer that runs a ``"seq"`` ring
+  inside the stage, masked and unmasked;
+- ``mp_moe_pp`` (4 ranks, ``tests/test_torch_bert_moe_pp.py``): :data:`MP_GEOM`
+  BERT trained 2 Adam steps under each of :data:`MOE_PP_RUNS` (expert,
+  tensor, pipeline and sequence layouts and their compositions); the
+  routing of every layer at step 1 of the ``ep`` run; an eval step of the
+  ``sharded`` and ``dp4_moe`` runs; the ``pp_ep`` run's
+  checkpoint in ``OUT_DIR/ppep_ckpt``; then ``cli.train.main`` under
+  ``--moe-experts 4 --expert-parallel 2 --pipeline-parallel 2`` (dropout off)
+  and two requests it refuses.
 """
 
 from __future__ import annotations
@@ -433,6 +452,352 @@ def job_mp_bert(rank: int, world: int, ports: list[int], argv, out_dir: Path) ->
     return out
 
 
+# The toy MoE of tests/test_moe.py: tokens [N, MOE_H], MOE_E experts, a head.
+MOE_H, MOE_E, MOE_CLASSES = 16, 8, 10
+
+
+def moe_toy_params() -> dict:
+    """Seeded numpy params of the toy MoE classifier: ``router [H, E]``,
+    the expert stacks ``w1 [E, H, 2H]`` and ``w2 [E, 2H, H]``, ``head [H, C]``."""
+    rng = np.random.default_rng(11)
+    shapes = {"router": (MOE_H, MOE_E), "w1": (MOE_E, MOE_H, 2 * MOE_H),
+              "w2": (MOE_E, 2 * MOE_H, MOE_H), "head": (MOE_H, MOE_CLASSES)}
+    return {k: (rng.standard_normal(v) * 0.3).astype(np.float32) for k, v in shapes.items()}
+
+
+def moe_toy_tokens(seed: int, n: int) -> np.ndarray:
+    return np.random.default_rng(seed).standard_normal((n, MOE_H)).astype(np.float32)
+
+
+def moe_toy_batches(n_steps: int = 3, rows: int = 32) -> list:
+    """Seeded ``(x [rows, H], labels [rows])`` a step."""
+    rng = np.random.default_rng(7)
+    return [(rng.standard_normal((rows, MOE_H)).astype(np.float32),
+             rng.integers(0, MOE_CLASSES, rows)) for _ in range(n_steps)]
+
+
+def moe_toy_expert(p, tokens):
+    return torch.bmm(torch.tanh(torch.bmm(tokens, p["w1"])), p["w2"])
+
+
+def moe_toy_loss(axis_name):
+    """The toy classifier's loss for ``make_train_step``: residual MoE,
+    then the head; CE + 0.01 aux."""
+    from distributed_tensorflow_tpu_torch.parallel.moe import moe_apply
+
+    def loss_fn(params, model_state, batch, generator):
+        x = batch["x"]
+        y, aux = moe_apply(moe_toy_expert, {"w1": params["w1"], "w2": params["w2"]},
+                           x @ params["router"], x, axis_name=axis_name)
+        logits = (x + y) @ params["head"]
+        loss = torch.nn.functional.cross_entropy(logits, batch["label"]) + 0.01 * aux
+        return loss, (model_state, {"aux": aux.detach()})
+
+    return loss_fn
+
+
+def job_mp_moe(rank: int, world: int, ports: list[int], argv, out_dir: Path) -> dict:
+    from distributed_tensorflow_tpu_torch.parallel.mesh import build_mesh
+    from distributed_tensorflow_tpu_torch.parallel.moe import moe_apply, moe_apply_a2a
+    from distributed_tensorflow_tpu_torch.train import create_train_state, make_train_step
+    from distributed_tensorflow_tpu_torch.train.state import Transform
+
+    initialize_runtime(f"127.0.0.1:{ports[0]}", world, rank, device="cpu", timeout_s=60)
+    mesh = build_mesh({"expert": world})
+    full = {k: torch.from_numpy(v) for k, v in moe_toy_params().items()}
+    local = {k: full[k].chunk(world, 0)[rank].contiguous() for k in ("w1", "w2")}
+    x = torch.from_numpy(moe_toy_tokens(1, 32))
+    out = {"top1": moe_apply(moe_toy_expert, local, x @ full["router"], x, axis_name="expert")}
+    x2 = torch.from_numpy(moe_toy_tokens(2, 64))
+    logits2 = torch.from_numpy(moe_toy_tokens(3, 64)[:, :MOE_E].copy())
+    for name, fn, kw in (("top2", moe_apply, {}),
+                         ("top2_a2a", moe_apply_a2a, {"stats_axes": ("expert",)})):
+        out[name] = fn(moe_toy_expert, local, logits2, x2, axis_name="expert",
+                       capacity_factor=16.0, topk=2, **kw)
+    params = {k: (local[k] if k in local else full[k]).clone().requires_grad_()
+              for k in ("router", "w1", "w2", "head")}
+    tx = Transform(lambda p: torch.optim.SGD(list(p.values()), lr=0.1, momentum=0.9),
+                   lambda c: 0.1)
+    specs = {"w1": (("expert", 0),), "w2": (("expert", 0),)}
+    state = create_train_state(params, tx)
+    step = make_train_step(moe_toy_loss("expert"), tx, param_specs=specs)
+    metrics = []
+    for xb, yb in moe_toy_batches():
+        state, m = step(state, {"x": torch.from_numpy(xb), "label": torch.from_numpy(yb)},
+                        torch.Generator().manual_seed(0))
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm", "aux")})
+    out["train"] = {"metrics": metrics, "params": _gathered(state.params, specs, mesh)}
+    shutdown_runtime()
+    return out
+
+
+# The toy stack of tests/test_pipeline.py: PIPE_LAYERS residual tanh layers.
+PIPE_D, PIPE_LAYERS, PIPE_CLASSES = 16, 8, 10
+
+
+def pipe_params() -> dict:
+    """Seeded numpy params: the stack ``w [L, D, D]``, ``b [L, D]`` and the
+    head ``head_w [D, C]``, ``head_b [C]``."""
+    rng = np.random.default_rng(21)
+    return {"w": (rng.standard_normal((PIPE_LAYERS, PIPE_D, PIPE_D)) * 0.3).astype(np.float32),
+            "b": np.zeros((PIPE_LAYERS, PIPE_D), np.float32),
+            "head_w": (rng.standard_normal((PIPE_D, PIPE_CLASSES)) * 0.3).astype(np.float32),
+            "head_b": np.zeros(PIPE_CLASSES, np.float32)}
+
+
+def pipe_layer(p, h):
+    return h + torch.tanh(h @ p["w"] + p["b"])
+
+
+def pipe_batches(n_steps: int = 3, rows: int = 32) -> list:
+    rng = np.random.default_rng(5)
+    return [(rng.standard_normal((rows, PIPE_D)).astype(np.float32),
+             rng.integers(0, PIPE_CLASSES, rows)) for _ in range(n_steps)]
+
+
+def pipe_ring_inputs():
+    """``(w [4, D, D], x [8, 8, D])`` of the seq-ring layer case."""
+    rng = np.random.default_rng(0)
+    return ((rng.standard_normal((4, PIPE_D, PIPE_D)) * 0.3).astype(np.float32),
+            rng.standard_normal((8, 8, PIPE_D)).astype(np.float32))
+
+
+def pipe_ring_layer(p, h):
+    """A layer whose stage runs a ring over "seq" (JAX's ``ring_layer``)."""
+    from distributed_tensorflow_tpu_torch.parallel import collectives as pc
+
+    acc, kv = torch.zeros_like(h), h @ p["w"]
+    for _ in range(pc.axis_size("seq")):
+        acc = acc + h * kv.sum(dim=1, keepdim=True)
+        kv = pc.ppermute(kv, "seq", 1)
+    return torch.tanh(acc)
+
+
+def job_mp_pipe(rank: int, world: int, ports: list[int], argv, out_dir: Path) -> dict:
+    from distributed_tensorflow_tpu_torch.parallel.mesh import build_mesh
+    from distributed_tensorflow_tpu_torch.parallel.pipeline import pipeline_apply
+    from distributed_tensorflow_tpu_torch.train import create_train_state, make_train_step
+    from distributed_tensorflow_tpu_torch.train.state import Transform
+
+    initialize_runtime(f"127.0.0.1:{ports[0]}", world, rank, device="cpu", timeout_s=60)
+    mesh = build_mesh({"pipeline": 4})
+    full = {k: torch.from_numpy(v) for k, v in pipe_params().items()}
+    local = {k: full[k].chunk(4, 0)[rank].contiguous() for k in ("w", "b")}
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((16, PIPE_D))
+                         .astype(np.float32))
+    out = {"forward": {str(m): pipeline_apply(pipe_layer, local, x, n_microbatches=4,
+                                              mask_bubble=m)
+                       for m in ("auto", True, False)}}
+    for key, kw in (("bad_split", {"n_microbatches": 5}),
+                    ("bad_mask", {"n_microbatches": 4, "mask_bubble": "off"})):
+        try:
+            pipeline_apply(pipe_layer, local, x, **kw)
+        except ValueError as e:
+            out[key] = str(e)
+
+    def loss_fn(params, model_state, batch, generator):
+        h = pipeline_apply(pipe_layer, {"w": params["w"], "b": params["b"]}, batch["x"],
+                           n_microbatches=4)
+        logits = h @ params["head_w"] + params["head_b"]
+        return torch.nn.functional.cross_entropy(logits, batch["label"]), (model_state, {})
+
+    params = {k: (local[k] if k in local else full[k]).clone().requires_grad_()
+              for k in ("w", "b", "head_w", "head_b")}
+    tx = Transform(lambda p: torch.optim.SGD(list(p.values()), lr=0.1, momentum=0.9),
+                   lambda c: 0.1)
+    specs = {"w": (("pipeline", 0),), "b": (("pipeline", 0),)}
+    state = create_train_state(params, tx)
+    step = make_train_step(loss_fn, tx, param_specs=specs)
+    metrics = []
+    for xb, yb in pipe_batches():
+        state, m = step(state, {"x": torch.from_numpy(xb), "label": torch.from_numpy(yb)},
+                        torch.Generator().manual_seed(0))
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    out["train"] = {"metrics": metrics, "params": _gathered(state.params, specs, mesh)}
+    build_mesh({"pipeline": 2, "seq": 2})
+    w, xr = pipe_ring_inputs()
+    coords = {"pipeline": rank // 2, "seq": rank % 2}
+    w_local = torch.from_numpy(w).chunk(2, 0)[coords["pipeline"]].contiguous()
+    x_local = torch.from_numpy(xr).chunk(2, 1)[coords["seq"]].contiguous()
+    out["ring"] = {str(m): pipeline_apply(pipe_ring_layer, {"w": w_local}, x_local,
+                                          n_microbatches=4, mask_bubble=m)
+                   for m in ("auto", False)}
+    shutdown_runtime()
+    return out
+
+
+# mp_moe_pp's runs: name -> (mesh, BertConfig fields (the JAX package's
+# names too), batch layout: "plain", "expert_sharded", "seq" or "tiled").
+MOE_PP_RUNS = {
+    "ep": ({"data": 2, "expert": 2},
+           dict(moe_experts=4, expert_axis="expert", expert_parallel=2), "plain"),
+    "moe_dp": ({"data": 2, "model": 2}, dict(moe_experts=4), "plain"),
+    "tp_moe": ({"data": 2, "model": 2},
+               dict(moe_experts=4, model_axis="model", model_parallel=2), "plain"),
+    "a2a": ({"data": 2, "expert": 2},
+            dict(moe_experts=4, moe_capacity_factor=16.0, expert_axis="expert",
+                 expert_parallel=2, moe_dispatch="alltoall"), "plain"),
+    "sharded": ({"data": 2, "expert": 2},
+                dict(moe_experts=4, expert_axis="expert", expert_parallel=2,
+                     moe_dispatch="sharded"), "expert_sharded"),
+    "dp4_moe": ({"data": 4}, dict(moe_experts=4), "plain"),
+    "sharded_top2": ({"data": 2, "expert": 2},
+                     dict(moe_experts=4, moe_topk=2, expert_axis="expert", expert_parallel=2,
+                          moe_dispatch="sharded"), "expert_sharded"),
+    "dp": ({"data": 2, "model": 2}, dict(), "plain"),
+    "pp": ({"data": 2, "pipeline": 2},
+           dict(pipeline_axis="pipeline", pipeline_parallel=2, pipeline_microbatches=4),
+           "plain"),
+    "pp_tp": ({"pipeline": 2, "model": 2},
+              dict(pipeline_axis="pipeline", pipeline_parallel=2, pipeline_microbatches=4,
+                   model_axis="model", model_parallel=2), "plain"),
+    "moe_seq": ({"data": 2, "model": 2},
+                dict(moe_experts=4, moe_capacity_factor=16.0, pipeline_parallel=2), "tiled"),
+    "pp_moe": ({"data": 2, "pipeline": 2},
+               dict(moe_experts=4, moe_capacity_factor=16.0, pipeline_axis="pipeline",
+                    pipeline_parallel=2, pipeline_microbatches=4), "tiled"),
+    "pp_ep": ({"data": 1, "pipeline": 2, "expert": 2},
+              dict(moe_experts=4, moe_capacity_factor=16.0, pipeline_axis="pipeline",
+                   pipeline_parallel=2, pipeline_microbatches=4, expert_axis="expert",
+                   expert_parallel=2), "tiled"),
+    "pp_ring": ({"pipeline": 2, "seq": 2},
+                dict(pipeline_axis="pipeline", pipeline_parallel=2, pipeline_microbatches=4,
+                     seq_axis="seq"), "seq"),
+    "pp_ulysses": ({"pipeline": 2, "seq": 2},
+                   dict(pipeline_axis="pipeline", pipeline_parallel=2,
+                        pipeline_microbatches=4, seq_axis="seq", sp_impl="ulysses"), "seq"),
+}
+MOE_PP_CLI_ARGS = ["--config", "bert_base", "--bert-layers", "2", "--bert-hidden", "48",
+                   "--bert-vocab", "64", "--global-batch", "8", "--steps", "2",
+                   "--lr-schedule", "constant", "--lr", "1e-3", "--log-every", "1",
+                   "--moe-experts", "4", "--expert-parallel", "2", "--pipeline-parallel", "2"]
+# Requests the CLI refuses only on a multi-process mesh, with the reason.
+MOE_PP_CLI_REFUSALS = (
+    (["--expert-parallel", "2"], "shards no params over it"),
+    (["--pipeline-parallel", "2", "--pipeline-microbatches", "3"],
+     "not divisible by pipeline_microbatches 3"),
+)
+
+
+def tiled_batch(step: int, dp: int, base_rows: int = 2, tile: int = 4) -> dict:
+    """The global batch of step ``step`` whose every data shard's rows are
+    ``tile`` copies of a ``base_rows``-row base (the JAX tests'
+    ``_tiled_batches``): every GPipe microbatch of a shard is then the same,
+    so routing a microbatch at a time equals routing the shard."""
+    from distributed_tensorflow_tpu_torch.data.text import SyntheticMLM, SyntheticMLMConfig
+
+    data = SyntheticMLM(SyntheticMLMConfig(vocab_size=MP_GEOM["vocab_size"], seq_len=32,
+                                           seed=0))
+    small = data.batch(base_rows * dp, seed=(3, step, 0))
+    return {k: np.concatenate([np.tile(s, (tile,) + (1,) * (v.ndim - 1))
+                               for s in np.split(v, dp)]) for k, v in small.items()}
+
+
+def moe_pp_batches(name: str):
+    """This rank's batches of a ``mp_moe_pp`` run (on its active mesh)."""
+    from distributed_tensorflow_tpu_torch.data.text import (
+        SyntheticMLM,
+        SyntheticMLMConfig,
+        mlm_device_batches,
+    )
+    from distributed_tensorflow_tpu_torch.parallel.mesh import active_mesh, process_rows
+
+    spec, _, kind = MOE_PP_RUNS[name]
+    if kind == "tiled":
+        def tiled():
+            step = 0
+            while True:
+                glob = tiled_batch(step, spec.get("data", 1))
+                start, stop = process_rows(len(glob["nsp_label"]), active_mesh())
+                yield {k: torch.from_numpy(v[start:stop]) for k, v in glob.items()}
+                step += 1
+
+        return tiled()
+    data = SyntheticMLM(SyntheticMLMConfig(vocab_size=MP_GEOM["vocab_size"], seq_len=32,
+                                           seed=0))
+    return mlm_device_batches(data, MP_BATCH, device="cpu", seed=3,
+                              seq_sharded=kind == "seq",
+                              expert_sharded=kind == "expert_sharded")
+
+
+def job_mp_moe_pp(rank: int, world: int, ports: list[int], argv, out_dir: Path) -> dict:
+    from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
+    from distributed_tensorflow_tpu_torch.cli import train as cli
+    from distributed_tensorflow_tpu_torch.models import bert
+    from distributed_tensorflow_tpu_torch.parallel import moe
+    from distributed_tensorflow_tpu_torch.parallel.mesh import build_mesh
+    from distributed_tensorflow_tpu_torch.train import (
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+    )
+    from distributed_tensorflow_tpu_torch.train.state import Transform
+
+    initialize_runtime(f"127.0.0.1:{ports[0]}", world, rank, device="cpu", timeout_s=60)
+    tx = Transform(lambda p: torch.optim.Adam(list(p.values()), lr=MP_LR, betas=(0.9, 0.999),
+                                              eps=1e-8), lambda c: MP_LR)
+    out = {}
+    route = moe._route
+    for name, (spec, over, kind) in MOE_PP_RUNS.items():
+        mesh = build_mesh(spec)
+        model = bert.BertForPreTraining(bert.BertConfig(**MP_GEOM, **over), device="cpu",
+                                        seed=0)
+        params = dict(model.named_parameters())
+        specs = bert.bert_param_specs(
+            params, "model" if "model_axis" in over else None,
+            "expert" if "expert_axis" in over else None,
+            "pipeline" if "pipeline_axis" in over else None)
+        state = create_train_state(params, tx)
+        step = make_train_step(bert.make_bert_pretraining_loss(model), tx, param_specs=specs,
+                               batch_axes=("expert",) if kind == "expert_sharded" else ())
+        batches = moe_pp_batches(name)
+        routing: list = []
+        if name == "ep":
+            def recording(*args, **kwargs):
+                res = route(*args, **kwargs)
+                routing.append({"assign": res[0].clone(), "kept": res[3].clone()})
+                return res
+
+            moe._route = recording
+        metrics = []
+        try:
+            for _ in range(MP_STEPS):
+                state, m = step(state, next(batches), torch.Generator().manual_seed(1))
+                moe._route = route
+                metrics.append({k: float(m[k]) for k in ("loss", "grad_norm", "moe_aux")
+                                if k in m})
+        finally:
+            moe._route = route
+        out[name] = {"metrics": metrics, "params": _gathered(state.params, specs, mesh)}
+        if name in ("sharded", "dp4_moe"):
+            evaluate = make_eval_step(bert.make_bert_eval_metrics(model),
+                                      batch_axes=("expert",) if kind == "expert_sharded" else ())
+            out[name]["eval"] = {k: float(v) for k, v in evaluate(state, next(batches)).items()}
+        if routing:
+            out[name]["routing"] = routing
+        if name == "pp_ep":
+            with Checkpointer(out_dir / "ppep_ckpt", param_specs=specs) as ckpt:
+                ckpt.save(state.step, state)
+    shutdown_runtime()
+    undo = no_dropout(bert)
+    codes = []
+    try:
+        for port, args in zip(ports[1:], [
+                MOE_PP_CLI_ARGS + ["--metrics-jsonl", str(out_dir / f"moe_pp_cli_{rank}.jsonl")],
+                *(MOE_PP_CLI_ARGS[:14] + extra for extra, _ in MOE_PP_CLI_REFUSALS)]):
+            try:
+                codes.append(cli.main(args + [
+                    "--device", "cpu", "--coordinator-address", f"127.0.0.1:{port}",
+                    "--num-processes", str(world), "--process-id", str(rank),
+                    "--init-timeout", "60"]))
+            except SystemExit as e:
+                codes.append(e.code)
+    finally:
+        undo()
+    out["cli_codes"] = codes
+    return out
+
+
 CHAOS_STEPS, CHAOS_CKPT_EVERY, CHAOS_ROWS = 16, 4, 32
 
 
@@ -530,9 +895,11 @@ def main() -> int:
     rank, world, out_dir = int(rank), int(world), Path(out_dir)
     ports = [int(p) for p in ports.split(",")]
     torch.set_num_threads(1)
-    if job in ("dropout", "chaos", "elastic", "mp_attn", "mp_bert"):
+    if job in ("dropout", "chaos", "elastic", "mp_attn", "mp_bert", "mp_moe", "mp_pipe",
+               "mp_moe_pp"):
         job_fn = {"dropout": job_dropout, "chaos": job_chaos, "elastic": job_elastic,
-                  "mp_attn": job_mp_attn, "mp_bert": job_mp_bert}[job]
+                  "mp_attn": job_mp_attn, "mp_bert": job_mp_bert, "mp_moe": job_mp_moe,
+                  "mp_pipe": job_mp_pipe, "mp_moe_pp": job_mp_moe_pp}[job]
         out = job_fn(rank, world, ports, argv, out_dir)
     else:
         out = {"collectives": job_collectives, "cli": job_cli}[job](rank, world, ports, argv)

@@ -127,10 +127,19 @@ def test_layernorm_matches_flax_in_bf16():
 
 
 def test_unported_parallel_fields_raise():
-    for field, value in (("moe_experts", 4), ("expert_parallel", 2),
-                         ("pipeline_parallel", 2)):
-        with pytest.raises(NotImplementedError, match="Queue A item 6b"):
-            BertConfig(**{field: value})
+    # The mixture-of-experts and pipeline fields are ported: they are
+    # accepted, and the combinations the JAX package refuses raise.
+    assert BertConfig(moe_experts=4, moe_topk=2).moe_topk == 2
+    assert BertConfig(moe_experts=4, expert_axis="expert", expert_parallel=2,
+                      moe_dispatch="sharded").expert_parallel == 2
+    assert BertConfig(pipeline_parallel=2).stacked
+    for fields, message in ((dict(moe_dispatch="bogus"), "unknown moe_dispatch"),
+                            (dict(moe_experts=4, moe_dispatch="sharded"),
+                             "requires expert_parallel > 1"),
+                            (dict(num_layers=3, pipeline_parallel=2),
+                             "not divisible by pipeline_parallel 2")):
+        with pytest.raises(ValueError, match=message):
+            BertConfig(**fields)
     # Tensor and sequence parallelism are ported: their fields are accepted.
     assert BertConfig(model_axis="model", model_parallel=2).model_parallel == 2
     assert BertConfig(seq_axis="seq", sp_impl="ulysses").sp_impl == "ulysses"

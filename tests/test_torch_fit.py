@@ -239,7 +239,8 @@ def test_train_cli_bert_base_on_cpu_then_serve(tmp_path):
 @pytest.mark.parametrize(
     "argv,message",
     [(["--config", "no_such_preset"], "unknown preset"),
-     (["--config", "bert_base", "--moe-experts", "4"], "Queue A item 6b"),
+     (["--config", "bert_base", "--moe-experts", "2", "--moe-topk", "3"],
+      "--moe-topk=3 must be in [1, --moe-experts=2]"),
      (["--config", "bert_base", "--profile-steps", "2"],
       "--profile-steps requires --profile-dir")],
     ids=["preset", "parallel-flag", "profile-steps"],

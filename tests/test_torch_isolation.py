@@ -23,10 +23,12 @@ def _port_files():
 # The resilient-training slice's pure-Python modules: the port's own copies.
 RESILIENCE_MODULES = ("train/faultinject.py", "train/resilience.py", "obs/fleet.py",
                       "serve/faultinject.py")
-# The model-parallel slice's modules: the mesh's process groups, the
-# differentiable collectives, the ring, Ulysses, the sharded BERT.
+# The model-parallel slices' modules: the mesh's process groups, the
+# differentiable collectives, the ring, Ulysses, mixture-of-experts
+# dispatch, the GPipe schedule, the sharded BERT.
 MODEL_PARALLEL_MODULES = ("parallel/mesh.py", "parallel/collectives.py",
                           "parallel/ring_attention.py", "parallel/ulysses.py",
+                          "parallel/moe.py", "parallel/pipeline.py",
                           "models/bert.py", "interop.py")
 
 
@@ -96,7 +98,8 @@ def test_serving_host_modules_import_without_jax():
     """The prefix-cache trie, the speculation state machine, the
     sanitizers, the resilience modules (fault injection, fleet health,
     ``run_resilient``) and the model-parallel ones (process groups,
-    collectives, ring and Ulysses attention) are the port's own copies:
+    collectives, ring and Ulysses attention, MoE dispatch, the GPipe
+    schedule) are the port's own copies:
     importing them in a fresh interpreter leaves ``jax`` out of
     ``sys.modules``."""
     import subprocess

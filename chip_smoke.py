@@ -298,7 +298,8 @@ Phases (any failure exits non-zero before the result lines):
    tried raw on CUDA tensors, and the ops staged through pinned host
    memory printed (``ppermute``: gloo's ``send`` hands the device pointer
    to its socket, which fails with ``Bad address`` on an H100). Then
-   full-width BERT-base (12 layers, 768, 12 heads, 512 positions), 8 rows x
+   BERT-base's widths at :data:`MP_LAYERS` (4) of its 12 layers (768, 12
+   heads, 512 positions), 8 rows x
    L=512, bf16, from the same seeded global parameters and fixed batch,
    under ``{"model": 2}`` (TP), the ``{"seq": 2}`` ring and ``{"seq": 2}``
    Ulysses: step 1 with dropout off against a single-process run made in
@@ -306,8 +307,8 @@ Phases (any failure exits non-zero before the result lines):
    2e-2: bf16 partial sums meet at other points), the gathered
    parameters after one fp32 SGD step within 1e-5 relative (and within
    1e-3 of the reference's update), then 3 steps with dropout 0.1:
-   finite losses, 12 launches a step a rank of each flash kernel under TP
-   and Ulysses and 24 on the ring (2 blocks x 12 layers, with the lse
+   finite losses, one launch a layer a step a rank of each flash kernel
+   under TP and Ulysses and two on the ring (2 blocks a layer, with the lse
    cotangent), ms a step and the collectives' ms a step (each collective
    between two synchronisations; gloo through host memory, not NVLink).
 22. train_cli_tp_sp — ``cli.train``'s ``main`` (through
@@ -317,12 +318,25 @@ Phases (any failure exits non-zero before the result lines):
    steps, its checkpoint the global tree; restored here at TP 1 into
    ``BertInferenceEngine`` (bucket 512) and one ``/v1/mlm`` answered: 12
    ``flash_fwd`` launches.
+23. serve_bert_mp — those checkpoints served by ``cli.serve`` over groups
+   of two gloo ranks on the one card, a leader and a follower
+   (``scripts/torch_mp_train.py --serve``), in fp32 at bucket 512: TP 2,
+   EP 2 (8 experts, the stacked encoder sequential on each rank) and PP 2
+   (M = 1); each answer held to the one-process engine's, ``flash_fwd``
+   launches a request a rank 12 / 12 / 6, ms a request and the leader's
+   share in gloo. train_lm_tp (in the CLI group): ``cli.train --config
+   lm_base --tensor-parallel 2`` as two gloo ranks, its checkpoint restored
+   at TP 1.
+24. serve_lm_tp — train_cli_lm's checkpoint served by ``cli.serve --tp 2``
+   in fp32 (its ranks start beside serve_bert_mp's and wait): 12 ``/v1/generate`` streams equal to the one-process engine's,
+   decode ms a step and the leader's share in gloo.
 
 Phases run one after another, but for train_cli, train_cli_image,
-train_cli_inception, train_cli_bert_corpus, train_cli_dp and
+train_cli_inception, train_cli_bert_corpus, train_cli_dp, train_lm_tp and
 train_cli_tp_sp: CLI runs that time nothing the records keep, run at once
 on threads of their own (their ``seconds`` are then the group's; 80 GB
-holds these six at once, not the lm_base resume as well). Before the result lines,
+holds these seven at once, not the lm_base resume as well: train_lm_tp
+is 8 rows). Before the result lines,
 ``feed_summary`` gives every phase's seconds and the total, the cores the host pipeline needs to keep up with this run's ResNet-50
 ``fused`` step, and the CLI's median step ms and host_wait_ms under each
 feed. The last two lines are the kernels' JSON record and
@@ -3986,13 +4000,17 @@ def phase_serve_lm_faults(torch, ckpt_dir: Path, *, device="cuda", cfg=None,
     return out
 
 
-# Flash launches a step a rank of each kernel: 12 layers, 2 blocks a layer
-# on the 2-way ring (its local length, 256, picks flash).
-# Flash launches a step a rank of each kernel: 12 layers, the ring's two
-# blocks a layer, and the pipeline's 6 layers a stage x M = 8 microbatches
-# (fill and drain ticks skipped: mask_bubble="auto").
-MP_LAUNCHES = {"tp": 12, "ring": 24, "ulysses": 12, "ep_replicated": 12, "ep_alltoall": 12,
-               "ep_sharded": 12, "ep_sharded_top2": 12, "pp": 48}
+# The depth of the model-parallel training layouts: BERT-base's widths at
+# 4 of its 12 layers (the depth cut that pays for the serving groups).
+MP_LAYERS = 4
+# Flash launches a step a rank of each kernel: one a layer, the ring's two
+# blocks a layer (its local length, 256, picks flash), and the pipeline's
+# MP_LAYERS / 2 layers a stage x M = 8 microbatches (fill and drain ticks
+# skipped: mask_bubble="auto").
+MP_LAUNCHES = {"tp": MP_LAYERS, "ring": 2 * MP_LAYERS, "ulysses": MP_LAYERS,
+               "ep_replicated": MP_LAYERS, "ep_alltoall": MP_LAYERS,
+               "ep_sharded": MP_LAYERS, "ep_sharded_top2": MP_LAYERS,
+               "pp": MP_LAYERS // 2 * 8}
 MP_LOSS_RTOL, MP_NORM_RTOL = 1e-2, 2e-2  # bf16 step 1 against the single process
 MP_PARAM_RTOL, MP_UPDATE_RTOL = 1e-5, 1e-3  # fp32 step 1's parameters, and its update
 
@@ -4024,8 +4042,9 @@ def _run_ranks(argvs: list, log_dir: Path, timeout: float) -> list:
 
 
 def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
-    """Full-width BERT-base at L=512 under TP, the ring, Ulysses, MoE (8
-    experts over ``{"expert": 2}``: replicated, all-to-all and sharded
+    """Full-width BERT-base (:data:`MP_LAYERS` layers) at L=512 under TP,
+    the ring, Ulysses, MoE (8 experts over ``{"expert": 2}``: replicated,
+    all-to-all and sharded
     dispatch, top-1, and sharded top-2) and the GPipe pipeline
     (``{"pipeline": 2}``, M = 8) as two gloo processes on the one card
     (``scripts/torch_mp_train.py``), after the collectives on CUDA tensors;
@@ -4038,7 +4057,7 @@ def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
     from distributed_tensorflow_tpu_torch.parallel.mesh import build_mesh
 
     mp = load_script("torch_mp_train")
-    cut = dict(cut or {})
+    cut = dict(cut or {"layers": MP_LAYERS})
     geom = mp.geometry(argparse.Namespace(**{f: cut.get(f, 0) for f in
                                              ("layers", "hidden", "heads", "vocab",
                                               "seq_len")}))
@@ -4166,7 +4185,7 @@ def _serve_checkpoint(torch, fm, ckpt_dir: Path, cfg, device, steps: int, what: 
 
     params, _, step = restore_serving_state(ckpt_dir)
     check(step == steps, f"{what}: restored step {step}")
-    model = BertForPreTraining(cfg, device="cpu")
+    model = BertForPreTraining(cfg, device="meta")  # a template: the engine loads it
     want = {k: v.shape for k, v in model.state_dict().items()}
     check({k: v.shape for k, v in params.items()} == want,
           f"{what}: the checkpoint holds the global tree")
@@ -4266,9 +4285,331 @@ def phase_train_cli_tp_sp(torch, fm, *, device="cuda", cli_extra=(), cfg=None):
     emit({"phase": "train_cli_moe_pp", "cli_seconds": cli_s,
           "serve_seconds": time.monotonic() - t0, "last_log": last, "restored_step": steps,
           "serve_flash_fwd_launches": moe_launches, "bucket": 512})
-    shutil.rmtree(moe_dir, ignore_errors=True)
+    # Both checkpoints stay for serve_bert_mp, which serves them over rank
+    # groups (main() removes the 6.5 GB MoE one after it).
     return launches, moe_launches
 
+
+
+# ------------------------------------------------- serving over a rank group
+
+# layout -> (checkpoint of train_cli_tp_sp: "tp" dense, "moe" the MoE x PP
+# stacked one; the serve CLI's layout flags; flash_fwd launches a bucket-512
+# request on each rank: 12 layers, or a stage's 6 layers x M = 1 at tier 1).
+SERVE_GROUP_LAYOUTS = {
+    "tp2": ("tp", ["--tp", "2"], 12),
+    "ep2": ("moe", ["--moe-experts", "8", "--pp", "2", "--mesh", "expert=2"], 12),
+    "pp2": ("moe", ["--moe-experts", "8", "--pp", "2"], 6),
+}
+SERVE_GROUP_TIMED = 4  # timed requests a layout, after the compared one
+# fp32 group against the one-process fp32 engine (tests/test_serve_mesh.py's
+# tolerances; pred_ids may flip only where the top-2 logits tie within the
+# model axis's reordered sums).
+SERVE_GROUP_MIN_PRED_AGREEMENT = 0.99
+SERVE_GROUP_SCORE_RTOL, SERVE_GROUP_VEC_RTOL, SERVE_GROUP_VEC_ATOL = 1e-4, 1e-3, 1e-4
+
+
+def _spawn_group(flags: list, log_dir: Path, device: str, world: int = 2):
+    """``cli.serve`` as ``world`` gloo ranks on the card
+    (``scripts/torch_mp_train.py --serve``), rank 0 serving HTTP on a free
+    port; returns ``(procs, base_url, start_time)``. Each rank's output
+    and launch log land in ``log_dir``."""
+    shutil.rmtree(log_dir, ignore_errors=True)
+    log_dir.mkdir(parents=True)
+    port, coord = _free_port(), _free_port()
+    procs = []
+    for r in range(world):
+        with open(log_dir / f"rank{r}.log", "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "scripts" / "torch_mp_train.py"), "--serve",
+                 *flags, "--device", device, "--port", str(port),
+                 "--coordinator-address", f"127.0.0.1:{coord}", "--num-processes", str(world),
+                 "--process-id", str(r), "--launch-log", str(log_dir / f"rank{r}.json")],
+                cwd=ROOT, env=_repo_env(), stdout=fh, stderr=subprocess.STDOUT))
+    return procs, f"http://127.0.0.1:{port}", time.monotonic()
+
+
+def _await_group(group, log_dir: Path) -> float:
+    """Wait for the leader's ``/healthz`` (every follower alive); returns
+    the seconds from the spawn. Stops the group on failure."""
+    procs, base, t0 = group
+    try:
+        for r, p in enumerate(procs[1:], 1):
+            check(p.poll() is None,
+                  f"follower {r} exited {p.returncode}:\n"
+                  f"{(log_dir / f'rank{r}.log').read_text()[-4000:]}")
+        return _await_serve_cli(procs[0], base, t0, log_dir / "rank0.log")
+    except BaseException:
+        _stop_group(group, log_dir, check_exit=False)
+        raise
+
+
+def _stop_group(group, log_dir: Path, check_exit: bool = True) -> list:
+    """SIGINT to the leader: it closes its client, which stops the
+    followers; every rank must exit 0. Returns the ranks' launch logs."""
+    import signal
+
+    procs = group[0]
+    if procs[0].poll() is None:
+        procs[0].send_signal(signal.SIGINT)
+    deadline = time.monotonic() + 60
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=30)
+    if not check_exit:
+        return []
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"serving rank {r} exited {p.returncode}:\n"
+                                 f"{(log_dir / f'rank{r}.log').read_text()[-4000:]}")
+    return [json.loads((log_dir / f"rank{r}.json").read_text()) for r in range(len(procs))]
+
+
+def _post_json(base: str, route: str, body: dict, timeout: float = 300) -> tuple[dict, float]:
+    req = urllib.request.Request(base + route, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        check(resp.status == 200, f"{route}: status {resp.status}")
+        out = json.loads(resp.read())
+    return out, time.monotonic() - t0
+
+
+def _gloo_share(leader: dict, wall_s: float) -> dict:
+    """The leader's seconds in gloo (the model's collectives and the
+    control channel's broadcasts) against the wall seconds they fell in."""
+    control = (leader.get("group") or {}).get("control_seconds", 0.0)
+    return {"collectives_s": leader["comm_s"], "collective_calls": leader["comm_calls"],
+            "control_s": control, "cells": (leader.get("group") or {}).get("cells_issued"),
+            "gloo_share": (leader["comm_s"] + control) / wall_s if wall_s else None}
+
+
+def phase_serve_bert_mp(torch, *, device="cuda", cli_extra=(), cfg=None, tp_dir=None,
+                        moe_dir=None):
+    """Full-width BERT-base (512 positions, fp32 compute) served by
+    ``cli.serve`` over a group of two gloo ranks on the one card under each
+    of :data:`SERVE_GROUP_LAYOUTS`, from ``train_cli_tp_sp``'s checkpoints
+    (the TP x ring one, and the MoE x PP x EP one: 8 experts, the stacked
+    encoder; EP 2 runs it sequentially on each rank, PP 2 as the
+    pipeline). The three groups start side by side; the one-process fp32
+    engine of each checkpoint answers the same bucket-512 request here
+    meanwhile. Then, one layout at a time: that request over HTTP
+    (``/v1/mlm`` and ``/v1/embed``) held to the one-process answer within the
+    ``SERVE_GROUP_*`` tolerances, and :data:`SERVE_GROUP_TIMED` more timed
+    one by one; the leader's SIGINT stops the group. Each rank launches
+    ``flash_fwd`` exactly the layout's count for every request (warm-up
+    excluded). ``device="cpu"`` with ``cli_extra`` (geometry flags) and the
+    matching ``cfg`` rehearses it."""
+    from distributed_tensorflow_tpu_torch.ckpt import restore_serving_state
+    from distributed_tensorflow_tpu_torch.models.bert import BertConfig, BertForPreTraining
+    from distributed_tensorflow_tpu_torch.serve import BertInferenceEngine
+
+    cfg = dataclasses.replace(cfg or BertConfig(), dtype=torch.float32)  # 512 positions
+    dirs = {"tp": tp_dir or ROOT / "build" / "chip_smoke_cli_tp_sp",
+            "moe": moe_dir or ROOT / "build" / "chip_smoke_cli_moe_pp"}
+    rng = np.random.default_rng(SEED + 21)
+    ids = rng.integers(5, cfg.vocab_size, size=300)
+    payload = {"input_ids": ids.tolist(), "mlm_targets": ids.tolist()}
+    timed = [rng.integers(5, cfg.vocab_size, size=int(n)).tolist()
+             for n in rng.integers(257, 513, SERVE_GROUP_TIMED)]
+    common = ["--config", "bert_base_l512_f32", "--buckets", "512", "--max-batch", "1",
+              "--batch-tiers", "1", "--max-delay-ms", "1", *cli_extra]
+    groups = {name: _spawn_group(common + ["--ckpt-dir", str(dirs[ck])] + flags,
+                                 ROOT / "build" / f"chip_smoke_serve_{name}", device)
+              for name, (ck, flags, _) in SERVE_GROUP_LAYOUTS.items()}
+
+    def reference(kind):
+        model_cfg = (cfg if kind == "tp"
+                     else dataclasses.replace(cfg, moe_experts=8, pipeline_parallel=2))
+        params, _, _ = restore_serving_state(dirs[kind])
+        engine = BertInferenceEngine(BertForPreTraining(model_cfg, device="meta"), params,
+                                     device, buckets=(512,), max_batch=1, batch_tiers=(1,))
+        out = engine.run_batch([{k: np.asarray(v) for k, v in payload.items()}])[0]
+        del engine, params
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        return out
+
+    try:
+        return _serve_groups(groups, concurrently((reference, "tp"), (reference, "moe")),
+                             payload, timed, len(ids), device)
+    finally:
+        # Whatever failed, no rank of any group outlives the phase.
+        for name, g in groups.items():
+            _stop_group(g, ROOT / "build" / f"chip_smoke_serve_{name}", check_exit=False)
+
+
+def _serve_groups(groups: dict, refs: list, payload: dict, timed: list, n_ids: int,
+                  device) -> dict:
+    """:func:`phase_serve_bert_mp`'s requests and checks, one layout at a
+    time, each group stopped before the next."""
+    refs = dict(zip(("tp", "moe"), refs))
+    records = {}
+    for name, (ck, flags, per_request) in SERVE_GROUP_LAYOUTS.items():
+        log_dir = ROOT / "build" / f"chip_smoke_serve_{name}"
+        group = groups[name]
+        ready_s = _await_group(group, log_dir)
+        try:
+            got, first_s = _post_json(group[1], "/v1/mlm", payload)
+            emb, emb_s = _post_json(group[1], "/v1/embed", payload)
+            got["embedding"] = emb["embedding"]
+            walls = [_post_json(group[1], "/v1/mlm", {"input_ids": t})[1] for t in timed]
+            with urllib.request.urlopen(group[1] + "/statusz", timeout=30) as resp:
+                mesh = json.loads(resp.read())["mesh"]
+        finally:
+            ranks = _stop_group(group, log_dir)
+        ref = refs[ck]
+        agree = float(np.mean(np.asarray(got["pred_ids"]) == ref["pred_ids"]))
+        err = {"pred_agreement": agree,
+               "score_rel_err": abs(got["score"] - ref["score"]) / abs(ref["score"]),
+               "embedding_max_abs_err": float(np.max(np.abs(
+                   np.asarray(got["embedding"]) - ref["embedding"]))),
+               "nsp_max_abs_err": float(np.max(np.abs(
+                   np.asarray(got["nsp_probs"]) - ref["nsp_probs"])))}
+        n = 2 + len(timed)
+        want = per_request * n if device == "cuda" else 0
+        launches = [r["launches"]["flash_fwd"] for r in ranks]
+        rec = {"layout": mesh["layout"], "mesh": mesh, "ready_s": ready_s,
+               "against_one_process": err, "flash_fwd_launches": launches, "requests": n,
+               "flash_fwd_per_request": [x / n for x in launches],
+               "first_request_ms": first_s * 1e3,
+               "request_ms_median": statistics.median(walls) * 1e3,
+               **_gloo_share(ranks[0], first_s + emb_s + sum(walls))}
+        emit({"phase": "serve_bert_mp", "config": name, **rec})
+        check(mesh["layout"] == name and mesh["devices_per_engine"] == 2,
+              f"{name}: the leader's mesh {mesh}")
+        check(got["bucket"] == 512 and len(got["pred_ids"]) == n_ids, f"{name}: the answer")
+        check(agree >= SERVE_GROUP_MIN_PRED_AGREEMENT
+              and np.isclose(got["score"], ref["score"], rtol=SERVE_GROUP_SCORE_RTOL, atol=0)
+              and np.allclose(got["embedding"], ref["embedding"], rtol=SERVE_GROUP_VEC_RTOL,
+                              atol=SERVE_GROUP_VEC_ATOL)
+              and np.allclose(got["nsp_probs"], ref["nsp_probs"], rtol=SERVE_GROUP_VEC_RTOL,
+                              atol=SERVE_GROUP_VEC_ATOL),
+              f"{name}: the group's answer against the one-process engine's: {err}")
+        check(launches == [want, want],
+              f"{name}: flash_fwd launches {launches} for {n} requests, expected {want} a rank")
+        records[name] = rec
+    return {name: rec["flash_fwd_per_request"] for name, rec in records.items()}
+
+
+def phase_train_lm_tp(torch, *, device="cuda", cli_extra=(), cfg=None, steps=2) -> dict:
+    """The causal LM's tensor parallelism in training: ``cli.train --config
+    lm_base --tensor-parallel 2`` as two gloo ranks for ``steps`` steps at
+    global batch 8 (finite losses, the layout logged), its checkpoint
+    restored at TP 1 (the global tree, a finite forward on the device).
+    ``device="cpu"`` with ``cli_extra`` and ``cfg`` rehearses it."""
+    from distributed_tensorflow_tpu_torch.ckpt import restore_serving_state
+    from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLM, CausalLMConfig
+
+    cfg = cfg or CausalLMConfig(max_position=128, dtype=torch.bfloat16)
+    train_dir = ROOT / "build" / "chip_smoke_lm_tp"
+    shutil.rmtree(train_dir, ignore_errors=True)
+    port = _free_port()
+    t0 = time.monotonic()
+    procs = _run_ranks(
+        [[sys.executable, str(ROOT / "scripts" / "torch_mp_train.py"), "--cli", "--config",
+          "lm_base", "--tensor-parallel", "2", "--steps", str(steps), "--global-batch", "8",
+          "--log-every", "1", "--ckpt-dir", str(train_dir), "--coordinator-address",
+          f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(r),
+          "--device", device, *cli_extra] for r in range(2)],
+        ROOT / "build" / "chip_smoke_lm_tp_logs", 600)
+    train_s = time.monotonic() - t0
+    for r, (code, _, err) in enumerate(procs):
+        check(code == 0, f"lm_base --tensor-parallel 2 rank {r} exited {code}:\n{err[-4000:]}")
+    log = procs[0][2]
+    lines = [ln for ln in log.splitlines() if "train.loop: step" in ln]
+    check(len(lines) == steps and all("loss=nan" not in ln for ln in lines)
+          and "layout=tp2" in log and "backend=gloo world=2" in log,
+          f"lm_base --tensor-parallel 2 log: {lines}")
+    params, _, step = restore_serving_state(train_dir)
+    model = CausalLM(cfg, device="cpu")
+    check(step == steps and {k: v.shape for k, v in params.items()}
+          == {k: v.shape for k, v in model.state_dict().items()},
+          "the TP 2 checkpoint holds the global tree")
+    model.load_state_dict(params)
+    model = model.to(device)
+    with torch.no_grad():
+        ids = (torch.arange(5, 69, device=device) % cfg.vocab_size)[None]
+        logits = model(ids, torch.ones_like(ids, dtype=torch.bool))
+    check(bool(torch.isfinite(logits.float()).all()), "the TP 2 checkpoint at TP 1: logits")
+    del model, params, logits
+    shutil.rmtree(train_dir, ignore_errors=True)
+    out = {"phase": "train_lm_tp", "seconds": train_s, "last_log": lines[-1],
+           "restored_at_tp1_step": step}
+    emit(out)
+    return out
+
+
+LM_TP_LOGS = ROOT / "build" / "chip_smoke_serve_lm_tp2"
+
+
+def spawn_lm_tp_group(lm_ckpt: Path, device="cuda", cli_extra=()):
+    """``cli.serve --config lm_base_f32 --tp 2`` on ``lm_ckpt`` as two gloo
+    ranks (:func:`_spawn_group`), at :func:`phase_serve_lm`'s geometry."""
+    return _spawn_group(["--config", "lm_base_f32", "--ckpt-dir", str(lm_ckpt), "--tp", "2",
+                         "--buckets", *map(str, LM_BUCKETS), "--slots", str(LM_SLOTS),
+                         "--max-batch", str(LM_TIER), "--batch-tiers", "1", "2", "4",
+                         "--max-new-tokens", str(LM_NEW), *cli_extra], LM_TP_LOGS, device)
+
+
+def phase_serve_lm_tp(torch, lm_ckpt: Path, *, device="cuda", cli_extra=(), cfg=None,
+                      group=None) -> dict:
+    """``train_cli_lm``'s checkpoint served by ``cli.serve --tp 2`` in fp32
+    as a leader and a follower (``group`` from :func:`spawn_lm_tp_group`,
+    spawned here when None): the 12 seeded ``/v1/generate`` requests of
+    ``serve_lm`` at once, every stream (greedy and seeded-sampled) equal to
+    the one-process fp32 engine's (:func:`_generate`, built here while the
+    ranks start), then 2 greedy requests one at a time for the decode ms a
+    step and the leader's gloo share. ``device="cpu"`` with ``cli_extra``
+    and ``cfg`` rehearses it."""
+    from distributed_tensorflow_tpu_torch.ckpt import restore_serving_state
+    from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLM, CausalLMConfig
+    from distributed_tensorflow_tpu_torch.serve import CausalLMEngine
+
+    cfg = dataclasses.replace(cfg or CausalLMConfig(max_position=128), dtype=torch.float32)
+    log_dir = LM_TP_LOGS
+    group = group or spawn_lm_tp_group(lm_ckpt, device, cli_extra)
+    requests = _lm_requests(cfg.vocab_size, 12, cfg.max_position)
+    try:
+        lm_params, _, _ = restore_serving_state(lm_ckpt)
+        ref = CausalLMEngine(CausalLM(cfg, device="meta"), lm_params, device, buckets=LM_BUCKETS,
+                             slots=LM_SLOTS, max_batch=LM_TIER, batch_tiers=(1, 2, 4),
+                             max_new_tokens=LM_NEW)
+        want = _generate(ref, requests)
+        del ref, lm_params
+        ready_s = _await_group(group, log_dir)
+    except BaseException:
+        _stop_group(group, log_dir, check_exit=False)
+        raise
+    try:
+        replies, burst_s = _post_generates(group[1], requests)
+        greedy = [r for r in requests if r["temperature"] == 0.0][:2]
+        solo = [_post_json(group[1], "/v1/generate", {
+            "input_ids": r["input_ids"].tolist(), "max_new_tokens": r["budget"]})
+            for r in greedy]
+        with urllib.request.urlopen(group[1] + "/statusz", timeout=30) as resp:
+            mesh = json.loads(resp.read())["mesh"]
+    finally:
+        ranks = _stop_group(group, log_dir)
+    bad = {i: rep for i, rep in replies.items() if rep[0] != 200}
+    check(len(replies) == len(requests) and not bad, f"cli.serve --tp 2: {bad or len(replies)}")
+    diverged = [r["id"] for r in requests if replies[r["id"]][1]["tokens"] != want[r["id"]]]
+    decode_ms = [body["phases"]["decode"] / (body["n_tokens"] - 1)  # phases are in ms
+                 for body, _ in solo]
+    wall = burst_s + sum(w for _, w in solo)
+    out = {"phase": "serve_lm_tp", "ready_s": ready_s, "layout": mesh["layout"], "mesh": mesh,
+           "streams_equal_one_process": len(requests) - len(diverged), "diverged": diverged,
+           "burst_s": burst_s, "decode_ms_a_step": decode_ms,
+           "decode_ms_a_step_median": statistics.median(decode_ms),
+           "solo_request_ms": [w * 1e3 for _, w in solo],
+           "flash_fwd_launches": [r["launches"]["flash_fwd"] for r in ranks],
+           **_gloo_share(ranks[0], wall)}
+    emit(out)
+    check(mesh["layout"] == "tp2", f"cli.serve --tp 2: the leader's mesh {mesh}")
+    check(not diverged, f"cli.serve --tp 2 streams off the one-process engine's: {diverged}")
+    return out
 
 def _step_record(rows: list, counts: list, field: str) -> dict:
     """One kernel's times per ResNet-50 training step: each shape's row
@@ -4364,12 +4705,23 @@ def main() -> int:
             "train_cli_group", concurrently, (phase_train_cli, torch),
             (phase_train_cli_image, torch), (phase_train_cli_inception, torch),
             (phase_train_cli_bert_corpus, torch), (phase_train_cli_dp, torch),
-            (phase_train_cli_tp_sp, torch, fm))[-1]
+            (phase_train_lm_tp, torch), (phase_train_cli_tp_sp, torch, fm))[-1]
         torch.cuda.empty_cache()
         lm_ckpt = timed("train_cli_lm", phase_train_cli_lm, torch)
         timed("serve_lm", phase_serve_lm, torch, lm_ckpt)
         torch.cuda.empty_cache()
         timed("serve_lm_batcher", phase_serve_lm_batcher, torch, lm_ckpt)
+        torch.cuda.empty_cache()
+        # The causal LM's TP 2 group starts beside serve_bert_mp's three and
+        # idles until its turn: no timed request overlaps another group's.
+        lm_group = spawn_lm_tp_group(lm_ckpt)
+        try:
+            group_serve = timed("serve_bert_mp", phase_serve_bert_mp, torch)
+            shutil.rmtree(ROOT / "build" / "chip_smoke_cli_moe_pp", ignore_errors=True)
+            torch.cuda.empty_cache()
+            timed("serve_lm_tp", phase_serve_lm_tp, torch, lm_ckpt, group=lm_group)
+        finally:
+            _stop_group(lm_group, LM_TP_LOGS, check_exit=False)
         torch.cuda.empty_cache()
         timed("serve_image", phase_serve_image, torch)
         torch.cuda.empty_cache()
@@ -4418,6 +4770,9 @@ def main() -> int:
         # and from the MoE x PP x EP CLI's (stacked encoder, one process).
         "tp_sp_checkpoint_serve_launches": tp_sp_serve[0],
         "moe_pp_checkpoint_serve_launches": tp_sp_serve[1],
+        # A bucket-512 request served over two gloo ranks, per rank
+        # (serve_bert_mp: TP 2, EP 2 and PP 2 at M = 1).
+        "serve_group_launches_per_request": group_serve,
     }]
     for name, key, line in (("flash_bwd_dq", "dq", "490"), ("flash_bwd_dkv", "dkv", "559")):
         kernels.append({

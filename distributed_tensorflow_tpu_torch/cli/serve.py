@@ -20,11 +20,26 @@ with the decode flags ``--slots --max-new-tokens --prefix-cache-mb
 (``--fault-plan``, placed within ``--fault-steps`` decode steps; its
 events fire in the continuous batcher's decode loop). The fleet-serving
 flags (``--disagg-role --kv-transfer-budget-mb --stream-migrate``) are
-refused until Queue A item 7 of ROADMAP.md, and the serving layouts
-(``--mesh --tp --pp --ep --moe-experts --moe-topk``) until Queue A item 6c:
-a checkpoint of a mixture-of-experts or pipeline-trained model serves at
-one process through :class:`BertInferenceEngine`, its stacked encoder run
-sequentially.
+refused until Queue A item 7 of ROADMAP.md.
+
+Serving layouts. ``--tp`` / ``--pp`` / ``--ep`` (or an explicit ``--mesh
+data=2,model=2``) shard each engine over that many ranks of the serving
+job, the remainder going to data parallelism: Megatron TP, GPipe stages
+and replicated-dispatch expert parallelism for BERT, TP for ``lm_base``.
+A device is a process here, so the job is a process group: start one
+process a rank with the same flags and its own ``--process-id``
+(``--coordinator-address host:port --num-processes N``, as the train CLI
+takes them). Rank 0 leads (restores, warms, serves HTTP or the selftest);
+the others warm the same grid and follow its cells
+(:mod:`..serve.group`) until it stops. A layout that does not fit the
+job's ranks falls back to data-parallel serving with a warning; image
+presets given model axes serve data-parallel with JAX's warning. The
+checkpoint flags must match the training run's: ``--moe-experts`` /
+``--moe-topk`` for a mixture of experts, ``--pp`` for a pipeline run's
+stacked encoder (served sequentially when the mesh has no pipeline
+axis); ``--global-batch`` and ``--staleness`` are parsed and checked as
+the JAX CLI's are and change nothing here (the restore reads the
+parameters only).
 
 ``--selftest N`` runs N synthetic requests through the in-process
 :class:`Client` instead of binding a port and prints the metrics snapshot.
@@ -79,10 +94,31 @@ PRESETS = {
 # migration): refused here until they are ported.
 _FLEET = "fleet serving is not ported to PyTorch yet (Queue A item 7 of ROADMAP.md)"
 _FLEET_FLAGS = {"disagg_role": "", "kv_transfer_budget_mb": 64.0, "stream_migrate": False}
-# The JAX CLI's serving-layout flags (a mesh per engine, MoE serving).
-_LAYOUT = ("the serving mesh and MoE serving flags are not ported to PyTorch yet "
-           "(Queue A item 6c of ROADMAP.md)")
-_LAYOUT_FLAGS = {"mesh": "", "tp": 1, "pp": 1, "ep": 1, "moe_experts": 0, "moe_topk": 1}
+
+
+def _resolve_mesh_spec(args, n_ranks: int) -> tuple[dict, bool]:
+    """Serving mesh spec from ``--mesh`` / ``--tp/--pp/--ep`` -> ``(spec,
+    fell_back)``, as the JAX CLI resolves it: a request that cannot fit the
+    job's ``n_ranks`` degrades to data-parallel serving with a warning."""
+    from distributed_tensorflow_tpu_torch.parallel.mesh import MeshSpec
+    from distributed_tensorflow_tpu_torch.serve.engine import plan_serve_mesh
+
+    if args.mesh:
+        try:
+            spec = {}
+            for part in args.mesh.split(","):
+                name, _, size = part.partition("=")
+                spec[name.strip()] = int(size)
+            MeshSpec(spec).resolve(n_ranks)  # loud fit check, result unused
+            return spec, False
+        except ValueError as e:
+            logger.warning(
+                "--mesh %r does not fit the %d available devices (%s); "
+                "falling back to single-chip data-parallel serving",
+                args.mesh, n_ranks, e,
+            )
+            return {"data": -1}, True
+    return plan_serve_mesh(tp=args.tp, pp=args.pp, ep=args.ep, n_devices=n_ranks)
 
 
 def _overridden(kwargs: dict, args) -> dict:
@@ -100,10 +136,18 @@ def _overridden(kwargs: dict, args) -> dict:
 
 
 def bert_config(preset: ServePreset, args):
-    """The preset's :class:`BertConfig` with the CLI geometry overrides."""
+    """The preset's :class:`BertConfig` with the CLI geometry overrides and
+    the training run's layout flags: ``--moe-experts``/``--moe-topk``, and
+    ``--pp`` > 1 for the stacked encoder (whether or not the mesh keeps a
+    pipeline axis)."""
     from distributed_tensorflow_tpu_torch.models.bert import BertConfig
 
-    return BertConfig(**_overridden(preset.bert_kwargs, args))
+    kwargs = _overridden(preset.bert_kwargs, args)
+    if args.moe_experts:
+        kwargs.update(moe_experts=args.moe_experts, moe_topk=args.moe_topk)
+    if args.pp > 1:
+        kwargs["pipeline_parallel"] = args.pp
+    return BertConfig(**kwargs)
 
 
 def causal_config(preset: ServePreset, args):
@@ -121,8 +165,9 @@ def image_shape(preset: ServePreset, args) -> tuple[int, int, int]:
     return preset.image_shape
 
 
-def _build_engine(preset: ServePreset, args, recorder):
-    """Restore the checkpoint and build the preset's engine; returns
+def _build_engine(preset: ServePreset, args, recorder, mesh=None, device=None):
+    """Restore the checkpoint and build the preset's engine over ``mesh``
+    (None: one process) on ``device`` (default ``args.device``); returns
     ``(engine, make_payload, step)``."""
     from distributed_tensorflow_tpu_torch.ckpt import restore_serving_state
     from distributed_tensorflow_tpu_torch.serve import (
@@ -131,6 +176,7 @@ def _build_engine(preset: ServePreset, args, recorder):
     )
 
     weight_dtype = args.weight_dtype or None
+    device = args.device if device is None else device
     if preset.causal_kwargs is not None:
         from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLM
         from distributed_tensorflow_tpu_torch.serve import CausalLMEngine
@@ -140,7 +186,7 @@ def _build_engine(preset: ServePreset, args, recorder):
             args.ckpt_dir, weight_dtype=weight_dtype, num_heads=cfg.num_heads,
             recorder=recorder)
         engine = CausalLMEngine(
-            CausalLM(cfg, device="cpu"), params, args.device,
+            CausalLM(cfg, device="meta"), params, device, mesh=mesh,
             buckets=tuple(args.buckets), slots=args.slots, max_batch=args.max_batch,
             batch_tiers=tuple(args.batch_tiers), max_new_tokens=args.max_new_tokens,
             prefix_cache_mb=args.prefix_cache_mb, block_tokens=args.block_tokens,
@@ -166,7 +212,7 @@ def _build_engine(preset: ServePreset, args, recorder):
         # restored params into it and moves it to the serving device.
         model = getattr(train_cli, preset.image_factory)(shape, "cpu")
         engine = ImageClassifierEngine(
-            model, params, model_state, args.device, image_shape=shape,
+            model, params, model_state, device, mesh=mesh, image_shape=shape,
             max_batch=args.max_batch, batch_tiers=tuple(args.batch_tiers),
             top_k=args.top_k)
 
@@ -182,7 +228,7 @@ def _build_engine(preset: ServePreset, args, recorder):
         args.ckpt_dir, weight_dtype=weight_dtype, num_heads=cfg.num_heads,
         recorder=recorder)
     engine = BertInferenceEngine(
-        BertForPreTraining(cfg, device="cpu"), params, args.device,
+        BertForPreTraining(cfg, device="meta"), params, device, mesh=mesh,
         buckets=tuple(args.buckets), max_batch=args.max_batch,
         batch_tiers=tuple(args.batch_tiers), weight_dtype=weight_dtype)
     vocab = cfg.vocab_size
@@ -195,8 +241,30 @@ def _build_engine(preset: ServePreset, args, recorder):
     return engine, make_payload, step
 
 
-def build_serving_client(preset: ServePreset, args):
-    """Preset + flags -> (Client, payload_maker) over the restored ckpt."""
+def serving_mesh(preset: ServePreset, args):
+    """The job's serving mesh (built and made active on every rank), or None
+    for one process: the layout flags resolved against the job's ranks,
+    image presets kept data-parallel."""
+    from distributed_tensorflow_tpu_torch.parallel.mesh import (
+        build_mesh,
+        data_axes,
+        process_count,
+    )
+
+    spec, _ = _resolve_mesh_spec(args, process_count())
+    mesh = build_mesh(spec)
+    if preset.image_factory and set(mesh.axis_names) - set(data_axes(mesh)):
+        # Model parallelism is a BERT / causal-LM feature: an image model on
+        # model axes would compute the same thing on every rank of them.
+        logger.warning("--tp/--pp/--ep apply to BERT configs only; serving %s "
+                       "data-parallel", preset.name)
+        mesh = build_mesh({"data": -1})
+    return mesh if mesh.size > 1 else None
+
+
+def build_serving_client(preset: ServePreset, args, *, mesh=None, device=None):
+    """Preset + flags -> (Client, payload_maker) over the restored ckpt
+    (the leader's half of a serving group when ``mesh`` is given)."""
     from distributed_tensorflow_tpu_torch.obs.flightrec import FlightRecorder
     from distributed_tensorflow_tpu_torch.obs.slo import SloSpec
     from distributed_tensorflow_tpu_torch.obs.trace import Tracer
@@ -206,8 +274,9 @@ def build_serving_client(preset: ServePreset, args):
     recorder = FlightRecorder(
         capacity=fbuf, enabled=fbuf > 0, dump_dir=args.dump_dir or None,
     )
-    engine, make_payload, step = _build_engine(preset, args, recorder)
-    logger.info("restored %s step %d for serving on %s", preset.name, step, args.device)
+    engine, make_payload, step = _build_engine(preset, args, recorder, mesh, device)
+    logger.info("restored %s step %d for serving on %s (layout %s)", preset.name, step,
+                engine.device, engine.layout)
 
     buf = args.trace_buffer
     slo = SloSpec(
@@ -377,7 +446,45 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--fault-steps", type=int, default=1000,
                    help="decode-step horizon --fault-plan events are placed within when the "
                         "spec is key=value form")
-    for name, default in {**_FLEET_FLAGS, **_LAYOUT_FLAGS}.items():
+    # Serving layouts (see the module docstring); a layout that does not fit
+    # the job's ranks falls back to data-parallel serving with a warning.
+    p.add_argument("--mesh", default="",
+                   help="explicit serving mesh, e.g. 'data=2,model=2' (axes from "
+                        "parallel.mesh.AXIS_ORDER; one axis may be -1). Overrides "
+                        "--tp/--pp/--ep")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel (Megatron) ranks per engine; must divide "
+                        "num_heads and intermediate_size")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel stages per engine; the checkpoint must be a "
+                        "--pipeline-parallel=N run (stacked encoder)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel ranks per engine; needs a --moe-experts "
+                        "checkpoint divisible by it")
+    p.add_argument("--moe-experts", type=int, default=0,
+                   help="training run's --moe-experts (MoE ckpts)")
+    p.add_argument("--moe-topk", type=int, default=1, help="training run's --moe-topk")
+    p.add_argument("--global-batch", type=int, default=0,
+                   help="training run's --global-batch (only needed when the preset "
+                        "default doesn't match, e.g. pipeline runs validating "
+                        "microbatch divisibility)")
+    p.add_argument("--staleness", type=int, default=-1,
+                   help="training run's staleness (stale-mode ckpts)")
+    # The serving job's process group, as the train CLI takes it: one
+    # process a rank (a device is a process here).
+    p.add_argument("--coordinator-address", default="",
+                   help="multi-process bootstrap: coordinator ip:port of the serving "
+                        "job's process group (required for a manual launch)")
+    p.add_argument("--num-processes", type=int, default=0,
+                   help="multi-process bootstrap: total process count "
+                        "(with --coordinator-address)")
+    p.add_argument("--process-id", type=int, default=-1,
+                   help="multi-process bootstrap: this process's rank in "
+                        "[0, --num-processes); rank 0 leads, the others follow")
+    p.add_argument("--init-timeout", type=float, default=300.0,
+                   help="multi-process bootstrap: seconds the process group may take to "
+                        "form before the job fails")
+    for name, default in _FLEET_FLAGS.items():
         flag = "--" + name.replace("_", "-")
         if isinstance(default, bool):
             p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
@@ -399,10 +506,13 @@ def main(argv: list[str] | None = None):
     ]
     if set_fleet:
         parser.error(f"{', '.join(set_fleet)}: {_FLEET}")
-    set_layout = ["--" + k.replace("_", "-") for k, d in _LAYOUT_FLAGS.items()
-                  if getattr(args, k) != d]
-    if set_layout:
-        parser.error(f"{', '.join(set_layout)}: {_LAYOUT}")
+    if args.staleness < -1:
+        parser.error(f"--staleness must be >= -1 (-1: the preset's), got {args.staleness}")
+    if args.global_batch < 0:
+        parser.error(f"--global-batch must be >= 0 (0: the preset's), got {args.global_batch}")
+    for flag in ("tp", "pp", "ep", "moe_topk"):
+        if getattr(args, flag) < 1:
+            parser.error(f"--{flag.replace('_', '-')} must be >= 1")
     if args.weight_dtype and PRESETS[args.config].image_factory:
         parser.error("--weight-dtype is not supported for image serving (the "
                      "classifier forward has no dequantize step)")
@@ -416,7 +526,37 @@ def main(argv: list[str] | None = None):
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(name)s: %(message)s"
     )
-    client, make_payload = build_serving_client(PRESETS[args.config], args)
+    from distributed_tensorflow_tpu_torch.parallel.mesh import (
+        initialize_runtime,
+        shutdown_runtime,
+    )
+
+    preset = PRESETS[args.config]
+    # The serving job's process group: explicit flags, or a launcher's
+    # environment; neither is one process. A group that fails to form
+    # raises: the job never serves at one process instead.
+    device = initialize_runtime(
+        coordinator_address=args.coordinator_address or None,
+        num_processes=args.num_processes if args.num_processes > 0 else None,
+        process_id=args.process_id if args.process_id >= 0 else None,
+        device=args.device, timeout_s=args.init_timeout)
+    try:
+        mesh = serving_mesh(preset, args)
+        if mesh is None or mesh.rank == 0:
+            return _lead(preset, args, mesh, device)
+        engine, _, step = _build_engine(preset, args, None, mesh, device)
+        logger.info("serving group rank %d (%s, step %d): following the leader",
+                    mesh.rank, engine.layout, step)
+        return engine.follow()
+    finally:
+        shutdown_runtime()
+
+
+def _lead(preset: ServePreset, args, mesh, device) -> int:
+    """The leader's (or the one process's) serving: the client, then the
+    selftest or the HTTP front end; closing the client stops the
+    followers."""
+    client, make_payload = build_serving_client(preset, args, mesh=mesh, device=device)
     try:
         if args.selftest:
             return _selftest(client, make_payload, args.selftest)

@@ -53,8 +53,11 @@ unchanged (a stacked encoder sequentially on one process). A requested
 axis over which the workload shards no parameter (or no sequence), Ulysses
 over heads the axis does not divide, ``--moe-dispatch sharded`` without
 ``--expert-parallel`` > 1, a ``--moe-topk`` outside ``[1, experts]`` and
-per-shard rows the microbatches do not divide exit 2; the causal LM's
-tensor parallelism comes with Queue A item 6c.
+per-shard rows the microbatches do not divide exit 2. ``lm_base`` trains
+under ``--tensor-parallel N`` the same way (the causal LM's Megatron TP,
+:func:`..models.causal_lm.causal_param_specs`; its checkpoint holds the
+global tree and restores at any width); an expert or pipeline axis over
+it exits 2, as in the JAX CLI.
 
 Resilience: ``--resilient`` (``--max-restarts N``) runs the loop under
 :func:`..train.resilience.run_resilient`: SIGTERM/SIGINT stop at the next
@@ -417,11 +420,18 @@ def _build_causal_lm_workload(cfg_kwargs: dict):
         from distributed_tensorflow_tpu_torch.models.causal_lm import (
             CausalLM,
             CausalLMConfig,
+            causal_param_specs,
             make_causal_lm_eval_metrics,
             make_causal_lm_loss,
         )
+        from distributed_tensorflow_tpu_torch.parallel.mesh import active_mesh
 
         def make(device):
+            mesh = active_mesh()
+            tp = mesh.shape.get("model", 1)
+            if mesh.shape.get("expert", 1) > 1 or mesh.shape.get("pipeline", 1) > 1:
+                raise _Refusal("causal-LM workloads shard over data/model axes only "
+                               "(no MoE or pipeline decoder variant)")
             kwargs = dict(cfg_kwargs)
             if cfg.bert_layers:
                 kwargs["num_layers"] = cfg.bert_layers
@@ -430,6 +440,9 @@ def _build_causal_lm_workload(cfg_kwargs: dict):
                 kwargs["intermediate_size"] = 4 * cfg.bert_hidden
             if cfg.bert_vocab:
                 kwargs["vocab_size"] = cfg.bert_vocab
+            if tp > 1:
+                # Megatron TP: drawn global, this rank's slices kept.
+                kwargs.update(model_axis="model", model_parallel=tp)
             model_cfg = CausalLMConfig(**kwargs)
             model = CausalLM(model_cfg, device=device)
             data = SyntheticLM(SyntheticMLMConfig(
@@ -440,8 +453,10 @@ def _build_causal_lm_workload(cfg_kwargs: dict):
                 for _ in range(n_batches):
                     yield next(it)
 
+            params = dict(model.named_parameters())
             return {
-                "params": dict(model.named_parameters()),
+                "params": params,
+                "param_specs": causal_param_specs(params) if tp > 1 else None,
                 "model_state": {},
                 "loss_fn": make_causal_lm_loss(model),
                 "batches": lambda start_step=0: mlm_device_batches(
@@ -1038,9 +1053,6 @@ def main(argv: list[str] | None = None) -> int:
     if args.resilient and args.device_pool > 0:
         parser.error("--resilient does not compose with --device-pool (the pool is rebuilt "
                      "per restart and would replay positions 0..N-1)")
-    if args.tensor_parallel > 1 and args.config == "lm_base":
-        parser.error("--tensor-parallel: the causal LM's tensor parallelism is not ported "
-                     "to PyTorch yet (comes with Queue A item 6c)")
     if args.sp_impl == "ulysses" and args.seq_parallel > 1:
         from distributed_tensorflow_tpu_torch.models.bert import BertConfig
 

@@ -20,6 +20,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev} (cuda or cpu)")
+    elif dev.type not in ("cpu", "meta"):
+        # "meta": a template with no storage, whose every value the caller
+        # loads (the serving engines' models).
+        raise ValueError(f"unsupported device {dev} (cuda, cpu or meta)")
     return dev

@@ -249,22 +249,39 @@ def shard_params(state_dict: dict, specs: dict, mesh) -> dict:
     along ``dim`` and the part at this rank's coordinate on ``axis`` kept (a
     contiguous copy); the others are returned as they are. The JAX
     package's placement of a global tree under ``PartitionSpec``s, for one
-    rank."""
+    rank.
+
+    An int8-packed kernel (``{"_q8", "_q8_scale"}``, packed from the GLOBAL
+    kernel) cuts its ``_q8`` like the kernel; its scale, one a kernel row
+    (or a head-dim lane for q/k/v), is cut only where the kernel's rows
+    are, so a row-parallel kernel keeps its whole scale on every rank and a
+    column-parallel one takes its channels' scales, as the JAX package's
+    last-axis scales shard."""
+    from distributed_tensorflow_tpu_torch.models.quant import is_quantized_leaf
     from distributed_tensorflow_tpu_torch.parallel.mesh import coordinate
 
-    out = {}
-    for name, t in state_dict.items():
-        spec = specs.get(name)
-        if spec is None:
-            out[name] = t
-            continue
+    def cut(name, t, spec):
         for axis, dim in spec:
             n = mesh.shape[axis]
             if t.shape[dim] % n:
                 raise ValueError(f"{name}: dimension {dim} of size {t.shape[dim]} not "
                                  f"divisible by the {n}-way {axis!r} axis")
             t = t.chunk(n, dim)[coordinate(mesh, (axis,))]
-        out[name] = t.contiguous()
+        return t.contiguous()
+
+    out = {}
+    for name, t in state_dict.items():
+        spec = specs.get(name)
+        if spec is None:
+            out[name] = t
+        elif is_quantized_leaf(t):
+            q, s = t["_q8"], t["_q8_scale"]
+            per_row = s.numel() == q.shape[0]
+            out[name] = {"_q8": cut(name, q, spec),
+                         "_q8_scale": cut(name, s, [(a, d) for a, d in spec
+                                                    if d == 0 and per_row])}
+        else:
+            out[name] = cut(name, t, spec)
     return out
 
 

@@ -354,7 +354,11 @@ class MoeFfn(nn.Module):
         cfg = self.cfg
         b, l, h = x.shape
         tokens = x.reshape(b * l, h)
-        logits = F.linear(tokens.float(), self.router.weight.float())
+        # An int8-packed router (serving) dequantizes to the compute dtype,
+        # as the JAX engine's dequantize_params does; the logits stay f32.
+        router = (self.router.weight if getattr(self.router, "weight_q8", None) is None
+                  else _kernel(self.router, cfg.dtype))
+        logits = F.linear(tokens.float(), router.float())
         stats_axes = () if cfg.seq_axis is None else (cfg.seq_axis,)
         experts = {"w1": self.experts_w1, "b1": self.experts_b1, "w2": self.experts_w2,
                    "b2": self.experts_b2}
@@ -592,6 +596,8 @@ class BertForPreTraining(nn.Module):
             self.mlm_ln = LayerNorm(cfg.hidden_size, 1e-12, cfg.dtype)
             self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
             self.nsp_head = nn.Linear(cfg.hidden_size, 2)
+        if dev.type == "meta":
+            return  # a template: every value is loaded into it
         if generator is None:
             generator = torch.Generator(dev).manual_seed(seed)
         if _sharded(cfg):

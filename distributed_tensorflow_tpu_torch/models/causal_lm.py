@@ -58,7 +58,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from distributed_tensorflow_tpu_torch.device import resolve_device
-from distributed_tensorflow_tpu_torch.models.bert import LayerNorm, _linear, _RowLogSumExp
+from distributed_tensorflow_tpu_torch.models.bert import (
+    LayerNorm,
+    _linear,
+    _RowLogSumExp,
+    _tp_psum,
+    bert_param_specs,
+)
 from distributed_tensorflow_tpu_torch.models.quant import quantize_kv
 
 _MASK_VALUE = -1e30
@@ -73,8 +79,11 @@ class CausalLMConfig:
     intermediate_size: int = 3072
     max_position: int = 512
     dtype: torch.dtype = torch.float32
-    # Megatron tensor parallelism: kept so configs carry over; raises when
-    # set (the model-parallel slice).
+    # Megatron tensor parallelism, BertConfig's contract: the parameters are
+    # drawn global and sliced (causal_param_specs); each rank runs
+    # num_heads / model_parallel heads and intermediate_size /
+    # model_parallel of the FFN, and sums the row-parallel outputs over
+    # model_axis of the active mesh.
     model_axis: str | None = None
     model_parallel: int = 1
 
@@ -84,11 +93,13 @@ class CausalLMConfig:
                 f"hidden_size {self.hidden_size} not divisible by "
                 f"num_heads {self.num_heads}"
             )
-        if self.model_axis is not None or self.model_parallel != 1:
-            raise NotImplementedError(
-                "CausalLMConfig model_axis/model_parallel (tensor parallelism) "
-                "are ported with the model-parallel slice"
-            )
+        tp = self.model_parallel
+        if tp < 1 or self.num_heads % tp or self.intermediate_size % tp:
+            raise ValueError(
+                f"model_parallel {tp} must divide num_heads {self.num_heads} and "
+                f"intermediate_size {self.intermediate_size}")
+        if tp > 1 and self.model_axis is None:
+            raise ValueError("model_parallel > 1 needs a model_axis")
 
 
 def causal_lm_base(**overrides) -> CausalLMConfig:
@@ -206,29 +217,34 @@ def _chunk_attention(q, k_cache, v_cache, position, k_scale=None, v_scale=None):
 
 
 class CausalSelfAttention(nn.Module):
-    """The BERT attention block: Q/K/V projections, the ``out`` projection
-    with its bias added after it, then post-LN."""
+    """The BERT attention block: column-parallel Q/K/V over this rank's
+    ``num_heads / model_parallel`` heads, the row-parallel ``out``
+    projection summed over the model axis with its bias added once, after
+    the sum, then post-LN."""
 
     def __init__(self, cfg: CausalLMConfig):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
         self.head_dim = h // cfg.num_heads
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
-        self.out = nn.Linear(h, h, bias=False)
+        self.local_heads = cfg.num_heads // cfg.model_parallel
+        local = self.local_heads * self.head_dim
+        self.query = nn.Linear(h, local)
+        self.key = nn.Linear(h, local)
+        self.value = nn.Linear(h, local)
+        self.out = nn.Linear(local, h, bias=False)
         self.out_bias = nn.Parameter(torch.zeros(h))
         self.ln = LayerNorm(h, 1e-12, cfg.dtype)
 
     def _qkv(self, x):
-        shape = (*x.shape[:-1], self.cfg.num_heads, self.head_dim)
+        shape = (*x.shape[:-1], self.local_heads, self.head_dim)
         dt = self.cfg.dtype
         return (_linear(x, self.query, dt).view(shape), _linear(x, self.key, dt).view(shape),
                 _linear(x, self.value, dt).view(shape))
 
     def _finish(self, x, ctx):
-        out = _linear(ctx.reshape(*ctx.shape[:-2], -1), self.out, self.cfg.dtype)
+        out = _tp_psum(self.cfg, _linear(ctx.reshape(*ctx.shape[:-2], -1), self.out,
+                                         self.cfg.dtype))
         out = out + self.out_bias.to(out.dtype)
         return self.ln(x + out)
 
@@ -268,21 +284,24 @@ class CausalSelfAttention(nn.Module):
 
 class CausalLmLayer(nn.Module):
     """Attention + FFN, both post-LN: BertLayer's shape with the cached
-    decode twins."""
+    decode twins. The FFN holds ``intermediate_size / model_parallel`` of
+    the hidden width; its row-parallel output is summed over the model
+    axis before ``output_bias``."""
 
     def __init__(self, cfg: CausalLMConfig):
         super().__init__()
         self.cfg = cfg
         self.attention = CausalSelfAttention(cfg)
-        self.intermediate = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.output = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False)
+        ff = cfg.intermediate_size // cfg.model_parallel
+        self.intermediate = nn.Linear(cfg.hidden_size, ff)
+        self.output = nn.Linear(ff, cfg.hidden_size, bias=False)
         self.output_bias = nn.Parameter(torch.zeros(cfg.hidden_size))
         self.ln = LayerNorm(cfg.hidden_size, 1e-12, cfg.dtype)
 
     def _ffn(self, x):
         dt = self.cfg.dtype
         y = F.gelu(_linear(x, self.intermediate, dt), approximate="tanh")
-        y = _linear(y, self.output, dt)
+        y = _tp_psum(self.cfg, _linear(y, self.output, dt))
         y = y + self.output_bias.to(y.dtype)
         return self.ln(x + y)
 
@@ -303,25 +322,43 @@ class CausalLM(nn.Module):
     Parameters are created on ``device`` (default the card; raises without
     one) and drawn from ``generator`` (default: seeded with ``seed``) with
     the JAX package's initialisers: normal(0.02) kernels and embeddings,
-    zero biases, unit LayerNorm scales. See the module docstring for the
-    five forwards and the cache layout.
+    zero biases, unit LayerNorm scales. Under tensor parallelism
+    (``model_parallel > 1``) they are drawn for the unsharded model and
+    this rank's slices kept (:func:`causal_param_specs`, the active mesh's
+    coordinates), so every width starts from the same global parameters.
+    The tied head and the embeddings stay whole on every rank. See the
+    module docstring for the five forwards and the cache layout; under TP
+    the caches hold this rank's ``num_heads / model_parallel`` heads.
     """
 
     def __init__(self, cfg: CausalLMConfig, *, device="cuda", generator=None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.word = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.position = nn.Embedding(cfg.max_position, cfg.hidden_size)
-        self.embed_ln = LayerNorm(cfg.hidden_size, 1e-12, cfg.dtype)
-        self.layers = nn.ModuleList(CausalLmLayer(cfg) for _ in range(cfg.num_layers))
-        self.lm_transform = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.lm_ln = LayerNorm(cfg.hidden_size, 1e-12, cfg.dtype)
-        self.lm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+        # Made on the device: every value below is drawn or loaded anew.
+        with dev:
+            self.word = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+            self.position = nn.Embedding(cfg.max_position, cfg.hidden_size)
+            self.embed_ln = LayerNorm(cfg.hidden_size, 1e-12, cfg.dtype)
+            self.layers = nn.ModuleList(CausalLmLayer(cfg) for _ in range(cfg.num_layers))
+            self.lm_transform = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+            self.lm_ln = LayerNorm(cfg.hidden_size, 1e-12, cfg.dtype)
+            self.lm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
         _pin_ieee_f32()
-        self.to(dev)
+        if dev.type == "meta":
+            return  # a template: every value is loaded into it
         if generator is None:
             generator = torch.Generator(dev).manual_seed(seed)
+        if cfg.model_parallel > 1:
+            from distributed_tensorflow_tpu_torch.interop import shard_params
+            from distributed_tensorflow_tpu_torch.parallel.mesh import active_mesh
+
+            full = CausalLM(dataclasses.replace(cfg, model_axis=None, model_parallel=1),
+                            device=dev, generator=generator)
+            self.load_state_dict(shard_params(
+                full.state_dict(), causal_param_specs(full.state_dict(), cfg.model_axis),
+                active_mesh()))
+            return
         with torch.no_grad():
             for mod in self.modules():
                 if isinstance(mod, (nn.Linear, nn.Embedding)):
@@ -386,6 +423,16 @@ class CausalLM(nn.Module):
         token, columns 1.. the drafts; dead columns carry ``Lc``. This IS
         ``prefill_chunk`` with ``C = K + 1``."""
         return self.prefill_chunk(tokens, positions, k_cache, v_cache)
+
+
+def causal_param_specs(params, model_axis: str | None = "model") -> dict:
+    """The causal LM's Megatron-TP sharding (JAX ``causal_param_specs``):
+    the block reuses BERT's leaf names, so it is :func:`..bert.
+    bert_param_specs`' suffix rules with the expert and pipeline families
+    off. Embeddings, LayerNorms, the post-sum biases and the tied head stay
+    replicated."""
+    return bert_param_specs(params, model_axis=model_axis, expert_axis=None,
+                            pipeline_axis=None)
 
 
 # ---------------------------------------------------------------- sampling

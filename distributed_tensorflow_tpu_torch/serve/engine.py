@@ -1,17 +1,17 @@
 """Inference engines: checkpoint-loaded forwards over warmed shape grids.
 
-Port of the JAX package's ``serve/engine.py`` on one device: the BERT
-engine (MLM scoring / embeddings, float or int8 weights), the causal-LM
-decode engine (:class:`CausalLMEngine`, a slot-addressed KV cache on the
-device driven cell by cell) and the image classifier
-(:class:`ImageClassifierEngine`, top-k). For the BERT engine: every
-(batch tier x sequence bucket) cell the engine will ever run is warmed at
-STARTUP by one forward at that shape, timed into a :class:`CompileRecord`,
-so ``grid_status``/``warm_fraction`` keep their meaning (the JAX engine
-AOT-compiled one executable per cell; capturing each cell as a CUDA graph
-is later work). Requests pad up to the smallest bucket that fits
-(``buckets``, default {128, 256, 512} clamped to ``max_position``); partial
-batches pad with inert rows to the SMALLEST batch tier that holds them.
+Port of the JAX package's ``serve/engine.py``: the BERT engine (MLM scoring
+/ embeddings, float or int8 weights), the causal-LM decode engine
+(:class:`CausalLMEngine`, a slot-addressed KV cache on the device driven
+cell by cell) and the image classifier (:class:`ImageClassifierEngine`,
+top-k). For the BERT engine: every (batch tier x sequence bucket) cell the
+engine will ever run is warmed at STARTUP by one forward at that shape,
+timed into a :class:`CompileRecord`, so ``grid_status``/``warm_fraction``
+keep their meaning (the JAX engine AOT-compiled one executable per cell;
+capturing each cell as a CUDA graph is later work). Requests pad up to the
+smallest bucket that fits (``buckets``, default {128, 256, 512} clamped to
+``max_position``); partial batches pad with inert rows to the SMALLEST
+batch tier that holds them.
 
 The request path is split ``dispatch -> fetch``: ``dispatch`` fills pooled
 host staging buffers (pinned on a card), copies them to the device without
@@ -21,20 +21,30 @@ batch's CUDA event — the only synchronisation point — and slices per-row
 results. The batcher overlaps batch k+1's assembly with batch k's device
 work through that split.
 
-Layout: DP-only with ``data=1`` (``layout == "single"``): the model sits
-whole on one device. The tensor, expert and pipeline layouts come with the
-model-parallel slice.
+Layouts. Without ``mesh`` an engine serves from one process (``layout ==
+"single"``). With ``mesh``, the job's active mesh of a process group
+(:func:`..parallel.mesh.build_mesh`), every rank builds the same engine and
+serves its shard through a :class:`~.group.ServingGroup`: rank 0 leads, the
+others ``follow()`` (see :mod:`.group`). The BERT engine serves Megatron TP
+(``"model"``), replicated-dispatch expert parallelism (``"expert"``) and
+the GPipe pipeline (``"pipeline"``, the stacked checkpoint); the causal LM
+serves TP; the image engine data parallelism. A tier's rows split over the
+``"data"`` ranks when the tier divides them, and are replicated when it
+does not (the JAX engine's ``_batch_sharding_or_replicated``); the leader
+gathers them. :func:`plan_serve_mesh` picks the layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import threading
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.models.quant import (
@@ -68,16 +78,18 @@ def plan_serve_mesh(
     """Serving-mesh spec for the requested model parallelism, with graceful
     degradation: returns ``(spec, fell_back)``.
 
-    The model axes need ``tp * pp * ep`` devices (default
+    The model axes need ``tp * pp * ep`` ranks of the serving job (default
+    its process count when a process group is up, else
     ``torch.cuda.device_count()``) and the remainder goes to data
-    parallelism, so the product must divide the device count. When it
-    does not, serving falls back to one device a replica, data-parallel,
-    with a warning: a wrong-sized ``--tp`` degrades to slower serving and
-    never dies at startup. It only plans: the engines that serve the
-    tensor, expert and pipeline layouts come with the model-parallel slice.
+    parallelism, so the product must divide the ranks. When it does not,
+    serving falls back to ``{"data": -1}`` with a warning: a wrong-sized
+    ``--tp`` degrades to slower serving and never dies at startup. The
+    engines serve the spec's mesh over a :class:`~.group.ServingGroup`.
     """
     if n_devices is None:
-        n_devices = torch.cuda.device_count()
+        from distributed_tensorflow_tpu_torch.parallel.mesh import process_count
+
+        n_devices = process_count() if dist.is_initialized() else torch.cuda.device_count()
     need = max(tp, 1) * max(pp, 1) * max(ep, 1)
     if need <= 1:
         return {"data": -1}, False
@@ -140,7 +152,10 @@ class CompileRecord:
 class _AotEngine:
     """Shared plumbing: the warm-up grid, the tier ladder, the staging-buffer
     pool and per-dispatch metrics (``self.metrics`` is wired by
-    :class:`serve.server.Client`; it stays ``None`` for bare engines).
+    :class:`serve.server.Client`; it stays ``None`` for bare engines), and
+    the serving group of a ``mesh`` (:mod:`.group`): cells run through
+    :meth:`_issue`, a follower serves in :meth:`follow`, :meth:`close`
+    stops the followers.
 
     Every grid-cell warm-up routes through :meth:`_compile_cell`, which
     times it into a :class:`CompileRecord`; :meth:`grid_status` aggregates
@@ -150,11 +165,19 @@ class _AotEngine:
 
     _RACETRACE_ATTRS = ("_buf_pool", "_compile_records", "_cells_planned")
 
-    def __init__(self, device, max_batch: int, batch_tiers=None, memory=None):
+    def __init__(self, device, max_batch: int, batch_tiers=None, memory=None, mesh=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        from distributed_tensorflow_tpu_torch.parallel.mesh import layout_label
+
         self.device = resolve_device(device)
-        self.layout = "single"
+        self.mesh = mesh
+        self.layout = "single" if mesh is None else layout_label(mesh)
+        self.group = None
+        if mesh is not None and mesh.size > 1:
+            from distributed_tensorflow_tpu_torch.serve.group import ServingGroup
+
+            self.group = ServingGroup(mesh)
         self.max_batch = max_batch
         self.batch_tiers = _normalize_tiers(batch_tiers, max_batch)
         self.metrics = None
@@ -164,6 +187,67 @@ class _AotEngine:
         self._grid_lock = threading.Lock()
         self._compile_records: list[CompileRecord] = []
         self._cells_planned = 0
+
+    def _axis(self, name: str) -> int:
+        return 1 if self.mesh is None else self.mesh.shape.get(name, 1)
+
+    # -- the serving group ----------------------------------------------
+
+    def _issue(self, op: str, *operands):
+        """Run cell ``_cell_<op>(*operands)``: through the group's channel
+        on the leader of a started group, directly otherwise."""
+        fn = getattr(self, f"_cell_{op}")
+        if self.group is None:
+            return fn(*operands)
+        return self.group.issue(op, operands, fn)
+
+    def _start_group(self) -> None:
+        if self.group is not None:
+            self.group.start()
+
+    def follow(self) -> int:
+        """A follower's serving loop: run the leader's cells until its stop;
+        returns 0."""
+        if self.group is None:
+            raise RuntimeError("a one-process engine has no leader to follow")
+        return self.group.follow(lambda op, operands: getattr(self, f"_cell_{op}")(*operands))
+
+    def close(self) -> None:
+        """Stop the followers (the leader's ``Client.close()`` calls this)."""
+        if self.group is not None:
+            self.group.stop()
+
+    def _to_device(self, *host):
+        """Host operands (tensors, pinned on the leader, or arrays) on the
+        device, copied without blocking."""
+        return [torch.as_tensor(h).to(self.device, non_blocking=True) for h in host]
+
+    def _data_rows(self, tier: int) -> slice | None:
+        """This rank's rows of a ``tier``-row batch: a contiguous split over
+        the data axes when the tier divides them, None (every rank runs
+        every row) when it does not or there are none."""
+        if self.mesh is None:
+            return None
+        from distributed_tensorflow_tpu_torch.parallel.mesh import coordinate, data_axes
+
+        axes = data_axes(self.mesh)
+        dp = math.prod(self.mesh.shape[a] for a in axes)
+        if dp <= 1 or tier % dp:
+            return None
+        n = tier // dp
+        c = coordinate(self.mesh, axes)
+        return slice(c * n, (c + 1) * n)
+
+    def _gather_rows(self, out: dict) -> dict:
+        """Every output's rows of all data ranks, in order (each rank's
+        slice from :meth:`_data_rows`), on every rank."""
+        from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+        from distributed_tensorflow_tpu_torch.parallel.mesh import axis_group, data_axes
+
+        axes = data_axes(self.mesh)
+        dp = math.prod(self.mesh.shape[a] for a in axes)
+        group = axis_group(self.mesh, axes)
+        return {k: coll._gather(v.contiguous(), group, dp, 0) for k, v in out.items()}
 
     # -- warm-up grid observability --------------------------------------
 
@@ -249,11 +333,12 @@ class _AotEngine:
             self._buf_pool.setdefault(key, []).append(buffers)
 
     def mesh_info(self) -> dict:
-        """Topology digest (``GET /statusz``)."""
+        """Topology digest (``GET /statusz``): the layout this engine serves,
+        the axis sizes behind it, and the ranks one batch spans."""
         return {
             "layout": self.layout,
-            "mesh_shape": {"data": 1},
-            "devices_per_engine": 1,
+            "mesh_shape": {"data": 1} if self.mesh is None else dict(self.mesh.shape),
+            "devices_per_engine": 1 if self.mesh is None else self.mesh.size,
             "platform": "gpu" if self.device.type == "cuda" else "cpu",
         }
 
@@ -285,6 +370,13 @@ def _convert_params(params: dict, weight_dtype: str, cfg) -> dict:
     if torch_dtype(weight_dtype) != cfg.dtype:
         return cast_params(params, torch_dtype(weight_dtype))
     return params
+
+
+def _template_device(model) -> str:
+    """Where to rebuild an engine's template for its layout: on the meta
+    device when the caller's template has no storage (nothing is drawn),
+    else on the CPU (drawn global, this rank's slices kept)."""
+    return "meta" if next(model.parameters()).is_meta else "cpu"
 
 
 def serving_params(model) -> dict:
@@ -335,10 +427,21 @@ class BertInferenceEngine(_AotEngine):
     """MLM scoring / masked-token prediction / sentence embedding over a
     :class:`~..models.bert.BertForPreTraining`.
 
-    ``model`` supplies the architecture and config; ``params`` is the state
-    dict to serve (from :func:`~..ckpt.restore_serving_state`). The engine
-    loads ``params`` into ``model`` and moves it to ``device`` (the card by
-    default; ``device="cpu"`` must be asked for).
+    ``model`` supplies the architecture and config (its axis-free, global
+    form); ``params`` is the GLOBAL state dict to serve (from
+    :func:`~..ckpt.restore_serving_state`). The engine loads ``params`` into
+    ``model`` and moves it to ``device`` (the card by default;
+    ``device="cpu"`` must be asked for).
+
+    With ``mesh`` (see the module docstring) the model binds the mesh's
+    model axes (:meth:`_serve_config`): Megatron TP (``num_heads`` and
+    ``intermediate_size`` divisible by it), replicated-dispatch expert
+    parallelism (``moe_experts`` divisible by it) and the GPipe pipeline
+    (the stacked ``pipeline_parallel == axis size`` model; each tier runs
+    ``M = gcd(local rows, configured M)`` microbatches). int8 packs the
+    global tree, then each rank keeps its slice
+    (:func:`~..interop.shard_params`), so every scale is the one the
+    whole kernel gives.
 
     Request payload (one example per request): ``input_ids [l]``,
     optional ``token_type_ids [l]`` and ``mlm_targets [l]`` (-1 =
@@ -353,6 +456,7 @@ class BertInferenceEngine(_AotEngine):
         params: dict,
         device="cuda",
         *,
+        mesh=None,
         buckets: tuple[int, ...] = (128, 256, 512),
         max_batch: int = 8,
         batch_tiers: tuple[int, ...] | None = None,
@@ -360,12 +464,25 @@ class BertInferenceEngine(_AotEngine):
         weight_dtype: str | None = None,
         memory=None,
     ):
-        super().__init__(device, max_batch, batch_tiers, memory=memory)
-        cfg = model.cfg
-        self.weight_dtype = self._plan_quant(cfg, weight_dtype=weight_dtype)
+        super().__init__(device, max_batch, batch_tiers, memory=memory, mesh=mesh)
+        tp, ep, pp = (self._axis(a) for a in ("model", "expert", "pipeline"))
+        serve_cfg = self._serve_config(model.cfg, tp, ep, pp)
+        if serve_cfg != model.cfg:
+            # This rank's shapes; the checkpoint's slices replace every value.
+            model = type(model)(serve_cfg, device=_template_device(model))
+        cfg = serve_cfg
+        self.weight_dtype = self._plan_quant(cfg, tp=tp, ep=ep, pp=pp,
+                                             weight_dtype=weight_dtype)
         params = _convert_params(params, self.weight_dtype, cfg)
         if is_quantized_tree(params):
             self.weight_dtype = "int8"
+        if tp > 1 or ep > 1 or pp > 1:
+            from distributed_tensorflow_tpu_torch.interop import shard_params
+            from distributed_tensorflow_tpu_torch.models.bert import bert_param_specs
+
+            params = shard_params(params, bert_param_specs(
+                params, "model" if tp > 1 else None, "expert" if ep > 1 else None,
+                "pipeline" if pp > 1 else None), self.mesh)
         self.buckets = tuple(sorted({min(int(b), cfg.max_position) for b in buckets}))
         if not self.buckets:
             raise ValueError("need at least one sequence bucket")
@@ -378,8 +495,11 @@ class BertInferenceEngine(_AotEngine):
             fp32_nbytes=fp32_equiv_nbytes(self.params),
         )
         self._forward = _make_bert_forward(self.model, return_logits)
+        self._microbatches = ((cfg.pipeline_microbatches or 4 * cfg.pipeline_parallel)
+                              if cfg.pipelined else 0)
         # Warm every (tier, bucket) cell NOW: startup pays the first-call
         # costs (kernel build and load, allocator growth), requests do not.
+        # Every rank of a group warms the same cells in the same order.
         self._plan_cells(len(self.batch_tiers) * len(self.buckets))
         for T in self.batch_tiers:
             for L in self.buckets:
@@ -387,30 +507,95 @@ class BertInferenceEngine(_AotEngine):
                     f"bert/{self.layout}/t{T}/b{L}",
                     lambda T=T, L=L: self._warm(T, L),
                 )
+        self._start_group()
         logger.info(
-            "BERT engine ready: device=%s buckets=%s tiers=%s (%d cells)",
-            self.device, self.buckets, self.batch_tiers,
+            "BERT engine ready: layout=%s device=%s buckets=%s tiers=%s (%d cells)",
+            self.layout, self.device, self.buckets, self.batch_tiers,
             len(self.batch_tiers) * len(self.buckets),
         )
 
     @staticmethod
-    def _plan_quant(cfg, *, weight_dtype: str | None = None) -> str:
-        """Validate the weight-quantization knob and return the concrete
-        dtype name (``None`` resolves to the model's compute dtype)."""
+    def _plan_quant(cfg, *, tp: int = 1, ep: int = 1, pp: int = 1,
+                    weight_dtype: str | None = None) -> str:
+        """Validate the weight-quantization knob for this config and layout
+        and return the concrete dtype name (``None`` resolves to the model's
+        compute dtype). int8 under a pipeline axis raises (the JAX rule: the
+        stacked kernels' per-channel scales would span the stages), and so
+        does int8 of a stacked encoder served sequentially. A mixture of
+        experts goes int8 at one process or under EP: the dense kernels
+        (the router's too) pack and the ``experts_*`` stacks stay fp32."""
+        del tp, ep
         w = normalize_quant_dtype(weight_dtype, "weight_dtype")
-        if w == "int8" and (getattr(cfg, "moe_experts", 0) or getattr(cfg, "stacked", False)):
-            # As the JAX engine rejects int8 for the stacked pipeline model:
-            # per-channel scales of a stacked kernel would span its layers.
-            raise ValueError("int8 weights serve the dense module-list BERT only, not a "
-                             "mixture-of-experts or stacked-encoder model")
+        if w == "int8" and pp > 1:
+            raise ValueError(
+                f"weight_dtype=int8 does not support the stacked "
+                f"pipeline-parallel variant (pipeline axis of {pp}): "
+                "per-channel scales would span pipeline stages"
+            )
+        if w == "int8" and getattr(cfg, "stacked", False):
+            raise ValueError("int8 weights do not serve a stacked-encoder model: the "
+                             "per-channel scales of a stacked kernel would span its layers")
         return w or str(cfg.dtype).removeprefix("torch.")
 
-    @torch.inference_mode()
+    @staticmethod
+    def _serve_config(cfg, tp: int, ep: int, pp: int):
+        """Bind the model config to the mesh's model axes, with the JAX
+        engine's checks and messages: loudly, at startup, never as a shape
+        error mid-request."""
+        if tp > 1:
+            if cfg.num_heads % tp or cfg.intermediate_size % tp:
+                raise ValueError(
+                    f"model axis of {tp} must divide num_heads "
+                    f"({cfg.num_heads}) and intermediate_size "
+                    f"({cfg.intermediate_size})"
+                )
+            cfg = dataclasses.replace(cfg, model_axis="model", model_parallel=tp)
+        if ep > 1:
+            if not cfg.moe_experts or cfg.moe_experts % ep:
+                raise ValueError(
+                    f"expert axis of {ep} needs a MoE model with "
+                    f"moe_experts divisible by it (got {cfg.moe_experts})"
+                )
+            # Replicated dispatch: every expert shard routes the full batch
+            # and partial outputs psum — exact, and free of the capacity
+            # all-to-all's batch-layout requirements (serving batches are
+            # tiny).
+            cfg = dataclasses.replace(cfg, expert_axis="expert", expert_parallel=ep,
+                                      moe_dispatch="replicated")
+        if pp > 1:
+            if cfg.pipeline_parallel != pp:
+                raise ValueError(
+                    f"pipeline axis of {pp} needs the stacked "
+                    f"pipeline_parallel={pp} model/checkpoint (got "
+                    f"pipeline_parallel={cfg.pipeline_parallel}); pass the "
+                    "training run's --pipeline-parallel to cli/serve"
+                )
+            cfg = dataclasses.replace(cfg, pipeline_axis="pipeline")
+        return cfg
+
     def _warm(self, T: int, L: int):
-        z = torch.zeros((T, L), dtype=torch.int32, device=self.device)
-        mask = torch.zeros((T, L), dtype=torch.bool, device=self.device)
+        z = torch.zeros((T, L), dtype=torch.int32)
+        mask = torch.zeros((T, L), dtype=torch.bool)
         mask[:, 0] = True
-        return self._forward(z, mask, z, z - 1)
+        return self._cell_dispatch(T, L, z, mask, z, z - 1)
+
+    @torch.inference_mode()
+    def _cell_dispatch(self, T: int, L: int, *host):
+        """The forward of one (tier, bucket) cell on this rank's rows of the
+        host batch, the outputs of every row gathered over the data ranks."""
+        dev = self._to_device(*host)
+        rows = self._data_rows(T)
+        if rows is not None:
+            dev = [d[rows] for d in dev]
+        if self._microbatches:
+            # GPipe needs M | rows: per tier, the largest M dividing both the
+            # rank's rows and the configured M (a 1-row shard runs M = 1).
+            m = math.gcd(dev[0].shape[0], self._microbatches)
+            enc = self.model.bert.encoder
+            if enc.cfg.pipeline_microbatches != m:
+                enc.cfg = dataclasses.replace(enc.cfg, pipeline_microbatches=m)
+        out = self._forward(*dev)
+        return self._gather_rows(out) if rows is not None else out
 
     def bucket_for(self, length: int) -> int:
         for b in self.buckets:
@@ -487,9 +672,8 @@ class BertInferenceEngine(_AotEngine):
                 targets[r, :l] = np.asarray(p["mlm_targets"], np.int32)
         mask[len(payloads):, 0] = True
         t_assembled = time.monotonic()
+        out = self._issue("dispatch", T, L, *buffers[:4])
         with torch.inference_mode():
-            dev = [b.to(self.device, non_blocking=True) for b in buffers[:4]]
-            out = self._forward(*dev)
             host_out = dict(zip(self._OUT_KEYS, buffers[4:]))
             for k, h in host_out.items():
                 h.copy_(out[k], non_blocking=True)
@@ -808,8 +992,18 @@ class CausalLMEngine(_AotEngine):
     ``weight_dtype="int8"`` packs kernels (idempotent: a tree
     ``restore_serving_state`` packed passes through); ``kv_dtype="int8"``
     stores cache and pool pages as ``{"q", "s"}``. ``device`` defaults to
-    the card; ``device="cpu"`` must be asked for. One device a replica:
-    the tensor-parallel layout comes with the model-parallel slice.
+    the card; ``device="cpu"`` must be asked for.
+
+    With ``mesh`` (tensor parallelism only, as the JAX engine; see the
+    module docstring) each rank holds ``num_heads / tp`` heads of every
+    cache, pool page and page stage (an int8 cache's scale planes, one a
+    position, have no head axis and are each rank's own); every other
+    operand is replicated over the group. The logits after the model
+    axis's sum are the same on every rank, so each rank samples the same
+    tokens and the leader's fetch is the answer. Page exports gather the
+    heads onto the leader and imports take the whole heads, so a stage's
+    geometry does not depend on the layout; ``kv_bytes_per_token`` stays
+    global.
     """
 
     def __init__(
@@ -834,16 +1028,27 @@ class CausalLMEngine(_AotEngine):
         weight_dtype: str | None = None,
         kv_dtype: str | None = None,
         memory=None,
+        mesh=None,
     ):
         if slots < 1:
             raise ValueError(f"need at least one cache slot, got {slots}")
-        super().__init__(device, min(max_batch, slots), batch_tiers, memory=memory)
-        cfg = model.cfg
+        super().__init__(device, min(max_batch, slots), batch_tiers, memory=memory, mesh=mesh)
+        tp = self._tp = self._axis("model")
+        serve_cfg = self._serve_config(model.cfg, tp, self._axis("expert"),
+                                       self._axis("pipeline"))
+        if serve_cfg != model.cfg:
+            model = type(model)(serve_cfg, device=_template_device(model))
+        cfg = serve_cfg
         self.weight_dtype, self.kv_dtype = self._plan_quant(
-            cfg, weight_dtype=weight_dtype, kv_dtype=kv_dtype)
+            cfg, tp=tp, weight_dtype=weight_dtype, kv_dtype=kv_dtype)
         params = _convert_params(params, self.weight_dtype, cfg)
         if is_quantized_tree(params):
             self.weight_dtype = "int8"
+        if tp > 1:
+            from distributed_tensorflow_tpu_torch.interop import shard_params
+            from distributed_tensorflow_tpu_torch.models.causal_lm import causal_param_specs
+
+            params = shard_params(params, causal_param_specs(params), self.mesh)
         self._kv_quantized = self.kv_dtype == "int8"
         self._kv_store_dtype = cfg.dtype if self._kv_quantized else torch_dtype(self.kv_dtype)
         load_params(model, params)
@@ -857,7 +1062,7 @@ class CausalLMEngine(_AotEngine):
         # rejects requests that could not fit before they enqueue.
         self.cache_len = min(self.buckets[-1] + max_new_tokens, cfg.max_position)
         self.max_new_tokens = max_new_tokens
-        self.spec_tokens = self._plan_spec(cfg, spec_tokens=spec_tokens,
+        self.spec_tokens = self._plan_spec(cfg, tp=tp, spec_tokens=spec_tokens,
                                            min_match=spec_min_match,
                                            max_new_tokens=max_new_tokens)
         # The continuous batcher drafts against this config (serve/spec.py)
@@ -868,7 +1073,7 @@ class CausalLMEngine(_AotEngine):
             if self.spec_tokens > 0 else None
         )
 
-        heads, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        heads, hd = cfg.num_heads // tp, cfg.hidden_size // cfg.num_heads
         cache_shape = (cfg.num_layers, slots, self.cache_len + 1, heads, hd)
         self._cache_k = self._kv_zeros(cache_shape)
         self._cache_v = self._kv_zeros(cache_shape)
@@ -903,7 +1108,7 @@ class CausalLMEngine(_AotEngine):
                 | {self.prefill_chunk_size}))
             self._max_chain = max(1, self.buckets[-1] // self.block_tokens)
             n_blocks, self._bytes_per_block = self._plan_prefix_cache(
-                cfg, prefix_cache_mb=prefix_cache_mb, block_tokens=self.block_tokens,
+                cfg, tp=tp, prefix_cache_mb=prefix_cache_mb, block_tokens=self.block_tokens,
                 kv_dtype=self.kv_dtype)
             if prefix_cache_mb > 0:
                 self.prefix_cache = KVBlockPool(n_blocks, self.block_tokens,
@@ -974,10 +1179,11 @@ class CausalLMEngine(_AotEngine):
                                lambda: self.import_slot_pages(
                                    0, *self.export_slot_pages(0),
                                    last_token=int(self._last_token[0])))
+        self._start_group()
         logger.info(
-            "causal-LM engine ready: device=%s slots=%d cache_len=%d buckets=%s "
+            "causal-LM engine ready: layout=%s device=%s slots=%d cache_len=%d buckets=%s "
             "tiers=%s chunk=%s pool_blocks=%s spec_k=%s (%d cells)",
-            self.device, slots, self.cache_len, self.buckets, self.batch_tiers,
+            self.layout, self.device, slots, self.cache_len, self.buckets, self.batch_tiers,
             self.prefill_chunk_size or None, self._pool_blocks if self._has_pool else None,
             self.spec_tokens or None, n_cells,
         )
@@ -985,13 +1191,45 @@ class CausalLMEngine(_AotEngine):
     # -- planning (the JAX engine's static validators) -------------------
 
     @staticmethod
-    def _plan_prefix_cache(cfg, *, prefix_cache_mb: float = 0.0,
+    def _serve_config(cfg, tp: int = 1, ep: int = 1, pp: int = 1):
+        """Bind the decode model to the mesh's model axes, TP only (the JAX
+        engine's checks and messages): the slot cache has no expert routing
+        and a pipelined decode step would bubble most of every token."""
+        if ep > 1:
+            raise ValueError(
+                f"expert axis of {ep}: the decode engine does not support "
+                "expert parallelism (no MoE decoder variant)"
+            )
+        if pp > 1:
+            raise ValueError(
+                f"pipeline axis of {pp}: the decode engine does not support "
+                "pipeline parallelism (a one-token step cannot fill a "
+                "GPipe schedule)"
+            )
+        if tp > 1:
+            if cfg.num_heads % tp or cfg.intermediate_size % tp:
+                raise ValueError(
+                    f"model axis of {tp} must divide num_heads "
+                    f"({cfg.num_heads}) and intermediate_size "
+                    f"({cfg.intermediate_size})"
+                )
+            cfg = dataclasses.replace(cfg, model_axis="model", model_parallel=tp)
+        return cfg
+
+    @staticmethod
+    def _plan_prefix_cache(cfg, *, tp: int = 1, prefix_cache_mb: float = 0.0,
                            block_tokens: int = 16,
                            kv_dtype: str | None = None) -> tuple[int, int]:
         """Size and validate the prefix-page pool: ``(n_blocks,
-        bytes_per_block)``; a budget below one block raises at startup."""
+        bytes_per_block)``; a budget below one block, or a TP width that
+        cannot split the pages' head axis, raises at startup."""
         if block_tokens < 1:
             raise ValueError(f"block_tokens must be >= 1, got {block_tokens}")
+        if tp > 1 and cfg.num_heads % tp:
+            raise ValueError(
+                f"model axis of {tp} must divide num_heads "
+                f"({cfg.num_heads}) to shard prefix-cache pages"
+            )
         kv = (normalize_quant_dtype(kv_dtype, "kv_dtype")
               or str(cfg.dtype).removeprefix("torch."))
         if kv == "int8":
@@ -1009,10 +1247,12 @@ class CausalLMEngine(_AotEngine):
         return n_blocks, bytes_per_block
 
     @staticmethod
-    def _plan_spec(cfg, *, spec_tokens: int = 0, min_match: int = 2,
+    def _plan_spec(cfg, *, tp: int = 1, spec_tokens: int = 0, min_match: int = 2,
                    max_new_tokens: int = 32) -> int:
         """Validate the speculation knobs; returns the verify width ``k``
-        (0 = off)."""
+        (0 = off). ``tp`` adds no constraint (the verify cell shards as
+        decode does)."""
+        del tp
         if spec_tokens < 0:
             raise ValueError(f"spec_tokens must be >= 0, got {spec_tokens}")
         if spec_tokens == 0:
@@ -1029,10 +1269,13 @@ class CausalLMEngine(_AotEngine):
         return int(spec_tokens)
 
     @staticmethod
-    def _plan_quant(cfg, *, weight_dtype: str | None = None,
+    def _plan_quant(cfg, *, tp: int = 1, weight_dtype: str | None = None,
                     kv_dtype: str | None = None) -> tuple[str, str]:
         """Validate the quantization knobs; returns concrete ``(weight_dtype,
-        kv_dtype)`` names (``None`` resolves to the model's compute dtype)."""
+        kv_dtype)`` names (``None`` resolves to the model's compute dtype).
+        ``tp`` adds no constraint: packed kernels shard like the kernels
+        they replace and the KV scale planes have no head axis."""
+        del tp
         w = normalize_quant_dtype(weight_dtype, "weight_dtype")
         k = normalize_quant_dtype(kv_dtype, "kv_dtype")
         default = str(cfg.dtype).removeprefix("torch.")
@@ -1116,18 +1359,17 @@ class CausalLMEngine(_AotEngine):
         return self.bucket_for(n)
 
     # -- dispatch (the decode loop's thread only: the cells write the
-    # -- engine's device state, single-writer by contract) ---------------
+    # -- engine's device state, single-writer by contract). Each entry
+    # -- point packs its host operands, then runs its ``_cell_*`` through
+    # -- ``_issue`` (a group's followers run the same cells) -------------
 
-    def _to_device(self, *host):
-        return [h.to(self.device, non_blocking=True) for h in host]
-
-    def _launch(self, key, buffers, n, meta, cell, *args) -> InFlightBatch:
-        """Run ``cell`` under inference mode, copy its token output into a
-        pinned host buffer and record the event :meth:`fetch_step` waits
-        on."""
+    def _launch(self, key, buffers, n, meta, op, *operands) -> InFlightBatch:
+        """Run cell ``op`` on the host ``operands``, copy its token output
+        into a pinned host buffer and record the event :meth:`fetch_step`
+        waits on."""
         t_assembled = time.monotonic()
+        tok = self._issue(op, *operands)
         with torch.inference_mode():
-            tok = cell(*args)
             host = self._host_empty(tuple(tok.shape), torch.int32)
             host.copy_(tok, non_blocking=True)
         event = None
@@ -1136,6 +1378,26 @@ class CausalLMEngine(_AotEngine):
             event.record(torch.cuda.current_stream(self.device))
         return InFlightBatch(out={"tok": host}, key=key, n=n, meta=meta, buffers=buffers,
                              layout=self.layout, event=event, t_assembled=t_assembled)
+
+    @torch.inference_mode()
+    def _cell_prefill(self, T: int, L: int, *host):
+        return self._prefill_cells[T, L](self._cache_k, self._cache_v, self._last_buf,
+                                         *self._to_device(*host))
+
+    @torch.inference_mode()
+    def _cell_prefill_chunks(self, T: int, C: int, *host):
+        return self._chunk_cells[T, C](self._cache_k, self._cache_v, self._last_buf,
+                                       self._pool_k, self._pool_v, *self._to_device(*host))
+
+    @torch.inference_mode()
+    def _cell_decode(self, *host):
+        return self._decode_cell(self._cache_k, self._cache_v, self._last_token,
+                                 *self._to_device(*host))
+
+    @torch.inference_mode()
+    def _cell_verify(self, *host):
+        return self._verify_cell(self._cache_k, self._cache_v, self._last_token,
+                                 *self._to_device(*host))
 
     def prefill(self, admissions: list[dict]) -> InFlightBatch:
         """Admit up to a tier of requests into their assigned slots.
@@ -1174,8 +1436,7 @@ class CausalLMEngine(_AotEngine):
         mask[len(admissions):, 0] = True
         self._record_dispatch(T, L, len(admissions))
         return self._launch(key, buffers, len(admissions), [int(s) for s in slot_ix[:len(lens)]],
-                            self._prefill_cells[T, L], self._cache_k, self._cache_v,
-                            self._last_buf, *self._to_device(*buffers))
+                            "prefill", T, L, *buffers)
 
     def prefill_chunks(self, rows: list[dict]) -> InFlightBatch:
         """Dispatch ONE prefill chunk for up to a tier of admitted slots.
@@ -1224,18 +1485,13 @@ class CausalLMEngine(_AotEngine):
             temps[r] = float(row.get("temperature", 0.0))
             seeds[r] = int(row.get("seed", 0))
         self._record_dispatch(T, C, len(rows))
-        ids_d, starts_d, lengths_d, chain_d, ng_d, slots_d, temps_d, seeds_d = (
-            self._to_device(*buffers))
         return self._launch(key, buffers, len(rows), [int(s) for s in slot_ix[:len(rows)]],
-                            self._chunk_cells[T, C], self._cache_k, self._cache_v,
-                            self._last_buf, self._pool_k, self._pool_v, ids_d, starts_d,
-                            lengths_d, chain_d, ng_d, slots_d, temps_d, seeds_d)
+                            "prefill_chunks", T, C, *buffers)
 
     def _require_pool(self) -> None:
         if not self._has_pool:
             raise RuntimeError("engine has no prefix cache (prefix_cache_mb=0)")
 
-    @torch.inference_mode()
     def insert_prefix(self, slot: int, blocks: list[tuple[int, int]]) -> None:
         """Publish a fully-prefilled slot's prefix pages into the pool:
         ``blocks`` are ``(block_id, block_index)`` pairs. Dispatch-only;
@@ -1251,56 +1507,96 @@ class CausalLMEngine(_AotEngine):
         pos.fill(0)
         for j, (bid, bix) in enumerate(blocks):
             ids[j], pos[j] = int(bid), int(bix)
-        # A pinned source copies without waiting on the device: the loop
-        # thread that publishes never stalls behind the steps in flight.
-        ids_d, pos_d = host.to(self.device, non_blocking=True)
-        self._insert_cell(self._pool_k, self._pool_v, self._cache_k, self._cache_v, int(slot),
-                          ids_d, pos_d)
+        self._issue("insert_prefix", int(slot), host)
 
     @torch.inference_mode()
+    def _cell_insert_prefix(self, slot: int, host):
+        # A pinned source copies without waiting on the device: the loop
+        # thread that publishes never stalls behind the steps in flight.
+        ids_d, pos_d = torch.as_tensor(host).to(self.device, non_blocking=True)
+        self._insert_cell(self._pool_k, self._pool_v, self._cache_k, self._cache_v, slot,
+                          ids_d, pos_d)
+
+    def _gather_heads(self, stage):
+        """A page stage of this rank's heads -> the whole heads (all-gathered
+        over the model axis, on every rank); an int8 stage's scale plane is
+        this rank's (the leader's on the leader), as the JAX engine's
+        replicated scale spec returns one shard's."""
+        if self._tp <= 1:
+            return stage
+        from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+        from distributed_tensorflow_tpu_torch.parallel.mesh import axis_group
+
+        group = axis_group(self.mesh, "model")
+
+        def gather(x):
+            return coll._gather(x.contiguous(), group, self._tp, x.dim() - 2)
+        if isinstance(stage, dict):
+            return {"q": gather(stage["q"]), "s": stage["s"]}
+        return gather(stage)
+
+    def _local_heads(self, x):
+        """This rank's heads of a whole-head page leaf (head axis -2)."""
+        if self._tp <= 1:
+            return x
+        from distributed_tensorflow_tpu_torch.parallel.mesh import coordinate
+
+        return x.chunk(self._tp, dim=x.dim() - 2)[coordinate(self.mesh, ("model",))]
+
     def export_prefix_pages(self, blocks: list[int]):
         """Gather published pool pages for a PINNED chain of block ids:
         ``(k, v)`` stages ``[nl, max_chain, block_tokens, heads, head_dim]``
-        on the device, the chain's pages in order, pad lanes repeating
-        block 0. Needs ``kv_transfer=True``. Reads only; in-place writes
-        never free a buffer here, so it needs no retry loop."""
+        on the device (every head: a group gathers them), the chain's pages
+        in order, pad lanes repeating block 0. Needs ``kv_transfer=True``.
+        Reads only; in-place writes never free a buffer here, so it needs no
+        retry loop."""
         if not self._kv_transfer:
             raise RuntimeError("engine built without kv_transfer=True (no pool-export cell)")
         M = self._max_chain
         if len(blocks) > M:
             raise ValueError(f"exporting {len(blocks)} blocks exceeds max chain {M}")
-        idx = np.zeros((M,), np.int64)
-        idx[:len(blocks)] = blocks
-        return self._export_cell(self._pool_k, self._pool_v,
-                                 torch.from_numpy(idx).to(self.device))
+        idx = torch.zeros((M,), dtype=torch.int64)
+        idx[:len(blocks)] = torch.as_tensor(list(blocks), dtype=torch.int64)
+        return self._issue("export_prefix_pages", idx)
 
     @torch.inference_mode()
+    def _cell_export_prefix_pages(self, idx):
+        k, v = self._export_cell(self._pool_k, self._pool_v, idx.to(self.device))
+        return self._gather_heads(k), self._gather_heads(v)
+
     def import_prefix_pages(self, blocks: list[tuple[int, int]], pages_k, pages_v) -> None:
         """Adopt transferred KV pages into the pool: ``blocks`` are
         ``(block_id, chain_index)`` pairs; ``pages_*`` are ``[nl, max_chain,
-        block_tokens, heads, head_dim]`` stages (host or device tensors, or
-        numpy; ``{"q", "s"}`` at int8). Needs ``kv_transfer=True``."""
+        block_tokens, heads, head_dim]`` stages of every head (host or
+        device tensors, or numpy; ``{"q", "s"}`` at int8). Needs
+        ``kv_transfer=True``."""
         if not self._kv_transfer:
             raise RuntimeError("engine built without kv_transfer=True (no pool-import cell)")
         M = self._max_chain
         if len(blocks) > M:
             raise ValueError(f"importing {len(blocks)} blocks exceeds max chain {M}")
-        ids = np.full((M,), self._pool_blocks, np.int64)
+        ids = torch.full((M,), self._pool_blocks, dtype=torch.int64)
         for bid, cix in blocks:
             if not 0 <= int(cix) < M:
                 raise ValueError(f"chain index {cix} outside the {M}-lane page stage")
             ids[int(cix)] = int(bid)
+        self._issue("import_prefix_pages", ids, pages_k, pages_v)
+
+    @torch.inference_mode()
+    def _cell_import_prefix_pages(self, ids, pages_k, pages_v):
         self._import_cell(self._pool_k, self._pool_v, self._stage(pages_k),
-                          self._stage(pages_v), torch.from_numpy(ids).to(self.device))
+                          self._stage(pages_v), ids.to(self.device))
 
     def _stage(self, pages):
-        """A received page stage on the device, in the cache's storage."""
+        """A received page stage on the device, in the cache's storage, cut
+        to this rank's heads."""
         def put(x, like):
             return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x
                                    ).to(self.device, like.dtype)
         if isinstance(self._cache_k, dict):
-            return {k: put(pages[k], self._cache_k[k]) for k in ("q", "s")}
-        return put(pages, self._cache_k)
+            return {"q": self._local_heads(put(pages["q"], self._cache_k["q"])),
+                    "s": put(pages["s"], self._cache_k["s"])}
+        return self._local_heads(put(pages, self._cache_k))
 
     def _warm_import(self):
         k, v = self.export_prefix_pages([])
@@ -1308,42 +1604,49 @@ class CausalLMEngine(_AotEngine):
 
     def page_meta(self) -> dict:
         """Static page geometry the wire format stamps into its header: two
-        pools are transfer-compatible iff these match."""
+        pools are transfer-compatible iff these match (whole heads, at any
+        layout)."""
         self._require_pool()
         nl, _, bt, heads, hd = _kv_leaf(self._pool_k).shape
         return {
-            "num_layers": int(nl), "block_tokens": int(bt), "heads": int(heads),
+            "num_layers": int(nl), "block_tokens": int(bt), "heads": int(heads) * self._tp,
             "head_dim": int(hd),
             # int8 pools report int8 (the q payload's dtype).
             "dtype": str(_kv_leaf(self._pool_k).dtype).removeprefix("torch."),
             "max_chain": int(self._max_chain),
         }
 
-    @torch.inference_mode()
     def export_slot_pages(self, slot: int):
         """Checkpoint ONE live slot's KV lane: ``(k, v)`` stages ``[nl,
-        cache_len, heads, head_dim]`` on the device. Needs
+        cache_len, heads, head_dim]`` on the device, every head. Needs
         ``stream_migrate=True``."""
         if self._slot_export_cell is None:
             raise RuntimeError("engine built without stream_migrate=True (no slot-export cell)")
-        return self._slot_export_cell(self._cache_k, self._cache_v, int(slot))
+        return self._issue("export_slot_pages", int(slot))
 
     @torch.inference_mode()
+    def _cell_export_slot_pages(self, slot: int):
+        k, v = self._slot_export_cell(self._cache_k, self._cache_v, slot)
+        return self._gather_heads(k), self._gather_heads(v)
+
     def import_slot_pages(self, slot: int, pages_k, pages_v, last_token: int) -> None:
-        """Adopt a migrated stream's KV lane into ``slot`` and seed
-        ``last_token[slot]``, so the next decode step continues it. Needs
-        ``stream_migrate=True``."""
+        """Adopt a migrated stream's KV lane (every head) into ``slot`` and
+        seed ``last_token[slot]``, so the next decode step continues it.
+        Needs ``stream_migrate=True``."""
         if self._slot_import_cell is None:
             raise RuntimeError("engine built without stream_migrate=True (no slot-import cell)")
+        self._issue("import_slot_pages", int(slot), pages_k, pages_v, int(last_token))
+
+    @torch.inference_mode()
+    def _cell_import_slot_pages(self, slot: int, pages_k, pages_v, last_token: int):
         self._slot_import_cell(self._cache_k, self._cache_v, self._last_buf,
-                               self._stage(pages_k), self._stage(pages_v), int(slot),
-                               int(last_token))
+                               self._stage(pages_k), self._stage(pages_v), slot, last_token)
 
     def stream_page_meta(self) -> dict:
         """Slot-lane geometry the stream wire format stamps into its header."""
         nl, _, lc1, heads, hd = _kv_leaf(self._cache_k).shape
-        return {"num_layers": int(nl), "cache_len": int(lc1 - 1), "heads": int(heads),
-                "head_dim": int(hd),
+        return {"num_layers": int(nl), "cache_len": int(lc1 - 1),
+                "heads": int(heads) * self._tp, "head_dim": int(hd),
                 "dtype": str(_kv_leaf(self._cache_k).dtype).removeprefix("torch.")}
 
     def decode(self, lengths, active, temps, seeds) -> InFlightBatch:
@@ -1357,9 +1660,7 @@ class CausalLMEngine(_AotEngine):
             self._host_empty((s,), torch.float32), self._host_empty((s,), torch.int32)))
         for b, src in zip(buffers, (lengths, active, temps, seeds)):
             np.copyto(b.numpy(), src)
-        return self._launch(key, buffers, int(np.sum(active)), None, self._decode_cell,
-                            self._cache_k, self._cache_v, self._last_token,
-                            *self._to_device(*buffers))
+        return self._launch(key, buffers, int(np.sum(active)), None, "decode", *buffers)
 
     def verify(self, drafts, lengths, n_input, temps, seeds) -> InFlightBatch:
         """Dispatch ONE speculative verify step over the full slot table.
@@ -1377,13 +1678,12 @@ class CausalLMEngine(_AotEngine):
         for b, src in zip(buffers, (drafts, lengths, n_input, temps, seeds)):
             np.copyto(b.numpy(), src)
         return self._launch(key, buffers, int(np.sum(np.asarray(n_input) > 0)), None,
-                            self._verify_cell, self._cache_k, self._cache_v,
-                            self._last_token, *self._to_device(*buffers))
+                            "verify", *buffers)
 
     def fetch_step(self, inflight: InFlightBatch) -> np.ndarray:
         """Wait for a step's sampled-token vector (or a verify step's
         ``[slots, k + 1]`` matrix): the ONE synchronisation point of the
-        decode path."""
+        decode path (the leader's only: it runs no collective)."""
         if inflight.event is not None:
             inflight.event.synchronize()
         tok = inflight.out["tok"].numpy().copy()
@@ -1393,7 +1693,8 @@ class CausalLMEngine(_AotEngine):
         return tok
 
     # -- warm-up: each cell once at its shape, on inputs that change no
-    # -- state (padding rows, idle lanes, spare blocks) --------------------
+    # -- state (padding rows, idle lanes, spare blocks); every rank of a
+    # -- group runs them itself, in one order --------------------------
 
     def _warm_prefill(self, T: int, L: int):
         """A prefill of ``T`` padding rows at bucket ``L``: every write lands
@@ -1403,9 +1704,7 @@ class CausalLMEngine(_AotEngine):
                    torch.zeros((T,), dtype=torch.int32), torch.zeros((T,), dtype=torch.float32),
                    torch.zeros((T,), dtype=torch.int32))
         buffers[1][:, 0] = True
-        return self.fetch_step(self._launch(
-            ("warm",), None, 0, [], self._prefill_cells[T, L], self._cache_k, self._cache_v,
-            self._last_buf, *self._to_device(*buffers)))
+        return self.fetch_step(self._launch(("warm",), None, 0, [], "prefill", T, L, *buffers))
 
     def _warm_chunk(self, T: int, C: int):
         z = torch.zeros((T,), dtype=torch.int32)
@@ -1413,29 +1712,23 @@ class CausalLMEngine(_AotEngine):
                    torch.zeros((T, self._max_chain), dtype=torch.int32), z,
                    torch.full((T,), self.slots, dtype=torch.int32),
                    torch.zeros((T,), dtype=torch.float32), z)
-        dev = self._to_device(*buffers)
-        inflight = self._launch(("warm",), None, 0, [], self._chunk_cells[T, C], self._cache_k,
-                                self._cache_v, self._last_buf, self._pool_k, self._pool_v, *dev)
-        return self.fetch_step(inflight)
+        return self.fetch_step(self._launch(("warm",), None, 0, [], "prefill_chunks", T, C,
+                                            *buffers))
 
     def _warm_decode(self):
         s = self.slots
-        inflight = self._launch(
-            ("warm",), None, 0, None, self._decode_cell, self._cache_k, self._cache_v,
-            self._last_token, *self._to_device(
-                torch.zeros((s,), dtype=torch.int32), torch.zeros((s,), dtype=torch.bool),
-                torch.zeros((s,), dtype=torch.float32), torch.zeros((s,), dtype=torch.int32)))
-        return self.fetch_step(inflight)
+        return self.fetch_step(self._launch(
+            ("warm",), None, 0, None, "decode", torch.zeros((s,), dtype=torch.int32),
+            torch.zeros((s,), dtype=torch.bool), torch.zeros((s,), dtype=torch.float32),
+            torch.zeros((s,), dtype=torch.int32)))
 
     def _warm_verify(self):
         s = self.slots
         z = torch.zeros((s,), dtype=torch.int32)
-        inflight = self._launch(
-            ("warm",), None, 0, None, self._verify_cell, self._cache_k, self._cache_v,
-            self._last_token, *self._to_device(
-                torch.zeros((s, self.spec_tokens), dtype=torch.int32), z, z,
-                torch.zeros((s,), dtype=torch.float32), z))
-        return self.fetch_step(inflight)
+        return self.fetch_step(self._launch(
+            ("warm",), None, 0, None, "verify",
+            torch.zeros((s, self.spec_tokens), dtype=torch.int32), z, z,
+            torch.zeros((s,), dtype=torch.float32), z))
 
 
 class ImageClassifierEngine(_AotEngine):
@@ -1445,7 +1738,9 @@ class ImageClassifierEngine(_AotEngine):
 
     Request payload: ``image`` ``[H, W, C]`` float32 at the engine's
     geometry (one image "bucket"). Response: ``top_ids [k]``,
-    ``top_probs [k]``. ``device`` defaults to the card.
+    ``top_probs [k]``. ``device`` defaults to the card. A ``mesh`` serves
+    data parallelism only: a tier's rows split over the group's ranks
+    where they divide (see the module docstring).
     """
 
     def __init__(
@@ -1460,8 +1755,13 @@ class ImageClassifierEngine(_AotEngine):
         batch_tiers: tuple[int, ...] | None = None,
         top_k: int = 5,
         memory=None,
+        mesh=None,
     ):
-        super().__init__(device, max_batch, batch_tiers, memory=memory)
+        super().__init__(device, max_batch, batch_tiers, memory=memory, mesh=mesh)
+        if mesh is not None and mesh.size != math.prod(
+                mesh.shape.get(a, 1) for a in ("replica", "data")):
+            raise ValueError(f"image serving is data-parallel only; got the mesh "
+                             f"{dict(mesh.shape)}")
         if any(is_quantized_leaf(v) for v in params.values()):
             raise ValueError("image serving has no int8 mode (the classifier forward "
                              "has no dequantize step)")
@@ -1481,11 +1781,11 @@ class ImageClassifierEngine(_AotEngine):
         outs = [
             self._compile_cell(
                 f"image/{self.layout}/t{T}",
-                lambda T=T: self._forward(
-                    torch.zeros((T, *self.image_shape), device=self.device)))
+                lambda T=T: self._cell_dispatch(T, torch.zeros((T, *self.image_shape))))
             for T in self.batch_tiers
         ]
         self._k = outs[0]["top_ids"].shape[-1]  # top_k clamped to the classes
+        self._start_group()
         logger.info("image engine ready: device=%s shape=%s tiers=%s top_k=%d",
                     self.device, self.image_shape, self.batch_tiers, top_k)
 
@@ -1497,6 +1797,13 @@ class ImageClassifierEngine(_AotEngine):
         probs = torch.softmax(logits.float(), dim=-1)
         top_probs, top_ids = torch.topk(probs, min(self.top_k, probs.shape[-1]), dim=-1)
         return {"top_ids": top_ids.to(torch.int32), "top_probs": top_probs}
+
+    @torch.inference_mode()
+    def _cell_dispatch(self, T: int, images):
+        (image,) = self._to_device(images)
+        rows = self._data_rows(T)
+        out = self._forward(image if rows is None else image[rows])
+        return self._gather_rows(out) if rows is not None else out
 
     def validate(self, payload: dict) -> None:
         img = np.asarray(payload.get("image", ()))
@@ -1520,7 +1827,7 @@ class ImageClassifierEngine(_AotEngine):
         for r, p in enumerate(payloads):
             imgs[r] = np.asarray(p["image"], np.float32)
         t_assembled = time.monotonic()
-        out = self._forward(buffers[0].to(self.device, non_blocking=True))
+        out = self._issue("dispatch", T, buffers[0])
         host = {"top_ids": buffers[1], "top_probs": buffers[2]}
         for key, h in host.items():
             h.copy_(out[key], non_blocking=True)

@@ -272,6 +272,10 @@ class Client:
     def close(self) -> None:
         self.health.mark_closed()
         self.batcher.close()
+        # A serving group's leader stops its followers (serve/group.py).
+        stop = getattr(self.engine, "close", None)
+        if callable(stop):
+            stop()
 
     def __enter__(self):
         return self

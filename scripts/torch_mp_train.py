@@ -57,6 +57,15 @@ dispatch's groups, one a rank).
 ``bert_base_l512`` (the preset pins 128, where the ring's local 64 keys
 run dense attention) and the process group on gloo (``--backend`` is not a
 CLI flag: several ranks on one card need it).
+
+``--serve ARGS... [--launch-log FILE]`` runs ``cli.serve.main(ARGS)`` as
+one rank of a serving group on gloo, with two presets registered for the
+card's checks: ``bert_base_l512_f32`` (BERT-base at 512 positions, fp32
+compute) and ``lm_base_f32`` (``lm_base`` in fp32). At exit it writes
+``FILE``: the exit code, the flash kernels' launches since the engine's
+warm-up ended, the collectives' seconds and calls over the same span
+(each call between two synchronisations, as the training layouts time
+them) and the serving group's control-channel digest.
 """
 
 from __future__ import annotations
@@ -407,11 +416,51 @@ def run_cli(argv: list[str]) -> int:
     return cli.main(argv)
 
 
+def run_serve(argv: list[str]) -> int:
+    from distributed_tensorflow_tpu_torch.cli import serve as cli
+    from distributed_tensorflow_tpu_torch.serve import engine as engine_mod
+
+    log = None
+    if "--launch-log" in argv:
+        i = argv.index("--launch-log")
+        log = Path(argv[i + 1])
+        del argv[i:i + 2]
+    cli.PRESETS["bert_base_l512_f32"] = cli.ServePreset(
+        "bert_base_l512_f32", bert_kwargs=dict(max_position=512, dropout_rate=0.1,
+                                               dtype=torch.float32))
+    cli.PRESETS["lm_base_f32"] = cli.ServePreset(
+        "lm_base_f32", causal_kwargs=dict(max_position=128, dtype=torch.float32))
+    mesh_lib.initialize_runtime = functools.partial(mesh_lib.initialize_runtime,
+                                                    backend="gloo")
+    timer = CommTimer(torch.device("cuda" if torch.cuda.is_available() else "cpu"))
+    engines = []
+    start = engine_mod._AotEngine._start_group
+
+    def started(engine):
+        # The end of the warm-up: count what the served requests launch.
+        fm.reset_launch_counts()
+        timer.on = True
+        engines.append(engine)
+        start(engine)
+
+    engine_mod._AotEngine._start_group = started
+    rc = cli.main(argv)
+    if log is not None:
+        group = engines[-1].group if engines else None
+        log.write_text(json.dumps({
+            "rc": rc, "launches": {k: fm.LAUNCHES[k] for k in FLASH},
+            "comm_s": timer.seconds, "comm_calls": timer.calls,
+            "group": group.status() if group is not None else None}))
+    return rc
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "--cli":
         return run_cli(argv[1:])
+    if argv and argv[0] == "--serve":
+        return run_serve(argv[1:])
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--world", type=int, required=True)
     p.add_argument("--rank", type=int, required=True)

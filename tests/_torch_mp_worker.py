@@ -61,7 +61,24 @@ torch, numpy and the port, and saves its results to
   ``sharded`` and ``dp4_moe`` runs; the ``pp_ep`` run's
   checkpoint in ``OUT_DIR/ppep_ckpt``; then ``cli.train.main`` under
   ``--moe-experts 4 --expert-parallel 2 --pipeline-parallel 2`` (dropout off)
-  and two requests it refuses.
+  and two requests it refuses;
+- ``serve_mesh`` (4 ranks, ``tests/test_torch_serve_mesh.py``): a
+  :data:`SERVE_BERT_GEOM` BERT served by ``BertInferenceEngine`` over a
+  serving group under each of :data:`SERVE_LAYOUTS` (TP, EP and PP, each
+  beside a data axis of 2, and TP and EP at int8): rank 0 leads and
+  answers 1 and 4 of :func:`serve_payloads`, the others follow; the TP
+  engine also behind a ``Client`` and ``/statusz``. Then ``cli.serve.main``
+  with ``ARGV_JSON`` as a 4-rank group on the next port;
+- ``causal_tp`` (2 ranks, ``tests/test_torch_causal_tp.py``): on a
+  ``{"data": 1, "model": 2}`` mesh the :data:`CAUSAL_TP_GEOM` causal LM
+  trained 2 SGD steps under TP on :func:`lm_batch`; the decode engine,
+  the prefix-cache engine and the int8 weights + KV engine over a serving
+  group, rank 0 running the JAX tests' mixed, shared-prefix and
+  teacher-forced request sets (and the page export/import cells, whole
+  heads on the wire, round trip); then ``cli.train --config lm_base
+  --tensor-parallel 2`` and ``cli.serve --tp 2 --selftest`` on its
+  checkpoint, each as a group on the next port; last, a group whose
+  follower exits (code 3) after warm-up, and the leader's next cells.
 """
 
 from __future__ import annotations
@@ -889,6 +906,322 @@ def job_elastic(rank: int, world: int, ports: list[int], argv, out_dir: Path) ->
     return out
 
 
+
+# ------------------------------------------------------------ serving groups
+
+
+def seeded_state(template: dict, seed: int, scale: float) -> dict:
+    """A state dict of ``template``'s names and shapes drawn with numpy from
+    ``seed``: LayerNorm scales ``1 + 0.1 N``, every other leaf ``scale *
+    N``, in f32 (wide enough that greedy choices have clear margins)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in template.items():
+        a = (1.0 + 0.1 * rng.standard_normal(tuple(v.shape)) if k.endswith("ln.weight")
+             else scale * rng.standard_normal(tuple(v.shape)))
+        out[k] = torch.from_numpy(a.astype(np.float32))
+    return out
+
+
+# The JAX tests/test_serve_mesh.py geometry: heads 4 and FFN 64 split 2 ways.
+SERVE_BERT_GEOM = dict(vocab_size=64, hidden_size=32, num_layers=1, num_heads=4,
+                       intermediate_size=64, max_position=32, dropout_rate=0.0)
+# serve_mesh's layouts: (mesh, BertConfig fields of the checkpoint, weight dtype).
+SERVE_LAYOUTS = {
+    "tp": ({"data": 2, "model": 2}, {}, None),
+    "ep": ({"data": 2, "expert": 2}, dict(moe_experts=4, moe_topk=1, moe_capacity_factor=4.0),
+           None),
+    "pp": ({"data": 2, "pipeline": 2}, dict(num_layers=2, pipeline_parallel=2), None),
+    "tp_int8": ({"data": 2, "model": 2}, {}, "int8"),
+    "ep_int8": ({"data": 2, "expert": 2}, dict(moe_experts=4, moe_topk=1, moe_capacity_factor=4.0),
+                "int8"),
+}
+# The MoE layouts run at a capacity factor of the expert count: no token is
+# dropped, so routing the rows of one data rank (tier 4) and routing them
+# all (the one-process engine) give the same answer.
+# Tier 1 replicates its row over the data ranks, tier 4 splits them.
+SERVE_ENGINE_KW = dict(buckets=(32,), max_batch=4, batch_tiers=(1, 4))
+
+
+def serve_bert(over: dict):
+    """``(template model, seeded global state dict)`` of a serve_mesh
+    checkpoint (a pipeline config's encoder stacked)."""
+    from distributed_tensorflow_tpu_torch.models import bert
+
+    model = bert.BertForPreTraining(bert.BertConfig(**{**SERVE_BERT_GEOM, **over}),
+                                    device="cpu")
+    return model, seeded_state(model.state_dict(), 5, 0.2)
+
+
+def serve_payloads(n: int = 4, vocab: int = 64) -> list:
+    """The JAX test's ``_payloads``: ``n`` requests of 6..30 tokens."""
+    rng = np.random.default_rng(0)
+    return [{"input_ids": ids, "mlm_targets": ids}
+            for ids in (rng.integers(5, vocab, size=int(n_))
+                        for n_ in rng.integers(6, 31, size=n))]
+
+
+def _client_statusz(engine, payloads: list) -> dict:
+    """The engine behind a ``Client`` and the HTTP front end: every payload
+    served, then ``/statusz``; closing the client stops the followers."""
+    import threading
+    import urllib.request
+
+    from distributed_tensorflow_tpu_torch.obs.metrics import ServeMetrics
+    from distributed_tensorflow_tpu_torch.serve import BatcherConfig, Client, build_http_server
+
+    m = ServeMetrics()
+    with Client(engine, BatcherConfig(max_batch=4, max_delay_ms=2.0), metrics=m) as client:
+        server = build_http_server(client, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            for f in [client.submit(p) for p in payloads]:
+                f.result(timeout=60)
+            base = "http://{}:{}".format(*server.server_address)
+            with urllib.request.urlopen(base + "/statusz", timeout=10) as r:
+                status = json.loads(r.read())
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=10)
+    return {"snapshot": m.snapshot(), "statusz": status, "group": engine.group.status()}
+
+
+def job_serve_mesh(rank: int, world: int, ports: list[int], argv, out_dir: Path) -> dict:
+    from distributed_tensorflow_tpu_torch.cli import serve as serve_cli
+    from distributed_tensorflow_tpu_torch.parallel.mesh import build_mesh
+    from distributed_tensorflow_tpu_torch.serve import BertInferenceEngine
+
+    initialize_runtime(f"127.0.0.1:{ports[0]}", world, rank, device="cpu", timeout_s=60)
+    out = {}
+    for name, (spec, over, wd) in SERVE_LAYOUTS.items():
+        mesh = build_mesh(spec)
+        model, params = serve_bert(over)
+        engine = BertInferenceEngine(model, params, "cpu", mesh=mesh, weight_dtype=wd,
+                                     **SERVE_ENGINE_KW)
+        if rank:
+            assert engine.follow() == 0
+            continue
+        payloads = serve_payloads()
+        out[name] = {"layout": engine.layout, "mesh_info": engine.mesh_info(),
+                     "moe_dispatch": engine.model.cfg.moe_dispatch,
+                     "weight_dtype": engine.weight_dtype,
+                     "results": {n: engine.run_batch(payloads[:n]) for n in (1, 4)}}
+        if name == "tp":
+            out[name].update(_client_statusz(engine, serve_payloads(6)))
+        engine.close()
+    shutdown_runtime()
+    out["cli_rc"] = serve_cli.main(argv + [
+        "--coordinator-address", f"127.0.0.1:{ports[1]}", "--num-processes", str(world),
+        "--process-id", str(rank)])
+    return out
+
+
+CAUSAL_TP_GEOM = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,
+                      intermediate_size=64, max_position=48)
+CAUSAL_TP_KW = dict(buckets=(8, 16), slots=3, max_batch=2, max_new_tokens=8)
+CAUSAL_PREFIX_KW = dict(prefix_cache_mb=0.05, block_tokens=4, prefill_chunk=8)
+CAUSAL_TP_LR, CAUSAL_TP_STEPS = 0.1, 2
+LM_TP_CLI_ARGS = ["--config", "lm_base", "--bert-layers", "1", "--bert-hidden", "48",
+                  "--bert-vocab", "64", "--global-batch", "8", "--steps", "2",
+                  "--log-every", "1", "--tensor-parallel", "2", "--device", "cpu"]
+LM_SERVE_CLI_ARGS = ["--config=lm_base", "--device=cpu", "--bert-layers=1",
+                     "--bert-hidden=48", "--bert-vocab=64", "--slots=3", "--max-batch=2",
+                     "--buckets", "16", "32", "--max-new-tokens=8", "--selftest=4"]
+
+
+def causal_tp_params() -> dict:
+    """The seeded global state dict of the :data:`CAUSAL_TP_GEOM` LM."""
+    from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLM, CausalLMConfig
+
+    model = CausalLM(CausalLMConfig(**CAUSAL_TP_GEOM), device="cpu")
+    return seeded_state(model.state_dict(), 7, 0.15)
+
+
+def lm_batch(step: int) -> dict:
+    """A fixed next-token batch of 4 rows of 16 tokens, pads at the ends."""
+    rng = np.random.default_rng(40 + step)
+    ids = rng.integers(5, 64, size=(4, 16)).astype(np.int32)
+    mask = np.arange(16)[None, :] < rng.integers(10, 17, size=(4, 1))
+    return {"input_ids": ids * mask, "attention_mask": mask}
+
+
+def mixed_requests() -> list:
+    """The JAX ``_run_mixed_batch`` requests: 7 of 3..13 tokens, 2..8 new."""
+    rng = np.random.default_rng(0)
+    reqs = []
+    for _ in range(7):
+        plen = int(rng.integers(3, 14))
+        reqs.append({"input_ids": rng.integers(5, 64, size=plen),
+                     "max_new_tokens": int(rng.integers(2, 9))})
+    return reqs
+
+
+def shared_prefix_requests(seed: int, head_len: int = 12, n_tails: int = 3) -> list:
+    """The JAX ``_shared_prefix_reqs``: one 12-token head, short tails."""
+    rng = np.random.default_rng(seed)
+    head = rng.integers(5, 64, size=head_len)
+    return [{"input_ids": np.concatenate([head, rng.integers(5, 64, size=int(rng.integers(1, 4)))]),
+             "max_new_tokens": int(rng.integers(2, 7))} for _ in range(n_tails)]
+
+
+def greedy_reference(model, prompt, n: int) -> list:
+    """n greedy tokens by re-running the FULL causal forward of ``model``
+    after each appended token."""
+    toks = [int(t) for t in prompt]
+    out = []
+    with torch.inference_mode():
+        for _ in range(n):
+            ids = torch.tensor([toks])
+            nxt = int(model(ids, torch.ones_like(ids, dtype=torch.bool))[0, -1].argmax())
+            out.append(nxt)
+            toks.append(nxt)
+    return out
+
+
+def teacher_forced_agreement(engine, model, n_prompts: int = 3, n_steps: int = 6):
+    """The JAX ``_teacher_forced_agreement``: top-1 agreement of ``engine``
+    against ``model``'s full forward, each probe re-submitting the
+    reference prefix for 2 tokens (a prefill token and a decode token)."""
+    from distributed_tensorflow_tpu_torch.serve import BatcherConfig, ContinuousBatcher
+
+    rng = np.random.default_rng(23)
+    agree = total = 0
+    with ContinuousBatcher(engine, BatcherConfig(max_batch=2)) as b:
+        for _ in range(n_prompts):
+            p = rng.integers(5, 64, size=int(rng.integers(5, 10)))
+            ref = greedy_reference(model, p, n_steps)
+            for t in range(len(ref) - 1):
+                forced = np.concatenate([p, np.asarray(ref[:t], np.int64)])
+                got = b.submit({"input_ids": forced, "max_new_tokens": 2}).result(
+                    timeout=120)["tokens"]
+                agree += (got[0] == ref[t]) + (got[1] == ref[t + 1])
+                total += 2
+    return agree / total, total
+
+
+def _lm_streams(engine, requests: list, warm_first: bool = False) -> dict:
+    from distributed_tensorflow_tpu_torch.obs.metrics import ServeMetrics
+    from distributed_tensorflow_tpu_torch.serve import BatcherConfig, ContinuousBatcher
+
+    m = ServeMetrics()
+    with ContinuousBatcher(engine, BatcherConfig(max_batch=2, max_queue=32), metrics=m) as b:
+        first = (b.submit(dict(requests[0])).result(timeout=120)["tokens"]
+                 if warm_first else None)
+        results = [f.result(timeout=120) for f in [b.submit(dict(r)) for r in requests]]
+    return {"streams": [r["tokens"] for r in results], "first": first,
+            "prefix_hits": m.prefix_hits.value, "layout": engine.layout,
+            "mesh_info": engine.mesh_info()}
+
+
+def _page_round_trips(engine) -> dict:
+    """The page cells over the group: two pool blocks exported (every head,
+    gathered onto the leader), imported into the last two blocks and
+    exported again; slot 0's lane exported, imported into slot 1 and
+    exported again. Each second export must equal the first."""
+    n = engine._pool_blocks
+    k, v = engine.export_prefix_pages([0, 1])
+    engine.import_prefix_pages([(n - 2, 0), (n - 1, 1)], k, v)
+    k2, v2 = engine.export_prefix_pages([n - 2, n - 1])
+    sk, sv = engine.export_slot_pages(0)
+    engine.import_slot_pages(1, sk, sv, last_token=5)
+    sk2, sv2 = engine.export_slot_pages(1)
+    return {"page_heads": engine.page_meta()["heads"],
+            "stream_heads": engine.stream_page_meta()["heads"],
+            "stage_shape": tuple(k.shape), "slot_shape": tuple(sk.shape),
+            "pool_round_trip": bool(torch.equal(k[:, :2], k2[:, :2])
+                                    and torch.equal(v[:, :2], v2[:, :2])),
+            "slot_round_trip": bool(torch.equal(sk, sk2) and torch.equal(sv, sv2))}
+
+
+def job_causal_tp(rank: int, world: int, ports: list[int], argv, out_dir: Path) -> dict:
+    import os
+
+    from distributed_tensorflow_tpu_torch.cli import serve as serve_cli
+    from distributed_tensorflow_tpu_torch.cli import train as train_cli
+    from distributed_tensorflow_tpu_torch.interop import shard_params
+    from distributed_tensorflow_tpu_torch.models.causal_lm import (
+        CausalLM,
+        CausalLMConfig,
+        causal_param_specs,
+        make_causal_lm_loss,
+    )
+    from distributed_tensorflow_tpu_torch.parallel.mesh import build_mesh
+    from distributed_tensorflow_tpu_torch.serve import CausalLMEngine
+    from distributed_tensorflow_tpu_torch.train import create_train_state, make_train_step
+    from distributed_tensorflow_tpu_torch.train.state import Transform
+
+    initialize_runtime(f"127.0.0.1:{ports[0]}", world, rank, device="cpu", timeout_s=60)
+    mesh = build_mesh({"data": 1, "model": 2})
+    params = causal_tp_params()
+    specs = causal_param_specs(params)
+    # One TP train run from the seeded global parameters.
+    model = CausalLM(CausalLMConfig(**CAUSAL_TP_GEOM, model_axis="model", model_parallel=2),
+                     device="cpu")
+    model.load_state_dict(shard_params(params, specs, mesh))
+    # SGD: the key bias's gradient is zero up to rounding (softmax ignores a
+    # shift of every key), which Adam's normalisation would blow up to
+    # full-size steps of noise.
+    tx = Transform(lambda p: torch.optim.SGD(list(p.values()), lr=CAUSAL_TP_LR),
+                   lambda c: CAUSAL_TP_LR)
+    state = create_train_state(dict(model.named_parameters()), tx)
+    step = make_train_step(make_causal_lm_loss(model), tx, param_specs=specs)
+    metrics = []
+    for i in range(CAUSAL_TP_STEPS):
+        batch = {k: torch.from_numpy(v) for k, v in lm_batch(i).items()}
+        state, m = step(state, batch, torch.Generator().manual_seed(1))
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    out = {"train": {"metrics": metrics, "params": _gathered(state.params, specs, mesh)}}
+    # Serving over the group.
+    plain = CausalLM(CausalLMConfig(**CAUSAL_TP_GEOM), device="cpu")
+    plain.load_state_dict(params)
+    for name, kw in (("decode", {}),
+                     ("prefix", dict(CAUSAL_PREFIX_KW, kv_transfer=True, stream_migrate=True)),
+                     ("int8", dict(weight_dtype="int8", kv_dtype="int8"))):
+        engine = CausalLMEngine(CausalLM(CausalLMConfig(**CAUSAL_TP_GEOM), device="cpu"),
+                                params, "cpu", mesh=mesh, **CAUSAL_TP_KW, **kw)
+        if rank:
+            assert engine.follow() == 0
+            continue
+        if name == "decode":
+            out[name] = _lm_streams(engine, mixed_requests())
+        elif name == "prefix":
+            out[name] = _lm_streams(engine, shared_prefix_requests(13), warm_first=True)
+            out[name].update(_page_round_trips(engine))
+        else:
+            ratio, total = teacher_forced_agreement(engine, plain)
+            out[name] = {"ratio": ratio, "total": total, "weight_dtype": engine.weight_dtype,
+                         "kv_dtype": engine.kv_dtype}
+        engine.close()
+    shutdown_runtime()
+    # The CLIs: train the causal LM at TP 2, then serve its checkpoint at TP 2.
+    ckpt = out_dir / "lm_tp_ckpt"
+    group = ["--num-processes", str(world), "--process-id", str(rank)]
+    out["train_rc"] = train_cli.main(LM_TP_CLI_ARGS + [
+        "--ckpt-dir", str(ckpt), "--coordinator-address", f"127.0.0.1:{ports[1]}", *group])
+    out["serve_rc"] = serve_cli.main(LM_SERVE_CLI_ARGS + [
+        f"--ckpt-dir={ckpt}", "--tp=2", "--coordinator-address", f"127.0.0.1:{ports[2]}",
+        *group])
+    # A follower that dies: the leader's next cell raises, and so does
+    # every later one; the leader never serves alone.
+    initialize_runtime(f"127.0.0.1:{ports[3]}", world, rank, device="cpu", timeout_s=20)
+    engine = CausalLMEngine(CausalLM(CausalLMConfig(**CAUSAL_TP_GEOM), device="cpu"), params,
+                            "cpu", mesh=build_mesh({"model": 2}), **CAUSAL_TP_KW)
+    if rank:
+        os._exit(3)
+    errors = []
+    for _ in range(2):
+        try:
+            engine.fetch_step(engine.decode(np.zeros(3, np.int32), np.zeros(3, bool),
+                                            np.zeros(3, np.float32), np.zeros(3, np.int32)))
+            errors.append(None)
+        except Exception as e:  # the group's failure, recorded for the test
+            errors.append(f"{type(e).__name__}: {e}")
+    out["dead_follower"] = errors
+    torch.save(out, out_dir / f"causal_tp_rank{rank}.pt")
+    os._exit(0)
+
 def main() -> int:
     job, rank, world, out_dir, ports = sys.argv[1:6]
     argv = json.loads(sys.argv[6]) if len(sys.argv) > 6 else None
@@ -896,10 +1229,11 @@ def main() -> int:
     ports = [int(p) for p in ports.split(",")]
     torch.set_num_threads(1)
     if job in ("dropout", "chaos", "elastic", "mp_attn", "mp_bert", "mp_moe", "mp_pipe",
-               "mp_moe_pp"):
+               "mp_moe_pp", "serve_mesh", "causal_tp"):
         job_fn = {"dropout": job_dropout, "chaos": job_chaos, "elastic": job_elastic,
                   "mp_attn": job_mp_attn, "mp_bert": job_mp_bert, "mp_moe": job_mp_moe,
-                  "mp_pipe": job_mp_pipe, "mp_moe_pp": job_mp_moe_pp}[job]
+                  "mp_pipe": job_mp_pipe, "mp_moe_pp": job_mp_moe_pp,
+                  "serve_mesh": job_serve_mesh, "causal_tp": job_causal_tp}[job]
         out = job_fn(rank, world, ports, argv, out_dir)
     else:
         out = {"collectives": job_collectives, "cli": job_cli}[job](rank, world, ports, argv)

@@ -30,6 +30,9 @@ MODEL_PARALLEL_MODULES = ("parallel/mesh.py", "parallel/collectives.py",
                           "parallel/ring_attention.py", "parallel/ulysses.py",
                           "parallel/moe.py", "parallel/pipeline.py",
                           "models/bert.py", "interop.py")
+# The serving-layout slice's modules: the leader/follower serving group,
+# the engines over it, the causal LM's tensor parallelism.
+SERVING_GROUP_MODULES = ("serve/group.py", "serve/engine.py", "models/causal_lm.py")
 
 
 def _imported_roots(path: Path):
@@ -56,7 +59,8 @@ def test_port_imports_nothing_of_jax():
                  "distributed_tensorflow_tpu_torch/models/flops.py",
                  "scripts/torch_pw_bench.py",
                  *(f"distributed_tensorflow_tpu_torch/{m}"
-                   for m in RESILIENCE_MODULES + MODEL_PARALLEL_MODULES)):
+                   for m in RESILIENCE_MODULES + MODEL_PARALLEL_MODULES
+                   + SERVING_GROUP_MODULES)):
         assert ROOT / name in files
     # The multi-process worker (its chaos job included) runs torch and the
     # port only.
@@ -99,14 +103,15 @@ def test_serving_host_modules_import_without_jax():
     sanitizers, the resilience modules (fault injection, fleet health,
     ``run_resilient``) and the model-parallel ones (process groups,
     collectives, ring and Ulysses attention, MoE dispatch, the GPipe
-    schedule) are the port's own copies:
+    schedule) and the serving group's (the leader/follower protocol, the
+    engines over it, the causal LM's TP) are the port's own copies:
     importing them in a fresh interpreter leaves ``jax`` out of
     ``sys.modules``."""
     import subprocess
     import sys
 
     modules = ["serve/kvpool.py", "serve/spec.py", "obs/sanitizer.py", *RESILIENCE_MODULES,
-               *MODEL_PARALLEL_MODULES]
+               *MODEL_PARALLEL_MODULES, *SERVING_GROUP_MODULES]
     # Measured against what the interpreter held before the imports, in
     # case a site hook loads a package at startup.
     code = ("import sys\n"

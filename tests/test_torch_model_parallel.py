@@ -386,7 +386,7 @@ def test_cli_tensor_parallel_matches_the_jax_recipe_and_refuses(attn_ranks):
     "argv,message",
     [(["--config", "bert_base", "--seq-parallel", "5", "--sp-impl", "ulysses"],
       "not divisible by --seq-parallel 5"),
-     (["--config", "lm_base", "--tensor-parallel", "2"], "Queue A item 6c"),
+     (["--config", "lm_base", "--tensor-parallel", "2"], "does not fit the job's processes"),
      (["--config", "bert_base", "--pipeline-parallel", "2"],
       "does not fit the job's processes")],
     ids=["ulysses-heads", "lm-tp", "pipeline"],

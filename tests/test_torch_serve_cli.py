@@ -108,6 +108,17 @@ def test_fleet_flags_are_refused(flag, capsys, tmp_path):
     assert "Queue A item 7" in capsys.readouterr().err
 
 
+def test_global_batch_and_staleness_are_parsed_and_served(lm_ckpt, capsys):
+    """The JAX serve CLI's ``--global-batch`` and ``--staleness`` (the
+    training run's, for its restore template): parsed and checked, and the
+    checkpoint serves with them (the restore reads the parameters only)."""
+    from distributed_tensorflow_tpu_torch.cli.serve import main
+
+    assert main(["--config=lm_base", "--device=cpu", f"--ckpt-dir={lm_ckpt}", *GEOM,
+                 "--slots=3", "--global-batch=8", "--staleness=2", "--selftest=2"]) == 0
+    assert json.loads(capsys.readouterr().out)["requests"] == 2
+
+
 def test_payload_maker_fits_the_cache():
     """``--selftest``'s payloads: prompt + budget always fit the slot pages
     (lm_base's 128 positions cap the largest bucket + 32 new tokens)."""

@@ -330,6 +330,17 @@ Phases (any failure exits non-zero before the result lines):
 24. serve_lm_tp — train_cli_lm's checkpoint served by ``cli.serve --tp 2``
    in fp32 (its ranks start beside serve_bert_mp's and wait): 12 ``/v1/generate`` streams equal to the one-process engine's,
    decode ms a step and the leader's share in gloo.
+25. serve_lm_fleet — train_cli_lm's checkpoint in fp32 across a prefill
+   and a decode role: in process, a ``DisaggServingPair`` of two
+   ``kv_transfer`` engines, 12 requests over ``d2d`` and 12 over the
+   serialized ``wire`` (chain blocks, bytes, transfer ms); across
+   processes, three ``cli.serve`` replicas started beside
+   train_cli_resilient and serve_lm_faults (it runs last): chains POSTed to the decode role B (``/v1/kv_transfer``) and
+   their requests served there, 8 live streams moved from A to B by
+   ``/migratez`` (ms and bytes a stream) and collected by
+   ``/v1/stream_wait``, and the chaos drill (A2's first stream buffer
+   corrupted, refused on its CRC, retried page-less); every stream equal
+   to the colocated or uninterrupted one.
 
 Phases run one after another, but for train_cli, train_cli_image,
 train_cli_inception, train_cli_bert_corpus, train_cli_dp, train_lm_tp and
@@ -4611,6 +4622,292 @@ def phase_serve_lm_tp(torch, lm_ckpt: Path, *, device="cuda", cli_extra=(), cfg=
     check(not diverged, f"cli.serve --tp 2 streams off the one-process engine's: {diverged}")
     return out
 
+# ------------------------------------------------------------ fleet serving
+
+FLEET_LOGS = ROOT / "build" / "chip_smoke_serve_lm_fleet"
+# The decode role's prefix pool and pages (the in-process prefill engine
+# matches them: chains move between equal page geometries only).
+FLEET_BLOCK, FLEET_CHUNK, FLEET_POOL_MB = 16, 64, 256.0
+# Replica A's decode pace (a fault plan of slow_decode_step events, every
+# step from the 2nd): its streams sit mid-generation when /migratez comes.
+FLEET_PACE_S = 0.03
+
+
+def _fleet_requests(vocab: int, n: int, seed: int, max_prompt: int = 96) -> list:
+    """``n`` seeded prompts of 17-``max_prompt`` tokens (at least one
+    16-token page each), every other one sampled (0.8, its own seed),
+    full budgets of ``LM_NEW``."""
+    rng = np.random.default_rng(SEED + seed)
+    out = []
+    for i in range(n):
+        length = int(rng.integers(17, max_prompt + 1))
+        out.append({"id": seed * 100 + i, "input_ids": rng.integers(4, vocab, length),
+                    "temperature": 0.8 if i % 2 else 0.0, "seed": 700 + seed * 100 + i,
+                    "budget": LM_NEW})
+    return out
+
+
+def spawn_fleet_replicas(lm_ckpt: Path, device="cuda", cli_extra=()) -> dict:
+    """The cross-process replicas of :func:`phase_serve_lm_fleet`, each
+    ``cli.serve --config lm_base_f32`` on ``lm_ckpt`` as a one-rank job
+    (``scripts/torch_mp_train.py --serve``) at :func:`phase_serve_lm`'s
+    geometry with ``--stream-migrate``: ``b`` the decode role
+    (``--disagg-role decode`` and its prefix pool), ``a`` with its decode
+    paced (``FLEET_PACE_S`` a step), ``a2`` as ``a`` with one
+    ``wire_corrupt`` on its first outbound stream buffer. Returns ``{name:
+    group}`` (:func:`_spawn_group`)."""
+    shutil.rmtree(FLEET_LOGS, ignore_errors=True)
+    FLEET_LOGS.mkdir(parents=True)
+    base = ["--config", "lm_base_f32", "--ckpt-dir", str(lm_ckpt),
+            "--buckets", *map(str, LM_BUCKETS), "--slots", str(LM_SLOTS),
+            "--max-batch", str(LM_TIER), "--batch-tiers", "1", "2", "4",
+            "--max-new-tokens", str(LM_NEW), "--stream-migrate", *cli_extra]
+    flags = {"b": base + ["--disagg-role", "decode", "--prefix-cache-mb", str(FLEET_POOL_MB),
+                          "--block-tokens", str(FLEET_BLOCK),
+                          "--prefill-chunk", str(FLEET_CHUNK)]}
+    pace = [{"kind": "slow_decode_step", "step": s, "duration_s": FLEET_PACE_S}
+            for s in range(2, 400)]
+    for name, events in (("a", pace),
+                         ("a2", [{"kind": "wire_corrupt", "step": 1, "duration_s": 0.0}, *pace])):
+        plan = FLEET_LOGS / f"plan_{name}.json"
+        plan.write_text(json.dumps({"seed": None, "events": events}))
+        flags[name] = base + ["--fault-plan", str(plan)]
+    return {name: _spawn_group(f, FLEET_LOGS / name, device, world=1)
+            for name, f in flags.items()}
+
+
+def _host_port(base: str) -> tuple[str, int]:
+    host, port = base.removeprefix("http://").rsplit(":", 1)
+    return host, int(port)
+
+
+def _get_json(base: str, route: str) -> dict:
+    with urllib.request.urlopen(base + route, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def _fleet_pair_run(pre, dec, pair, requests, want) -> dict:
+    """``requests`` through ``pair`` at once (a thread each: prefill role,
+    chain transfer, decode role), every stream against ``want`` (the
+    colocated engine's); the decode role's ``kv_transfer_done`` events of
+    this run give each chain's blocks, bytes and ms."""
+    n_events = len(dec.recorder.events())
+    got, errs = {}, []
+
+    def one(r):
+        try:
+            got[r["id"]] = pair.submit(_payload(r)).result(300)["tokens"]
+        except Exception as e:  # noqa: BLE001 — reported below
+            errs.append(repr(e)[:300])
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=one, args=(r,)) for r in requests]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    check(not errs and len(got) == len(requests), f"{pair.transport} pair: {errs[:2]}")
+    done = [e for e in dec.recorder.events()[n_events:] if e["kind"] == "kv_transfer_done"]
+    diverged = [r["id"] for r in requests if got[r["id"]] != want[r["id"]]]
+    check(not diverged, f"{pair.transport} pair streams off the colocated engine's: {diverged}")
+    check(len(done) == len(requests) and all(e["adopted"] == e["blocks"] > 0 for e in done),
+          f"{pair.transport} pair: transfers {done}")
+    return {"streams_equal_colocated": len(requests), "wall_s": wall,
+            "blocks": [e["blocks"] for e in done], "bytes": [e["bytes"] for e in done],
+            "transfer_ms": [e["ms"] for e in done],
+            "transfer_ms_median": statistics.median(e["ms"] for e in done)}
+
+
+def _post_streams(base: str, requests: list, prefix: str) -> tuple[dict, list]:
+    """Each request as a concurrent ``POST /v1/generate`` with the
+    ``X-Request-Id`` ``<prefix>-<id>``; returns ``(replies, threads)``, the
+    replies filling in as the threads end."""
+    replies = {}
+
+    def post(r):
+        req = urllib.request.Request(
+            base + "/v1/generate", data=json.dumps(
+                {**_payload(r), "input_ids": r["input_ids"].tolist()}).encode(),
+            headers={"Content-Type": "application/json", "X-Request-Id": f"{prefix}-{r['id']}"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                replies[r["id"]] = json.loads(resp.read())
+        except OSError as e:
+            replies[r["id"]] = {"error": repr(e)[:300]}
+
+    threads = [threading.Thread(target=post, args=(r,)) for r in requests]
+    for t in threads:
+        t.start()
+    return replies, threads
+
+
+def _migrate(src: str, dst: str, requests: list, want: dict, prefix: str) -> dict:
+    """``requests`` as live streams on replica ``src``; once every one has
+    tokens (the slots full, ``tokens_remaining`` down by 4 a stream),
+    ``POST /migratez`` to ``src`` naming ``dst``. Every reply says
+    ``migrated``; ``/v1/stream_wait`` on ``dst`` returns each stream equal
+    to ``want`` (uninterrupted). Returns the ``/migratez`` digest, its ms
+    and the collected streams."""
+    n = len(requests)
+    replies, threads = _post_streams(src, requests, prefix)
+    deadline = time.monotonic() + 120
+    while True:
+        st = _get_json(src, "/statusz")["batcher"]
+        if st["slots_active"] == n and st["tokens_remaining"] <= n * (LM_NEW - 4):
+            break
+        check(time.monotonic() < deadline and not replies,
+              f"{prefix}: streams never all live on {src}: {st}, {replies}")
+        time.sleep(0.005)
+    digest, mig_s = _post_json(src, "/migratez", {"targets": [list(_host_port(dst))]})
+    for t in threads:
+        t.join(timeout=300)
+    not_migrated = {i: rep for i, rep in replies.items() if rep.get("status") != "migrated"}
+    check(len(replies) == n and not not_migrated, f"{prefix}: replies {not_migrated}")
+    got = {r["id"]: _post_json(dst, "/v1/stream_wait", {"request_id": f"{prefix}-{r['id']}",
+                                                         "timeout_s": 120})[0]
+           for r in requests}
+    lost = [i for i, body in got.items() if body["tokens"] != want[i]]
+    partial = [i for i, rep in replies.items() if got[i]["tokens"][:len(rep["tokens"])]
+               != rep["tokens"]]
+    check(not lost and not partial,
+          f"{prefix}: streams off the uninterrupted ones {lost}, rewritten prefixes {partial}")
+    check(digest["exported"] == digest["migrated"] == n, f"{prefix}: /migratez {digest}")
+    return {"digest": digest, "migratez_ms": mig_s * 1e3, "ms_a_stream": mig_s * 1e3 / n,
+            "bytes": [o["bytes"] for o in digest["streams"]],
+            "pages": [o["pages"] for o in digest["streams"]],
+            "resumed_at": [len(rep["tokens"]) for rep in replies.values()]}
+
+
+def phase_serve_lm_fleet(torch, lm_ckpt: Path, *, device="cuda", cfg=None, cli_extra=(),
+                         replicas=None) -> dict:
+    """Fleet serving on ``train_cli_lm``'s checkpoint in fp32 (streams held
+    exactly). In process: a prefill and a decode ``CausalLMEngine``
+    (``kv_transfer=True``, a prefix pool) behind a
+    :class:`DisaggServingPair`, 12 requests over ``transport="d2d"`` and 12
+    more over ``"wire"``, every stream equal to the colocated engine's (the
+    prefill engine serving whole requests). Across processes, with the
+    replicas of :func:`spawn_fleet_replicas` (spawned here when None): 12
+    chains POSTed to the decode role B (``post_kv_transfer``), then their
+    requests to B, equal to the colocated streams, B's prom text counting
+    the bytes; 8 live streams on A moved to B by ``/migratez``, collected
+    from B by ``/v1/stream_wait`` equal to the uninterrupted streams, the
+    migrations counted on both; and the chaos drill: A2's first buffer
+    corrupted, refused by B on its CRC, retried page-less, nothing lost or
+    duplicated. ``device="cpu"`` with ``cfg`` and ``cli_extra`` rehearses
+    it."""
+    from distributed_tensorflow_tpu_torch.ckpt import restore_serving_state
+    from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLM, CausalLMConfig
+    from distributed_tensorflow_tpu_torch.obs.flightrec import FlightRecorder
+    from distributed_tensorflow_tpu_torch.serve import (
+        BatcherConfig,
+        CausalLMEngine,
+        Client,
+        DisaggServingPair,
+        TransferBudget,
+        post_kv_transfer,
+        serialize_chain,
+    )
+
+    cfg = dataclasses.replace(cfg or CausalLMConfig(max_position=128), dtype=torch.float32)
+    vocab = cfg.vocab_size
+    t0 = time.monotonic()
+    replicas = replicas or spawn_fleet_replicas(lm_ckpt, device, cli_extra)
+    clients = []
+    try:
+        params, _, _ = restore_serving_state(lm_ckpt)
+        kw = dict(buckets=LM_BUCKETS, slots=LM_SLOTS, max_batch=LM_TIER, batch_tiers=(1, 2, 4),
+                  max_new_tokens=LM_NEW, prefix_cache_mb=FLEET_POOL_MB,
+                  block_tokens=FLEET_BLOCK, prefill_chunk=FLEET_CHUNK, kv_transfer=True)
+        bcfg = BatcherConfig(max_batch=LM_TIER, max_queue=64, max_in_flight=2)
+        pre = Client(CausalLMEngine(CausalLM(cfg, device="meta"), params, device, **kw), bcfg)
+        clients.append(pre)
+        dec = Client(CausalLMEngine(CausalLM(cfg, device="meta"), params, device, **kw), bcfg,
+                     recorder=FlightRecorder(4096))
+        clients.append(dec)
+        del params
+        build_s = time.monotonic() - t0
+        out = {"phase": "serve_lm_fleet", "build_s": build_s}
+        for k, transport in enumerate(("d2d", "wire")):
+            reqs = _fleet_requests(vocab, 12, 51 + k)
+            want = _serve(pre, reqs)[0]
+            pair = DisaggServingPair(
+                prefill_batcher=pre.batcher, decode_batcher=dec.batcher,
+                prefill_engine=pre.engine, decode_engine=dec.engine,
+                budget=TransferBudget(1 << 30), transport=transport, metrics=dec.metrics,
+                recorder=dec.recorder, timeout_s=300)
+            out[transport] = _fleet_pair_run(pre, dec, pair, reqs, want)
+
+        # Across processes: the references first, while the replicas load.
+        http_reqs = _fleet_requests(vocab, 12, 61)
+        mig_reqs = _fleet_requests(vocab, LM_SLOTS, 71)
+        chaos_reqs = _fleet_requests(vocab, 4, 81)
+        want = {}
+        for reqs in (http_reqs, mig_reqs, chaos_reqs):
+            want.update(_serve(pre, reqs)[0])
+        out["replicas_ready_s"] = {name: _await_group(group, FLEET_LOGS / name)
+                                   for name, group in replicas.items()}
+        b = replicas["b"][1]
+        pool, eng = pre.engine.prefix_cache, pre.engine
+        sent, export_ms, post_ms = 0, [], []
+        for r in http_reqs:
+            t1 = time.monotonic()
+            m = pool.match([int(t) for t in r["input_ids"]] + [0])  # every full page
+            try:
+                n = len(m.blocks)
+                check(n > 0, f"chain of request {r['id']} not published")
+                pk, pv = eng.export_prefix_pages(m.blocks)
+                buf = serialize_chain(r["input_ids"][: n * FLEET_BLOCK], pk[:, :n], pv[:, :n],
+                                      eng.page_meta())
+            finally:
+                pool.release(m)
+            t2 = time.monotonic()
+            reply = post_kv_transfer(*_host_port(b), buf, timeout_s=120)
+            post_ms.append((time.monotonic() - t2) * 1e3)
+            export_ms.append((t2 - t1) * 1e3)
+            check(reply["adopted_blocks"] == n and reply["bytes"] == len(buf),
+                  f"/v1/kv_transfer of request {r['id']}: {reply}, {n} blocks")
+            sent += len(buf)
+        replies, burst_s = _post_generates(b, http_reqs)
+        diverged = [r["id"] for r in http_reqs
+                    if replies[r["id"]][0] != 200 or replies[r["id"]][1]["tokens"] != want[r["id"]]]
+        check(not diverged, f"decode role B's streams off the colocated ones: {diverged}")
+        with urllib.request.urlopen(b + "/metrics?format=prom", timeout=60) as resp:
+            prom = [ln for ln in resp.read().decode().splitlines()
+                    if ln.startswith('serve_kv_transfer_bytes_total{role="decode"}')]
+        check(prom and float(prom[0].split()[-1]) == sent,
+              f"B's serve_kv_transfer_bytes_total {prom}, {sent} bytes sent")
+        b_prefix = _get_json(b, "/statusz")["batcher"]["prefix_cache"]
+        out["http"] = {"streams_equal_colocated": len(http_reqs), "bytes_sent": sent,
+                       "chain_bytes_median": sent / len(http_reqs),
+                       "export_serialize_ms_median": statistics.median(export_ms),
+                       "post_ms_median": statistics.median(post_ms), "burst_s": burst_s,
+                       "decode_prefix_cache": b_prefix}
+
+        a, a2 = replicas["a"][1], replicas["a2"][1]
+        out["migrate"] = _migrate(a, b, mig_reqs, want, "mig")
+        check(all(out["migrate"]["pages"]), f"migrations without pages: {out['migrate']}")
+        counts = {name: _get_json(replicas[name][1], "/metrics")["stream_migrations"]
+                  for name in ("a", "b")}
+        check(counts["a"].get("migrated") == LM_SLOTS and counts["b"].get("adopted") == LM_SLOTS,
+              f"serve_stream_migrations_total: {counts}")
+        chaos = _migrate(a2, b, chaos_reqs, want, "chaos")
+        counts["b_after_chaos"] = _get_json(b, "/metrics")["stream_migrations"]
+        check(chaos["pages"].count(False) == 1
+              and counts["b_after_chaos"].get("rejected") == 1
+              and counts["b_after_chaos"].get("adopted") == LM_SLOTS + len(chaos_reqs),
+              f"chaos drill: {chaos}, B {counts['b_after_chaos']}")
+        out.update(chaos=chaos, stream_migrations=counts)
+    finally:
+        for c in clients:
+            c.close()
+        for name, group in replicas.items():
+            _stop_group(group, FLEET_LOGS / name, check_exit=False)
+    out["seconds"] = time.monotonic() - t0
+    emit(out)
+    return out
+
+
 def _step_record(rows: list, counts: list, field: str) -> dict:
     """One kernel's times per ResNet-50 training step: each shape's row
     (``rows``, one per shape) weighted by its launches per step
@@ -4736,8 +5033,18 @@ def main() -> int:
         resilient = timed("train_resilient_fused", phase_train_resilient_fused, torch)
         chaos = timed("train_chaos", phase_train_chaos, torch,
                       resilient["ckpt"]["write_ms"] / 1e3)
-        timed("train_cli_resilient", phase_train_cli_resilient, torch)
-        timed("serve_lm_faults", phase_serve_lm_faults, torch, lm_ckpt)
+        # The fleet replicas load beside two phases that time nothing the
+        # records keep (process starts and fault checks), then idle until
+        # serve_lm_fleet, the last phase.
+        fleet = spawn_fleet_replicas(lm_ckpt)
+        try:
+            timed("train_cli_resilient", phase_train_cli_resilient, torch)
+            timed("serve_lm_faults", phase_serve_lm_faults, torch, lm_ckpt)
+            torch.cuda.empty_cache()
+            timed("serve_lm_fleet", phase_serve_lm_fleet, torch, lm_ckpt, replicas=fleet)
+        finally:
+            for name, group in fleet.items():
+                _stop_group(group, FLEET_LOGS / name, check_exit=False)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

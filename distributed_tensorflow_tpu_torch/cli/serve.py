@@ -16,11 +16,16 @@ from the checkpoint's running statistics) and ``lm_base`` (``POST
 with the decode flags ``--slots --max-new-tokens --prefix-cache-mb
 --block-tokens --prefill-chunk --spec-tokens --spec-min-match
 --spec-backoff --kv-dtype --flush-admission --sched --preempt
---preempt-margin-ms --default-priority``) and serving fault injection
+--preempt-margin-ms --default-priority``), serving fault injection
 (``--fault-plan``, placed within ``--fault-steps`` decode steps; its
-events fire in the continuous batcher's decode loop). The fleet-serving
-flags (``--disagg-role --kv-transfer-budget-mb --stream-migrate``) are
-refused until Queue A item 7 of ROADMAP.md.
+events fire in the continuous batcher's decode loop and on the migration
+wire) and the fleet flags: ``--disagg-role prefill|decode`` (a decode role
+adopts KV-page chains on ``POST /v1/kv_transfer``; it needs
+``--prefix-cache-mb > 0``), ``--kv-transfer-budget-mb`` (its bytes-in-flight
+cap) and ``--stream-migrate`` (``POST /v1/stream_migrate``,
+``/v1/stream_wait`` and ``/migratez``). Under a serving group the leader
+mounts them; the page cells gather and cut heads, so a TP group exports
+and adopts whole-head pages.
 
 Serving layouts. ``--tp`` / ``--pp`` / ``--ep`` (or an explicit ``--mesh
 data=2,model=2``) shard each engine over that many ranks of the serving
@@ -89,11 +94,6 @@ PRESETS = {
                                             image_factory="_inception",
                                             image_shape=(299, 299, 3)),
 }
-
-# Fleet-serving flags of the JAX CLI (disaggregated roles, stream
-# migration): refused here until they are ported.
-_FLEET = "fleet serving is not ported to PyTorch yet (Queue A item 7 of ROADMAP.md)"
-_FLEET_FLAGS = {"disagg_role": "", "kv_transfer_budget_mb": 64.0, "stream_migrate": False}
 
 
 def _resolve_mesh_spec(args, n_ranks: int) -> tuple[dict, bool]:
@@ -192,7 +192,11 @@ def _build_engine(preset: ServePreset, args, recorder, mesh=None, device=None):
             prefix_cache_mb=args.prefix_cache_mb, block_tokens=args.block_tokens,
             prefill_chunk=args.prefill_chunk, spec_tokens=args.spec_tokens,
             spec_min_match=args.spec_min_match, spec_backoff=args.spec_backoff,
-            weight_dtype=weight_dtype, kv_dtype=args.kv_dtype or None)
+            weight_dtype=weight_dtype, kv_dtype=args.kv_dtype or None,
+            # Disaggregated roles move KV-page chains between engines, and
+            # live stream migration checkpoints slots off to a peer: both
+            # warm their page export/import cells with the rest.
+            kv_transfer=bool(args.disagg_role), stream_migrate=args.stream_migrate)
         vocab = cfg.vocab_size
 
         def make_payload(rng: np.random.Generator) -> dict:
@@ -313,6 +317,47 @@ def build_serving_client(preset: ServePreset, args, *, mesh=None, device=None):
         logger.info("serving fault plan armed: %d scheduled events (seed %s)",
                     len(plan.events), plan.seed)
     return client, make_payload
+
+
+def _fleet_mounts(client, args) -> dict:
+    """The fleet routes' handlers for ``build_http_server``: the KV-chain
+    receiver of a decode role and the stream receiver and migrator of
+    ``--stream-migrate``, sharing one transfer budget."""
+    from distributed_tensorflow_tpu_torch.serve.disagg import (
+        TransferBudget,
+        make_kv_receiver,
+        make_stream_receiver,
+        migrate_streams,
+    )
+
+    mounts = {}
+    budget = None
+    if args.disagg_role == "decode" or args.stream_migrate:
+        budget = TransferBudget(int(args.kv_transfer_budget_mb * 1024 * 1024))
+        mounts["transfer_budget"] = budget
+    if args.disagg_role == "decode":
+        mounts["kv_receiver"] = make_kv_receiver(
+            client.batcher, client.engine, budget=budget, metrics=client.metrics,
+            recorder=client.recorder)
+        logger.info("disaggregated decode role: accepting KV-page chains on POST "
+                    "/v1/kv_transfer (budget %.1f MiB in flight)", args.kv_transfer_budget_mb)
+    elif args.disagg_role == "prefill":
+        logger.info("disaggregated prefill role: operators should cap max_new_tokens at 1 "
+                    "and ship published pages with serve.disagg.post_kv_transfer")
+    if args.stream_migrate:
+        mounts["stream_receiver"] = make_stream_receiver(
+            client.batcher, client.engine, budget=budget, metrics=client.metrics,
+            recorder=client.recorder)
+
+        def migrator(targets):
+            return migrate_streams(
+                client.batcher, client.engine, targets, metrics=client.metrics,
+                recorder=client.recorder, fault_injector=client.batcher.fault_injector)
+
+        mounts["migrator"] = migrator
+        logger.info("live stream migration enabled: POST /v1/stream_migrate (budget %.1f "
+                    "MiB in flight), /v1/stream_wait, /migratez", args.kv_transfer_budget_mb)
+    return mounts
 
 
 def _selftest(client, make_payload, n: int) -> int:
@@ -440,9 +485,9 @@ def make_parser() -> argparse.ArgumentParser:
                    help="serve N synthetic requests in-process and exit")
     p.add_argument("--fault-plan", default="",
                    help="serving fault-injection plan (drills): 'seed=..,dispatch_error=N,"
-                        "slow_decode_step=N,replica_kill=N,slow_step_s=S' or a FaultPlan "
-                        "JSON path; its events fire in the continuous batcher's decode loop "
-                        "(lm_base only)")
+                        "slow_decode_step=N,wire_corrupt=N,replica_kill=N,slow_step_s=S' or "
+                        "a FaultPlan JSON path; its events fire in the continuous batcher's "
+                        "decode loop and on the migration wire (lm_base only)")
     p.add_argument("--fault-steps", type=int, default=1000,
                    help="decode-step horizon --fault-plan events are placed within when the "
                         "spec is key=value form")
@@ -484,13 +529,19 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--init-timeout", type=float, default=300.0,
                    help="multi-process bootstrap: seconds the process group may take to "
                         "form before the job fails")
-    for name, default in _FLEET_FLAGS.items():
-        flag = "--" + name.replace("_", "-")
-        if isinstance(default, bool):
-            p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-        else:
-            p.add_argument(flag, type=type(default), default=default,
-                           help=argparse.SUPPRESS)
+    # Fleet serving (serve/disagg.py): run this process as ONE role of a
+    # prefill/decode pair, and/or let its live streams migrate.
+    p.add_argument("--disagg-role", default="", choices=["", "prefill", "decode"],
+                   help="disaggregated-serving role; decode requires --prefix-cache-mb > 0 "
+                        "(the adopted chains land in the prefix-cache page pool)")
+    p.add_argument("--kv-transfer-budget-mb", type=float, default=64.0,
+                   help="bytes-in-flight cap (MiB) for inbound KV-page transfers and "
+                        "migrated streams; transfers beyond it queue briefly then shed "
+                        "with 429 + Retry-After (the sender re-prefills instead)")
+    p.add_argument("--stream-migrate", action="store_true",
+                   help="enable live decode-stream migration: mount POST "
+                        "/v1/stream_migrate + /v1/stream_wait (receive side) and POST "
+                        "/migratez (export side); causal-LM engines only")
     return p
 
 
@@ -500,12 +551,13 @@ def main(argv: list[str] | None = None):
     if args.config not in PRESETS:
         parser.error(f"--config {args.config}: unknown preset "
                      f"(ported: {sorted(PRESETS)})")
-    set_fleet = [
-        "--" + k.replace("_", "-") for k, d in _FLEET_FLAGS.items()
-        if getattr(args, k) != d
-    ]
-    if set_fleet:
-        parser.error(f"{', '.join(set_fleet)}: {_FLEET}")
+    if args.disagg_role == "decode" and args.prefix_cache_mb <= 0:
+        parser.error("--disagg-role decode requires --prefix-cache-mb > 0 "
+                     "(adopted KV-page chains land in the prefix-cache "
+                     "page pool)")
+    if (args.stream_migrate or args.disagg_role) and PRESETS[args.config].causal_kwargs is None:
+        parser.error(f"--{'stream-migrate' if args.stream_migrate else 'disagg-role'} "
+                     "applies to causal-LM (decode) presets only")
     if args.staleness < -1:
         parser.error(f"--staleness must be >= -1 (-1: the preset's), got {args.staleness}")
     if args.global_batch < 0:
@@ -563,7 +615,8 @@ def _lead(preset: ServePreset, args, mesh, device) -> int:
         from distributed_tensorflow_tpu_torch.serve import build_http_server
 
         server = build_http_server(client, args.host, args.port,
-                                   trace_dir=args.trace_dir or None)
+                                   trace_dir=args.trace_dir or None,
+                                   **_fleet_mounts(client, args))
         logger.info(
             "ready on http://%s:%d (POST /v1/%s; GET /healthz /sloz /statusz /memz "
             "/compilez /tracez /metrics?format=prom, POST /profilez /drainz "

@@ -19,10 +19,15 @@ checkpoints.
   n-gram drafting over each slot's own history, exact-match acceptance
   against one batched verify forward, and per-slot adaptive backoff
   (output stays bit-identical to plain decode).
+- ``disagg.py``  — fleet serving: disaggregated prefill/decode roles
+  (KV-page chain transfer in process or over ``POST /v1/kv_transfer``, the
+  transfer budget) and live stream migration (``/v1/stream_migrate``,
+  ``/v1/stream_wait``, ``/migratez``), over the JAX package's wire format
+  v1-v4 byte for byte.
 - ``server.py``  — in-process :class:`Client` plus a stdlib-HTTP front end.
 
-Fleet serving (disaggregated prefill/decode, stream migration, the router)
-is not ported yet (ROADMAP.md Queue A item 7).
+The fleet router (``serve/router.py`` of the JAX package) is not ported yet
+(ROADMAP.md Queue A item 7c).
 
 Entry point: ``python -m distributed_tensorflow_tpu_torch.cli.serve``.
 """
@@ -33,6 +38,15 @@ from distributed_tensorflow_tpu_torch.serve.batcher import (  # noqa: F401
     ContinuousBatcher,
     DynamicBatcher,
     drain_retry_after_s,
+)
+from distributed_tensorflow_tpu_torch.serve.disagg import (  # noqa: F401
+    DisaggServingPair,
+    TransferBudget,
+    WireError,
+    deserialize_chain,
+    make_kv_receiver,
+    post_kv_transfer,
+    serialize_chain,
 )
 from distributed_tensorflow_tpu_torch.serve.engine import (  # noqa: F401
     BertInferenceEngine,

@@ -29,14 +29,14 @@ the overlap/bucket hooks are optional keyword callables.
 :class:`ContinuousBatcher` is the decode engines' scheduler: a slot table
 with admission between decode steps (or flush admission, the static
 baseline), the prefix-cache trie, chunked prefill, n-gram speculation,
-EDF admission and slot preemption.
+EDF admission and slot preemption, and the fleet hooks of
+:mod:`~distributed_tensorflow_tpu_torch.serve.disagg`: KV-chain adoption
+(``adopt_chain``) and live stream export and adoption (``export_streams``,
+``adopt_stream``), all serviced on the decode-loop thread between steps.
 
 Port of the JAX package's ``serve/batcher.py``, with the serving fault
 injector's decode-step hook (``ContinuousBatcher.fault_injector``, a
 :class:`~distributed_tensorflow_tpu_torch.serve.faultinject.FaultInjector`).
-Left for fleet serving (ROADMAP.md Queue A item 7): KV-chain adoption and
-live stream export and adoption (``adopt_chain``, ``adopt_stream`` and
-``export_streams`` raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -636,12 +636,13 @@ class _Slot:
         self.pending = pending
         self.gen = gen
         self.prompt_len = len(payload["input_ids"])
-        # Preemption replay: already-delivered generated tokens ride as
-        # ``resume_tokens`` — the prefill treats them as prompt suffix (so
-        # the next sample lands at the SAME absolute position the
-        # uninterrupted stream would use), while ``prompt_len`` and the
-        # result's token list keep the client's original view (tokens
-        # accumulate across park/resume round trips).
+        # Preemption and migration replay (serve/disagg.py stream wire):
+        # already-delivered generated tokens ride as ``resume_tokens`` —
+        # the prefill treats them as prompt suffix (so the next sample
+        # lands at the SAME absolute position the uninterrupted stream
+        # would use), while ``prompt_len`` and the result's token list
+        # keep the client's original view (tokens accumulate across
+        # park/resume and migration hops).
         self.resume = [int(t) for t in payload.get("resume_tokens", ())]
         self.full_prompt = (
             [int(t) for t in payload["input_ids"]] + self.resume
@@ -684,6 +685,94 @@ class _Slot:
         self.preempt_exempt = False
 
 
+@dataclasses.dataclass
+class StreamState:
+    """The host half of a live generation's checkpoint (serve/disagg.py
+    ships it next to the slot's KV pages): everything a peer replica needs
+    to resume the stream bit-identically — prompt, every token generated
+    so far (client-visible, accumulated across hops), the sampling key
+    material, and ``length`` = the cache positions the exported pages
+    cover (``len(input_ids) + len(tokens) - 1``: the newest token's KV is
+    written by the NEXT decode step, exactly as on the source)."""
+
+    request_id: str
+    input_ids: list
+    tokens: list
+    seed: int = 0
+    temperature: float = 0.0
+    eos_id: int | None = None
+    max_new_tokens: int = 32
+    length: int = 0
+
+    def to_dict(self) -> dict:
+        return {
+            "request_id": str(self.request_id),
+            "input_ids": [int(t) for t in self.input_ids],
+            "tokens": [int(t) for t in self.tokens],
+            "seed": int(self.seed),
+            "temperature": float(self.temperature),
+            "eos_id": None if self.eos_id is None else int(self.eos_id),
+            "max_new_tokens": int(self.max_new_tokens),
+            "length": int(self.length),
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "StreamState":
+        eos = d.get("eos_id")
+        return cls(
+            request_id=str(d["request_id"]),
+            input_ids=[int(t) for t in d["input_ids"]],
+            tokens=[int(t) for t in d["tokens"]],
+            seed=int(d.get("seed", 0)),
+            temperature=float(d.get("temperature", 0.0)),
+            eos_id=None if eos is None else int(eos),
+            max_new_tokens=int(d["max_new_tokens"]),
+            length=int(d.get("length", 0)),
+        )
+
+    def replay_payload(self) -> dict:
+        """The ``/v1/generate`` payload that resumes this stream WITHOUT
+        pages: the generated tokens ride as ``resume_tokens`` and the
+        target re-prefills prompt+prefix at absolute positions — the
+        failover path when the stream's pages died with its replica."""
+        out = {
+            "input_ids": list(self.input_ids),
+            "max_new_tokens": int(self.max_new_tokens),
+            "temperature": float(self.temperature),
+            "seed": int(self.seed),
+        }
+        if self.tokens:
+            out["resume_tokens"] = list(self.tokens)
+        if self.eos_id is not None:
+            out["eos_id"] = int(self.eos_id)
+        return out
+
+
+@dataclasses.dataclass
+class ExportedStream:
+    """One live stream lifted out of a batcher: its :class:`StreamState`,
+    the slot's KV pages when the engine could export them (device tensors
+    ``[nl, cache_len, heads, head_dim]``, every head; ``None`` for queued /
+    still-prefilling streams, which replay page-less), and the victim-held
+    client future the migrator resolves once the stream lands elsewhere
+    (or re-adopts locally on push failure)."""
+
+    state: StreamState
+    pages_k: object | None = None
+    pages_v: object | None = None
+    future: Future | None = None
+
+
+class _ExportRequest:
+    """Cross-thread handshake for ``export_streams``: the HTTP thread
+    parks on ``event`` while the decode-loop thread quiesces in-flight
+    steps, captures every live stream, and posts the results."""
+
+    __slots__ = ("event", "results")
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.results: list[ExportedStream] = []
 
 
 class ContinuousBatcher:
@@ -753,8 +842,9 @@ class ContinuousBatcher:
     _RACETRACE_ATTRS = (
         "_queue", "_count", "_closed", "_slots", "_n_active", "_n_inflight",
         "_steps", "_tokens_emitted", "_spec_drafted", "_spec_accepted",
-        "_spec_rejects", "_class_queued", "_preempt_parked",
-        "_preempt_resumed", "_preempt_aborted",
+        "_spec_rejects", "_adoptions", "_stream_adopts", "_export_req",
+        "_class_queued", "_preempt_parked", "_preempt_resumed",
+        "_preempt_aborted",
     )
 
     def __init__(
@@ -841,6 +931,18 @@ class ContinuousBatcher:
         self._gens = itertools.count(1)
         self._cv = threading.Condition()
         self._queue: deque[_Pending] = deque()
+        # Pending KV-chain adoptions (serve/disagg.py): processed on the
+        # decode-loop thread BETWEEN steps, because importing a chain
+        # writes the engine's pool in place — same single-dispatcher rule
+        # as every other engine touch.
+        self._adoptions: deque = deque()
+        # Live-stream migration (serve/disagg.py stream wire): pending
+        # mid-generation adoptions awaiting a free slot, and the at-most-
+        # one outstanding export request the decode loop services once
+        # in-flight steps quiesce. Same single-dispatcher rule: the slot
+        # import / export cells only ever run from the loop thread.
+        self._stream_adopts: deque = deque()
+        self._export_req: _ExportRequest | None = None
         # Serving-side fault injection (serve/faultinject.py): hooks fire
         # on the decode-step dispatch clock. None = no chaos.
         self.fault_injector = None
@@ -935,26 +1037,123 @@ class ContinuousBatcher:
         self.recorder.record("request_admit", request_id)
         return pending.future
 
-    # Fleet serving (disaggregated KV-chain adoption, live stream
-    # migration) is ROADMAP.md Queue A item 7: refused here until then.
-    _FLEET = ("{} belongs to fleet serving (serve/disagg.py: disaggregated "
-              "prefill/decode and live stream migration), which is not ported "
-              "yet: Queue A item 7 of ROADMAP.md")
-
     def adopt_chain(self, token_ids, pages_k=None, pages_v=None) -> Future:
-        """Adopt a transferred KV-page chain into the prefix pool: not
-        ported (Queue A item 7)."""
-        raise NotImplementedError(self._FLEET.format("adopt_chain"))
+        """Adopt a transferred KV-page chain into this batcher's prefix
+        pool (serve/disagg.py decode role). Indexes ``token_ids``'s full
+        blocks in the pool and — when ``pages_*`` stages are given
+        (``[nl, max_chain, block_tokens, heads, head_dim]``, chain order,
+        every head) — writes the received pages into the newly allocated
+        blocks through the engine's import cell. ``pages_* = None`` is the
+        pool-only form for engines whose prefill is position-independent
+        (stub engines; tests).
 
-    def adopt_stream(self, state, pages_k=None, pages_v=None) -> Future:
-        """Resume a migrated live stream here: not ported (Queue A item
-        7)."""
-        raise NotImplementedError(self._FLEET.format("adopt_stream"))
+        Runs on the decode-loop thread BETWEEN steps (the import writes
+        the engine's pool in place, and the decode cell is never touched —
+        no per-token dispatch joins the hot path); this call only enqueues
+        and returns a Future resolving to the number of newly imported
+        blocks (0 = chain already fully cached)."""
+        fut: Future = Future()
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("batcher is closed")
+            if self._pool is None:
+                raise RuntimeError(
+                    "engine has no prefix cache to adopt a chain into"
+                )
+            self._adoptions.append((token_ids, pages_k, pages_v, fut))
+            self._cv.notify_all()
+        return fut
 
-    def export_streams(self, timeout_s: float = 30.0) -> list:
-        """Checkpoint and remove every live stream for migration: not
-        ported (Queue A item 7)."""
-        raise NotImplementedError(self._FLEET.format("export_streams"))
+    def adopt_stream(self, state: StreamState, pages_k=None,
+                     pages_v=None) -> Future:
+        """Resume a migrated live stream here (serve/disagg.py receiver).
+
+        With ``pages_*`` (``[nl, cache_len, heads, head_dim]`` stages —
+        host tensors from the wire, device tensors from a local re-adopt)
+        the stream enters a KV slot MID-GENERATION: the decode loop claims
+        a free slot between steps, writes the pages through the engine's
+        slot-import cell, and the very next decode step continues the
+        generation — no prefill, no re-computed tokens. Without pages it
+        degrades to a page-less replay: the state's generated prefix
+        re-enqueues as ``resume_tokens`` and the target re-prefills at
+        absolute positions. Both paths are bit-identical to the
+        uninterrupted stream by the (seed, position) sampling contract.
+
+        Returns a Future resolving to the standard generate result with
+        the FULL accumulated token list (resumed + newly generated)."""
+        if pages_k is not None:
+            if not getattr(self._engine, "stream_migrate", False):
+                raise RuntimeError(
+                    "engine built without stream_migrate=True (no "
+                    "slot-import cell); retry page-less"
+                )
+            need = len(state.input_ids) + int(state.max_new_tokens)
+            if need > self._cache_len:
+                raise ValueError(
+                    f"stream of {need} prompt+max_new tokens exceeds the "
+                    f"{self._cache_len}-token cache pages here"
+                )
+            if state.length != len(state.input_ids) + len(state.tokens) - 1:
+                raise ValueError(
+                    f"stream length {state.length} inconsistent with "
+                    f"{len(state.input_ids)} prompt + {len(state.tokens)} "
+                    "generated tokens"
+                )
+            fut: Future = Future()
+            fut.request_id = state.request_id
+            with self._cv:
+                if self._closed:
+                    raise RuntimeError("batcher is closed")
+                self._stream_adopts.append((state, pages_k, pages_v, fut))
+                self._cv.notify_all()
+            self.recorder.record(
+                "stream_adopt", state.request_id,
+                n_tokens=len(state.tokens), pages=True,
+            )
+            return fut
+        fut = self.submit(state.replay_payload(),
+                          request_id=state.request_id)
+        self.recorder.record(
+            "stream_adopt", state.request_id,
+            n_tokens=len(state.tokens), pages=False,
+        )
+        return fut
+
+    def export_streams(self, timeout_s: float = 30.0) -> list[ExportedStream]:
+        """Checkpoint and REMOVE every live stream (occupied slots, queued
+        requests, pending stream adoptions) for migration to a peer
+        replica. Blocks while the decode loop stops dispatching, lets
+        in-flight steps land (so every slot is settled — no in-place
+        write racing the copy, no half-fetched tokens), then gathers each
+        decoding slot's KV lane through the engine's slot-export cell.
+        Streams that have no exportable pages (still prefilling, never
+        admitted, or a pages-less engine) come back as page-less states
+        that replay via ``resume_tokens``. The freed slots re-enter
+        service immediately — callers own pushing the exports somewhere
+        (serve/server.py ``/migratez``) and resolving each stream's
+        victim-held future."""
+        req = _ExportRequest()
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("batcher is closed")
+            if self._export_req is not None:
+                raise RuntimeError("stream export already in progress")
+            self._export_req = req
+            self._cv.notify_all()
+        if not req.event.wait(timeout_s):
+            with self._cv:
+                if self._export_req is req:
+                    # Never picked up (loop wedged): withdraw the request.
+                    self._export_req = None
+                    raise TimeoutError(
+                        f"stream export not serviced within {timeout_s:.0f}s"
+                    )
+            # Lost the race — the loop is mid-capture; give it a beat.
+            if not req.event.wait(timeout_s):
+                raise TimeoutError(
+                    f"stream export not serviced within {2 * timeout_s:.0f}s"
+                )
+        return req.results
 
     def status(self) -> dict:
         metrics = self.metrics
@@ -1092,8 +1291,8 @@ class ContinuousBatcher:
         self.metrics.sched_queue_depth.set(str(priority), n)
 
     def _clear_queue_classes(self) -> None:
-        """Zero every per-class gauge after a bulk queue strip (non-drain
-        close)."""
+        """Zero every per-class gauge after a bulk queue strip (stream
+        export, non-drain close)."""
         for pri in list(self._class_queued):
             self.metrics.sched_queue_depth.set(str(pri), 0)
         self._class_queued.clear()
@@ -1139,9 +1338,10 @@ class ContinuousBatcher:
         )
 
     def _take_work(self):
-        """Block until there is something to dispatch; returns
-        ``(admissions, chunk_rows, step, verify, park_rows)`` — any may be
-        empty/None — or None when closed and fully drained.
+        """Block until there is something to dispatch; returns ``("work",
+        admissions, chunk_rows, step, verify, adopts, stream_rows,
+        park_rows)`` — any may be empty/None — or ``("export", ...)`` when
+        a stream export quiesced, or None when closed and fully drained.
         All bookkeeping (slot assignment, trie match, chunk/length
         advance, draft assembly, preemption mark/park) happens HERE under
         ``_cv``; the caller just dispatches.
@@ -1166,8 +1366,102 @@ class ContinuousBatcher:
         metrics = self.metrics
         with self._cv:
             while True:
-                if self._closed and not self._queue and self._n_active == 0:
+                if (
+                    self._closed
+                    and not self._queue
+                    and not self._stream_adopts
+                    and self._n_active == 0
+                ):
+                    while self._adoptions:
+                        *_, fut = self._adoptions.popleft()
+                        if not fut.cancelled():
+                            fut.set_exception(
+                                RuntimeError("batcher closed")
+                            )
+                    if self._export_req is not None:
+                        # Nothing left to export — unblock the waiter.
+                        req = self._export_req
+                        self._export_req = None
+                        req.event.set()
                     return None
+                if self._export_req is not None:
+                    # Stream export pending: stop dispatching and let the
+                    # in-flight steps land, so every slot is SETTLED
+                    # (tokens fetched, lengths final, no write in flight)
+                    # when the capture runs.
+                    if self._n_inflight:
+                        self._cv.wait()
+                        continue
+                    req = self._export_req
+                    self._export_req = None
+                    exported = []
+                    for i, s in enumerate(self._slots):
+                        if s is None:
+                            continue
+                        self._slots[i] = None
+                        self._n_active -= 1
+                        if self._pool is not None and s.chain is not None:
+                            self._pool.release(s.chain)  # idempotent unpin
+                        exported.append((i, s))
+                    queued = list(self._queue)
+                    self._queue.clear()
+                    self._clear_queue_classes()
+                    adopts_q = list(self._stream_adopts)
+                    self._stream_adopts.clear()
+                    self._count = 0
+                    metrics.queue_depth.set(0)
+                    metrics.slots_active.set(self._n_active)
+                    return ("export", req, exported, queued, adopts_q)
+                # Chain adoptions drain first — a popped adoption's pool
+                # insert + page import runs before the NEXT pass's trie
+                # matches, so admissions planned after this pass can hit
+                # the transferred chain.
+                adopts = []
+                while self._adoptions:
+                    adopts.append(self._adoptions.popleft())
+                # Migrated streams claim free slots BEFORE fresh
+                # admissions — they are the oldest work in the house, and
+                # their slot-import dispatch precedes everything else this
+                # pass plans, so the decode step planned below can already
+                # include them.
+                stream_rows = []
+                while self._stream_adopts:
+                    free_ix = next(
+                        (i for i, s in enumerate(self._slots)
+                         if s is None),
+                        None,
+                    )
+                    if free_ix is None:
+                        break
+                    state, pk, pv, fut = self._stream_adopts.popleft()
+                    now = time.monotonic()
+                    pend = _Pending(state.replay_payload(),
+                                    state.request_id)
+                    pend.future = fut
+                    pend.t_taken = now
+                    slot = _Slot(pend, next(self._gens), pend.payload,
+                                 self._default_max_new)
+                    # Mid-generation occupant: its pages land via the
+                    # slot-import cell (no prefill), so the next decode
+                    # step continues at the stream's absolute position.
+                    slot.length = state.length
+                    slot.n_dispatched = len(slot.tokens)
+                    slot.t_first = now
+                    slot.t_last_tok = now
+                    if self._spec_k:
+                        # Fresh SlotSpec: spec state resets cleanly on
+                        # migration (drafting history is rebuilt from
+                        # prompt + accumulated tokens, EMA starts over).
+                        slot.spec = SlotSpec(self._spec_cfg)
+                        slot.prompt_ids = [
+                            int(t) for t in state.input_ids
+                        ]
+                    slot.slot_id = free_ix
+                    self._slots[free_ix] = slot
+                    self._n_active += 1
+                    stream_rows.append((free_ix, slot, pk, pv))
+                if stream_rows:
+                    metrics.slots_active.set(self._n_active)
                 # -------------------------------------- priority preemption
                 # MARK: when a queued deadline holder would miss its
                 # deadline waiting for a natural slot free, pick a strictly
@@ -1508,8 +1802,10 @@ class ContinuousBatcher:
                         if s.spec is not None:
                             s.spec.note_plain_step()  # probe clock
                     step = (lengths, active, temps, seeds, tags)
-                if admissions or chunk_rows or step or verify or park_rows:
-                    return admissions, chunk_rows, step, verify, park_rows
+                if (admissions or chunk_rows or step or verify or adopts
+                        or stream_rows or park_rows):
+                    return ("work", admissions, chunk_rows, step, verify,
+                            adopts, stream_rows, park_rows)
                 self._cv.wait()
 
     def _fail_slots(self, tagged: list[tuple[int, int]],
@@ -1562,7 +1858,50 @@ class ContinuousBatcher:
             if work is None:
                 self._completion.put(None)  # unblock the fetch thread
                 return
-            admissions, chunk_rows, step, verify, park_rows = work
+            if work[0] == "export":
+                _, req, exported, queued, adopts_q = work
+                self._service_export(req, exported, queued, adopts_q)
+                continue
+            (_, admissions, chunk_rows, step, verify, adopts, stream_rows,
+             park_rows) = work
+            if stream_rows:
+                # Slot-page import dispatches FIRST: the adopted slots may
+                # already ride this pass's verify/decode step, and stream
+                # order guarantees their lanes hold the migrated KV before
+                # anything reads them.
+                for slot_id, s, pk, pv in stream_rows:
+                    try:
+                        engine.import_slot_pages(
+                            slot_id, pk, pv, int(s.tokens[-1])
+                        )
+                    except Exception as e:  # noqa: BLE001 — fail the stream, not the loop
+                        self._fail_slots([(slot_id, s.gen)], e)
+                        continue
+                    self.recorder.record(
+                        "slot_alloc", s.pending.request_id, slot=slot_id,
+                        prompt_len=s.prompt_len, migrated=True,
+                    )
+            if adopts:
+                # Between-steps adoption (serve/disagg.py): index the
+                # chain in the pool, then write received pages into the
+                # freshly allocated blocks BEFORE anything else this pass
+                # dispatches — the import is in the stream ahead of any
+                # later chunk that could gather those blocks, so the
+                # kvpool publish-before-match contract holds.
+                for token_ids, pages_k, pages_v, fut in adopts:
+                    try:
+                        new = self._pool.insert(token_ids)
+                        if new and pages_k is not None:
+                            engine.import_prefix_pages(new, pages_k, pages_v)
+                        self.metrics.kv_pool_bytes.set(
+                            self._pool.stats()["bytes_used"]
+                        )
+                    except Exception as e:  # noqa: BLE001 — fail the adoption, not the loop
+                        if not fut.cancelled():
+                            fut.set_exception(e)
+                    else:
+                        if not fut.cancelled():
+                            fut.set_result(len(new))
             if park_rows:
                 # Park-publish dispatches BEFORE any admission prefill or
                 # chunk gather this pass: insert_prefix copies the parked
@@ -1690,22 +2029,17 @@ class ContinuousBatcher:
                     with self._cv:
                         self._n_inflight += 1
                         self.metrics.in_flight.set(self._n_inflight)
-                    self._completion.put(
-                        (
-                            "chunk",
-                            [
-                                (i, s.gen, final)
-                                for i, s, _, _, _, final in chunk_rows
-                            ],
-                            handle,
-                            time.monotonic(),
-                        )
-                    )
                     # Prefix bookkeeping AFTER the dispatch is enqueued:
                     # the gather is in the stream, so pins drop (a later
                     # insert may evict + rewrite those pages — stream
                     # order keeps the gather reading the old bytes), and
-                    # a final chunk's completed pages publish to the pool.
+                    # a final chunk's completed pages publish to the pool
+                    # BEFORE the chunk's completion is queued: once its
+                    # future resolves the chain's pages are written (or in
+                    # the stream ahead of anything issued later), so a
+                    # transfer that exports the chain right after the
+                    # prefill (serve/disagg.py) never reads a block the
+                    # trie indexed but the publish had not filled yet.
                     if self._pool is not None:
                         touched = False
                         for i, s, start, n, first, final in chunk_rows:
@@ -1732,6 +2066,17 @@ class ContinuousBatcher:
                             self.metrics.kv_pool_bytes.set(
                                 self._pool.stats()["bytes_used"]
                             )
+                    self._completion.put(
+                        (
+                            "chunk",
+                            [
+                                (i, s.gen, final)
+                                for i, s, _, _, _, final in chunk_rows
+                            ],
+                            handle,
+                            time.monotonic(),
+                        )
+                    )
             if verify:
                 # Dispatched BEFORE the decode step: the planned verify
                 # rows are parked (verifying=True) and would wedge if a
@@ -1779,6 +2124,75 @@ class ContinuousBatcher:
                 self._completion.put(
                     ("decode", tags, handle, time.monotonic())
                 )
+
+    def _service_export(self, req: _ExportRequest, exported, queued,
+                        adopts_q) -> None:
+        """Decode-loop thread: turn the quiesced occupants into
+        :class:`ExportedStream` records — gathering each settled decoding
+        slot's KV lane through the engine's slot-export cell — then wake
+        the ``export_streams`` caller. Streams without exportable pages
+        (still prefilling, queued, or a migration-less engine) export as
+        page-less states that replay via ``resume_tokens``."""
+        engine = self._engine
+        can_pages = getattr(engine, "stream_migrate", False)
+        out: list[ExportedStream] = []
+        for slot_id, s in exported:
+            p = s.pending
+            state = StreamState(
+                request_id=p.request_id,
+                input_ids=[int(t) for t in p.payload["input_ids"]],
+                tokens=list(s.tokens),
+                seed=s.seed,
+                temperature=s.temperature,
+                eos_id=s.eos_id,
+                max_new_tokens=s.max_new,
+                length=s.length,
+            )
+            pk = pv = None
+            if can_pages and not s.prefilling and s.tokens:
+                try:
+                    pk, pv = engine.export_slot_pages(slot_id)
+                except Exception:  # noqa: BLE001 — degrade to page-less replay
+                    logger.exception(
+                        "slot %d page export failed; stream %s migrates "
+                        "page-less", slot_id, p.request_id,
+                    )
+                    pk = pv = None
+            if pk is None:
+                state.length = 0  # page-less: the replay re-prefills
+            out.append(ExportedStream(state, pk, pv, p.future))
+            self.recorder.record(
+                "stream_export", p.request_id, slot=slot_id,
+                n_tokens=len(s.tokens), pages=pk is not None,
+            )
+        for p in queued:
+            pl = p.payload
+            eos = pl.get("eos_id")
+            state = StreamState(
+                request_id=p.request_id,
+                input_ids=[int(t) for t in pl["input_ids"]],
+                tokens=[int(t) for t in pl.get("resume_tokens", ())],
+                seed=int(pl.get("seed", 0)),
+                temperature=float(pl.get("temperature", 0.0)),
+                eos_id=None if eos is None else int(eos),
+                max_new_tokens=int(
+                    pl.get("max_new_tokens", self._default_max_new)
+                ),
+            )
+            out.append(ExportedStream(state, None, None, p.future))
+            self.recorder.record(
+                "stream_export", p.request_id, queued=True, pages=False,
+            )
+        for state, pk, pv, fut in adopts_q:
+            # A migrated-in stream caught mid-handoff migrates onward
+            # with the pages it arrived with.
+            out.append(ExportedStream(state, pk, pv, fut))
+            self.recorder.record(
+                "stream_export", state.request_id, queued=True,
+                pages=pk is not None,
+            )
+        req.results = out
+        req.event.set()
 
     # ---------------------------------------------------------- completion
 
@@ -2071,6 +2485,10 @@ class ContinuousBatcher:
                     p = self._queue.popleft()
                     p.future.set_exception(RuntimeError("batcher closed"))
                 self._clear_queue_classes()
+                while self._stream_adopts:
+                    *_, fut = self._stream_adopts.popleft()
+                    if not fut.cancelled():
+                        fut.set_exception(RuntimeError("batcher closed"))
                 self._count = 0
                 self.metrics.queue_depth.set(0)
             self._cv.notify_all()

@@ -33,9 +33,10 @@ re-runs bit-identically with the same spec.
 
 Port of the JAX package's ``serve/faultinject.py`` (pure Python; the same
 schedule event for event). In the port the decode-step hook sits in
-:class:`~distributed_tensorflow_tpu_torch.serve.batcher.ContinuousBatcher`;
-``check_wire`` and ``check_probe`` have no caller until disaggregated
-serving and the router are ported (Queue A item 7 of ROADMAP.md).
+:class:`~distributed_tensorflow_tpu_torch.serve.batcher.ContinuousBatcher`,
+``check_wire`` in :func:`~distributed_tensorflow_tpu_torch.serve.disagg.migrate_streams`
+(its outbound stream buffers); ``check_probe`` has no caller until the
+fleet router is ported (Queue A item 7c of ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -7,10 +7,7 @@ JSON adapter over the same client (``ThreadingHTTPServer``: one thread per
 connection blocks on its Future while the flusher thread batches across
 them — exactly the concurrency the micro-batcher exists to exploit).
 
-Routes (port of the JAX package's ``serve/server.py``; the KV-transfer
-and stream-migration routes belong to fleet serving, ROADMAP.md Queue A
-item 7, and answer 503 as the JAX server does when built without a
-receiver or migrator)::
+Routes (port of the JAX package's ``serve/server.py``)::
 
     GET  /healthz    -> readiness probe: 200 {"status": "ready", ...} only
                         when the stack serves; 503 with the state string
@@ -45,8 +42,17 @@ receiver or migrator)::
                         "priority" class + "deadline_ms" TTFT deadline
                         drive EDF admission and slot preemption when the
                         batcher runs --sched edf / --preempt)
-    POST /v1/kv_transfer, /v1/stream_migrate, /v1/stream_wait, /migratez
-                     -> 503: fleet serving is not ported
+    POST /v1/kv_transfer -> decode role: adopt a KV-page chain (octet-stream
+                        wire buffer, serve/disagg.py); 400 on a refusal,
+                        429 on a transfer-budget shed
+    POST /v1/stream_migrate -> adopt a migrated live stream (octet-stream;
+                        same 400/429 contract)
+    POST /v1/stream_wait -> {"request_id"}: the adopted stream's finished
+                        generation; 404 for an id never adopted here
+    POST /migratez   -> {"targets": [[host, port], ..]}: export every live
+                        stream and push it to those survivors
+                        (the four fleet routes answer 503 on a server
+                        built without their receiver or migrator)
 
 A request route the engine cannot answer (``/v1/generate`` on a BERT or
 image engine, the others on a decode engine) answers 404.
@@ -68,6 +74,7 @@ import itertools
 import json
 import logging
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
@@ -303,6 +310,10 @@ def build_http_server(
     port: int = 0,
     *,
     trace_dir: str | None = None,
+    kv_receiver=None,
+    transfer_budget=None,
+    stream_receiver=None,
+    migrator=None,
 ):
     """Build (not start) a ``ThreadingHTTPServer`` over ``client``.
 
@@ -310,6 +321,25 @@ def build_http_server(
     Call ``serve_forever()`` to run; ``shutdown()`` to stop. ``trace_dir``
     is where ``POST /profilez`` writes its ``torch.profiler`` traces (None:
     the route answers 503).
+
+    Disaggregated decode roles pass ``kv_receiver`` (a ``bytes -> dict``
+    callable from :func:`~distributed_tensorflow_tpu_torch.serve.disagg.make_kv_receiver`)
+    to mount ``POST /v1/kv_transfer`` — octet-stream wire buffers, 400 on
+    a ``WireError`` refusal, 429 on a budget shed — and ``transfer_budget``
+    (a :class:`~distributed_tensorflow_tpu_torch.serve.disagg.TransferBudget`)
+    to surface the bytes-in-flight digest under ``/statusz``.
+
+    Live stream migration adds two more optional mounts:
+    ``stream_receiver`` (a
+    :class:`~distributed_tensorflow_tpu_torch.serve.disagg.StreamReceiver`)
+    mounts ``POST /v1/stream_migrate`` — same octet-stream/400/429
+    contract as kv_transfer — plus ``POST /v1/stream_wait`` (JSON
+    ``{"request_id": ..}``), which blocks for an adopted stream's finished
+    generation and 404s for unknown ids (the caller's cue to replay with
+    ``resume_tokens``). ``migrator`` (a ``targets -> dict`` callable
+    wrapping :func:`~distributed_tensorflow_tpu_torch.serve.disagg.migrate_streams`)
+    mounts ``POST /migratez`` — export every live stream here and push
+    them to the given ``[[host, port], ..]`` survivors.
     """
 
     class Handler(BaseHTTPRequestHandler):
@@ -320,23 +350,24 @@ def build_http_server(
             "/v1/embed": ("embedding", "bucket"),
             "/v1/classify": ("top_ids", "top_probs"),
             # status/target surface only on a stream that migrated away
-            # mid-generation (fleet serving); ordinary results carry
-            # neither key.
+            # mid-generation (POST /migratez): the caller sees status ==
+            # "migrated" and collects the finished stream from the target
+            # via /v1/stream_wait; ordinary results carry neither key.
             "/v1/generate": ("tokens", "n_tokens", "prompt_len", "bucket",
                              "status", "target"),
         }
-        # Fleet-serving mounts (ROADMAP.md Queue A item 7): this server is
-        # built without a KV receiver, stream receiver or migrator, and
-        # answers them as the JAX server does then.
-        _unmounted = {
-            "/v1/kv_transfer": "kv transfer disabled: server built "
-                               "without a receiver (decode role only)",
-            "/v1/stream_migrate": "stream migration disabled: server built "
-                                  "without a stream receiver",
-            "/v1/stream_wait": "stream migration disabled: server built "
-                               "without a stream receiver",
-            "/migratez": "stream migration disabled: server built "
-                         "without a migrator",
+        # Fleet-serving mounts: route -> (handler, the 503 answer of a
+        # server built without it).
+        _fleet = {
+            "/v1/kv_transfer": (kv_receiver, "kv transfer disabled: server "
+                                "built without a receiver (decode role only)"),
+            "/v1/stream_migrate": (stream_receiver, "stream migration "
+                                   "disabled: server built without a "
+                                   "stream receiver"),
+            "/v1/stream_wait": (stream_receiver, "stream migration disabled: "
+                                "server built without a stream receiver"),
+            "/migratez": (migrator, "stream migration disabled: server "
+                          "built without a migrator"),
         }
 
         def log_message(self, fmt, *args):  # route access logs into logging
@@ -386,6 +417,14 @@ def build_http_server(
                     if k != "cells"
                 },
                 "flight_recorder": client.recorder.status(),
+                **(
+                    {"kv_transfer": transfer_budget.digest()}
+                    if transfer_budget is not None else {}
+                ),
+                **(
+                    {"stream_migrate": stream_receiver.digest()}
+                    if stream_receiver is not None else {}
+                ),
             }
 
         def do_GET(self):
@@ -458,13 +497,106 @@ def build_http_server(
             self._reply(200, profile_window(
                 trace_dir, ms, device=getattr(client.engine, "device", None)))
 
+        def _wire_post(self, path: str, receiver) -> None:
+            """``/v1/kv_transfer`` and ``/v1/stream_migrate``: an
+            octet-stream wire buffer into its receiver."""
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                out = receiver(self.rfile.read(n))
+            except ValueError as e:  # WireError: refuse, don't adopt
+                self._reply(400, {"error": str(e)})
+            except Exception as e:  # noqa: BLE001 — budget shed or adoption failure
+                retry = getattr(e, "retry_after_s", None)
+                if retry is not None:
+                    self._reply(
+                        429,
+                        {"error": str(e), "retry_after_s": retry},
+                        headers={"Retry-After": f"{retry:.3f}"},
+                    )
+                else:
+                    logger.exception("%s failed", path)
+                    client.recorder.record(
+                        "server_error", "", error=type(e).__name__,
+                    )
+                    self._reply(500, {"error": str(e)})
+            else:
+                self._reply(200, out)
+
+        def _stream_wait(self) -> None:
+            rid = None
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                payload = json.loads(self.rfile.read(n) or b"{}")
+                rid = payload.get("request_id")
+                if not rid:
+                    self._reply(
+                        400, {"error": "stream_wait needs a request_id"}
+                    )
+                    return
+                result = stream_receiver.wait(
+                    rid, float(payload.get("timeout_s", 60.0))
+                )
+            except json.JSONDecodeError as e:
+                self._reply(400, {"error": f"bad JSON: {e}"})
+            except KeyError:
+                # Unknown id: this replica never adopted the stream (or
+                # already handed its result out) — the caller's cue to
+                # replay with resume_tokens.
+                self._reply(
+                    404,
+                    {"error": f"no adopted stream {rid!r} here",
+                     "request_id": rid},
+                )
+            except (FutureTimeout, TimeoutError):
+                self._reply(
+                    504,
+                    {"error": "stream still generating", "request_id": rid},
+                )
+            except Exception as e:  # noqa: BLE001 — the resumed stream failed
+                logger.exception("stream_wait %s failed", rid)
+                self._reply(500, {"error": str(e), "request_id": rid})
+            else:
+                fields = self._routes["/v1/generate"]
+                body = {k: result[k] for k in fields if k in result}
+                body["request_id"] = rid
+                self._reply(200, body)
+
+        def _migratez(self) -> None:
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                payload = json.loads(self.rfile.read(n) or b"{}")
+                targets = [
+                    (str(t[0]), int(t[1]))
+                    for t in payload.get("targets", ())
+                ]
+                out = migrator(targets)
+            except (ValueError, TypeError, IndexError,
+                    json.JSONDecodeError) as e:
+                self._reply(400, {"error": str(e)})
+            except Exception as e:  # noqa: BLE001
+                logger.exception("stream migration failed")
+                client.recorder.record(
+                    "server_error", "", error=type(e).__name__,
+                )
+                self._reply(500, {"error": str(e)})
+            else:
+                self._reply(200, out)
+
         def do_POST(self):
             url = urlparse(self.path)
             if url.path == "/profilez":
                 self._profilez(url)
                 return
-            if url.path in self._unmounted:
-                self._reply(503, {"error": self._unmounted[url.path]})
+            if url.path in self._fleet:
+                handler, unmounted = self._fleet[url.path]
+                if handler is None:
+                    self._reply(503, {"error": unmounted})
+                elif url.path == "/v1/stream_wait":
+                    self._stream_wait()
+                elif url.path == "/migratez":
+                    self._migratez()
+                else:
+                    self._wire_post(url.path, handler)
                 return
             if url.path == "/drainz":
                 client.start_draining()

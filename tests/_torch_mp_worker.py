@@ -78,7 +78,14 @@ torch, numpy and the port, and saves its results to
   heads on the wire, round trip); then ``cli.train --config lm_base
   --tensor-parallel 2`` and ``cli.serve --tp 2 --selftest`` on its
   checkpoint, each as a group on the next port; last, a group whose
-  follower exits (code 3) after warm-up, and the leader's next cells.
+  follower exits (code 3) after warm-up, and the leader's next cells;
+- ``migrate_tp`` (2 ranks, ``tests/test_torch_migrate.py``): a
+  ``{"model": 2}`` serving group of the :data:`CAUSAL_TP_GEOM` LM with the
+  slot export/import cells, and on rank 0 a one-process engine of the same
+  LM: a stream exported mid-generation from the one process is adopted by
+  the group (``into_group``), and one exported from the group is adopted
+  by the one process (``out_of_group``), each with the one process's
+  uninterrupted stream as its reference.
 """
 
 from __future__ import annotations
@@ -86,6 +93,7 @@ from __future__ import annotations
 import itertools
 import json
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -910,6 +918,57 @@ def job_elastic(rank: int, world: int, ports: list[int], argv, out_dir: Path) ->
 # ------------------------------------------------------------ serving groups
 
 
+class Pacer:
+    """Decode-pace hook for a continuous batcher: sleeps EVERY step (a
+    seeded fault plan runs out), so streams are reliably mid-generation
+    when a test exports them."""
+
+    def __init__(self, slow_s: float):
+        self.slow_s = slow_s
+
+    def on_decode_step(self, step: int) -> None:
+        time.sleep(self.slow_s)
+
+
+def wait_active(batcher, n: int = 1, timeout_s: float = 10.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline and batcher.status()["slots_active"] < n:
+        time.sleep(0.005)
+
+
+def export_live(batcher, payload: dict, rid: str, *, want_pages: bool = True,
+                slow_s: float = 0.05, settle_s: float = 0.12):
+    """Submit ``payload`` to ``batcher`` (the JAX package's or the port's)
+    and lift it back out mid-generation. Retries with a fresh request id
+    when the race loses (stream finished or still prefilling); anything
+    unsuitable re-adopts locally so no future dangles. Returns the
+    ExportedStream."""
+    from distributed_tensorflow_tpu_torch.serve.disagg import _chain_future
+
+    for attempt in range(4):
+        r = rid if attempt == 0 else f"{rid}-retry{attempt}"
+        batcher.fault_injector = Pacer(slow_s)
+        try:
+            fut = batcher.submit(dict(payload), request_id=r)
+            wait_active(batcher)
+            time.sleep(settle_s)
+            exported = batcher.export_streams(10.0)
+        finally:
+            batcher.fault_injector = None
+        mine = [e for e in exported if e.state.request_id == r]
+        if not mine:
+            fut.result(timeout=10)  # finished before the export: go again
+            continue
+        exp = mine[0]
+        ok_pages = exp.pages_k is not None or not want_pages
+        if ok_pages and 0 < len(exp.state.tokens) < payload["max_new_tokens"]:
+            return exp
+        # Wrong phase (still prefilling / already done): resume locally.
+        _chain_future(batcher.adopt_stream(exp.state, exp.pages_k, exp.pages_v), exp.future)
+        fut.result(timeout=10)
+    raise AssertionError(f"never caught {rid} mid-generation with pages")
+
+
 def seeded_state(template: dict, seed: int, scale: float) -> dict:
     """A state dict of ``template``'s names and shapes drawn with numpy from
     ``seed``: LayerNorm scales ``1 + 0.1 N``, every other leaf ``scale *
@@ -1222,6 +1281,57 @@ def job_causal_tp(rank: int, world: int, ports: list[int], argv, out_dir: Path) 
     torch.save(out, out_dir / f"causal_tp_rank{rank}.pt")
     os._exit(0)
 
+def job_migrate_tp(rank: int, world: int, ports: list[int], argv, out_dir: Path) -> dict:
+    from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLM, CausalLMConfig
+    from distributed_tensorflow_tpu_torch.parallel.mesh import build_mesh
+    from distributed_tensorflow_tpu_torch.serve import (
+        BatcherConfig,
+        CausalLMEngine,
+        ContinuousBatcher,
+    )
+    from distributed_tensorflow_tpu_torch.serve.disagg import (
+        make_stream_receiver,
+        serialize_stream,
+    )
+
+    initialize_runtime(f"127.0.0.1:{ports[0]}", world, rank, device="cpu", timeout_s=60)
+    mesh = build_mesh({"model": 2})
+    params = causal_tp_params()
+    kw = dict(CAUSAL_TP_KW, stream_migrate=True)
+    group_engine = CausalLMEngine(CausalLM(CausalLMConfig(**CAUSAL_TP_GEOM), device="cpu"),
+                                  params, "cpu", mesh=mesh, **kw)
+    if rank:
+        assert group_engine.follow() == 0
+        shutdown_runtime()
+        return {}
+    single = CausalLMEngine(CausalLM(CausalLMConfig(**CAUSAL_TP_GEOM), device="cpu"),
+                            params, "cpu", **kw)
+    rng = np.random.default_rng(47)
+    max_new = kw["max_new_tokens"]
+    requests = {"into_group": {"input_ids": rng.integers(5, 64, size=9).tolist(),
+                               "max_new_tokens": max_new},
+                "out_of_group": {"input_ids": rng.integers(5, 64, size=7).tolist(),
+                                 "max_new_tokens": max_new, "temperature": 0.8, "seed": 3}}
+    cfg = BatcherConfig(max_batch=2, max_queue=8)
+    out = {"stream_heads": group_engine.stream_page_meta()["heads"]}
+    with ContinuousBatcher(single, cfg) as one, ContinuousBatcher(group_engine, cfg) as grp:
+        for name, payload in requests.items():
+            reference = one.submit(dict(payload)).result(timeout=60)["tokens"]
+            src, src_engine, dst, dst_engine = (
+                (one, single, grp, group_engine) if name == "into_group"
+                else (grp, group_engine, one, single))
+            exp = export_live(src, payload, name, slow_s=0.1, settle_s=0.3)
+            recv = make_stream_receiver(dst, dst_engine)
+            got = recv(serialize_stream(exp.state, exp.pages_k, exp.pages_v,
+                                        src_engine.stream_page_meta()))
+            out[name] = {"reference": reference, "pages": got["pages"],
+                         "resume_at": got["resume_at"], "max_new": max_new,
+                         "tokens": recv.wait(exp.state.request_id, timeout_s=60)["tokens"]}
+    group_engine.close()
+    shutdown_runtime()
+    return out
+
+
 def main() -> int:
     job, rank, world, out_dir, ports = sys.argv[1:6]
     argv = json.loads(sys.argv[6]) if len(sys.argv) > 6 else None
@@ -1229,11 +1339,12 @@ def main() -> int:
     ports = [int(p) for p in ports.split(",")]
     torch.set_num_threads(1)
     if job in ("dropout", "chaos", "elastic", "mp_attn", "mp_bert", "mp_moe", "mp_pipe",
-               "mp_moe_pp", "serve_mesh", "causal_tp"):
+               "mp_moe_pp", "serve_mesh", "causal_tp", "migrate_tp"):
         job_fn = {"dropout": job_dropout, "chaos": job_chaos, "elastic": job_elastic,
                   "mp_attn": job_mp_attn, "mp_bert": job_mp_bert, "mp_moe": job_mp_moe,
                   "mp_pipe": job_mp_pipe, "mp_moe_pp": job_mp_moe_pp,
-                  "serve_mesh": job_serve_mesh, "causal_tp": job_causal_tp}[job]
+                  "serve_mesh": job_serve_mesh, "causal_tp": job_causal_tp,
+                  "migrate_tp": job_migrate_tp}[job]
         out = job_fn(rank, world, ports, argv, out_dir)
     else:
         out = {"collectives": job_collectives, "cli": job_cli}[job](rank, world, ports, argv)

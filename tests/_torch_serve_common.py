@@ -27,8 +27,8 @@ KW = dict(buckets=(16,), slots=3, max_batch=2, batch_tiers=(2,), max_new_tokens=
 CHUNKED = dict(prefix_cache_mb=0.05, block_tokens=4, prefill_chunk=8)
 
 
-def _flax_params(seed: int = 0) -> dict:
-    model = J.CausalLM(J.CausalLMConfig(**GEOM))
+def _flax_params(seed: int = 0, geom: dict = GEOM) -> dict:
+    model = J.CausalLM(J.CausalLMConfig(**geom))
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
                             jnp.zeros((1, 8), jnp.int32), jnp.ones((1, 8), bool))["params"]
     rng = np.random.default_rng(seed)

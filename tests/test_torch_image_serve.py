@@ -139,7 +139,8 @@ def test_serve_cli_selftest_and_classify_route(image_ckpt, capsys):
 @pytest.mark.parametrize(
     "argv,message",
     [(["--config=cifar_resnet20", "--weight-dtype=int8"], "not supported for image serving"),
-     (["--config=lm_base", "--stream-migrate"], "Queue A item 7"),
+     (["--config=lm_base", "--disagg-role=decode"],
+      "--disagg-role decode requires --prefix-cache-mb > 0"),
      (["--config=bert_base", "--kv-dtype=int8"], "only applies to causal-LM decode serving")],
     ids=["image-int8", "lm_base", "decode-flag"],
 )

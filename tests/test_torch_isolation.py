@@ -33,6 +33,9 @@ MODEL_PARALLEL_MODULES = ("parallel/mesh.py", "parallel/collectives.py",
 # The serving-layout slice's modules: the leader/follower serving group,
 # the engines over it, the causal LM's tensor parallelism.
 SERVING_GROUP_MODULES = ("serve/group.py", "serve/engine.py", "models/causal_lm.py")
+# The fleet-serving slice's module: the KV wire v1-v4, the transfer budget,
+# the prefill/decode pair, the stream receiver and the migrator.
+FLEET_MODULES = ("serve/disagg.py",)
 
 
 def _imported_roots(path: Path):
@@ -60,7 +63,7 @@ def test_port_imports_nothing_of_jax():
                  "scripts/torch_pw_bench.py",
                  *(f"distributed_tensorflow_tpu_torch/{m}"
                    for m in RESILIENCE_MODULES + MODEL_PARALLEL_MODULES
-                   + SERVING_GROUP_MODULES)):
+                   + SERVING_GROUP_MODULES + FLEET_MODULES)):
         assert ROOT / name in files
     # The multi-process worker (its chaos job included) runs torch and the
     # port only.
@@ -104,14 +107,15 @@ def test_serving_host_modules_import_without_jax():
     ``run_resilient``) and the model-parallel ones (process groups,
     collectives, ring and Ulysses attention, MoE dispatch, the GPipe
     schedule) and the serving group's (the leader/follower protocol, the
-    engines over it, the causal LM's TP) are the port's own copies:
+    engines over it, the causal LM's TP) and fleet serving's (the KV wire,
+    disaggregation and migration) are the port's own copies:
     importing them in a fresh interpreter leaves ``jax`` out of
     ``sys.modules``."""
     import subprocess
     import sys
 
     modules = ["serve/kvpool.py", "serve/spec.py", "obs/sanitizer.py", *RESILIENCE_MODULES,
-               *MODEL_PARALLEL_MODULES, *SERVING_GROUP_MODULES]
+               *MODEL_PARALLEL_MODULES, *SERVING_GROUP_MODULES, *FLEET_MODULES]
     # Measured against what the interpreter held before the imports, in
     # case a site hook loads a package at startup.
     code = ("import sys\n"

@@ -190,3 +190,160 @@ def test_bert_engine_int8_matches_the_jax_engine():
     np.testing.assert_array_equal(got["pred_ids"], np.asarray(ref["pred_ids"]))
     np.testing.assert_allclose(got["score"], ref["score"], atol=1e-4)
     np.testing.assert_allclose(got["embedding"], np.asarray(ref["embedding"]), atol=1e-4)
+
+
+# ----------------------------------------------------- wire format v3/v4
+
+
+def _int8_side(rng, shape, scale_shape):
+    return {"q": rng.integers(-127, 128, shape, dtype=np.int8),
+            "s": rng.random(scale_shape, dtype=np.float32)}
+
+
+def _torch_tree(tree):
+    return {k: torch.from_numpy(v.copy()) for k, v in tree.items()}
+
+
+def test_wire_int8_chain_roundtrip_and_version_tamper():
+    """The int8 chain (v3) round trip, byte for byte the JAX package's
+    buffer, and its refusals: a bare int8 array at serialize, an int8
+    buffer re-tagged v1 and an fp32 one re-tagged v3 (fail closed both
+    ways, with JAX's messages), a flipped scale byte (the CRC covers the
+    scales)."""
+    from distributed_tensorflow_tpu.serve import disagg as JD
+    from distributed_tensorflow_tpu_torch.serve.disagg import (
+        _PREFIX,
+        WIRE_VERSION,
+        WIRE_VERSION_QUANT,
+        WireError,
+        deserialize_chain,
+        serialize_chain,
+    )
+
+    meta = {"num_layers": 2, "block_tokens": 4, "heads": 2, "head_dim": 3, "dtype": "int8"}
+    rng = np.random.default_rng(5)
+    shape = (2, 3, 4, 2, 3)  # 3 blocks
+    pk, pv = _int8_side(rng, shape, shape[:3]), _int8_side(rng, shape, shape[:3])
+    ids = [int(x) for x in rng.integers(5, 64, size=12)]
+    buf = serialize_chain(ids, _torch_tree(pk), _torch_tree(pv), meta)
+    assert buf == JD.serialize_chain(ids, pk, pv, meta)
+    assert _PREFIX.unpack_from(buf)[1] == WIRE_VERSION_QUANT
+    tids, k2, v2, header = deserialize_chain(buf)
+    assert tids == ids and header["page_meta"]["dtype"] == "int8"
+    for got, sent in ((k2, pk), (v2, pv)):
+        assert got["q"].numpy().tobytes() == sent["q"].tobytes()
+        assert got["s"].numpy().tobytes() == sent["s"].tobytes()
+    with pytest.raises(ValueError, match="scale tree"):
+        serialize_chain(ids, torch.from_numpy(pk["q"]), torch.from_numpy(pv["q"]), meta)
+    magic, _, hlen = _PREFIX.unpack_from(buf)
+    fbuf = serialize_chain(ids, torch.rand(shape), torch.rand(shape),
+                           {**meta, "dtype": "float32"})
+    magic, fver, fhlen = _PREFIX.unpack_from(fbuf)
+    assert fver == WIRE_VERSION
+    corrupt = bytearray(buf)
+    corrupt[-3] ^= 0xFF
+    for bad, match in ((_PREFIX.pack(magic, WIRE_VERSION, hlen) + buf[_PREFIX.size:],
+                        "inconsistent"),
+                       (_PREFIX.pack(magic, WIRE_VERSION_QUANT, fhlen) + fbuf[_PREFIX.size:],
+                        "inconsistent"),
+                       (bytes(corrupt), "CRC")):
+        with pytest.raises(WireError, match=match) as pe:
+            deserialize_chain(bad)
+        with pytest.raises(JD.WireError) as je:
+            JD.deserialize_chain(bad)
+        assert str(pe.value) == str(je.value)
+
+
+def test_wire_int8_stream_roundtrip():
+    """The int8 stream (v4): exactly the settled positions, q and s
+    together, byte for byte the JAX package's buffer; page-less streams are
+    always v2, and a v4 tag with no pages refuses."""
+    from distributed_tensorflow_tpu.serve import batcher as JB
+    from distributed_tensorflow_tpu.serve import disagg as JD
+    from distributed_tensorflow_tpu_torch.serve.batcher import StreamState
+    from distributed_tensorflow_tpu_torch.serve.disagg import (
+        _PREFIX,
+        WIRE_VERSION_STREAM,
+        WIRE_VERSION_STREAM_QUANT,
+        WireError,
+        deserialize_stream,
+        serialize_stream,
+    )
+
+    meta = {"num_layers": 2, "cache_len": 24, "heads": 2, "head_dim": 3, "dtype": "int8"}
+    rng = np.random.default_rng(9)
+    fields = dict(request_id="q-mig-1",
+                  input_ids=[int(t) for t in rng.integers(5, 60, size=8)],
+                  tokens=[int(t) for t in rng.integers(5, 60, size=4)],
+                  max_new_tokens=8, length=11)
+    st = StreamState(**fields)
+    shape = (2, 24, 2, 3)
+    pk, pv = _int8_side(rng, shape, shape[:2]), _int8_side(rng, shape, shape[:2])
+    buf = serialize_stream(st, _torch_tree(pk), _torch_tree(pv), meta)
+    assert buf == JD.serialize_stream(JB.StreamState(**fields), pk, pv, meta)
+    assert _PREFIX.unpack_from(buf)[1] == WIRE_VERSION_STREAM_QUANT
+    sd, k2, v2, header = deserialize_stream(buf)
+    assert sd == st.to_dict() and header["n_tokens"] == 11
+    for got, sent in ((k2, pk), (v2, pv)):
+        assert got["q"].numpy().tobytes() == np.ascontiguousarray(sent["q"][:, :11]).tobytes()
+        assert got["s"].numpy().tobytes() == np.ascontiguousarray(sent["s"][:, :11]).tobytes()
+    pl = serialize_stream(st)
+    magic, ver, hlen = _PREFIX.unpack_from(pl)
+    assert ver == WIRE_VERSION_STREAM
+    with pytest.raises(WireError, match="carry pages"):
+        deserialize_stream(_PREFIX.pack(magic, WIRE_VERSION_STREAM_QUANT, hlen)
+                           + pl[_PREFIX.size:])
+
+
+def _chain_buf(engine, seed):
+    """A 1-block chain serialized against ``engine``'s page geometry."""
+    from distributed_tensorflow_tpu_torch.serve.disagg import serialize_chain
+
+    meta = engine.page_meta()
+    rng = np.random.default_rng(seed)
+    bt = meta["block_tokens"]
+    shape = (meta["num_layers"], 1, bt, meta["heads"], meta["head_dim"])
+
+    def side():
+        if meta["dtype"] == "int8":
+            return _torch_tree(_int8_side(rng, shape, shape[:3]))
+        return torch.from_numpy(rng.random(shape, dtype=np.float32))
+
+    ids = [int(x) for x in rng.integers(5, 64, size=bt)]
+    return serialize_chain(ids, side(), side(),
+                           {k: v for k, v in meta.items() if k != "max_chain"})
+
+
+def test_wire_cross_dtype_refusal_both_directions():
+    """A real receiver (batcher + engine, the /v1/kv_transfer handler)
+    refuses a chain of the other arm's dtype in both directions and still
+    adopts its own: cross-dtype KV adoption fails closed, never
+    reinterprets bytes."""
+    from distributed_tensorflow_tpu_torch.serve import (
+        BatcherConfig,
+        CausalLMEngine,
+        ContinuousBatcher,
+    )
+    from distributed_tensorflow_tpu_torch.serve.disagg import WireError, make_kv_receiver
+
+    engines = {
+        name: CausalLMEngine(CausalLM(CausalLMConfig(**GEOM), device="cpu"),
+                             CausalLM(CausalLMConfig(**GEOM), device="cpu").state_dict(),
+                             "cpu", buckets=(8,), slots=2, max_batch=1, max_new_tokens=4,
+                             prefix_cache_mb=0.05, block_tokens=4, prefill_chunk=8,
+                             kv_transfer=True, **kw)
+        for name, kw in (("int8", dict(weight_dtype="int8", kv_dtype="int8")),
+                         ("fp32", {}))
+    }
+    batchers = {n: ContinuousBatcher(e, BatcherConfig(max_batch=1)) for n, e in engines.items()}
+    try:
+        receivers = {n: make_kv_receiver(batchers[n], engines[n], timeout_s=5.0)
+                     for n in engines}
+        for src, dst in (("int8", "fp32"), ("fp32", "int8")):
+            with pytest.raises(WireError, match="dtype"):
+                receivers[dst](_chain_buf(engines[src], seed=5))
+        for name in engines:
+            assert receivers[name](_chain_buf(engines[name], seed=6))["adopted_blocks"] >= 1
+    finally:
+        for b in batchers.values():
+            b.close()

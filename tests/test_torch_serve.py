@@ -338,9 +338,10 @@ def test_checkpoint_and_cli_selftest(tmp_path, flax_params, capsys):
     assert main(flags + ["--device=cpu", "--buckets", "16", "32",
                          "--max-batch=2", "--selftest=3"]) == 0
     assert json.loads(capsys.readouterr().out)["requests"] == 3
-    # Refused at argument time: a fleet-serving flag on lm_base, and a KV
-    # dtype on a preset that owns no KV cache.
-    for bad in (["--config=lm_base", "--stream-migrate"], ["--kv-dtype=int8"]):
+    # Refused at argument time: a decode role on lm_base without the prefix
+    # cache its adopted chains land in (JAX's check), and a KV dtype on a
+    # preset that owns no KV cache.
+    for bad in (["--config=lm_base", "--disagg-role=decode"], ["--kv-dtype=int8"]):
         argv = flags[1:] + bad if bad[0].startswith("--config") else flags + bad
         with pytest.raises(SystemExit) as ei:
             main(argv)

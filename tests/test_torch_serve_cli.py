@@ -2,7 +2,7 @@
 CLI writes a tiny ``lm_base`` checkpoint, then ``cli.serve`` serves it
 through the continuous batcher with the prefix cache, chunked prefill,
 speculation, EDF and preemption on, in-process (``--selftest``) and over
-HTTP; the fleet-serving flags stay refused."""
+HTTP; the fleet-serving flags pass JAX's checks."""
 
 from __future__ import annotations
 
@@ -92,20 +92,32 @@ def test_generate_route_through_the_cli_client(lm_ckpt):
                                   "--stream-migrate", "--fault-plan=seed=1",
                                   "--fault-steps=10"])
 def test_fleet_flags_are_refused(flag, capsys, tmp_path):
-    """The fleet flags stay refused, naming Queue A item 7. The serving
-    fault-injection flags are ported: they pass the argument checks, and
-    the run goes on to the (empty) checkpoint directory."""
+    """The fleet flags and the serving fault-injection flags are ported:
+    each passes the argument checks (a decode role beside its prefix
+    cache), and the run goes on to the (empty) checkpoint directory."""
     from distributed_tensorflow_tpu_torch.cli.serve import main
 
-    if flag.startswith("--fault-"):
-        with pytest.raises(FileNotFoundError, match="no checkpoint"):
-            main(["--config=lm_base", flag, f"--ckpt-dir={tmp_path}", "--device=cpu"])
-        assert "Queue A item 7" not in capsys.readouterr().err
-        return
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        main(["--config=lm_base", flag, "--prefix-cache-mb=0.05", f"--ckpt-dir={tmp_path}",
+              "--device=cpu"])
+    assert "Queue A item 7" not in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--config=lm_base", "--disagg-role=decode"],
+     "--disagg-role decode requires --prefix-cache-mb > 0"),
+    (["--config=bert_base", "--stream-migrate"],
+     "--stream-migrate applies to causal-LM (decode) presets only"),
+], ids=["decode-without-prefix-cache", "stream-migrate-on-bert"])
+def test_fleet_flags_keep_jaxs_checks(argv, message, capsys, tmp_path):
+    """JAX's checks of the fleet flags: a decode role needs the prefix-cache
+    pool its adopted chains land in, and migration needs a decode engine."""
+    from distributed_tensorflow_tpu_torch.cli.serve import main
+
     with pytest.raises(SystemExit) as ei:
-        main(["--config=lm_base", flag, f"--ckpt-dir={tmp_path}", "--device=cpu"])
+        main(argv + [f"--ckpt-dir={tmp_path}", "--device=cpu"])
     assert ei.value.code == 2
-    assert "Queue A item 7" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
 
 
 def test_global_batch_and_staleness_are_parsed_and_served(lm_ckpt, capsys):

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 from _torch_serve_common import CHUNKED, jax_engine, port_engine, ref_greedy, run_batcher
 
+from distributed_tensorflow_tpu.serve import BatcherConfig as JaxBatcherConfig
 from distributed_tensorflow_tpu.serve import ContinuousBatcher as JaxBatcher
 from distributed_tensorflow_tpu_torch.obs.metrics import ServeMetrics
 from distributed_tensorflow_tpu_torch.obs.sanitizer import sanitize_races
@@ -37,6 +38,7 @@ from distributed_tensorflow_tpu_torch.serve import (
     ContinuousBatcher,
     build_http_server,
 )
+from distributed_tensorflow_tpu_torch.serve.batcher import StreamState
 
 # ------------------------------------------------- scheduling (stub engine)
 
@@ -488,9 +490,21 @@ def test_http_generate_and_drain(pairs):
         client.close()
 
 
-def test_fleet_methods_name_their_queue_item():
-    with ContinuousBatcher(_StubDecodeEngine(), BatcherConfig(max_batch=2)) as b:
-        for call in (lambda: b.adopt_chain([1, 2]), lambda: b.adopt_stream(None),
-                     b.export_streams):
-            with pytest.raises(NotImplementedError, match="Queue A item 7"):
-                call()
+@pytest.mark.parametrize("batcher_cls,config_cls", [(ContinuousBatcher, BatcherConfig),
+                                                    (JaxBatcher, JaxBatcherConfig)],
+                         ids=["port", "jax"])
+def test_fleet_methods_fail_cleanly_on_a_closed_batcher(batcher_cls, config_cls):
+    """``adopt_chain``, ``adopt_stream`` (with pages and page-less) and
+    ``export_streams`` on a closed batcher raise at once, the port's as the
+    JAX package's do (one closed-form stub engine for both)."""
+    engine = _StubDecodeEngine()
+    engine.stream_migrate = True  # past the slot-import check to the close
+    b = batcher_cls(engine, config_cls(max_batch=2))
+    b.close()
+    state = StreamState("closed-1", [5, 6, 7], [8], max_new_tokens=4, length=3)
+    for call in (lambda: b.adopt_chain([1, 2, 3, 4]),
+                 lambda: b.adopt_stream(state, np.zeros(1), np.zeros(1)),
+                 lambda: b.adopt_stream(state),
+                 lambda: b.export_streams(2.0)):
+        with pytest.raises(RuntimeError, match="batcher is closed"):
+            call()

@@ -298,7 +298,7 @@ Phases (any failure exits non-zero before the result lines):
    tried raw on CUDA tensors, and the ops staged through pinned host
    memory printed (``ppermute``: gloo's ``send`` hands the device pointer
    to its socket, which fails with ``Bad address`` on an H100). Then
-   BERT-base's widths at :data:`MP_LAYERS` (4) of its 12 layers (768, 12
+   BERT-base's widths at :data:`MP_LAYERS` (2) of its 12 layers (768, 12
    heads, 512 positions), 8 rows x
    L=512, bf16, from the same seeded global parameters and fixed batch,
    under ``{"model": 2}`` (TP), the ``{"seq": 2}`` ring and ``{"seq": 2}``
@@ -335,19 +335,38 @@ Phases (any failure exits non-zero before the result lines):
    ``kv_transfer`` engines, 12 requests over ``d2d`` and 12 over the
    serialized ``wire`` (chain blocks, bytes, transfer ms); across
    processes, three ``cli.serve`` replicas started beside
-   train_cli_resilient and serve_lm_faults (it runs last): chains POSTed to the decode role B (``/v1/kv_transfer``) and
+   train_cli_resilient and serve_lm_faults (A launched by the port's
+   ``Router``, which owns it from then on): chains POSTed to the decode
+   role B (``/v1/kv_transfer``) and
    their requests served there, 8 live streams moved from A to B by
    ``/migratez`` (ms and bytes a stream) and collected by
    ``/v1/stream_wait``, and the chaos drill (A2's first stream buffer
    corrupted, refused on its CRC, retried page-less); every stream equal
    to the colocated or uninterrupted one.
+26. serve_lm_router — the last phase, on serve_lm_fleet's replicas (A
+   owned, A2 and B adopted) behind the port's ``Router`` and
+   ``build_router_server``: 12 ``/v1/generate`` streams, each on its
+   rendezvous pick and equal to the colocated one; 4 sharing a 64-token
+   head on B with their prefix hits; an empty ``input_ids`` 400 with a
+   minted ``rt-`` id; the router's hop in ms (12 one-token requests,
+   direct and routed, medians); ``hot_swap`` of A to a new tag with 4 paced
+   streams live (the 0.3 s drain deadline migrates them by ``/migratez``,
+   the router collects each ``migrated`` answer by ``/v1/stream_wait``,
+   every stream equal; the drain, migrate, restart and ready stages
+   timed); while A restarts, A2 SIGKILLed under 4 live streams (each
+   failed over and equal, A2 ``down`` and never restarted, nothing shed);
+   and ``cli.router --adopt B`` as a process: one generate, then SIGTERM,
+   exit 0.
 
 Phases run one after another, but for train_cli, train_cli_image,
 train_cli_inception, train_cli_bert_corpus, train_cli_dp, train_lm_tp and
 train_cli_tp_sp: CLI runs that time nothing the records keep, run at once
 on threads of their own (their ``seconds`` are then the group's; 80 GB
 holds these seven at once, not the lm_base resume as well: train_lm_tp
-is 8 rows). Before the result lines,
+is 8 rows), with train_cli_lm after the first six, beside train_cli_tp_sp's
+second job; and train_cli_resilient beside serve_lm_faults (two fault
+drills of their own processes). The fleet replicas load from the end of
+train_chaos's two processes. Before the result lines,
 ``feed_summary`` gives every phase's seconds and the total, the cores the host pipeline needs to keep up with this run's ResNet-50
 ``fused`` step, and the CLI's median step ms and host_wait_ms under each
 feed. The last two lines are the kernels' JSON record and
@@ -2924,10 +2943,11 @@ def _batcher_rates(phases: list, wall: float) -> dict:
             "ttft_ms_p99": float(np.percentile(ttft, 99))}
 
 
-def _prefix_requests(vocab: int, n: int = 12, head: int = 64, max_position: int = 128):
+def _prefix_requests(vocab: int, n: int = 12, head: int = 64, max_position: int = 128,
+                     seed: int = 41):
     """``n`` seeded prompts sharing a ``head``-token prefix, tails of 1-40
     tokens, every other one sampled; budgets fill the cache pages."""
-    rng = np.random.default_rng(SEED + 41)
+    rng = np.random.default_rng(SEED + seed)
     shared = rng.integers(4, vocab, head)
     out = []
     for i in range(n):
@@ -3637,7 +3657,7 @@ def phase_train_resilient_fused(torch, *, device="cuda", rows=128, hw=224) -> di
     return out
 
 
-def phase_train_chaos(torch, pad_s: float, *, rows=64) -> dict:
+def phase_train_chaos(torch, pad_s: float, *, rows=64, on_launched=None) -> dict:
     """``scripts/torch_dp_train.py --chaos``: two independent processes on
     the one card (no process group: beacons, checkpoints and dumps are
     their only channels), each full-width ResNet-50 ``fused`` at ``rows``
@@ -3653,7 +3673,9 @@ def phase_train_chaos(torch, pad_s: float, *, rows=64) -> dict:
     ``run_resilient`` with a ``feeder_error`` at stream index 2, and its
     losses, params, momentum and BatchNorm statistics equal bit for bit an
     uninterrupted ``fit`` from the same checkpoint; 29 launches of each
-    fused kernel a step, in the survivor and in both runs here."""
+    fused kernel a step, in the survivor and in both runs here.
+    ``on_launched()`` is called once the two processes have ended: what
+    follows here is bitwise, not timed."""
     from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
     from distributed_tensorflow_tpu_torch.data.prefetch import prefetch
     from distributed_tensorflow_tpu_torch.obs.fleet import FleetSupervisor, read_beacons
@@ -3677,6 +3699,8 @@ def phase_train_chaos(torch, pad_s: float, *, rows=64) -> dict:
     _, survivor = _dp_launch(2, "gloo", "--chaos", str(work), "--steps", str(CHAOS_STEPS),
                              "--rows", str(rows), "--pad-s", f"{pad_s:.4f}", codes=(-9, 0))
     launch_s = time.monotonic() - t0
+    if on_launched is not None:
+        on_launched()
     check(survivor["step"] == survivor["latest_ckpt"] == survivor["last_step"] == CHAOS_STEPS,
           f"survivor {survivor}")
     check({k: v for k, v in survivor["launches"].items() if v}
@@ -4012,8 +4036,9 @@ def phase_serve_lm_faults(torch, ckpt_dir: Path, *, device="cuda", cfg=None,
 
 
 # The depth of the model-parallel training layouts: BERT-base's widths at
-# 4 of its 12 layers (the depth cut that pays for the serving groups).
-MP_LAYERS = 4
+# 2 of its 12 layers (the depth cuts that pay for the serving groups, then
+# for the fleet router's phase).
+MP_LAYERS = 2
 # Flash launches a step a rank of each kernel: one a layer, the ring's two
 # blocks a layer (its local length, 256, picks flash), and the pipeline's
 # MP_LAYERS / 2 layers a stage x M = 8 microbatches (fill and drain ticks
@@ -4332,12 +4357,20 @@ def _spawn_group(flags: list, log_dir: Path, device: str, world: int = 2):
     for r in range(world):
         with open(log_dir / f"rank{r}.log", "w") as fh:
             procs.append(subprocess.Popen(
-                [sys.executable, str(ROOT / "scripts" / "torch_mp_train.py"), "--serve",
-                 *flags, "--device", device, "--port", str(port),
-                 "--coordinator-address", f"127.0.0.1:{coord}", "--num-processes", str(world),
-                 "--process-id", str(r), "--launch-log", str(log_dir / f"rank{r}.json")],
+                _serve_rank_argv(flags, device, port, coord, world, r,
+                                 log_dir / f"rank{r}.json"),
                 cwd=ROOT, env=_repo_env(), stdout=fh, stderr=subprocess.STDOUT))
     return procs, f"http://127.0.0.1:{port}", time.monotonic()
+
+
+def _serve_rank_argv(flags: list, device: str, port: int, coord: int, world: int, rank: int,
+                     launch_log: Path) -> list:
+    """``cli.serve`` as rank ``rank`` of a ``world``-rank gloo job
+    (``scripts/torch_mp_train.py --serve``), serving HTTP on ``port``."""
+    return [sys.executable, str(ROOT / "scripts" / "torch_mp_train.py"), "--serve", *flags,
+            "--device", device, "--port", str(port), "--coordinator-address",
+            f"127.0.0.1:{coord}", "--num-processes", str(world), "--process-id", str(rank),
+            "--launch-log", str(launch_log)]
 
 
 def _await_group(group, log_dir: Path) -> float:
@@ -4647,15 +4680,34 @@ def _fleet_requests(vocab: int, n: int, seed: int, max_prompt: int = 96) -> list
     return out
 
 
-def spawn_fleet_replicas(lm_ckpt: Path, device="cuda", cli_extra=()) -> dict:
-    """The cross-process replicas of :func:`phase_serve_lm_fleet`, each
-    ``cli.serve --config lm_base_f32`` on ``lm_ckpt`` as a one-rank job
-    (``scripts/torch_mp_train.py --serve``) at :func:`phase_serve_lm`'s
-    geometry with ``--stream-migrate``: ``b`` the decode role
-    (``--disagg-role decode`` and its prefix pool), ``a`` with its decode
-    paced (``FLEET_PACE_S`` a step), ``a2`` as ``a`` with one
-    ``wire_corrupt`` on its first outbound stream buffer. Returns ``{name:
-    group}`` (:func:`_spawn_group`)."""
+# The router over the fleet (serve_lm_router): slow first loads and busy
+# hosts are not losses; a prompt head stays on its rendezvous pick however
+# many streams it holds (affinity never yields); a hot swap's drain deadline
+# falls while the paced streams on A are live (each owes LM_NEW tokens at
+# FLEET_PACE_S a step).
+ROUTER_CONFIG = dict(poll_interval_s=0.25, poll_timeout_s=10.0, start_grace_s=900.0,
+                     fail_threshold=3, affinity_max_imbalance=1e9, drain_timeout_s=0.3,
+                     ready_timeout_s=300.0, request_timeout_s=300.0)
+ROUTER_SWAP_TAG = "swap-2"
+
+
+def spawn_fleet_replicas(lm_ckpt: Path, device="cuda", cli_extra=()) -> tuple:
+    """The cross-process replicas of :func:`phase_serve_lm_fleet` and
+    :func:`phase_serve_lm_router`, each ``cli.serve --config lm_base_f32``
+    on ``lm_ckpt`` as a one-rank job (``scripts/torch_mp_train.py
+    --serve``) at :func:`phase_serve_lm`'s geometry with
+    ``--stream-migrate``: ``b`` the decode role (``--disagg-role decode``
+    and its prefix pool), ``a`` with its decode paced (``FLEET_PACE_S`` a
+    step), ``a2`` as ``a`` with one ``wire_corrupt`` on its first outbound
+    stream buffer. The port's :class:`Router` (started here, polling) owns
+    ``a``: it launches ``a``, and a hot swap relaunches it with
+    ``make_cmd``; ``a2`` and ``b`` are groups of their own
+    (:func:`_spawn_group`) that it adopts. Returns ``(groups, router,
+    make_cmd)``, ``groups`` ``{name: (procs, base_url, start)}`` with ``a``'s
+    first process; :func:`stop_fleet` stops them all."""
+    from distributed_tensorflow_tpu_torch.obs.flightrec import FlightRecorder
+    from distributed_tensorflow_tpu_torch.serve.router import Router, RouterConfig
+
     shutil.rmtree(FLEET_LOGS, ignore_errors=True)
     FLEET_LOGS.mkdir(parents=True)
     base = ["--config", "lm_base_f32", "--ckpt-dir", str(lm_ckpt),
@@ -4672,8 +4724,44 @@ def spawn_fleet_replicas(lm_ckpt: Path, device="cuda", cli_extra=()) -> dict:
         plan = FLEET_LOGS / f"plan_{name}.json"
         plan.write_text(json.dumps({"seed": None, "events": events}))
         flags[name] = base + ["--fault-plan", str(plan)]
-    return {name: _spawn_group(f, FLEET_LOGS / name, device, world=1)
-            for name, f in flags.items()}
+    groups = {name: _spawn_group(flags[name], FLEET_LOGS / name, device, world=1)
+              for name in ("a2", "b")}
+    a_port = _free_port()
+    a_logs = FLEET_LOGS / "a"
+    a_logs.mkdir()
+
+    def make_cmd(replica):
+        # The swap's argv: A's flags on its port under the new tag.
+        return _serve_rank_argv(flags["a"] + ["--tag", ROUTER_SWAP_TAG], device, a_port,
+                                _free_port(), 1, 0, a_logs / "rank0_swap.json")
+
+    router = Router([("a", f"http://127.0.0.1:{a_port}",
+                      _serve_rank_argv(flags["a"], device, a_port, _free_port(), 1, 0,
+                                       a_logs / "rank0.json")),
+                     *((name, groups[name][1], None) for name in ("a2", "b"))],
+                    RouterConfig(**ROUTER_CONFIG), recorder=FlightRecorder(4096),
+                    log_dir=a_logs)
+    try:
+        router.start()
+        # The router writes A's output to <log_dir>/a.log; the group
+        # helpers read rank0.log.
+        (a_logs / "rank0.log").symlink_to("a.log")
+        groups["a"] = ([router.replicas[0].proc], router.replicas[0].base_url, time.monotonic())
+    except BaseException:
+        stop_fleet((groups, router, make_cmd))
+        raise
+    return groups, router, make_cmd
+
+
+def stop_fleet(fleet) -> None:
+    """Stop the router's poll thread and the replica it owns (its current
+    process), then every group (SIGINT, as :func:`_stop_group`)."""
+    groups, router, _ = fleet
+    try:
+        router.close()
+    finally:
+        for name, group in groups.items():
+            _stop_group(group, FLEET_LOGS / name, check_exit=False)
 
 
 def _host_port(base: str) -> tuple[str, int]:
@@ -4721,25 +4809,46 @@ def _fleet_pair_run(pre, dec, pair, requests, want) -> dict:
 
 def _post_streams(base: str, requests: list, prefix: str) -> tuple[dict, list]:
     """Each request as a concurrent ``POST /v1/generate`` with the
-    ``X-Request-Id`` ``<prefix>-<id>``; returns ``(replies, threads)``, the
-    replies filling in as the threads end."""
+    ``X-Request-Id`` ``<prefix>-<id>``; returns ``({id: (status, body)},
+    threads)``, the replies filling in as the threads end (status None when
+    the connection failed)."""
     replies = {}
 
     def post(r):
         req = urllib.request.Request(
             base + "/v1/generate", data=json.dumps(
-                {**_payload(r), "input_ids": r["input_ids"].tolist()}).encode(),
+                {**_payload(r), "input_ids": [int(t) for t in r["input_ids"]]}).encode(),
             headers={"Content-Type": "application/json", "X-Request-Id": f"{prefix}-{r['id']}"})
         try:
             with urllib.request.urlopen(req, timeout=300) as resp:
-                replies[r["id"]] = json.loads(resp.read())
+                replies[r["id"]] = (resp.status, json.loads(resp.read()))
+        except urllib.error.HTTPError as e:
+            replies[r["id"]] = (e.code, json.loads(e.read() or b"{}"))
         except OSError as e:
-            replies[r["id"]] = {"error": repr(e)[:300]}
+            replies[r["id"]] = (None, {"error": repr(e)[:300]})
 
     threads = [threading.Thread(target=post, args=(r,)) for r in requests]
     for t in threads:
         t.start()
     return replies, threads
+
+
+def _join_all(threads: list, what: str) -> None:
+    for t in threads:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads), f"{what}: a request still open after 300 s")
+
+
+def _await_live(base: str, n: int, what: str) -> None:
+    """Until ``base`` holds ``n`` live streams that have each made 4
+    tokens (the slots full, ``tokens_remaining`` down by 4 a stream)."""
+    deadline = time.monotonic() + 120
+    while True:
+        st = _get_json(base, "/statusz")["batcher"]
+        if st["slots_active"] == n and st["tokens_remaining"] <= n * (LM_NEW - 4):
+            return
+        check(time.monotonic() < deadline, f"{what}: streams never all live on {base}: {st}")
+        time.sleep(0.005)
 
 
 def _migrate(src: str, dst: str, requests: list, want: dict, prefix: str) -> dict:
@@ -4751,17 +4860,11 @@ def _migrate(src: str, dst: str, requests: list, want: dict, prefix: str) -> dic
     and the collected streams."""
     n = len(requests)
     replies, threads = _post_streams(src, requests, prefix)
-    deadline = time.monotonic() + 120
-    while True:
-        st = _get_json(src, "/statusz")["batcher"]
-        if st["slots_active"] == n and st["tokens_remaining"] <= n * (LM_NEW - 4):
-            break
-        check(time.monotonic() < deadline and not replies,
-              f"{prefix}: streams never all live on {src}: {st}, {replies}")
-        time.sleep(0.005)
+    _await_live(src, n, prefix)
+    check(not replies, f"{prefix}: streams ended before the migration: {replies}")
     digest, mig_s = _post_json(src, "/migratez", {"targets": [list(_host_port(dst))]})
-    for t in threads:
-        t.join(timeout=300)
+    _join_all(threads, prefix)
+    replies = {i: body for i, (_, body) in replies.items()}
     not_migrated = {i: rep for i, rep in replies.items() if rep.get("status") != "migrated"}
     check(len(replies) == n and not not_migrated, f"{prefix}: replies {not_migrated}")
     got = {r["id"]: _post_json(dst, "/v1/stream_wait", {"request_id": f"{prefix}-{r['id']}",
@@ -4780,7 +4883,7 @@ def _migrate(src: str, dst: str, requests: list, want: dict, prefix: str) -> dic
 
 
 def phase_serve_lm_fleet(torch, lm_ckpt: Path, *, device="cuda", cfg=None, cli_extra=(),
-                         replicas=None) -> dict:
+                         fleet=None, extra_refs=()) -> tuple[dict, dict]:
     """Fleet serving on ``train_cli_lm``'s checkpoint in fp32 (streams held
     exactly). In process: a prefill and a decode ``CausalLMEngine``
     (``kv_transfer=True``, a prefix pool) behind a
@@ -4795,7 +4898,10 @@ def phase_serve_lm_fleet(torch, lm_ckpt: Path, *, device="cuda", cfg=None, cli_e
     migrations counted on both; and the chaos drill: A2's first buffer
     corrupted, refused by B on its CRC, retried page-less, nothing lost or
     duplicated. ``device="cpu"`` with ``cfg`` and ``cli_extra`` rehearses
-    it."""
+    it. ``fleet`` (:func:`spawn_fleet_replicas`) stays up for the caller;
+    without it the phase spawns and stops its own. Returns ``(record,
+    {id: colocated stream})`` of ``extra_refs``, made while the replicas
+    load."""
     from distributed_tensorflow_tpu_torch.ckpt import restore_serving_state
     from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLM, CausalLMConfig
     from distributed_tensorflow_tpu_torch.obs.flightrec import FlightRecorder
@@ -4812,7 +4918,9 @@ def phase_serve_lm_fleet(torch, lm_ckpt: Path, *, device="cuda", cfg=None, cli_e
     cfg = dataclasses.replace(cfg or CausalLMConfig(max_position=128), dtype=torch.float32)
     vocab = cfg.vocab_size
     t0 = time.monotonic()
-    replicas = replicas or spawn_fleet_replicas(lm_ckpt, device, cli_extra)
+    owned = fleet is None
+    fleet = fleet or spawn_fleet_replicas(lm_ckpt, device, cli_extra)
+    replicas = fleet[0]
     clients = []
     try:
         params, _, _ = restore_serving_state(lm_ckpt)
@@ -4845,6 +4953,7 @@ def phase_serve_lm_fleet(torch, lm_ckpt: Path, *, device="cuda", cfg=None, cli_e
         want = {}
         for reqs in (http_reqs, mig_reqs, chaos_reqs):
             want.update(_serve(pre, reqs)[0])
+        extra_want = _serve(pre, list(extra_refs))[0] if extra_refs else {}
         out["replicas_ready_s"] = {name: _await_group(group, FLEET_LOGS / name)
                                    for name, group in replicas.items()}
         b = replicas["b"][1]
@@ -4901,8 +5010,302 @@ def phase_serve_lm_fleet(torch, lm_ckpt: Path, *, device="cuda", cfg=None, cli_e
     finally:
         for c in clients:
             c.close()
-        for name, group in replicas.items():
-            _stop_group(group, FLEET_LOGS / name, check_exit=False)
+        if owned:
+            stop_fleet(fleet)
+    out["seconds"] = time.monotonic() - t0
+    emit(out)
+    return out, extra_want
+
+
+# ---------------------------------------------------------- the fleet router
+
+ROUTER_NAMES = ("a", "a2", "b")
+ROUTER_HOP_N = 12  # requests timed direct and through the router, alternately
+
+
+def _pinned(reqs: list, target: str, names, n: int) -> list:
+    """The first ``n`` of ``reqs`` whose prompt head the router's
+    rendezvous pick over ``names`` sends to ``target``."""
+    from distributed_tensorflow_tpu_torch.serve.router import (
+        RouterConfig,
+        prefix_affinity_key,
+        rendezvous_pick,
+    )
+
+    k = RouterConfig().affinity_tokens
+    out = [r for r in reqs
+           if rendezvous_pick(prefix_affinity_key(r["input_ids"], k), sorted(names)) == target]
+    check(len(out) >= n, f"only {len(out)} of {len(reqs)} prompts pick {target}")
+    return out[:n]
+
+
+def router_requests(vocab: int) -> dict:
+    """The seeded requests of :func:`phase_serve_lm_router`: 12 routed as
+    they come, 4 sharing a 64-token head that the rendezvous pick sends to
+    B (the replica with a prefix pool: the first seed whose head does), 4
+    live on A for the hot swap, 4 live on A2 for the failover (picked over
+    A2 and B: A is swapping then), one for the CLI and
+    :data:`ROUTER_HOP_N` one-token greedy ones on B for the hop's ms."""
+    from distributed_tensorflow_tpu_torch.serve.router import (
+        RouterConfig,
+        prefix_affinity_key,
+        rendezvous_pick,
+    )
+
+    k = RouterConfig().affinity_tokens
+    seed = next(sd for sd in range(41, 141)
+                if rendezvous_pick(prefix_affinity_key(
+                    _prefix_requests(vocab, 1, seed=sd)[0]["input_ids"], k),
+                    sorted(ROUTER_NAMES)) == "b")
+    prefix = _prefix_requests(vocab, 4, seed=seed)
+    for i, r in enumerate(prefix):
+        r["id"] = 9900 + i
+    hop = [dict(r, temperature=0.0, budget=1)
+           for r in _pinned(_fleet_requests(vocab, 96, 95), "b", ROUTER_NAMES, ROUTER_HOP_N)]
+    return {"route": _fleet_requests(vocab, 12, 91), "prefix": prefix,
+            "swap": _pinned(_fleet_requests(vocab, 64, 92), "a", ROUTER_NAMES, 4),
+            "failover": _pinned(_fleet_requests(vocab, 64, 93), "a2", ("a2", "b"), 4),
+            "cli": _fleet_requests(vocab, 1, 94), "hop": hop}
+
+
+def _prom_value(base: str, name: str) -> float:
+    with urllib.request.urlopen(base + "/metrics?format=prom", timeout=60) as resp:
+        vals = [float(ln.split()[-1]) for ln in resp.read().decode().splitlines()
+                if ln.startswith(name + " ") or ln.startswith(name + "{")]
+    return sum(vals)
+
+
+def phase_serve_lm_router(torch, fleet, want: dict, reqs: dict, *, device="cuda") -> dict:
+    """The fleet router on the card, over :func:`spawn_fleet_replicas`'
+    replicas (``fleet``, after serve_lm_fleet; the router has owned A
+    since their start) with ``want`` the colocated streams of ``reqs``
+    (:func:`router_requests`). Through ``build_router_server``: 12
+    ``/v1/generate`` streams, each on its rendezvous pick and equal to the
+    colocated one; 4 sharing a head all on B, counted as prefix hits there;
+    an empty ``input_ids`` answered 400 with a minted ``rt-`` id and no
+    retry; the router's hop (12 one-token requests on B, direct and
+    through the router alternately, medians). Then ``hot_swap`` of A under a new tag
+    with 4 of its paced streams live: the drain deadline migrates them to
+    the survivors by ``/migratez``, the router collects each ``migrated``
+    answer by ``/v1/stream_wait``, every stream equal to the colocated one,
+    and A comes back ready on the new tag (stages drain, migrate, restart,
+    ready). While A restarts: 4 streams live on A2 when A2 is SIGKILLed,
+    each failed over and equal; A2 ``down`` and never restarted, nothing
+    shed. And ``python -m distributed_tensorflow_tpu_torch.cli.router
+    --adopt B`` as a process: one generate through it, then SIGTERM, exit
+    0."""
+    import signal
+
+    from distributed_tensorflow_tpu_torch.serve.router import (
+        build_router_server,
+        prefix_affinity_key,
+        rendezvous_pick,
+    )
+
+    groups, router, make_cmd = fleet
+    base = {name: groups[name][1] for name in ROUTER_NAMES}
+    k = router.config.affinity_tokens
+    t0 = time.monotonic()
+    out = {"phase": "serve_lm_router", "device": device}
+
+    def streams_equal(replies: dict, requests: list, what: str) -> None:
+        bad = {r["id"]: replies.get(r["id"]) for r in requests
+               if replies.get(r["id"], (None,))[0] != 200
+               or replies[r["id"]][1].get("tokens") != want[r["id"]]}
+        check(not bad, f"{what}: streams off the colocated ones: "
+                       f"{ {i: str(v)[:300] for i, v in bad.items()} }")
+
+    # The CLI adopts B only: it starts first and loads meanwhile.
+    cli_port = _free_port()
+    cli_log = FLEET_LOGS / "router_cli.log"
+    with open(cli_log, "w") as fh:
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "distributed_tensorflow_tpu_torch.cli.router",
+             "--adopt", base["b"], "--port", str(cli_port), "--poll-interval", "0.25"],
+            cwd=ROOT, env=_repo_env(), stdout=fh, stderr=subprocess.STDOUT)
+    front = build_router_server(router, port=0)
+    serve_thread = threading.Thread(target=front.serve_forever, daemon=True)
+    serve_thread.start()
+    front_base = "http://%s:%d" % front.server_address
+    swap_box = {}
+    swapper = None
+    try:
+        check(router.wait_ready(3, timeout=120), f"router: fleet not ready: {router.fleetz()}")
+        z = router.fleetz()
+        check(all(rep["supervisor"]["total_restarts"] == 0 for rep in z["replicas"]),
+              f"router: a replica restarted before the phase: {z}")
+        a_pid = z["replicas"][0]["pid"]
+
+        # Routing: every stream on its rendezvous pick, equal to the colocated one.
+        t1 = time.monotonic()
+        replies, threads = _post_streams(front_base, reqs["route"], "router-route")
+        _join_all(threads, "router routing")
+        out["route_s"] = time.monotonic() - t1
+        streams_equal(replies, reqs["route"], "router routing")
+        placed = {r["id"]: replies[r["id"]][1]["replica"] for r in reqs["route"]}
+        off_pick = {i: p for r in reqs["route"]
+                    if (p := placed[r["id"]]) != rendezvous_pick(
+                        prefix_affinity_key(r["input_ids"], k), sorted(ROUTER_NAMES))
+                    for i in [r["id"]]}
+        check(not off_pick, f"router routing: off the rendezvous pick {off_pick}")
+        out["route_replicas"] = {name: list(placed.values()).count(name) for name in ROUTER_NAMES}
+
+        # Prefix affinity: one head, one replica (B), its prefix hits.
+        hits0 = _prom_value(base["b"], "serve_prefix_hits_total")
+        first, rest = reqs["prefix"][0], reqs["prefix"][1:]
+        replies, threads = _post_streams(front_base, [first], "router-prefix")
+        _join_all(threads, "router prefix")
+        more, threads = _post_streams(front_base, rest, "router-prefix")
+        _join_all(threads, "router prefix")
+        replies.update(more)
+        streams_equal(replies, reqs["prefix"], "router prefix group")
+        landed = {replies[r["id"]][1]["replica"] for r in reqs["prefix"]}
+        hits = _prom_value(base["b"], "serve_prefix_hits_total") - hits0
+        check(landed == {"b"} and hits >= len(rest),
+              f"router prefix group landed on {landed}, B's prefix hits +{hits}")
+        out["prefix"] = {"replica": "b", "prefix_hits": hits}
+
+        # A malformed request is final: 400 with a minted id, no failover.
+        retries0 = router.fleetz()["retries"]
+        req = urllib.request.Request(front_base + "/v1/generate",
+                                     data=json.dumps({"input_ids": []}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                code, body = resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            code, body = e.code, json.loads(e.read() or b"{}")
+        rid = str(body.get("request_id", ""))
+        check(code == 400 and rid.startswith("rt-") and len(rid) == 11
+              and router.fleetz()["retries"] == retries0,
+              f"router: empty input_ids answered {code} {body}")
+
+        # The router's hop: the same short request direct to B and through
+        # the router, alternately.
+        direct_ms, routed_ms = [], []
+        for i, r in enumerate(reqs["hop"]):
+            payload = {**_payload(r), "input_ids": [int(t) for t in r["input_ids"]]}
+            got = {}
+            for where in (("direct", "routed") if i % 2 == 0 else ("routed", "direct")):
+                body, secs = _post_json(base["b"] if where == "direct" else front_base,
+                                        "/v1/generate", payload, timeout=60)
+                (direct_ms if where == "direct" else routed_ms).append(secs * 1e3)
+                got[where] = body
+            check(got["routed"]["tokens"] == got["direct"]["tokens"]
+                  and got["routed"].get("replica") == "b",
+                  f"router hop request {r['id']}: {got}")
+        out["hop"] = {"direct_ms_median": statistics.median(direct_ms),
+                      "routed_ms_median": statistics.median(routed_ms),
+                      "hop_ms": statistics.median(routed_ms) - statistics.median(direct_ms),
+                      "n": len(direct_ms)}
+
+        # Hot swap with A's paced streams live: the drain deadline migrates
+        # them, the router collects each migrated answer.
+        swap_replies, swap_threads = _post_streams(front_base, reqs["swap"], "router-swap")
+        _await_live(base["a"], len(reqs["swap"]), "router swap")
+        events0 = len(router.recorder.events())
+
+        def swap():
+            try:
+                swap_box["result"] = router.hot_swap(make_cmd, expected_tag=ROUTER_SWAP_TAG)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                swap_box["error"] = e
+
+        t_swap = time.monotonic()
+        swapper = threading.Thread(target=swap, name="hot-swap", daemon=True)
+        swapper.start()
+        _join_all(swap_threads, "router hot swap")
+        out["swap_streams_s"] = time.monotonic() - t_swap
+        streams_equal(swap_replies, reqs["swap"], "router hot swap")
+        # The migration's digest and A's restart are on the recorder.
+        deadline = time.monotonic() + 60
+        while not [e for e in router.recorder.events()[events0:]
+                   if e["kind"] == "hot_swap" and e.get("stage") == "restart"]:
+            check(time.monotonic() < deadline and swapper.is_alive(),
+                  f"router hot swap: no restart stage ({swap_box})")
+            time.sleep(0.05)
+
+        # Failover while A restarts: A2 killed under 4 live streams.
+        names = [rep["name"] for rep in router.fleetz()["replicas"] if rep["state"] == "ready"]
+        check("a" not in names, f"router: A routable during its swap {names}")
+        fo_replies, fo_threads = _post_streams(front_base, reqs["failover"], "router-failover")
+        _await_live(base["a2"], len(reqs["failover"]), "router failover")
+        retries0 = router.fleetz()["retries"]
+        groups["a2"][0][0].send_signal(signal.SIGKILL)
+        t_kill = time.monotonic()
+        _join_all(fo_threads, "router failover")
+        out["failover_s"] = time.monotonic() - t_kill
+        streams_equal(fo_replies, reqs["failover"], "router failover")
+        moved = {fo_replies[r["id"]][1]["replica"] for r in reqs["failover"]}
+        check("a2" not in moved, f"router failover: answered by {moved}")
+        deadline = time.monotonic() + 60
+        while (a2 := router.fleetz()["replicas"][1])["state"] != "down":
+            check(time.monotonic() < deadline, f"router: A2 never marked down: {a2}")
+            time.sleep(0.05)
+
+        # The CLI: one generate through it, then SIGTERM.
+        deadline = time.monotonic() + 120
+        while True:
+            check(cli.poll() is None, f"cli.router exited {cli.returncode}:\n"
+                                      f"{cli_log.read_text()[-4000:]}")
+            try:
+                if _get_json(f"http://127.0.0.1:{cli_port}", "/healthz")["n_ready"] == 1:
+                    break
+            except OSError:
+                pass
+            check(time.monotonic() < deadline, "cli.router not ready within 120 s")
+            time.sleep(0.1)
+        replies, threads = _post_streams(f"http://127.0.0.1:{cli_port}", reqs["cli"], "router-cli")
+        _join_all(threads, "cli.router")
+        streams_equal(replies, reqs["cli"], "cli.router")
+        cli.send_signal(signal.SIGTERM)
+        try:
+            rc = cli.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            rc = None
+        check(rc == 0, f"cli.router after SIGTERM: exit {rc}:\n{cli_log.read_text()[-4000:]}")
+
+        # A back on the new tag.
+        swapper.join(timeout=300)
+        check(not swapper.is_alive(), "router hot swap still running after 300 s")
+        if "error" in swap_box:
+            raise swap_box["error"]
+        swapped = swap_box["result"]["swapped"]
+        z = router.fleetz()
+        a, a2 = z["replicas"][0], z["replicas"][1]
+        check(swapped == [{"replica": "a", "tag": ROUTER_SWAP_TAG}] and a["state"] == "ready"
+              and a["tag"] == ROUTER_SWAP_TAG and a["pid"] != a_pid,
+              f"router hot swap: {swap_box['result']}, A {a}")
+        check(a2["state"] == "down" and not a2["owned"]
+              and a2["supervisor"]["total_restarts"] == 0,
+              f"router: A2 after its kill {a2}")
+        check(z["shed"] == 0 and z["door_429"] == 0 and z["stream_migrations"] == 1
+              and z["retries"] >= retries0 + len(reqs["failover"]),
+              f"router fleetz after the drills: {z}")
+        stages = {e["stage"]: e for e in router.recorder.events()[events0:]
+                  if e["kind"] == "hot_swap" and e.get("replica") == "a"}
+        check(list(stages) == ["drain", "migrate", "restart", "ready"],
+              f"router hot swap stages {list(stages)}")
+        mig = stages["migrate"]
+        check(mig["exported"] == len(reqs["swap"]) and mig["migrated"] == len(reqs["swap"]),
+              f"router hot swap migration {mig}")
+        out["hot_swap"] = {
+            "drain_to_migrated_s": stages["migrate"]["t"] - stages["drain"]["t"],
+            "migrated_to_relaunched_s": stages["restart"]["t"] - stages["migrate"]["t"],
+            "relaunched_to_ready_s": stages["ready"]["t"] - stages["restart"]["t"],
+            "exported": mig["exported"], "migrated": mig["migrated"],
+            "drain_timeout_s": router.config.drain_timeout_s}
+        out["fleetz"] = {"retries": z["retries"], "shed": z["shed"], "door_429": z["door_429"],
+                         "stream_migrations": z["stream_migrations"],
+                         "requests": {rep["name"]: rep["requests"] for rep in z["replicas"]}}
+    finally:
+        front.shutdown()
+        front.server_close()
+        serve_thread.join(timeout=30)
+        if cli.poll() is None:
+            _stop(cli)
+        if swapper is not None:
+            swapper.join(timeout=300)
     out["seconds"] = time.monotonic() - t0
     emit(out)
     return out
@@ -4997,14 +5400,24 @@ def main() -> int:
                                       fcb, pc, torch, inception)
         torch.cuda.empty_cache()
         # CLI runs whose checks need no quiet card (no phase of theirs times
-        # anything that PERF.md reports): at once.
-        tp_sp_serve = timed(
-            "train_cli_group", concurrently, (phase_train_cli, torch),
-            (phase_train_cli_image, torch), (phase_train_cli_inception, torch),
-            (phase_train_cli_bert_corpus, torch), (phase_train_cli_dp, torch),
-            (phase_train_lm_tp, torch), (phase_train_cli_tp_sp, torch, fm))[-1]
+        # anything that PERF.md reports): at once. train_cli_tp_sp runs its
+        # two four-rank jobs one after the other; the lm_base CLI runs
+        # beside the second, once the six short runs have ended (beside all
+        # seven the card ran out of memory).
+        def first_wave_then_lm():
+            concurrently((phase_train_cli, torch), (phase_train_cli_image, torch),
+                         (phase_train_cli_inception, torch),
+                         (phase_train_cli_bert_corpus, torch), (phase_train_cli_dp, torch),
+                         (phase_train_lm_tp, torch))
+            t_lm = time.monotonic()
+            try:
+                return phase_train_cli_lm(torch)
+            finally:
+                seconds["train_cli_lm"] = time.monotonic() - t_lm
+
+        tp_sp_serve, lm_ckpt = timed("train_cli_group", concurrently,
+                                     (phase_train_cli_tp_sp, torch, fm), (first_wave_then_lm,))
         torch.cuda.empty_cache()
-        lm_ckpt = timed("train_cli_lm", phase_train_cli_lm, torch)
         timed("serve_lm", phase_serve_lm, torch, lm_ckpt)
         torch.cuda.empty_cache()
         timed("serve_lm_batcher", phase_serve_lm_batcher, torch, lm_ckpt)
@@ -5031,20 +5444,30 @@ def main() -> int:
         seconds["collectives_gloo_cuda"] = mp["collectives_s"]
         torch.cuda.empty_cache()
         resilient = timed("train_resilient_fused", phase_train_resilient_fused, torch)
-        chaos = timed("train_chaos", phase_train_chaos, torch,
-                      resilient["ckpt"]["write_ms"] / 1e3)
-        # The fleet replicas load beside two phases that time nothing the
-        # records keep (process starts and fault checks), then idle until
-        # serve_lm_fleet, the last phase.
-        fleet = spawn_fleet_replicas(lm_ckpt)
+        # The fleet replicas load beside phases that time nothing the
+        # records keep (train_chaos's bitwise resume, once its two timed
+        # processes have ended; the fault drills), then idle until
+        # serve_lm_fleet; serve_lm_router, the last phase, reuses them.
+        fleets = []
         try:
-            timed("train_cli_resilient", phase_train_cli_resilient, torch)
-            timed("serve_lm_faults", phase_serve_lm_faults, torch, lm_ckpt)
+            chaos = timed("train_chaos", phase_train_chaos, torch,
+                          resilient["ckpt"]["write_ms"] / 1e3,
+                          on_launched=lambda: fleets.append(spawn_fleet_replicas(lm_ckpt)))
+            (fleet,) = fleets
+            # Two fault drills, each of its own processes: at once.
+            timed("resilient_cli_group", concurrently, (phase_train_cli_resilient, torch),
+                  (phase_serve_lm_faults, torch, lm_ckpt))
             torch.cuda.empty_cache()
-            timed("serve_lm_fleet", phase_serve_lm_fleet, torch, lm_ckpt, replicas=fleet)
+            from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLMConfig
+
+            route_reqs = router_requests(CausalLMConfig().vocab_size)
+            _, route_want = timed("serve_lm_fleet", phase_serve_lm_fleet, torch, lm_ckpt,
+                                  fleet=fleet, extra_refs=[r for key, group in route_reqs.items()
+                                                           if key != "hop" for r in group])
+            timed("serve_lm_router", phase_serve_lm_router, torch, fleet, route_want, route_reqs)
         finally:
-            for name, group in fleet.items():
-                _stop_group(group, FLEET_LOGS / name, check_exit=False)
+            for fleet in fleets:
+                stop_fleet(fleet)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -151,6 +151,9 @@ class Checkpointer:
         self._specs = (param_specs if param_specs and any(v is not None for v in
                                                            param_specs.values()) else None)
         self._thread: threading.Thread | None = None
+        # The writer's failure, handed to the caller's wait() under a lock
+        # (not only through the join: the writer thread sets it).
+        self._error_lock = threading.Lock()
         self._error: BaseException | None = None
 
     def save(self, step: int, state, *, generator: torch.Generator | None = None) -> None:
@@ -216,7 +219,8 @@ class Checkpointer:
             for old in steps[:-self.max_to_keep]:
                 _step_path(self.directory, old).unlink(missing_ok=True)
         except Exception as e:  # re-raised by wait() on the caller's thread
-            self._error = e
+            with self._error_lock:
+                self._error = e
 
     def latest_step(self) -> int | None:
         """Newest saved step, counting a save still being written: rank 0's
@@ -269,8 +273,9 @@ class Checkpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
+        with self._error_lock:
             err, self._error = self._error, None
+        if err is not None:
             raise err
 
     def close(self) -> None:

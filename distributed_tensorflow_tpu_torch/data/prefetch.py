@@ -62,6 +62,10 @@ class PrefetchIterator:
     construction).
     """
 
+    # Consumer-side end-of-stream flags: the race sanitizer's module
+    # discovery instruments these (``sanitize_races(modules=[prefetch])``).
+    _RACETRACE_ATTRS = ("_done", "_closed")
+
     def __init__(
         self,
         source: Iterable,

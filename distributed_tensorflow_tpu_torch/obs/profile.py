@@ -20,7 +20,11 @@ capture shapes:
 - :func:`profile_window`: a bounded wall-clock capture for a RUNNING
   process — what ``POST /profilez?ms=N`` serves.
 
-The profiler is process-global: one module lock serialises every window.
+The profiler is process-global: one session at a time, every window
+queueing for it (:func:`_enter_session`). Unlike the JAX package's module
+lock held across the window, the gate's condition guards only its busy
+flag, so a window's steps, sleep and device synchronisation run with no
+lock held.
 """
 
 from __future__ import annotations
@@ -35,8 +39,26 @@ from pathlib import Path
 import torch
 
 # One profiler session a process: concurrent /profilez calls (a thread per
-# request) or a profilez during a --profile-steps window must queue.
-_PROFILER_LOCK = threading.Lock()
+# request) or a profilez during a --profile-steps window must queue. The
+# condition guards the busy flag only; sessions wait on it.
+_SESSION = threading.Condition()
+_session_busy = False
+
+
+def _enter_session() -> None:
+    """Wait until no profiler session runs, then own the profiler."""
+    global _session_busy
+    with _SESSION:
+        while _session_busy:
+            _SESSION.wait()
+        _session_busy = True
+
+
+def _exit_session() -> None:
+    global _session_busy
+    with _SESSION:
+        _session_busy = False
+        _SESSION.notify_all()
 
 
 def _device(device) -> torch.device:
@@ -91,12 +113,12 @@ class _StepWindow:
     def before_step(self) -> None:
         if self._done or self._prof is not None:
             return
-        _PROFILER_LOCK.acquire()
+        _enter_session()
         try:
             self._prof = _start(self._device)
         except BaseException:
-            # A failed start must not leave the module lock held forever.
-            _PROFILER_LOCK.release()
+            # A failed start must not leave the session owned forever.
+            _exit_session()
             raise
 
     def after_step(self, out=None) -> None:
@@ -116,11 +138,11 @@ class _StepWindow:
         try:
             self.trace_path = _stop(self._prof, self._logdir)
         finally:
-            # Even if the export fails the window is over: release the lock
+            # Even if the export fails the window is over: end the session
             # so later windows and /profilez still run.
             self._prof = None
             self._done = True
-            _PROFILER_LOCK.release()
+            _exit_session()
 
 
 @contextlib.contextmanager
@@ -145,7 +167,8 @@ def trace_steps(logdir: str | Path, num_steps: int | None = None, *, device=None
     logdir.mkdir(parents=True, exist_ok=True)
     dev = _device(device)
     if num_steps is None:
-        with _PROFILER_LOCK:
+        _enter_session()
+        try:
             prof = _start(dev)
             try:
                 yield _NullWindow()
@@ -153,6 +176,8 @@ def trace_steps(logdir: str | Path, num_steps: int | None = None, *, device=None
                     torch.cuda.synchronize(dev)
             finally:
                 _stop(prof, logdir)
+        finally:
+            _exit_session()
         return
     win = _StepWindow(logdir, num_steps, dev)
     try:
@@ -173,7 +198,8 @@ def profile_window(logdir: str | Path, ms: float, *, device=None) -> dict:
     logdir = Path(logdir)
     logdir.mkdir(parents=True, exist_ok=True)
     dev = _device(device)
-    with _PROFILER_LOCK:
+    _enter_session()
+    try:
         t0 = time.perf_counter()
         prof = _start(dev)
         try:
@@ -183,5 +209,7 @@ def profile_window(logdir: str | Path, ms: float, *, device=None) -> dict:
         finally:
             path = _stop(prof, logdir)
         wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        _exit_session()
     return {"trace_dir": str(logdir), "requested_ms": ms, "wall_ms": wall_ms,
             "path": str(path)}

@@ -25,9 +25,11 @@ checkpoints.
   ``/v1/stream_wait``, ``/migratez``), over the JAX package's wire format
   v1-v4 byte for byte.
 - ``server.py``  — in-process :class:`Client` plus a stdlib-HTTP front end.
-
-The fleet router (``serve/router.py`` of the JAX package) is not ported yet
-(ROADMAP.md Queue A item 7c).
+- ``router.py``  — the fleet front door over N ``cli.serve`` replicas:
+  health-polled supervision with restart and quarantine, prefix-affinity
+  and power-of-two routing, failover, the collection of migrated streams,
+  and the rolling hot swap whose drain deadline migrates live streams
+  (``python -m distributed_tensorflow_tpu_torch.cli.router``).
 
 Entry point: ``python -m distributed_tensorflow_tpu_torch.cli.serve``.
 """
@@ -60,6 +62,17 @@ from distributed_tensorflow_tpu_torch.serve.engine import (  # noqa: F401
 from distributed_tensorflow_tpu_torch.serve.kvpool import (  # noqa: F401
     KVBlockPool,
     PrefixMatch,
+)
+from distributed_tensorflow_tpu_torch.serve.router import (  # noqa: F401
+    Replica,
+    Router,
+    RouterConfig,
+    build_router_server,
+    pick_power_of_two,
+    prefix_affinity_key,
+    rendezvous_pick,
+    replica_load,
+    replica_specs,
 )
 from distributed_tensorflow_tpu_torch.serve.server import (  # noqa: F401
     Client,

@@ -35,8 +35,9 @@ Port of the JAX package's ``serve/faultinject.py`` (pure Python; the same
 schedule event for event). In the port the decode-step hook sits in
 :class:`~distributed_tensorflow_tpu_torch.serve.batcher.ContinuousBatcher`,
 ``check_wire`` in :func:`~distributed_tensorflow_tpu_torch.serve.disagg.migrate_streams`
-(its outbound stream buffers); ``check_probe`` has no caller until the
-fleet router is ported (Queue A item 7c of ROADMAP.md).
+(its outbound stream buffers) and ``check_probe`` in
+:meth:`~distributed_tensorflow_tpu_torch.serve.router.Router._probe` (the
+router's health probes; ``cli.router --fault-plan`` arms it).
 """
 
 from __future__ import annotations

@@ -36,6 +36,11 @@ SERVING_GROUP_MODULES = ("serve/group.py", "serve/engine.py", "models/causal_lm.
 # The fleet-serving slice's module: the KV wire v1-v4, the transfer budget,
 # the prefill/decode pair, the stream receiver and the migrator.
 FLEET_MODULES = ("serve/disagg.py",)
+# The router's and the analysis suite's modules: the fleet front door, its
+# CLI, and the static checkers with their finding model.
+ROUTER_ANALYSIS_MODULES = ("serve/router.py", "cli/router.py", "analysis/__init__.py",
+                           "analysis/findings.py", "analysis/locklint.py",
+                           "analysis/racelint.py", "analysis/shardcheck.py")
 
 
 def _imported_roots(path: Path):
@@ -60,14 +65,15 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 20 and all(f.exists() for f in files)
     for name in ("distributed_tensorflow_tpu_torch/models/inception.py",
                  "distributed_tensorflow_tpu_torch/models/flops.py",
-                 "scripts/torch_pw_bench.py",
+                 "scripts/torch_pw_bench.py", "scripts/torch_analyze.py",
                  *(f"distributed_tensorflow_tpu_torch/{m}"
                    for m in RESILIENCE_MODULES + MODEL_PARALLEL_MODULES
-                   + SERVING_GROUP_MODULES + FLEET_MODULES)):
+                   + SERVING_GROUP_MODULES + FLEET_MODULES + ROUTER_ANALYSIS_MODULES)):
         assert ROOT / name in files
-    # The multi-process worker (its chaos job included) runs torch and the
-    # port only.
-    files = files + [ROOT / "tests" / "_torch_mp_worker.py"]
+    # The multi-process worker (its chaos job included) and the router's
+    # stub replica run torch and the port only.
+    files = files + [ROOT / "tests" / "_torch_mp_worker.py",
+                     ROOT / "tests" / "_torch_router_replica.py"]
     bad = [
         f"{f.relative_to(ROOT)}:{line} imports {root}"
         for f in files
@@ -107,15 +113,17 @@ def test_serving_host_modules_import_without_jax():
     ``run_resilient``) and the model-parallel ones (process groups,
     collectives, ring and Ulysses attention, MoE dispatch, the GPipe
     schedule) and the serving group's (the leader/follower protocol, the
-    engines over it, the causal LM's TP) and fleet serving's (the KV wire,
-    disaggregation and migration) are the port's own copies:
+    engines over it, the causal LM's TP), fleet serving's (the KV wire,
+    disaggregation and migration), the router's and the analysis suite's
+    are the port's own copies:
     importing them in a fresh interpreter leaves ``jax`` out of
     ``sys.modules``."""
     import subprocess
     import sys
 
     modules = ["serve/kvpool.py", "serve/spec.py", "obs/sanitizer.py", *RESILIENCE_MODULES,
-               *MODEL_PARALLEL_MODULES, *SERVING_GROUP_MODULES, *FLEET_MODULES]
+               *MODEL_PARALLEL_MODULES, *SERVING_GROUP_MODULES, *FLEET_MODULES,
+               *ROUTER_ANALYSIS_MODULES]
     # Measured against what the interpreter held before the imports, in
     # case a site hook loads a package at startup.
     code = ("import sys\n"

@@ -371,6 +371,66 @@ train_chaos's two processes. Before the result lines,
 ``fused`` step, and the CLI's median step ms and host_wait_ms under each
 feed. The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs one card; without CUDA it exits 1.
+
+``python3 chip_smoke.py --cards 4``: the port's distributed paths on four
+cards of one host, one process a card, the model's collectives over NCCL
+(the serving groups' control channel stays on its gloo group). It raises
+unless the host has four cards, prints the link between the cards
+(``phase_link``: ``nvidia-smi topo -m`` where the machine lets it run, and
+each card's active NVLink links and their rate) and every card's name and
+power limit, and runs, each a phase that fails the run:
+
+C1. build, as phase 1.
+C2. kernel_cards — the flash forward and both backward kernels at the
+   shapes the four-card layouts give them, against their plain versions:
+   3 local heads (BERT-base's 12 over TP 4 and Ulysses 4) at 32 rows x L
+   = 512 and the ring's 128-key blocks (12 heads), unpadded and padded
+   with a fully masked row, with the lse cotangent; times beside the
+   plain version, SDPA and the bound. kernel_bn_bwd at ResNet-50's 12
+   shapes at 128 rows (a DP rank's), bf16, ReLU on, timed.
+C3. train_dp_cards — ``scripts/torch_dp_train.py`` as four NCCL ranks,
+   full-width ResNet-50 ``fused`` at 128 images a rank (512 global), SGD
+   0.1 momentum 0.9: 3 synchronous steps with the ranks' params, momentum
+   and batch_stats bitwise equal after every step, steps 1 and 2 within
+   ``DP4_RTOL`` of four 128-row shards averaged by hand here (NCCL sums in
+   its own order) while the average with one shard left out is not, 29
+   launches of each fused kernel a step on every rank; then K = 4 stale
+   for 6 steps. ms a step, images/s, the all-reduce's ms; the link as
+   NCCL's own log of the synchronous run found it (train_dp_cards_link:
+   its topology search's path type and each channel's transport).
+   train_cli_image_cards: ``cli.train --config imagenet_resnet50
+   --image-size 64`` under torchrun at four processes on the seeded u8
+   cache, every rank logging ``backend=nccl world=4 rank=<i>
+   device=cuda:<i>``, its checkpoint restored.
+C4. train_bert_mp_cards — phase 21's layouts at width 4 over NCCL, one rank
+   a card, full BERT-base (12 layers) at 32 rows x L = 512: TP 4, the ring
+   over 4 (its flash inner, ``attn_impl="flash"``), Ulysses 4, EP 4 (8
+   experts) under the four dispatches and PP 4 at M = 16, each held to its
+   single-process reference (run first, before the ranks: its MoE capacity
+   buffers need most of card 0) at ``MP_*_RTOL``, with flash launches a
+   step a rank exact (:func:`mp_launches`: 12, the ring 48, PP 48); ms a
+   step with the collectives' timer (its share) and 2 steps without.
+   train_cli_tp_sp_cards: ``cli.train`` (``bert_base_l512``) under torchrun
+   with ``--tensor-parallel 2 --seq-parallel 2``, served at TP 1.
+C5. serve_bert_cards — ``cli.serve`` under torchrun as four NCCL processes
+   in fp32 at bucket 512: TP 4, EP 4 (8 experts, replicated dispatch) and
+   PP 4 (M = 1), each answer held to the one-process engine's at the
+   ``SERVE_GROUP_*`` tolerances, ``flash_fwd`` 12 / 12 / 3 a request a
+   rank, ms a request with the collectives' timer (and the leader's
+   collectives share) and without it.
+C6. train_lm_cards (while C5's groups load) and serve_lm_cards —
+   ``cli.train --config lm_base --tensor-parallel 4`` under torchrun; its
+   checkpoint served by
+   ``cli.serve --tp 4`` in fp32, launched with the cluster flags, every
+   stream equal to the one-process engine's, decode ms a step with and
+   without the collectives' timer; then, in a second such group, a
+   follower SIGKILLed under load: the leader must fail (its requests
+   refused, or its process ended) within ``DRILL_LIMIT_S``; how it failed,
+   and whether and when NCCL's watchdog ended it, are printed.
+
+It ends with ``summary_cards`` (each phase's seconds), the topology, the
+cards' names and power limits, a ``kernels`` line whose launches are a
+step or a request a rank by layout, and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -392,6 +452,7 @@ import subprocess
 import sys
 import threading
 import time
+import typing
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -1580,12 +1641,13 @@ def load_dp_train():
 
 
 def _dp_launch(world: int, backend: str, *extra: str, timeout: int = 600,
-               codes: tuple[int, ...] | None = None) -> list:
+               codes: tuple[int, ...] | None = None, env: dict | None = None) -> list:
     """``scripts/torch_dp_train.py`` as ``world`` processes on a fresh port,
     under one deadline of ``timeout`` seconds for them all; each rank's
     output goes to files under ``build/chip_smoke_dp_logs/`` (no pipe to
-    fill). Every rank must exit 0, or ``codes[rank]`` when given. Returns
-    the JSON line of each rank that exited 0 (None for the others)."""
+    fill), with ``env`` added to its environment. Every rank must exit 0,
+    or ``codes[rank]`` when given. Returns the JSON line of each rank that
+    exited 0 (None for the others)."""
     port = _free_port()
     log_dir = ROOT / "build" / "chip_smoke_dp_logs"
     shutil.rmtree(log_dir, ignore_errors=True)
@@ -1599,7 +1661,8 @@ def _dp_launch(world: int, backend: str, *extra: str, timeout: int = 600,
                     [sys.executable, str(ROOT / "scripts" / "torch_dp_train.py"),
                      "--world", str(world), "--rank", str(r), "--port", str(port),
                      "--backend", backend, *extra],
-                    cwd=ROOT, env=_repo_env(), stdout=fo, stderr=fe, text=True))
+                    cwd=ROOT, env={**_repo_env(), **(env or {})}, stdout=fo, stderr=fe,
+                    text=True))
         deadline = time.monotonic() + timeout
         while any(p.poll() is None for p in procs):
             if time.monotonic() > deadline:
@@ -1704,21 +1767,38 @@ def phase_train_dp_world1(torch):
     return rank
 
 
-def _hand_mean_step(model, params, model_state, batch, torch):
-    """One data-parallel step by hand in this process: the loss of each
-    ``DP_RANK_ROWS``-row shard of ``batch``, then the gradients and the
-    BatchNorm statistics averaged as the all-reduce's sum of two halved."""
+def _hand_shards(model, params, model_state, batch, rank_rows: int, torch) -> tuple:
+    """Each ``rank_rows``-row shard of ``batch`` through ``model`` here:
+    the lists of the shards' gradients and BatchNorm statistics."""
     from distributed_tensorflow_tpu_torch.train.objectives import make_classification_loss
 
     loss_fn = make_classification_loss(model)
     grads, stats = [], []
-    for r in range(DP_ROWS // DP_RANK_ROWS):
-        shard = {k: v[r * DP_RANK_ROWS:(r + 1) * DP_RANK_ROWS] for k, v in batch.items()}
+    for r in range(next(iter(batch.values())).shape[0] // rank_rows):
+        shard = {k: v[r * rank_rows:(r + 1) * rank_rows] for k, v in batch.items()}
         loss, (new_state, _) = loss_fn(params, model_state, shard, None)
         grads.append(dict(zip(params, torch.autograd.grad(loss, list(params.values())))))
         stats.append(new_state["batch_stats"])
-    mean = lambda trees: {k: (trees[0][k] + trees[1][k]) / 2 for k in trees[0]}  # noqa: E731
-    return mean(grads), mean(stats)
+    return grads, stats
+
+
+def _tree_mean(trees: list) -> dict:
+    """The leafwise mean of ``trees``, summed in list order."""
+    out = {}
+    for k in trees[0]:
+        total = trees[0][k]
+        for t in trees[1:]:
+            total = total + t[k]
+        out[k] = total / len(trees)
+    return out
+
+
+def _hand_mean_step(model, params, model_state, batch, torch):
+    """One data-parallel step by hand in this process: the loss of each
+    ``DP_RANK_ROWS``-row shard of ``batch``, then the gradients and the
+    BatchNorm statistics averaged as the all-reduce's sum of two halved."""
+    grads, stats = _hand_shards(model, params, model_state, batch, DP_RANK_ROWS, torch)
+    return _tree_mean(grads), _tree_mean(stats)
 
 
 def phase_train_dp_resnet50(torch):
@@ -4039,14 +4119,23 @@ def phase_serve_lm_faults(torch, ckpt_dir: Path, *, device="cuda", cfg=None,
 # 2 of its 12 layers (the depth cuts that pay for the serving groups, then
 # for the fleet router's phase).
 MP_LAYERS = 2
-# Flash launches a step a rank of each kernel: one a layer, the ring's two
-# blocks a layer (its local length, 256, picks flash), and the pipeline's
-# MP_LAYERS / 2 layers a stage x M = 8 microbatches (fill and drain ticks
-# skipped: mask_bubble="auto").
-MP_LAUNCHES = {"tp": MP_LAYERS, "ring": 2 * MP_LAYERS, "ulysses": MP_LAYERS,
-               "ep_replicated": MP_LAYERS, "ep_alltoall": MP_LAYERS,
-               "ep_sharded": MP_LAYERS, "ep_sharded_top2": MP_LAYERS,
-               "pp": MP_LAYERS // 2 * 8}
+
+
+def mp_launches(layers: int, world: int) -> dict:
+    """Flash launches a step a rank of each kernel, by layout, at
+    ``world`` ranks: one a layer (TP, Ulysses and every MoE dispatch run
+    each layer's attention once), the ring's ``world`` blocks a layer (its
+    flash inner, one call a hop), and the pipeline's ``layers / world``
+    layers a stage x M = 4 * world microbatches (fill and drain ticks
+    skipped: mask_bubble="auto")."""
+    per_layer = {"tp": 1, "ring": world, "ulysses": 1, "ep_replicated": 1, "ep_alltoall": 1,
+                 "ep_sharded": 1, "ep_sharded_top2": 1}
+    out = {name: n * layers for name, n in per_layer.items()}
+    out["pp"] = layers // world * 4 * world
+    return out
+
+
+MP_LAUNCHES = mp_launches(MP_LAYERS, 2)
 MP_LOSS_RTOL, MP_NORM_RTOL = 1e-2, 2e-2  # bf16 step 1 against the single process
 MP_PARAM_RTOL, MP_UPDATE_RTOL = 1e-5, 1e-3  # fp32 step 1's parameters, and its update
 
@@ -4072,12 +4161,12 @@ def _run_ranks(argvs: list, log_dir: Path, timeout: float) -> list:
     finally:
         for p in procs:
             if p.poll() is None:
-                p.kill()
-                p.wait()
+                _stop(p)
     return [(p.returncode, out.read_text(), err.read_text()) for p, (out, err) in zip(procs, paths)]
 
 
-def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
+def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None, world: int = 2,
+                        backend: str = "gloo", rows: int | None = None, plain_steps: int = 0):
     """Full-width BERT-base (:data:`MP_LAYERS` layers) at L=512 under TP,
     the ring, Ulysses, MoE (8 experts over ``{"expert": 2}``: replicated,
     all-to-all and sharded
@@ -4088,7 +4177,11 @@ def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
     capacity that drops nothing, over the sharded dispatch's two row groups
     where it has them). ``device="cpu"`` with ``cut`` (the script's geometry
     flags, e.g. ``{"layers": 2, "hidden": 64, "heads": 4, "vocab": 128,
-    "seq_len": 64}``) rehearses it on the CPU, where no kernel launches."""
+    "seq_len": 64}``) rehearses it on the CPU, where no kernel launches.
+    ``world``, ``backend`` and ``rows`` (the global batch, default the
+    script's) run the same at another width: four NCCL ranks, one a card,
+    at 32 rows in :func:`main_cards`, with ``plain_steps`` steps a layout
+    timed without the collectives' timer."""
     from distributed_tensorflow_tpu_torch.interop import shard_params
     from distributed_tensorflow_tpu_torch.parallel.mesh import build_mesh
 
@@ -4097,6 +4190,9 @@ def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
     geom = mp.geometry(argparse.Namespace(**{f: cut.get(f, 0) for f in
                                              ("layers", "hidden", "heads", "vocab",
                                               "seq_len")}))
+    rows = rows or mp.ROWS
+    layers = mp.bert.BertConfig(**geom).num_layers
+    launches = mp_launches(layers, world)
     out_dir = ROOT / "build" / "chip_smoke_mp"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
@@ -4106,40 +4202,53 @@ def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
         reference kind, made here while the ranks start (their held steps
         are untimed)."""
         t0 = time.monotonic()
-        refs = mp.single_process_references(geom, mp.ROWS, device)
+        refs = mp.single_process_references(geom, rows, device, world)
         return refs, time.monotonic() - t0
 
     port = _free_port()
     flags = [f"--{k.replace('_', '-')}={v}" for k, v in cut.items()]
-    argvs = [[sys.executable, str(ROOT / "scripts" / "torch_mp_train.py"), "--world", "2",
-              "--rank", str(r), "--port", str(port), "--out", str(out_dir),
-              "--device", device, *flags]
-             for r in range(2)]
+    argvs = [[sys.executable, str(ROOT / "scripts" / "torch_mp_train.py"), "--world",
+              str(world), "--rank", str(r), "--port", str(port), "--out", str(out_dir),
+              "--device", device, "--backend", backend, "--rows", str(rows),
+              "--plain-steps", str(plain_steps), *flags]
+             for r in range(world)]
     t0 = time.monotonic()
-    procs, (refs, ref_s) = concurrently(
-        (_run_ranks, argvs, ROOT / "build" / "chip_smoke_mp_logs", 600), (reference,))
+    if world == 2:
+        procs, (refs, ref_s) = concurrently(
+            (_run_ranks, argvs, ROOT / "build" / "chip_smoke_mp_logs", 600), (reference,))
+    else:
+        # Four cards at full depth: the MoE references' capacity buffers
+        # (every token a slot in each of 8 experts, 12 layers) need most of
+        # card 0, so they run before the ranks start.
+        refs, ref_s = reference()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        procs = _run_ranks(argvs, ROOT / "build" / "chip_smoke_mp_logs", 600)
     wall = time.monotonic() - t0
     for r, (code, out, err) in enumerate(procs):
         check(code == 0, f"torch_mp_train rank {r} exited {code}:\n{err[-4000:]}")
-    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2)]
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(world)]
+    check(all(r["backend"] == backend for r in ranks),
+          f"the ranks' backends {[r['backend'] for r in ranks]}, expected {backend}")
 
     coll = [r["collectives"] for r in ranks]
     for c in coll:
         for name, err in c["max_abs_err"].items():
             check(err <= 1e-6, f"collective {name} on CUDA tensors off by {err}")
-    emit({"phase": "collectives_gloo_cuda", "seconds": max(c["seconds"] for c in coll),
+    emit({"phase": f"collectives_{backend}_cuda", "seconds": max(c["seconds"] for c in coll),
+          "world": world, "devices": [r["device"] for r in ranks],
           "max_abs_err": coll[0]["max_abs_err"], "raw_device_ops": [c["raw_device_ops"]
                                                                      for c in coll],
           "host_staged": coll[0]["host_staged"]})
 
     records = {}
-    for name, expect in MP_LAUNCHES.items():
+    for name, expect in launches.items():
         expect = expect if device == "cuda" else 0
         ref = refs[mp.REFERENCE[name]]
         want_all, init_all = ref["fp32"]["params"], ref["init"]
         if mp.CONFIGS[name][1].get("pipeline_axis"):
             # The pipeline's stacked tree is the module list stacked.
-            layers = mp.bert.BertConfig(**geom).num_layers
             want_all, init_all = (mp.bert.stack_layer_state(t, layers)
                                   for t in (want_all, init_all))
         # ||p - p_ref|| against ||p_ref|| and against the reference's
@@ -4148,12 +4257,12 @@ def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
         # single process's tree.
         num = den = upd = 0.0
         seen = set()
-        for r in range(2):
+        for r in range(world):
             blob = torch.load(out_dir / f"params_{name}_rank{r}.pt", map_location=device,
                               weights_only=True)
-            spec = {a: 2 if n == -1 else n for a, n in mp.CONFIGS[name][0].items()}
+            spec = {a: world if n == -1 else n for a, n in mp.CONFIGS[name][0].items()}
             cut_r = functools.partial(shard_params, specs=blob["specs"], mesh=build_mesh(
-                spec, world_size=2, rank=r))
+                spec, world_size=world, rank=r))
             want = cut_r({k: want_all[k] for k in blob["params"]})
             init = cut_r({k: init_all[k] for k in blob["params"]})
             for k, p in blob["params"].items():
@@ -4184,6 +4293,7 @@ def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
                                  "grad_norm_rel_err": norm_rel, "launches": c["launches"],
                                  "step_ms": c["step_ms"], "comm_ms": c["comm_ms"],
                                  "step_ms_median": c["step_ms_median"],
+                                 "step_ms_plain_median": c["step_ms_plain_median"],
                                  "comm_ms_median": c["comm_ms_median"],
                                  "ppermute_ms_median": c["ppermute_ms_median"],
                                  "ppermute_share": c["ppermute_ms_median"]
@@ -4195,7 +4305,7 @@ def phase_train_bert_mp(torch, *, device="cuda", cut: dict | None = None):
               f"{name}: fp32 step's params off by {param_rel} (update {update_rel})")
         records[name] = rec
         emit({"phase": "train_bert_mp", "config": name, "reference": mp.REFERENCE[name],
-              **rec})
+              "world": world, "backend": backend, "rows": rows, "layers": layers, **rec})
     emit({"phase": "train_bert_mp_summary", "reference_s": ref_s, "ranks_wall_s": wall,
           "init_s": [r["init_s"] for r in ranks], "exit_codes": [p[0] for p in procs],
           "reference": {k: v["bf16"] for k, v in refs.items()},
@@ -4267,7 +4377,7 @@ def _cli_ranks(ckpt_dir: Path, flags: list, device, cli_extra, steps: int, layou
               "--config", "bert_base_l512", *flags, "--steps", str(steps), "--global-batch",
               "8", "--log-every", "1", "--ckpt-dir", str(ckpt_dir), "--coordinator-address",
               f"127.0.0.1:{port}", "--num-processes", str(world), "--process-id", str(r),
-              "--device", device, *cli_extra]
+              "--device", device, "--backend", "gloo", *cli_extra]
              for r in range(world)]
     t0 = time.monotonic()
     procs = _run_ranks(argvs, ROOT / "build" / f"{ckpt_dir.name}_logs", 600)
@@ -4345,11 +4455,25 @@ SERVE_GROUP_MIN_PRED_AGREEMENT = 0.99
 SERVE_GROUP_SCORE_RTOL, SERVE_GROUP_VEC_RTOL, SERVE_GROUP_VEC_ATOL = 1e-4, 1e-3, 1e-4
 
 
-def _spawn_group(flags: list, log_dir: Path, device: str, world: int = 2):
-    """``cli.serve`` as ``world`` gloo ranks on the card
-    (``scripts/torch_mp_train.py --serve``), rank 0 serving HTTP on a free
-    port; returns ``(procs, base_url, start_time)``. Each rank's output
-    and launch log land in ``log_dir``."""
+class ServeGroup(typing.NamedTuple):
+    """A spawned ``cli.serve`` job: its processes (the ranks, or one
+    launcher), the leader's URL, the spawn time, its ranks, and where the
+    leader writes its pid when it is a launcher's child (else None: the
+    leader is ``procs[0]``)."""
+
+    procs: list
+    base: str
+    t0: float
+    world: int
+    leader_pid_file: Path | None = None
+
+
+def _spawn_group(flags: list, log_dir: Path, device: str, world: int = 2,
+                 backend: str = "gloo") -> ServeGroup:
+    """``cli.serve`` as ``world`` ranks over ``backend`` (gloo: all on the
+    one card; NCCL: one a card) through ``scripts/torch_mp_train.py
+    --serve``, rank 0 serving HTTP on a free port. Each rank's output and
+    launch log land in ``log_dir``."""
     shutil.rmtree(log_dir, ignore_errors=True)
     log_dir.mkdir(parents=True)
     port, coord = _free_port(), _free_port()
@@ -4358,17 +4482,19 @@ def _spawn_group(flags: list, log_dir: Path, device: str, world: int = 2):
         with open(log_dir / f"rank{r}.log", "w") as fh:
             procs.append(subprocess.Popen(
                 _serve_rank_argv(flags, device, port, coord, world, r,
-                                 log_dir / f"rank{r}.json"),
+                                 log_dir / f"rank{r}.json", backend),
                 cwd=ROOT, env=_repo_env(), stdout=fh, stderr=subprocess.STDOUT))
-    return procs, f"http://127.0.0.1:{port}", time.monotonic()
+    return ServeGroup(procs, f"http://127.0.0.1:{port}", time.monotonic(), world)
 
 
 def _serve_rank_argv(flags: list, device: str, port: int, coord: int, world: int, rank: int,
-                     launch_log: Path) -> list:
-    """``cli.serve`` as rank ``rank`` of a ``world``-rank gloo job
-    (``scripts/torch_mp_train.py --serve``), serving HTTP on ``port``."""
+                     launch_log: Path, backend: str = "gloo") -> list:
+    """``cli.serve`` as rank ``rank`` of a ``world``-rank job over
+    ``backend`` (``scripts/torch_mp_train.py --serve``), serving HTTP on
+    ``port``."""
     return [sys.executable, str(ROOT / "scripts" / "torch_mp_train.py"), "--serve", *flags,
-            "--device", device, "--port", str(port), "--coordinator-address",
+            "--device", device, "--backend", backend, "--port", str(port),
+            "--coordinator-address",
             f"127.0.0.1:{coord}", "--num-processes", str(world), "--process-id", str(rank),
             "--launch-log", str(launch_log)]
 
@@ -4376,13 +4502,12 @@ def _serve_rank_argv(flags: list, device: str, port: int, coord: int, world: int
 def _await_group(group, log_dir: Path) -> float:
     """Wait for the leader's ``/healthz`` (every follower alive); returns
     the seconds from the spawn. Stops the group on failure."""
-    procs, base, t0 = group
     try:
-        for r, p in enumerate(procs[1:], 1):
+        for r, p in enumerate(group.procs[1:], 1):
             check(p.poll() is None,
                   f"follower {r} exited {p.returncode}:\n"
                   f"{(log_dir / f'rank{r}.log').read_text()[-4000:]}")
-        return _await_serve_cli(procs[0], base, t0, log_dir / "rank0.log")
+        return _await_serve_cli(group.procs[0], group.base, group.t0, log_dir / "rank0.log")
     except BaseException:
         _stop_group(group, log_dir, check_exit=False)
         raise
@@ -4390,25 +4515,29 @@ def _await_group(group, log_dir: Path) -> float:
 
 def _stop_group(group, log_dir: Path, check_exit: bool = True) -> list:
     """SIGINT to the leader: it closes its client, which stops the
-    followers; every rank must exit 0. Returns the ranks' launch logs."""
+    followers; every rank must exit 0 (a launcher's group: the launcher).
+    Returns the ranks' launch logs."""
     import signal
 
-    procs = group[0]
+    procs, pid_file = group.procs, group.leader_pid_file
     if procs[0].poll() is None:
-        procs[0].send_signal(signal.SIGINT)
+        pid = (int(pid_file.read_text()) if pid_file is not None and pid_file.exists()
+               else procs[0].pid)
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGINT)
     deadline = time.monotonic() + 60
     for p in procs:
         try:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
         except subprocess.TimeoutExpired:
-            p.kill()
-            p.wait(timeout=30)
+            _stop(p)
     if not check_exit:
         return []
     for r, p in enumerate(procs):
         check(p.returncode == 0, f"serving rank {r} exited {p.returncode}:\n"
                                  f"{(log_dir / f'rank{r}.log').read_text()[-4000:]}")
-    return [json.loads((log_dir / f"rank{r}.json").read_text()) for r in range(len(procs))]
+    return [json.loads((log_dir / f"rank{r}.json").read_text())
+            for r in range(group.world)]
 
 
 def _post_json(base: str, route: str, body: dict, timeout: float = 300) -> tuple[dict, float]:
@@ -4421,13 +4550,17 @@ def _post_json(base: str, route: str, body: dict, timeout: float = 300) -> tuple
     return out, time.monotonic() - t0
 
 
-def _gloo_share(leader: dict, wall_s: float) -> dict:
-    """The leader's seconds in gloo (the model's collectives and the
-    control channel's broadcasts) against the wall seconds they fell in."""
+def _collectives_share(leader: dict, wall_s: float, backend: str = "gloo") -> dict:
+    """The leader's seconds in collectives against the wall seconds they
+    fell in: the model's collectives over ``backend`` (gloo, or NCCL across
+    cards) and the control channel's broadcasts (always gloo), apart and
+    summed. ``collectives_share`` is what earlier records called
+    ``gloo_share``, when every collective was gloo."""
     control = (leader.get("group") or {}).get("control_seconds", 0.0)
-    return {"collectives_s": leader["comm_s"], "collective_calls": leader["comm_calls"],
-            "control_s": control, "cells": (leader.get("group") or {}).get("cells_issued"),
-            "gloo_share": (leader["comm_s"] + control) / wall_s if wall_s else None}
+    return {"backend": backend, "collectives_s": leader["comm_s"],
+            "collective_calls": leader["comm_calls"], "control_s": control,
+            "cells": (leader.get("group") or {}).get("cells_issued"),
+            "collectives_share": (leader["comm_s"] + control) / wall_s if wall_s else None}
 
 
 def phase_serve_bert_mp(torch, *, device="cuda", cli_extra=(), cfg=None, tp_dir=None,
@@ -4486,21 +4619,33 @@ def phase_serve_bert_mp(torch, *, device="cuda", cli_extra=(), cfg=None, tp_dir=
 
 
 def _serve_groups(groups: dict, refs: list, payload: dict, timed: list, n_ids: int,
-                  device) -> dict:
-    """:func:`phase_serve_bert_mp`'s requests and checks, one layout at a
-    time, each group stopped before the next."""
+                  device, layouts: dict = SERVE_GROUP_LAYOUTS, world: int = 2,
+                  backend: str = "gloo", gated: bool = False) -> dict:
+    """:func:`phase_serve_bert_mp`'s requests and checks, one layout of
+    ``layouts`` at a time, each group (``world`` ranks over ``backend``)
+    stopped before the next. ``gated``: the groups time their collectives
+    only while ``<log dir>/timer_on`` exists (``--comm-timer-file``), and
+    the timed requests run once with the timer and once without
+    (``request_ms_median_plain``)."""
     refs = dict(zip(("tp", "moe"), refs))
     records = {}
-    for name, (ck, flags, per_request) in SERVE_GROUP_LAYOUTS.items():
+    for name, (ck, flags, per_request) in layouts.items():
         log_dir = ROOT / "build" / f"chip_smoke_serve_{name}"
         group = groups[name]
         ready_s = _await_group(group, log_dir)
+        gate = log_dir / "timer_on"
         try:
-            got, first_s = _post_json(group[1], "/v1/mlm", payload)
-            emb, emb_s = _post_json(group[1], "/v1/embed", payload)
+            if gated:
+                gate.touch()
+            got, first_s = _post_json(group.base, "/v1/mlm", payload)
+            emb, emb_s = _post_json(group.base, "/v1/embed", payload)
             got["embedding"] = emb["embedding"]
-            walls = [_post_json(group[1], "/v1/mlm", {"input_ids": t})[1] for t in timed]
-            with urllib.request.urlopen(group[1] + "/statusz", timeout=30) as resp:
+            walls = [_post_json(group.base, "/v1/mlm", {"input_ids": t})[1] for t in timed]
+            plain = []
+            if gated:
+                gate.unlink()
+                plain = [_post_json(group.base, "/v1/mlm", {"input_ids": t})[1] for t in timed]
+            with urllib.request.urlopen(group.base + "/statusz", timeout=30) as resp:
                 mesh = json.loads(resp.read())["mesh"]
         finally:
             ranks = _stop_group(group, log_dir)
@@ -4512,7 +4657,7 @@ def _serve_groups(groups: dict, refs: list, payload: dict, timed: list, n_ids: i
                    np.asarray(got["embedding"]) - ref["embedding"]))),
                "nsp_max_abs_err": float(np.max(np.abs(
                    np.asarray(got["nsp_probs"]) - ref["nsp_probs"])))}
-        n = 2 + len(timed)
+        n = 2 + len(timed) + len(plain)
         want = per_request * n if device == "cuda" else 0
         launches = [r["launches"]["flash_fwd"] for r in ranks]
         rec = {"layout": mesh["layout"], "mesh": mesh, "ready_s": ready_s,
@@ -4520,9 +4665,11 @@ def _serve_groups(groups: dict, refs: list, payload: dict, timed: list, n_ids: i
                "flash_fwd_per_request": [x / n for x in launches],
                "first_request_ms": first_s * 1e3,
                "request_ms_median": statistics.median(walls) * 1e3,
-               **_gloo_share(ranks[0], first_s + emb_s + sum(walls))}
+               **_collectives_share(ranks[0], first_s + emb_s + sum(walls), backend)}
+        if plain:
+            rec["request_ms_median_plain"] = statistics.median(plain) * 1e3
         emit({"phase": "serve_bert_mp", "config": name, **rec})
-        check(mesh["layout"] == name and mesh["devices_per_engine"] == 2,
+        check(mesh["layout"] == name and mesh["devices_per_engine"] == world,
               f"{name}: the leader's mesh {mesh}")
         check(got["bucket"] == 512 and len(got["pred_ids"]) == n_ids, f"{name}: the answer")
         check(agree >= SERVE_GROUP_MIN_PRED_AGREEMENT
@@ -4532,7 +4679,7 @@ def _serve_groups(groups: dict, refs: list, payload: dict, timed: list, n_ids: i
               and np.allclose(got["nsp_probs"], ref["nsp_probs"], rtol=SERVE_GROUP_VEC_RTOL,
                               atol=SERVE_GROUP_VEC_ATOL),
               f"{name}: the group's answer against the one-process engine's: {err}")
-        check(launches == [want, want],
+        check(launches == [want] * world,
               f"{name}: flash_fwd launches {launches} for {n} requests, expected {want} a rank")
         records[name] = rec
     return {name: rec["flash_fwd_per_request"] for name, rec in records.items()}
@@ -4557,7 +4704,7 @@ def phase_train_lm_tp(torch, *, device="cuda", cli_extra=(), cfg=None, steps=2) 
           "lm_base", "--tensor-parallel", "2", "--steps", str(steps), "--global-batch", "8",
           "--log-every", "1", "--ckpt-dir", str(train_dir), "--coordinator-address",
           f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(r),
-          "--device", device, *cli_extra] for r in range(2)],
+          "--device", device, "--backend", "gloo", *cli_extra] for r in range(2)],
         ROOT / "build" / "chip_smoke_lm_tp_logs", 600)
     train_s = time.monotonic() - t0
     for r, (code, _, err) in enumerate(procs):
@@ -4628,12 +4775,12 @@ def phase_serve_lm_tp(torch, lm_ckpt: Path, *, device="cuda", cli_extra=(), cfg=
         _stop_group(group, log_dir, check_exit=False)
         raise
     try:
-        replies, burst_s = _post_generates(group[1], requests)
+        replies, burst_s = _post_generates(group.base, requests)
         greedy = [r for r in requests if r["temperature"] == 0.0][:2]
-        solo = [_post_json(group[1], "/v1/generate", {
+        solo = [_post_json(group.base, "/v1/generate", {
             "input_ids": r["input_ids"].tolist(), "max_new_tokens": r["budget"]})
             for r in greedy]
-        with urllib.request.urlopen(group[1] + "/statusz", timeout=30) as resp:
+        with urllib.request.urlopen(group.base + "/statusz", timeout=30) as resp:
             mesh = json.loads(resp.read())["mesh"]
     finally:
         ranks = _stop_group(group, log_dir)
@@ -4649,7 +4796,7 @@ def phase_serve_lm_tp(torch, lm_ckpt: Path, *, device="cuda", cli_extra=(), cfg=
            "decode_ms_a_step_median": statistics.median(decode_ms),
            "solo_request_ms": [w * 1e3 for _, w in solo],
            "flash_fwd_launches": [r["launches"]["flash_fwd"] for r in ranks],
-           **_gloo_share(ranks[0], wall)}
+           **_collectives_share(ranks[0], wall)}
     emit(out)
     check(mesh["layout"] == "tp2", f"cli.serve --tp 2: the leader's mesh {mesh}")
     check(not diverged, f"cli.serve --tp 2 streams off the one-process engine's: {diverged}")
@@ -4738,7 +4885,7 @@ def spawn_fleet_replicas(lm_ckpt: Path, device="cuda", cli_extra=()) -> tuple:
     router = Router([("a", f"http://127.0.0.1:{a_port}",
                       _serve_rank_argv(flags["a"], device, a_port, _free_port(), 1, 0,
                                        a_logs / "rank0.json")),
-                     *((name, groups[name][1], None) for name in ("a2", "b"))],
+                     *((name, groups[name].base, None) for name in ("a2", "b"))],
                     RouterConfig(**ROUTER_CONFIG), recorder=FlightRecorder(4096),
                     log_dir=a_logs)
     try:
@@ -4746,7 +4893,8 @@ def spawn_fleet_replicas(lm_ckpt: Path, device="cuda", cli_extra=()) -> tuple:
         # The router writes A's output to <log_dir>/a.log; the group
         # helpers read rank0.log.
         (a_logs / "rank0.log").symlink_to("a.log")
-        groups["a"] = ([router.replicas[0].proc], router.replicas[0].base_url, time.monotonic())
+        groups["a"] = ServeGroup([router.replicas[0].proc], router.replicas[0].base_url,
+                                 time.monotonic(), 1)
     except BaseException:
         stop_fleet((groups, router, make_cmd))
         raise
@@ -5103,7 +5251,7 @@ def phase_serve_lm_router(torch, fleet, want: dict, reqs: dict, *, device="cuda"
     )
 
     groups, router, make_cmd = fleet
-    base = {name: groups[name][1] for name in ROUTER_NAMES}
+    base = {name: groups[name].base for name in ROUTER_NAMES}
     k = router.config.affinity_tokens
     t0 = time.monotonic()
     out = {"phase": "serve_lm_router", "device": device}
@@ -5231,7 +5379,7 @@ def phase_serve_lm_router(torch, fleet, want: dict, reqs: dict, *, device="cuda"
         fo_replies, fo_threads = _post_streams(front_base, reqs["failover"], "router-failover")
         _await_live(base["a2"], len(reqs["failover"]), "router failover")
         retries0 = router.fleetz()["retries"]
-        groups["a2"][0][0].send_signal(signal.SIGKILL)
+        groups["a2"].procs[0].send_signal(signal.SIGKILL)
         t_kill = time.monotonic()
         _join_all(fo_threads, "router failover")
         out["failover_s"] = time.monotonic() - t_kill
@@ -5311,6 +5459,752 @@ def phase_serve_lm_router(torch, fleet, want: dict, reqs: dict, *, device="cuda"
     return out
 
 
+# ----------------------------------------------------- four cards (--cards 4)
+
+CARDS = 4  # the width of the --cards mode: one process a card, NCCL between them
+DP4_RANK_ROWS = 128  # ResNet-50 images a rank (the one-card training cell's batch)
+DP4_ROWS = DP4_RANK_ROWS * CARDS
+# The ranks' state after DP steps 1 and 2 against four `fused` shards
+# averaged by hand in this process. NCCL sums the four gradients in its own
+# order (a ring, each chunk from another rank first), so the two differ by
+# fp32 rounding, not bit for bit as at world 2: each part's relative L2
+# error, the params against the step's update, the momentum and the
+# BatchNorm statistics against their own norm, must stay within DP4_RTOL,
+# and the hand average with one rank's shard left out must not.
+DP4_RTOL = 1e-3
+MP4_ROWS = 32  # BERT's global batch: PP 4 at M = 16 takes 2 rows a microbatch
+# The serving groups at width 4 (the layout; the checkpoint: "tp" the TP x SP
+# CLI's, "moe" a seeded 8-expert stacked one; the serve CLI's flags;
+# flash_fwd a bucket-512 request a rank: 12 layers, or PP's 3 a stage at
+# M = 1).
+SERVE4_LAYOUTS = {
+    "tp4": ("tp", ["--tp", "4"], 12),
+    "ep4": ("moe", ["--moe-experts", "8", "--pp", "4", "--mesh", "expert=4"], 12),
+    "pp4": ("moe", ["--moe-experts", "8", "--pp", "4"], 3),
+}
+LM4_STEPS = 8  # lm_base steps under --tensor-parallel 4 (a constant 3e-4)
+# The follower-kill drill: the group's collectives time out after
+# DRILL_TIMEOUT_S (NCCL's watchdog may then end a rank stuck in one). The
+# leader must end within its stated time: its cell raised (a request
+# refused with the group's error) within DRILL_LIMIT_S of the kill, or its
+# process ended within DRILL_WATCH_S. The front end giving up on a stuck
+# request after its own 60 s (serve/server.py: HTTP 500, no error) is not
+# the leader failing.
+DRILL_TIMEOUT_S = 30
+DRILL_LIMIT_S = 75
+DRILL_WATCH_S = 120
+
+
+def _torchrun(tail: list, nproc: int = CARDS) -> list:
+    """``python -m torch.distributed.run`` (torchrun) of ``tail`` on
+    ``nproc`` processes of this host, at a free port."""
+    return [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(nproc),
+            "--master-addr", "127.0.0.1", "--master-port", str(_free_port()), *tail]
+
+
+def _group_line(backend: str, world: int, rank: int, device: str) -> str:
+    """A rank's ``process group`` log line: rank i on ``cuda:i``, or the CPU."""
+    return (f"backend={backend} world={world} rank={rank} device="
+            + (f"cuda:{rank}" if device == "cuda" else device))
+
+
+def _check_ranks_logged(log: str, what: str, backend: str = "nccl", device: str = "cuda",
+                        world: int = CARDS) -> list:
+    """Every rank's ``process group`` line: ``backend``, ``world`` ranks,
+    rank i on ``cuda:i`` (or the CPU). Returns the lines."""
+    lines = sorted(ln.split("process group: ", 1)[1] for ln in log.splitlines()
+                   if "process group: " in ln)
+    want = [_group_line(backend, world, r, device) for r in range(world)]
+    check(lines == want, f"{what}: process group lines {lines}, expected {want}")
+    return lines
+
+
+def phase_link() -> dict:
+    """The link between the cards as ``nvidia-smi`` reports it: ``topo -m``
+    (its text, where the machine lets it run) and, per card, the active
+    NVLink links and their rate (``nvlink --status``)."""
+    def smi(*args):
+        return subprocess.run(["nvidia-smi", *args], capture_output=True, text=True,
+                              timeout=60).stdout
+
+    topo, links, gpu = smi("topo", "-m"), {}, None
+    for ln in smi("nvlink", "--status").splitlines():
+        if ln.startswith("GPU "):
+            gpu = ln.split(":")[0]
+            links[gpu] = []
+        elif gpu is not None and "Link" in ln and "GB/s" in ln:
+            links[gpu].append(float(ln.split(":", 1)[1].split()[0]))
+    out = {"phase": "link", "topo_m": topo.strip(),
+           "nvlink": {g: {"active_links": len(v), "gb_s_each": v[0] if v else None,
+                          "gb_s_total": sum(v)} for g, v in links.items()}}
+    emit(out)
+    return out
+
+
+def phase_kernel_cards(fm, torch) -> dict:
+    """The flash kernels at the shapes the four-card layouts give them,
+    against their plain versions: 3 local heads (BERT-base's 12 over TP 4,
+    and Ulysses 4's heads after its all-to-all) at 32 rows x L = 512, and
+    the ring's 128-key blocks (L = 128 of each of 4 hops, 12 heads), forward
+    and backward (with the lse cotangent the ring's merge feeds back),
+    unpadded (the layouts' batch) and padded with a fully masked row; the
+    forward, backward, plain and SDPA times and the bound of the unpadded
+    case."""
+    shapes = {"heads3": (MP4_ROWS, 512, 3, 64), "ring_block128": (MP4_ROWS, 128, 12, 64)}
+    gen = torch.Generator("cuda").manual_seed(SEED + 40)
+    bf16 = torch.bfloat16
+    out = {}
+    for name, (b, l, h, d) in shapes.items():
+        rec = {"B": b, "L": l, "H": h, "D": d, "dtype": "bfloat16"}
+        for pad in (False, True):
+            (q, k, v, do), valid, mask = _masked_inputs(torch, gen, b, l, h, d, bf16, 4, pad)
+            o, lse = fm.flash_fwd_cuda(q, k, v, mask)
+            fwd_err, lse_err = _check_fwd(fm, torch, o, lse, q, k, v, mask, b, l, h, d, bf16,
+                                          pad)
+            dlse = torch.randn(lse.shape, device="cuda", generator=gen)
+            bwd_err = _check_bwd(fm, torch, q, k, v, mask, o, lse, do, dlse, (b, l, h, d),
+                                 bf16, pad)
+            rec["padded" if pad else "unpadded"] = {
+                "fwd_max_abs_err": fwd_err, "lse_err": lse_err,
+                "dq_max_abs_err": bwd_err["dq"], "dkv_max_abs_err": bwd_err["dkv"]}
+            if pad:
+                continue
+            keys = valid.tolist()
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            delta = fm.flash_bwd_delta(o, do)
+            args = (q, k, v, mask, do, lse, delta)
+            library = _sdpa_backward_ms(torch, q, k, v, mask, do)
+            rec["flash_fwd"] = {
+                "ms": cuda_ms(lambda: fm.flash_fwd_cuda(q, k, v, mask), 20),
+                "plain_ms": cuda_ms(lambda: fm.flash_attention_reference(q, k, v, mask), 5),
+                "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask[:, None, None, :]), 20),
+                **dict(zip(("bound_ms", "bound_by"), flash_bound(b, l, h, d, keys, 2, False)))}
+            rec["flash_bwd_dq"] = {
+                "ms": cuda_ms(lambda: fm.flash_bwd_dq_cuda(*args), 10),
+                "plain_ms": cuda_ms(lambda: fm.flash_bwd_dq_reference(*args), 3),
+                "library_ms": library["q"],
+                **dict(zip(("bound_ms", "bound_by"),
+                           bwd_bound(b, l, h, d, keys, 2, False, 3, 5, 2)))}
+            rec["flash_bwd_dkv"] = {
+                "ms": cuda_ms(lambda: fm.flash_bwd_dkv_cuda(*args), 10),
+                "plain_ms": cuda_ms(lambda: fm.flash_bwd_dkv_reference(*args), 3),
+                "library_ms": library["kv"],
+                **dict(zip(("bound_ms", "bound_by"),
+                           bwd_bound(b, l, h, d, keys, 2, False, 4, 6, 2)))}
+        emit({"phase": "kernel_cards", "shape": name, **rec})
+        out[name] = rec
+    return out
+
+
+def _hand_step(dp, state, grads: list, stats: list) -> None:
+    """One SGD update of ``state`` from the mean of the shards' gradients,
+    and the mean of their statistics as its BatchNorm state."""
+    mean = _tree_mean(grads)
+    for name, p in state.params.items():
+        p.grad = mean[name]
+    state.opt_state.apply()
+    for p in state.params.values():
+        p.grad = None
+    state.model_state = {"batch_stats": _tree_mean(stats)}
+
+
+def _dp_errors(dp, saved: dict, state, start: dict, torch) -> dict:
+    """Relative L2 errors of rank 0's saved state against ``state`` (the
+    hand's): params against the step's update from ``start``, momentum and
+    BatchNorm statistics against their own norm."""
+    def rel(got: dict, want: dict, ref: dict | None = None) -> float:
+        check(got.keys() == want.keys(), "DP state: leaf names differ")
+        num = den = 0.0
+        for k, w in want.items():
+            w = w.detach().double()
+            num += float((got[k].to(w.device).double() - w).square().sum())
+            den += float((w - (ref[k].double() if ref is not None else 0.0)).square().sum())
+        return math.sqrt(num / max(den, 1e-300))
+
+    slots = dp.slots(state)
+    return {"params": rel(saved["params"], state.params, start),
+            "momentum": rel({f"{k}/{n}": t for k, s in saved["slots"].items()
+                             for n, t in s.items()},
+                            {f"{k}/{n}": t for k, s in slots.items() for n, t in s.items()}),
+            "batch_stats": rel(saved["batch_stats"], state.model_state["batch_stats"])}
+
+
+def phase_train_dp_cards(torch) -> dict:
+    """Full-width ResNet-50 ``fused`` as four NCCL ranks, one a card
+    (``scripts/torch_dp_train.py``), 128 images a rank of one fixed global
+    batch of 512: the ranks' params, momentum and batch_stats bitwise equal
+    after every step (digests); steps 1 and 2 held against four 128-row
+    ``fused`` shards averaged by hand in this process within
+    :data:`DP4_RTOL` (and the average with one shard left out outside it);
+    29 launches of each fused kernel a step on every rank; then K = 4 stale
+    gradients for K + 2 steps, beside the hand checks (lockstep, launches,
+    params still for K steps, then moved). Prints ms a step, images/s and
+    the all-reduce's ms of the 25.6 M-float bucket."""
+    dp = load_dp_train()
+    out_dir = ROOT / "build" / "chip_smoke_dp4_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.monotonic()
+    # NCCL's own account of the link it found (its topology search and each
+    # channel's transport), in files beside the ranks' output.
+    nccl_log = ROOT / "build" / "chip_smoke_dp_logs" / "nccl"
+    ranks = _dp_launch(CARDS, "nccl", "--steps", "3", "--rows", str(DP4_ROWS), "--save",
+                       str(out_dir), env={"NCCL_DEBUG": "INFO",
+                                          "NCCL_DEBUG_SUBSYS": "INIT,GRAPH",
+                                          "NCCL_DEBUG_FILE": f"{nccl_log}.%p.log"})
+    seconds = time.monotonic() - t0
+    link = sorted({ln.split("NCCL INFO ", 1)[1].strip()
+                   for f in nccl_log.parent.glob("nccl.*.log") for ln in f.read_text().splitlines()
+                   if "NCCL INFO " in ln and any(w in ln for w in (" type ", " via ", "NVLS"))})
+    check([r["device"] for r in ranks] == [f"cuda:{r}" for r in range(CARDS)],
+          f"DP ranks' devices {[r['device'] for r in ranks]}")
+    for rank in ranks:
+        check({k: v for k, v in rank["launches"].items() if v}
+              == {k: 3 * v for k, v in DP_LAUNCHES.items()},
+              f"rank {rank['rank']} launches {rank['launches']}")
+        check(rank["allreduce_ok"], f"rank {rank['rank']}: the NCCL all-reduce's sum is wrong")
+        check(rank["digests"] == ranks[0]["digests"] and len(rank["digests"]) == 3,
+              f"the ranks' states differ: {[r['digests'] for r in ranks]}")
+        check(rank["losses"] == ranks[0]["losses"], "the ranks' losses differ")
+    losses = ranks[0]["losses"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"losses {losses}")
+
+    def hand_checks():
+        """Steps 1 and 2 by hand, and the planted fault at step 1."""
+        dp.numerics()
+        model, state, _ = dp.build("cuda")
+        batch = dp.fixed_batch(DP4_ROWS, "cuda")
+        errors, first = {}, None
+        for step in (1, 2):
+            start = {k: v.detach().clone() for k, v in state.params.items()}
+            grads, stats = _hand_shards(model, state.params, state.model_state, batch,
+                                        DP4_RANK_ROWS, torch)
+            first = first or (grads, stats)
+            _hand_step(dp, state, grads, stats)
+            saved = torch.load(out_dir / f"dp_step{step}.pt", weights_only=True)
+            errors[step] = _dp_errors(dp, saved, state, start, torch)
+            del grads, stats
+        # The planted fault: step 1 from the same start with the last rank's
+        # shard left out of the average.
+        _, fresh, _ = dp.build("cuda")
+        start = {k: v.detach().clone() for k, v in fresh.params.items()}
+        _hand_step(dp, fresh, first[0][:-1], first[1][:-1])
+        fault = _dp_errors(dp, torch.load(out_dir / "dp_step1.pt", weights_only=True), fresh,
+                           start, torch)
+        del model, state, fresh, first, batch
+        torch.cuda.empty_cache()
+        return errors, fault
+
+    depth = DP_STALENESS
+    t1 = time.monotonic()
+    (errors, fault), stale = concurrently(
+        (hand_checks,),
+        (_dp_launch, CARDS, "nccl", "--steps", str(depth + 2), "--rows", str(DP4_ROWS),
+         "--mode", "stale", "--staleness", str(depth)))
+    stale_seconds = time.monotonic() - t1
+    for step, err in errors.items():
+        check(all(e <= DP4_RTOL for e in err.values()),
+              f"DP step {step} against the hand average of four shards: {err}")
+    check(any(e > DP4_RTOL for e in fault.values()),
+          f"the hand average without one shard passed the DP check: {fault}")
+    for rank in stale:
+        check(rank["digests"] == stale[0]["digests"] and len(rank["digests"]) == depth + 2,
+              f"stale ranks' states differ: {[r['digests'] for r in stale]}")
+        check({k: v for k, v in rank["launches"].items() if v}
+              == {k: (depth + 2) * v for k, v in DP_LAUNCHES.items()},
+              f"stale rank {rank['rank']} launches {rank['launches']}")
+    pd, stale_losses = stale[0]["param_digests"], stale[0]["losses"]
+    check(len(set(pd[:depth])) == 1 and len(set(pd[depth - 1:])) == 3,
+          f"stale params: digests {pd}")
+    check(stale_losses[depth + 1] != stale_losses[depth], f"stale losses {stale_losses}")
+    step_ms = statistics.median(r["step_ms_median"] for r in ranks)
+    out = {"phase": "train_dp_cards", "seconds": seconds, "world": CARDS, "backend": "nccl",
+           "devices": [r["device"] for r in ranks], "global_rows": DP4_ROWS,
+           "rank_rows": DP4_RANK_ROWS, "losses": losses,
+           "step_ms": {r["rank"]: r["step_ms"] for r in ranks},
+           "step_ms_median": {r["rank"]: r["step_ms_median"] for r in ranks},
+           "images_per_s": DP4_ROWS / step_ms * 1e3,
+           "allreduce_ms": {r["rank"]: r["allreduce_ms"] for r in ranks},
+           "bucket_numel": ranks[0]["bucket_numel"],
+           "peak_mem_gb": {r["rank"]: r["peak_mem_gb"] for r in ranks},
+           "launches": {r["rank"]: r["launches"] for r in ranks},
+           "vs_hand_average_rel_err": errors, "rtol": DP4_RTOL,
+           "planted_fault_rel_err": fault}
+    emit(out)
+    emit({"phase": "train_dp_cards_link",
+          "channel_transports": sorted({ln.split(" via ", 1)[1] for ln in link if " via " in ln}),
+          "channels": sum(" via " in ln for ln in link),
+          "graph": [ln for ln in link if " via " not in ln][:20]})
+    emit({"phase": "train_dp_cards_stale", "seconds": stale_seconds, "staleness": depth,
+          "losses": stale_losses, "step_ms_median": {r["rank"]: r["step_ms_median"]
+                                                      for r in stale},
+          "launches": {r["rank"]: r["launches"] for r in stale}})
+    return out
+
+
+def phase_train_cli_image_cards(torch) -> dict:
+    """``cli.train --config imagenet_resnet50 --image-size 64`` under
+    torchrun at four processes (NCCL, one a card) on the seeded u8 cache,
+    3 steps with a checkpoint that a ``Checkpointer`` restores here (the
+    step and every BatchNorm running average)."""
+    from distributed_tensorflow_tpu_torch.ckpt import Checkpointer
+    from distributed_tensorflow_tpu_torch.cli.train import PRESETS, _make_tx
+    from distributed_tensorflow_tpu_torch.models import ResNet50
+    from distributed_tensorflow_tpu_torch.train import create_train_state
+    from distributed_tensorflow_tpu_torch.train.objectives import init_model
+
+    cache = load_feed_bench().write_cache(ROOT / "build" / "chip_smoke_u8", FEED_IMAGES,
+                                          FEED_HW, seed=SEED)
+    ckpt_dir = ROOT / "build" / "chip_smoke_dp4_cli"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.monotonic()
+    ((code, out, err),) = _run_ranks([_torchrun(
+        ["-m", "distributed_tensorflow_tpu_torch.cli.train", "--config", "imagenet_resnet50",
+         "--image-size", "64", "--global-batch", "64", "--steps", "3", "--lr", "0.05",
+         "--log-every", "1", "--data-dir", str(cache), "--ckpt-dir", str(ckpt_dir)])],
+        ROOT / "build" / "chip_smoke_dp4_cli_logs", 600)
+    log = out + err
+    seconds = time.monotonic() - t0
+    check(code == 0, f"cli.train under torchrun exited {code}:\n{log[-4000:]}")
+    groups = _check_ranks_logged(log, "cli.train imagenet_resnet50 under torchrun")
+    steps = [ln for ln in log.splitlines() if "train.loop: step" in ln]
+    check(len(steps) == 3 and all("loss=nan" not in ln for ln in steps), f"log: {steps}")
+    check("mesh={'data': 4}" in log, "the CLI's mesh is data=4")
+    model = ResNet50(dtype=torch.bfloat16, device="cuda")
+    params, model_state = init_model(model)
+    tx, _ = _make_tx(PRESETS["imagenet_resnet50"])
+    state, step = Checkpointer(ckpt_dir).restore_latest(create_train_state(params, tx,
+                                                                           model_state))
+    stats = state.model_state["batch_stats"]
+    check(step == 3 and all(not torch.equal(stats[k], model_state["batch_stats"][k])
+                            for k in stats), f"restored step {step} and its batch_stats")
+    del model, params, model_state, state
+    out = {"phase": "train_cli_image_cards", "seconds": seconds, "groups": groups,
+           "last_log": steps[-1].split(": ", 1)[-1], "restored_step": step}
+    emit(out)
+    return out
+
+
+def phase_train_cli_tp_sp_cards(torch, fm, *, device="cuda", backend="nccl", cli_extra=(),
+                                cfg=None) -> tuple[Path, int]:
+    """``cli.train`` (the bert_base recipe at 512 positions, through
+    ``scripts/torch_mp_train.py --cli``) under torchrun at four processes
+    over NCCL with ``--tensor-parallel 2 --seq-parallel 2 --sp-impl ring``,
+    8 rows, 3 steps; its global checkpoint restored here at TP 1 and served
+    through ``BertInferenceEngine`` and ``/v1/mlm`` (12 ``flash_fwd``).
+    ``device="cpu"`` and ``backend="gloo"`` with ``cli_extra`` (geometry
+    flags) and the matching ``cfg`` rehearse it."""
+    from distributed_tensorflow_tpu_torch.models.bert import BertConfig
+
+    cfg = cfg or BertConfig(dropout_rate=0.1, dtype=torch.bfloat16)  # 512 positions
+    steps = 3
+    ckpt_dir = ROOT / "build" / "chip_smoke_cli4_tp_sp"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.monotonic()
+    ((code, out, err),) = _run_ranks([_torchrun(
+        [str(ROOT / "scripts" / "torch_mp_train.py"), "--cli", "--config", "bert_base_l512",
+         "--tensor-parallel", "2", "--seq-parallel", "2", "--sp-impl", "ring", "--steps",
+         str(steps), "--global-batch", "8", "--log-every", "1", "--ckpt-dir", str(ckpt_dir),
+         "--device", device, "--backend", backend, *cli_extra])],
+        ROOT / "build" / "chip_smoke_cli4_tp_sp_logs", 600)
+    log = out + err
+    cli_s = time.monotonic() - t0
+    check(code == 0, f"cli.train --tensor-parallel 2 --seq-parallel 2 under torchrun exited "
+                     f"{code}:\n{log[-4000:]}")
+    groups = _check_ranks_logged(log, "cli.train TP x SP under torchrun", backend, device)
+    lines = [ln for ln in log.splitlines() if "train.loop: step" in ln]
+    check(len(lines) == steps and all("loss=nan" not in ln for ln in lines)
+          and "layout=sp2-tp2" in log, f"log: {lines}")
+    t0 = time.monotonic()
+    launches = _serve_checkpoint(torch, fm, ckpt_dir, cfg, device, steps,
+                                 "TP x SP checkpoint (four cards)")
+    emit({"phase": "train_cli_tp_sp_cards", "cli_seconds": cli_s, "groups": groups,
+          "serve_seconds": time.monotonic() - t0, "last_log": lines[-1].split(": ", 1)[-1],
+          "restored_step": steps, "serve_flash_fwd_launches": launches, "bucket": 512})
+    return ckpt_dir, launches
+
+
+def _spawn_torchrun_group(flags: list, log_dir: Path, device: str = "cuda",
+                          world: int = CARDS) -> ServeGroup:
+    """``cli.serve`` under torchrun as ``world`` NCCL processes, one a card
+    (``scripts/torch_mp_train.py --serve``), the leader serving HTTP on a
+    free port. The processes' output goes to ``log_dir/rank0.log``; their
+    launch logs and pid files to ``log_dir/rank<r>.json``."""
+    shutil.rmtree(log_dir, ignore_errors=True)
+    log_dir.mkdir(parents=True)
+    port = _free_port()
+    with open(log_dir / "rank0.log", "w") as fh:
+        proc = subprocess.Popen(
+            _torchrun([str(ROOT / "scripts" / "torch_mp_train.py"), "--serve", *flags,
+                       "--device", device, "--port", str(port), "--launch-log",
+                       str(log_dir / "rank{rank}.json")], world),
+            cwd=ROOT, env=_repo_env(), stdout=fh, stderr=subprocess.STDOUT)
+    return ServeGroup([proc], f"http://127.0.0.1:{port}", time.monotonic(), world,
+                      log_dir / "rank0.json.pid")
+
+
+def phase_serve_bert_cards(torch, tp_dir: Path, *, device="cuda", backend="nccl",
+                           cli_extra=(), cfg=None, during=None) -> tuple:
+    """Full-width BERT-base (512 positions, fp32) served by ``cli.serve``
+    under torchrun as four NCCL processes, one a card, under each of
+    :data:`SERVE4_LAYOUTS`: TP 4 (3 heads a rank) on the TP x SP CLI's
+    checkpoint, and EP 4 (8 experts, 2 a rank, replicated dispatch) and PP
+    4 (M = 1) on a seeded 8-expert checkpoint with a stacked encoder
+    written here. Each answer held to the one-process engine's at the
+    ``SERVE_GROUP_*`` tolerances, and ``flash_fwd`` launches a request a
+    rank exact. ``during()``, when given, runs while the groups load (after
+    the one-process references); returns ``(flash launches a request a rank
+    by layout, during's result)``. ``device="cpu"`` and ``backend="gloo"``
+    with ``cli_extra`` (geometry flags) and the matching ``cfg`` rehearse
+    it."""
+    from distributed_tensorflow_tpu_torch import ckpt
+    from distributed_tensorflow_tpu_torch.ckpt import restore_serving_state
+    from distributed_tensorflow_tpu_torch.models.bert import BertConfig, BertForPreTraining
+    from distributed_tensorflow_tpu_torch.serve import BertInferenceEngine
+
+    cfg = dataclasses.replace(cfg or BertConfig(), dtype=torch.float32)  # 512 positions
+    moe_cfg = dataclasses.replace(cfg, moe_experts=8, pipeline_parallel=CARDS)
+    moe_dir = ROOT / "build" / "chip_smoke_cards_moe"
+    shutil.rmtree(moe_dir, ignore_errors=True)
+    model = BertForPreTraining(moe_cfg, device=device, seed=SEED + 4)
+    ckpt.save(moe_dir, 1, {k: v.detach() for k, v in model.state_dict().items()})
+    del model
+    dirs = {"tp": tp_dir, "moe": moe_dir}
+    rng = np.random.default_rng(SEED + 21)
+    ids = rng.integers(5, cfg.vocab_size, size=300)
+    payload = {"input_ids": ids.tolist(), "mlm_targets": ids.tolist()}
+    timed = [rng.integers(5, cfg.vocab_size, size=int(n)).tolist()
+             for n in rng.integers(257, 513, SERVE_GROUP_TIMED)]
+    common = ["--config", "bert_base_l512_f32", "--buckets", "512", "--max-batch", "1",
+              "--batch-tiers", "1", "--max-delay-ms", "1", "--backend", backend, *cli_extra]
+    logs = {name: ROOT / "build" / f"chip_smoke_serve_{name}" for name in SERVE4_LAYOUTS}
+    groups = {name: _spawn_torchrun_group(common + ["--ckpt-dir", str(dirs[ck]),
+                                                    "--comm-timer-file",
+                                                    str(logs[name] / "timer_on")] + flags,
+                                          logs[name], device)
+              for name, (ck, flags, _) in SERVE4_LAYOUTS.items()}
+
+    def reference(kind):
+        params, _, _ = restore_serving_state(dirs[kind])
+        engine = BertInferenceEngine(BertForPreTraining(cfg if kind == "tp" else moe_cfg,
+                                                        device="meta"),
+                                     params, device, buckets=(512,), max_batch=1,
+                                     batch_tiers=(1,))
+        out = engine.run_batch([{k: np.asarray(v) for k, v in payload.items()}])[0]
+        del engine, params
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        return out
+
+    try:
+        refs = [reference("tp"), reference("moe")]
+        extra = during() if during is not None else None
+        return _serve_groups(groups, refs, payload, timed, len(ids), device, SERVE4_LAYOUTS,
+                             CARDS, backend, gated=True), extra
+    finally:
+        for name, g in groups.items():
+            _stop_group(g, ROOT / "build" / f"chip_smoke_serve_{name}", check_exit=False)
+        shutil.rmtree(moe_dir, ignore_errors=True)
+
+
+def phase_train_lm_cards(torch, *, device="cuda", backend="nccl", cli_extra=()) -> Path:
+    """``cli.train --config lm_base --tensor-parallel 4`` under torchrun at
+    four processes over NCCL (3 heads a rank), :data:`LM4_STEPS` steps of
+    the preset's 256 rows at a constant 3e-4, with a checkpoint.
+    ``device="cpu"`` and ``backend="gloo"`` with ``cli_extra`` rehearse it."""
+    ckpt_dir = ROOT / "build" / "chip_smoke_lm4"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.monotonic()
+    ((code, out, err),) = _run_ranks([_torchrun(
+        ["-m", "distributed_tensorflow_tpu_torch.cli.train", "--config", "lm_base",
+         "--tensor-parallel", str(CARDS), "--steps", str(LM4_STEPS), "--lr-schedule",
+         "constant", "--lr", "3e-4", "--log-every", "1", "--ckpt-dir", str(ckpt_dir),
+         "--device", device, *cli_extra])],
+        ROOT / "build" / "chip_smoke_lm4_logs", 600)
+    log = out + err
+    check(code == 0, f"lm_base --tensor-parallel 4 exited {code}:\n{log[-4000:]}")
+    groups = _check_ranks_logged(log, "lm_base under torchrun", backend, device)
+    lines = [ln for ln in log.splitlines() if "train.loop: step" in ln]
+    check(len(lines) == LM4_STEPS and all("loss=nan" not in ln for ln in lines)
+          and "layout=tp4" in log, f"lm_base --tensor-parallel 4 log: {lines}")
+    emit({"phase": "train_lm_cards", "seconds": time.monotonic() - t0, "groups": groups,
+          "first_log": lines[0].split(": ", 1)[-1], "last_log": lines[-1].split(": ", 1)[-1]})
+    return ckpt_dir
+
+
+def _follower_kill_drill(group, log_dir: Path, vocab: int) -> dict:
+    """A follower SIGKILLed while the leader decodes (32 streams through 8
+    slots, a second in), and how the leader ends: its cell raised, as over
+    gloo (a request refused with HTTP 500 and the group's error, within
+    :data:`DRILL_LIMIT_S`), or its process ended (NCCL's watchdog aborting
+    a collective that waits for the dead rank, within
+    :data:`DRILL_WATCH_S`). Fails if neither, or if an in-flight request
+    never ends. Records when the front end first gave up on a stuck request,
+    every thread's stack (SIGUSR1) unless the cell raised, and the last
+    lines the leader's log has on the group, NCCL and the watchdog."""
+    import signal
+
+    procs, base = group.procs, group.base
+    rng = np.random.default_rng(SEED + 77)
+    load = [{"id": 500 + i, "input_ids": rng.integers(4, vocab, 16), "temperature": 0.0,
+             "seed": 0, "budget": LM_NEW} for i in range(32)]
+    box = {}
+    loader = threading.Thread(target=lambda: box.update(_post_generates(base, load)[0]),
+                              daemon=True)
+    loader.start()
+    time.sleep(1.0)  # the streams are decoding
+    t_kill = time.monotonic()
+    procs[-1].kill()
+    raised = ended = front_end_gave_up_s = None
+    probe = {"input_ids": rng.integers(4, vocab, 8).tolist(), "max_new_tokens": 2}
+    while raised is None and ended is None and time.monotonic() - t_kill < DRILL_LIMIT_S:
+        if procs[0].poll() is not None:
+            ended = ("process ended", procs[0].returncode)
+            break
+        req = urllib.request.Request(base + "/v1/generate", data=json.dumps(probe).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(
+                    req, timeout=max(1.0, DRILL_LIMIT_S - (time.monotonic() - t_kill))):
+                pass  # the group still answered: not failed yet
+        except urllib.error.HTTPError as e:
+            body = e.read().decode(errors="replace")
+            try:
+                error = json.loads(body).get("error")
+            except ValueError:
+                error = body
+            if e.code == 500 and error:
+                raised = (time.monotonic() - t_kill, error[:300])
+            elif e.code == 500 and front_end_gave_up_s is None:
+                front_end_gave_up_s = time.monotonic() - t_kill
+        except OSError as e:
+            if not isinstance(getattr(e, "reason", e), TimeoutError):  # not a slow answer
+                ended = ("no connection", repr(e)[:300])
+        time.sleep(0.1)
+    if raised is None and procs[0].poll() is None:
+        # Where the leader waits: every thread's stack into its log.
+        procs[0].send_signal(signal.SIGUSR1)
+    # A leader whose cell raised serves on, refusing every request; one
+    # stuck in a collective is watched for its end.
+    while raised is None and procs[0].poll() is None and time.monotonic() - t_kill < DRILL_WATCH_S:
+        time.sleep(0.5)
+    leader_rc = procs[0].poll()
+    leader_end_s = time.monotonic() - t_kill if leader_rc is not None else None
+    loader.join(timeout=max(1.0, DRILL_WATCH_S - (time.monotonic() - t_kill)))
+    hung = loader.is_alive()
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait(timeout=30)
+    statuses = {}
+    for status, _ in box.values():
+        statuses[str(status)] = statuses.get(str(status), 0) + 1
+    log = (log_dir / "rank0.log").read_text()
+    notes = [ln.strip()[:300] for ln in log.splitlines()
+             if any(w in ln for w in ("Watchdog", "watchdog", "NCCL", "serving group broken",
+                                      "timed out", "group.py", "distributed_c10d.py"))]
+    out = {"killed_rank": len(procs) - 1,
+           "leader_raised_s": raised[0] if raised else None,
+           "leader_error": raised[1] if raised else None, "leader_unreachable": ended,
+           "front_end_gave_up_s": front_end_gave_up_s,
+           "leader_exit": leader_rc, "leader_end_s": leader_end_s,
+           "in_flight_statuses": statuses, "in_flight_hung": hung,
+           "collective_timeout_s": DRILL_TIMEOUT_S, "limit_s": DRILL_LIMIT_S,
+           "watch_s": DRILL_WATCH_S, "leader_log_notes": notes[-12:]}
+    check((raised is not None or (leader_rc is not None and leader_end_s <= DRILL_WATCH_S))
+          and not hung, f"the leader after a follower's SIGKILL: {out}")
+    return out
+
+
+def phase_serve_lm_cards(torch, lm_ckpt: Path, *, device="cuda", backend="nccl",
+                         cli_extra=(), cfg=None) -> dict:
+    """The TP 4 checkpoint served by ``cli.serve --config lm_base_f32 --tp
+    4`` as four NCCL processes launched with the cluster flags
+    (``--coordinator-address --num-processes --process-id``), one a card:
+    the 12 seeded ``/v1/generate`` requests of serve_lm through the
+    continuous batcher, every stream (greedy and seeded-sampled) equal to
+    the one-process fp32 engine's; 2 greedy requests one at a time for the
+    decode ms a step, with the collectives' timer (its share) and without;
+    the group stopped by SIGINT to its leader. A second group of the same,
+    warmed beside the first, takes the follower-kill drill.
+    ``device="cpu"`` and ``backend="gloo"`` with ``cli_extra`` and the
+    matching ``cfg`` rehearse it."""
+    from distributed_tensorflow_tpu_torch.ckpt import restore_serving_state
+    from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLM, CausalLMConfig
+    from distributed_tensorflow_tpu_torch.serve import CausalLMEngine
+
+    cfg = dataclasses.replace(cfg or CausalLMConfig(max_position=128), dtype=torch.float32)
+    log_dir = ROOT / "build" / "chip_smoke_serve_lm_tp4"
+    drill_dir = ROOT / "build" / "chip_smoke_serve_lm_tp4_drill"
+    groups = [_spawn_group(["--config", "lm_base_f32", "--ckpt-dir", str(lm_ckpt), "--tp",
+                            str(CARDS), "--buckets", *map(str, LM_BUCKETS), "--slots",
+                            str(LM_SLOTS), "--max-batch", str(LM_TIER), "--batch-tiers", "1",
+                            "2", "4", "--max-new-tokens", str(LM_NEW), "--init-timeout",
+                            str(DRILL_TIMEOUT_S), "--comm-timer-file", str(d / "timer_on"),
+                            *cli_extra], d, device, CARDS, backend)
+              for d in (log_dir, drill_dir)]
+    group, gate = groups[0], log_dir / "timer_on"
+    requests = _lm_requests(cfg.vocab_size, 12, cfg.max_position)
+    try:
+        lm_params, _, _ = restore_serving_state(lm_ckpt)
+        ref = CausalLMEngine(CausalLM(cfg, device="meta"), lm_params, device,
+                             buckets=LM_BUCKETS, slots=LM_SLOTS, max_batch=LM_TIER,
+                             batch_tiers=(1, 2, 4), max_new_tokens=LM_NEW)
+        want = _generate(ref, requests)
+        del ref, lm_params
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        ready_s = _await_group(group, log_dir)
+        gate.touch()
+        replies, burst_s = _post_generates(group.base, requests)
+        greedy = [r for r in requests if r["temperature"] == 0.0][:2]
+
+        def solo_requests():
+            return [_post_json(group.base, "/v1/generate", {
+                "input_ids": r["input_ids"].tolist(), "max_new_tokens": r["budget"]})
+                for r in greedy]
+
+        solo = solo_requests()
+        gate.unlink()
+        solo_plain = solo_requests()
+        with urllib.request.urlopen(group.base + "/statusz", timeout=30) as resp:
+            mesh = json.loads(resp.read())["mesh"]
+        ranks = _stop_group(group, log_dir)
+        for r in range(CARDS):
+            line = _group_line(backend, CARDS, r, device)
+            check(line in (log_dir / f"rank{r}.log").read_text(),
+                  f"cli.serve --tp 4 rank {r}: no '{line}' in its log")
+        _await_group(groups[1], drill_dir)
+        drill = _follower_kill_drill(groups[1], drill_dir, cfg.vocab_size)
+    finally:
+        for g, d in zip(groups, (log_dir, drill_dir)):
+            _stop_group(g, d, check_exit=False)
+    bad = {i: rep for i, rep in replies.items() if rep[0] != 200}
+    check(len(replies) == len(requests) and not bad, f"cli.serve --tp 4: {bad or len(replies)}")
+    diverged = [r["id"] for r in requests if replies[r["id"]][1]["tokens"] != want[r["id"]]]
+
+    def decode_ms(replies):
+        return [body["phases"]["decode"] / (body["n_tokens"] - 1) for body, _ in replies]
+
+    out = {"phase": "serve_lm_cards", "ready_s": ready_s, "layout": mesh["layout"],
+           "mesh": mesh, "streams_equal_one_process": len(requests) - len(diverged),
+           "diverged": diverged, "burst_s": burst_s, "decode_ms_a_step": decode_ms(solo),
+           "decode_ms_a_step_median": statistics.median(decode_ms(solo)),
+           "decode_ms_a_step_plain": decode_ms(solo_plain),
+           "solo_request_ms": [w * 1e3 for _, w in solo],
+           "solo_request_ms_plain": [w * 1e3 for _, w in solo_plain],
+           "flash_fwd_launches": [r["launches"]["flash_fwd"] for r in ranks],
+           **_collectives_share(ranks[0], burst_s + sum(w for _, w in solo), backend),
+           "follower_kill": drill}
+    emit(out)
+    check(mesh["layout"] == "tp4" and mesh["devices_per_engine"] == CARDS,
+          f"cli.serve --tp 4: the leader's mesh {mesh}")
+    check(not diverged, f"cli.serve --tp 4 streams off the one-process engine's: {diverged}")
+    return out
+
+
+def main_cards(torch, smi: list) -> int:
+    """``chip_smoke.py --cards 4``: the port's distributed paths on four
+    cards of one host, one process a card, the model's collectives over
+    NCCL (see the module docstring's four-card section)."""
+    n = torch.cuda.device_count()
+    if n < CARDS:
+        raise RuntimeError(f"chip_smoke --cards {CARDS} needs {CARDS} cards; this host has {n}")
+    fm = importlib.import_module("distributed_tensorflow_tpu_torch.ops.flash_attention")
+    pc = importlib.import_module("distributed_tensorflow_tpu_torch.ops.pointwise_conv")
+    fcb = importlib.import_module("distributed_tensorflow_tpu_torch.ops.fused_conv_bn")
+    pwb = load_pw_bench()
+    r50 = pw_tables(pwb)[0]
+    link = phase_link()
+    t_start = time.monotonic()
+    seconds = {}
+
+    def timed(name, fn, *args, **kwargs):
+        t_phase = time.monotonic()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds[name] = time.monotonic() - t_phase
+
+    try:
+        timed("build", phase_build, fm, pc, fcb)
+        shapes = timed("kernel_cards", phase_kernel_cards, fm, torch)
+        # The fused kernels at the DP ranks' shapes: 128 rows, ResNet-50's 12.
+        bn_rows = timed("kernel_bn_bwd", phase_kernel_bn_bwd, fcb, pc, pwb, torch,
+                        [(m, k, n, torch.bfloat16, (True,), True) for m, k, n in r50],
+                        "resnet50_dp4_rank")
+        torch.cuda.empty_cache()
+        dp = timed("train_dp_cards", phase_train_dp_cards, torch)
+        timed("train_cli_image_cards", phase_train_cli_image_cards, torch)
+        torch.cuda.empty_cache()
+        # BERT-base at full depth: 12 layers, 3 a pipeline stage.
+        mp = timed("train_bert_mp_cards", phase_train_bert_mp, torch, cut={"layers": 12},
+                   world=CARDS, backend="nccl", rows=MP4_ROWS, plain_steps=2)
+        torch.cuda.empty_cache()
+        tp_dir, tp_serve = timed("train_cli_tp_sp_cards", phase_train_cli_tp_sp_cards, torch, fm)
+        torch.cuda.empty_cache()
+        # lm_base trains while the BERT groups load (no request is timed
+        # until it has ended); serve_bert_cards' seconds include it.
+        group_serve, lm_ckpt = timed(
+            "serve_bert_cards", phase_serve_bert_cards, torch, tp_dir,
+            during=lambda: timed("train_lm_cards", phase_train_lm_cards, torch))
+        torch.cuda.empty_cache()
+        timed("serve_lm_cards", phase_serve_lm_cards, torch, lm_ckpt)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    total_s = time.monotonic() - t_start
+    print(f"chip_smoke --cards {CARDS}: all phases passed in {total_s:.1f} s", file=sys.stderr)
+    emit({"phase": "summary_cards", "phase_seconds": seconds, "total_seconds": total_s,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "nccl": ".".join(map(str, torch.cuda.nccl.version()))})
+    print(link["topo_m"])
+    src = "distributed_tensorflow_tpu_torch/csrc/"
+    ref = "distributed_tensorflow_tpu/ops/flash_attention.py:"
+    heads3 = shapes["heads3"]
+    kernels = []
+    for name, source, line, err_key in (
+            ("flash_fwd", "flash_fwd.cu", "396", "fwd_max_abs_err"),
+            ("flash_bwd_dq", "flash_bwd.cu", "490", "dq_max_abs_err"),
+            ("flash_bwd_dkv", "flash_bwd.cu", "559", "dkv_max_abs_err")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + source, "replaces": ref + line,
+            # Launches a step a rank by layout (a request a rank for the
+            # serving groups), from the runs of this mode.
+            "launches": {"model_parallel_per_step": {
+                cfg: [[step[name] for step in rank] for rank in ranks]
+                for cfg, ranks in mp["launches"].items()}},
+            "max_abs_err": max(rec[part][err_key] for rec in shapes.values()
+                               for part in ("padded", "unpadded")),
+            **{k: heads3[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")},
+            "cell": "B=32, L=512, H=3, D=64, bf16 (TP 4 and Ulysses 4 a rank)",
+            "ring_block128": shapes["ring_block128"][name]})
+    kernels[0]["launches"]["serve_group_per_request"] = group_serve
+    kernels[0]["launches"]["tp_sp_checkpoint_serve"] = tp_serve
+    bn_ref = "distributed_tensorflow_tpu/ops/fused_conv_bn.py:"
+    sel = [bn_rows[(*sh, "bfloat16")] for sh in r50]
+    units = list(r50.values())
+    for name, part, line in (("bn_bwd_reduce", "reduce", "126"),
+                             ("bn_bwd_apply_dx", "dx", "136"),
+                             ("bn_bwd_apply_dw", "dw", "136")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + "fused_conv_bn.cu",
+            "replaces": bn_ref + line,
+            "launches": {"dp_world4_per_rank": {r: v[name] for r, v in dp["launches"].items()}},
+            "max_abs_err": max(r["max_abs_err"][part] for r in bn_rows.values()),
+            **_step_record(sel, units, f"{part}_"), "library_ms": None,
+            "cell": "ResNet-50, 128 rows a rank, per training step (launches x time, summed)"})
+    kernels[-2]["library_ms"] = sum(n * r["dx_library_ms"] for r, n in zip(sel, units))
+    kernels[-2]["library"] = "torch.matmul(dz, w.t()): the product alone, dz made ahead"
+    print("\n".join(smi) if smi else "nvidia-smi: no output")
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def _step_record(rows: list, counts: list, field: str) -> dict:
     """One kernel's times per ResNet-50 training step: each shape's row
     (``rows``, one per shape) weighted by its launches per step
@@ -5325,13 +6219,25 @@ def _step_record(rows: list, counts: list, field: str) -> dict:
             "bound_by": widest[f"{field}bound_by"]}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--cards", type=int, choices=(1, CARDS), default=1,
+                   help=f"1: the one-card run; {CARDS}: the distributed paths on {CARDS} "
+                        "cards of this host, one process a card, over NCCL")
+    args = p.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available on this host", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    if args.cards == CARDS:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+        return main_cards(torch, smi)
     # The plain versions' f32 products stay full f32 (no TF32), and so do
     # the f32 convolutions of any reference run here.
     torch.backends.cuda.matmul.allow_tf32 = False

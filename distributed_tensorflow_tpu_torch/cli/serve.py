@@ -528,7 +528,9 @@ def make_parser() -> argparse.ArgumentParser:
                         "[0, --num-processes); rank 0 leads, the others follow")
     p.add_argument("--init-timeout", type=float, default=300.0,
                    help="multi-process bootstrap: seconds the process group may take to "
-                        "form before the job fails")
+                        "form, and a collective on its world group or the leader's "
+                        "broadcast of a cell to its followers may wait, before the job "
+                        "fails")
     # Fleet serving (serve/disagg.py): run this process as ONE role of a
     # prefill/decode pair, and/or let its live streams migrate.
     p.add_argument("--disagg-role", default="", choices=["", "prefill", "decode"],

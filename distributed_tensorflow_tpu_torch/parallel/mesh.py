@@ -162,15 +162,30 @@ def initialize_runtime(
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    # NCCL binds the rank's card at once: the world communicator forms here
+    # (a peer that never comes fails the start, not the first collective),
+    # and every later subgroup splits from it on every rank in the order
+    # the ranks create them, so no two ranks can wait on each other's
+    # first collective of different groups.
     dist.init_process_group(
         backend, init_method=f"tcp://{address}", world_size=world, rank=rank,
-        timeout=datetime.timedelta(seconds=timeout_s))
-    global _ACTIVE
+        timeout=datetime.timedelta(seconds=timeout_s),
+        device_id=dev if backend == "nccl" else None)
+    global _ACTIVE, _TIMEOUT
     _ACTIVE = None
     _GROUPS.clear()
+    _TIMEOUT = datetime.timedelta(seconds=timeout_s)
     logger.info("process group: backend=%s world=%d rank=%d device=%s",
                 backend, world, rank, dev)
     return dev
+
+
+def collective_timeout() -> datetime.timedelta:
+    """How long a collective of the job may wait for its peers: the
+    ``timeout_s`` the process group started with."""
+    if _TIMEOUT is None:
+        raise RuntimeError("no process group: call initialize_runtime first")
+    return _TIMEOUT
 
 
 def _rank_device(device, rank: int) -> torch.device:
@@ -212,8 +227,9 @@ def _cluster_env_present() -> bool:
 def shutdown_runtime() -> None:
     """Leave the process group, if one was started (``jax.distributed.shutdown``),
     with the active mesh and its subgroups."""
-    global _ACTIVE
+    global _ACTIVE, _TIMEOUT
     _ACTIVE = None
+    _TIMEOUT = None
     _GROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -296,6 +312,7 @@ def build_mesh(
 # nontrivial axes (None: a set of size 1, or no process group).
 _ACTIVE: Mesh | None = None
 _GROUPS: dict[tuple, dict[tuple[str, ...], object]] = {}
+_TIMEOUT: datetime.timedelta | None = None  # the job's, from initialize_runtime
 
 
 def _shape_key(mesh: Mesh) -> tuple:

@@ -26,7 +26,10 @@ the same cell on their shard:
   a gloo group made for them (``dist.new_group(backend="gloo")``), apart
   from the model's own groups, which stay on the job's backend: the same
   code serves over NCCL across cards and over gloo on one card or the CPU.
-  Nothing on the channel is a CUDA tensor.
+  Nothing on the channel is a CUDA tensor. A gloo group's timeout is each
+  rank's own: a follower waits for the next cell as long as the server
+  idles, the leader's broadcast at most the job's collective timeout
+  (:func:`..parallel.mesh.collective_timeout`).
 - **Order.** Broadcast and launch are one critical section under the
   group's lock, so the leader's dispatching threads (the dynamic batcher's
   ``max_in_flight`` overlap, the continuous batcher's loop) issue the
@@ -34,12 +37,13 @@ the same cell on their shard:
 - **Shutdown and failure.** :meth:`ServingGroup.stop` (from
   ``Client.close()`` on the leader, through the engine's ``close``)
   broadcasts a stop, and ``follow()`` returns 0. A follower that dies or
-  hangs makes the leader's next cell raise (a closed socket at once, a
-  hung peer within the model groups' timeout): the batch fails (HTTP
-  500), the group is marked broken, and every later cell raises, so the
-  leader never serves on alone. A follower whose cell raises exits with
-  the error: it never skips a cell, which would leave the others waiting.
-  Nothing here falls back to one process.
+  hangs makes the leader's next cell raise (a closed socket at once; a
+  broadcast no peer takes, or a hung peer, within the job's collective
+  timeout): the batch fails (HTTP 500), the group is marked broken, and
+  every later cell raises, so the leader never serves on alone. A
+  follower whose cell raises exits with the error: it never skips a cell,
+  which would leave the others waiting. Nothing here falls back to one
+  process.
 
 During construction (:meth:`ServingGroup.start` not yet called) every rank
 runs the engine's constructor itself, so ``issue`` runs the cell directly.
@@ -82,7 +86,11 @@ class ServingGroup:
     docstring)."""
 
     def __init__(self, mesh):
-        from distributed_tensorflow_tpu_torch.parallel.mesh import process_count, process_index
+        from distributed_tensorflow_tpu_torch.parallel.mesh import (
+            collective_timeout,
+            process_count,
+            process_index,
+        )
 
         if not dist.is_initialized() or mesh.size != process_count():
             raise RuntimeError(
@@ -91,13 +99,18 @@ class ServingGroup:
         self.mesh = mesh
         self.rank = process_index()
         self.size = mesh.size
-        self._ctrl = dist.new_group(backend="gloo", timeout=IDLE_TIMEOUT)
+        # The leader's broadcast must not wait as long as an idle follower
+        # may: over NCCL, a follower SIGKILLed mid-decode left it waiting
+        # for good.
+        self._ctrl = dist.new_group(
+            backend="gloo", timeout=collective_timeout() if self.rank == 0 else IDLE_TIMEOUT)
         self._lock = threading.Lock()
         self._live = False
         self._broken: str | None = None
         self._stopped = False
-        # The leader's broadcast seconds and cells issued (the gloo share of
-        # a request's time, PERF.md).
+        # The leader's broadcast seconds and cells issued: the control
+        # channel's part of a request's collectives share (PERF.md), beside
+        # the model's collectives over the job's backend.
         self.control_seconds = 0.0
         self.cells_issued = 0
 

@@ -47,7 +47,8 @@ sleep, through ``fit`` with the flight recorder (``DIR/dumps_<rank>``), a
 fault injector, checkpoints every ``CHAOS_CKPT_EVERY`` steps into
 ``DIR/ckpt_<rank>`` and a health beacon in ``DIR/beacons``. Rank 0's plan
 holds ``slow_step`` at 5 and ``host_drop`` at ``CHAOS_HOST_DROP_AT``: it
-dumps its recorder and dies by SIGKILL. A survivor prints one JSON line with its
+dumps its recorder and dies by SIGKILL. A survivor writes its beacon once
+more when rank 0's dump is there, then prints one JSON line with its
 step, newest checkpoint, losses and kernel launches.
 """
 
@@ -209,6 +210,14 @@ def chaos(args) -> dict:
             latest = ckpt.latest_step()
     finally:
         batches.close()
+    # A survivor stays up, its beacon fresh, until rank 0's dump shows its
+    # death: a survivor that started first could end before rank 0 dies.
+    deadline = time.monotonic() + 300
+    while not any((work / "dumps_0").glob("flightrec-*.json")):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"chaos host {args.rank}: rank 0 never dumped its death")
+        time.sleep(0.05)
+    beacon.write()
     step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
     return {"rank": args.rank, "step": state.step, "latest_ckpt": latest,
             "last_step": timeline.last_step, "losses": losses, "launches": dict(fcb.LAUNCHES),

@@ -9,27 +9,31 @@ Run one process a rank, all with the same arguments but ``--rank``::
     python3 scripts/torch_mp_train.py --world 2 --rank 0 --port 29500 --out DIR &
     python3 scripts/torch_mp_train.py --world 2 --rank 1 --port 29500 --out DIR
 
-Each rank starts the process group through ``initialize_runtime`` over
-gloo (several ranks share one card, which NCCL refuses) on ``--device``
-(``cuda:<rank % device_count>``, or ``cpu``) and:
+Each rank starts the process group through ``initialize_runtime`` on
+``--device`` (``cuda:<rank % device_count>``, or ``cpu``) over
+``--backend``: by default NCCL on a card (one process a card) and gloo on
+the CPU, as ``initialize_runtime`` picks; ``--backend gloo`` when several
+ranks share one card, which NCCL refuses. Then:
 
 1. ``collectives``: on a ``{"seq": world}`` mesh, :mod:`..parallel.collectives`'
    ``psum``, ``ppermute``, ``all_to_all`` and ``all_gather`` (with the
    gradients of a weighted sum of each output) and the bucketed
    ``pmean_tree``, on seeded inputs of every rank, values checked against
    the same arithmetic done here on the gathered inputs; then each of
-   gloo's ``all_reduce`` (f32 and bf16), ``all_gather`` and
+   the backend's ``all_reduce`` (f32 and bf16), ``all_gather`` and
    ``all_to_all_single`` called raw on device tensors, recording whether
-   the backend takes them, and the collectives' list of ops staged
-   through host memory (``GLOO_HOST_STAGED``: ``send``/``recv``, which
-   gloo cannot do from device memory);
+   it takes them, and the collectives' list of ops staged through host
+   memory under gloo (``GLOO_HOST_STAGED``: ``send``/``recv``, which gloo
+   cannot do from device memory);
 2. for each of :data:`CONFIGS` (``{"model": world}`` Megatron TP, ``{"seq":
-   world}`` ring and Ulysses, ``{"expert": world}`` MoE of :data:`EXPERTS`
+   world}`` ring (its flash inner: ``attn_impl="flash"``) and Ulysses,
+   ``{"expert": world}`` MoE of :data:`EXPERTS`
    experts dispatched replicated, all-to-all and sharded (top-1, and
    sharded top-2), ``{"pipeline": world}`` GPipe at ``4 * world``
    microbatches), BERT (``BertConfig()``'s widths unless
    ``--layers/--hidden/--heads/--vocab/--seq-len`` cut them) from the
-   seeded global parameters on one fixed batch of :data:`ROWS` rows
+   seeded global parameters on one fixed batch of ``--rows`` rows
+   (default :data:`ROWS`)
    (:func:`fixed_batch`, the sequence split over ``"seq"``, the rows over
    ``"expert"`` under the sharded dispatch):
    ``held_bf16``: one bf16 step with dropout off (AdamW 1e-4, decay 0.01,
@@ -43,38 +47,53 @@ gloo (several ranks share one card, which NCCL refuses) on ``--device``
    the flash kernels' launches a step (counters set to 0 first), ms a step
    (synchronised), the collectives' ms a step (each collective call timed
    between two synchronisations) and of it the pipeline hand-offs'
-   (``ppermute``), and ``moe_aux``; then writes ``DIR/rank<R>.json``.
+   (``ppermute``), and ``moe_aux``; then ``--plain-steps`` steps with the
+   timer off (ms a step without its synchronisations); then writes
+   ``DIR/rank<R>.json``.
 
 :func:`single_process_references` are the unsharded runs of the held steps
 on the same parameters and batch, for the caller's comparison, one for
 each of :data:`REFERENCE` 's kinds: dense BERT (the pipeline's stacked
 encoder is the module list stacked), the MoE in one routing group, and
-the MoE over two row groups with their losses averaged (the sharded
+the MoE over ``world`` row groups with their losses averaged (the sharded
 dispatch's groups, one a rank).
 
 ``--cli ARGS...`` instead runs ``cli.train.main(ARGS)`` with the
 ``bert_base`` recipe at ``BertConfig()``'s 512 positions registered as
 ``bert_base_l512`` (the preset pins 128, where the ring's local 64 keys
-run dense attention) and the process group on gloo (``--backend`` is not a
-CLI flag: several ranks on one card need it).
+run dense attention) and the process group on ``--backend`` (not a CLI
+flag: several ranks on one card need gloo).
 
-``--serve ARGS... [--launch-log FILE]`` runs ``cli.serve.main(ARGS)`` as
-one rank of a serving group on gloo, with two presets registered for the
-card's checks: ``bert_base_l512_f32`` (BERT-base at 512 positions, fp32
-compute) and ``lm_base_f32`` (``lm_base`` in fp32). At exit it writes
-``FILE``: the exit code, the flash kernels' launches since the engine's
-warm-up ended, the collectives' seconds and calls over the same span
-(each call between two synchronisations, as the training layouts time
-them) and the serving group's control-channel digest.
+``--serve ARGS... [--launch-log FILE] [--comm-timer-file GATE]`` runs
+``cli.serve.main(ARGS)`` as one rank of a serving group on ``--backend``,
+with two presets registered for the card's checks: ``bert_base_l512_f32``
+(BERT-base at 512 positions, fp32 compute) and ``lm_base_f32``
+(``lm_base`` in fp32). ``{rank}`` in ``FILE`` becomes the rank (a
+launcher's ``RANK``, else ``--process-id``, else 0); the process writes
+its pid to ``FILE.pid`` at start, and at exit ``FILE``: the exit code,
+the flash kernels' launches since the engine's warm-up ended, the
+collectives' seconds and calls over the same span (each call between two
+synchronisations, as the training layouts time them) and the serving
+group's control-channel digest. With ``GATE`` the collectives are timed
+only in the cells a rank takes while that file exists (read once a cell),
+so requests can be served with and without the timer's synchronisations
+in one group.
+SIGUSR1 prints every thread's stack to the process's stderr.
+
+``--backend`` takes ``nccl`` or ``gloo`` in every mode and refuses any
+other name (exit 2).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import faulthandler
 import functools
 import importlib
 import json
+import os
+import signal
 import statistics
 import sys
 import time
@@ -108,7 +127,7 @@ _MOE = dict(moe_experts=EXPERTS, expert_axis="expert")
 # name -> (mesh axes with the world's size put in for -1, BertConfig fields)
 CONFIGS = {
     "tp": ({"model": -1}, dict(model_axis="model")),
-    "ring": ({"seq": -1}, dict(seq_axis="seq", sp_impl="ring")),
+    "ring": ({"seq": -1}, dict(seq_axis="seq", sp_impl="ring", attn_impl="flash")),
     "ulysses": ({"seq": -1}, dict(seq_axis="seq", sp_impl="ulysses")),
     "ep_replicated": ({"expert": -1}, dict(_MOE, moe_dispatch="replicated")),
     "ep_alltoall": ({"expert": -1}, dict(_MOE, moe_dispatch="alltoall")),
@@ -118,8 +137,8 @@ CONFIGS = {
 }
 # Each config's single-process reference: (kind, BertConfig fields, row groups).
 REFERENCE = {"tp": "dense", "ring": "dense", "ulysses": "dense", "pp": "dense",
-             "ep_replicated": "moe1", "ep_alltoall": "moe1", "ep_sharded": "moe1_g2",
-             "ep_sharded_top2": "moe2_g2"}
+             "ep_replicated": "moe1", "ep_alltoall": "moe1", "ep_sharded": "moe1_groups",
+             "ep_sharded_top2": "moe2_groups"}
 # TP, the ring and Ulysses time two steps: their third paid for the MoE
 # and pipeline layouts in chip_smoke.py's budget.
 SHORT = ("tp", "ring", "ulysses")
@@ -130,13 +149,19 @@ def steps(name: str) -> int:
     return STEPS - 1 if name in SHORT else STEPS
 
 
-REFERENCE_KINDS = {"dense": ({}, 1), "moe1": (dict(moe_experts=EXPERTS), 1),
-                   "moe1_g2": (dict(moe_experts=EXPERTS), 2),
-                   "moe2_g2": (dict(moe_experts=EXPERTS, moe_topk=2), 2)}
+def reference_kinds(world: int) -> dict:
+    """Each reference kind's ``(BertConfig fields, row groups)``: the
+    sharded dispatch routes one group a rank."""
+    return {"dense": ({}, 1), "moe1": (dict(moe_experts=EXPERTS), 1),
+            "moe1_groups": (dict(moe_experts=EXPERTS), world),
+            "moe2_groups": (dict(moe_experts=EXPERTS, moe_topk=2), world)}
+
+
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-# The raw gloo calls of the collectives phase, by the name the port's
+# The raw backend calls of the collectives phase, by the name the port's
 # collective uses them under.
 RAW_OPS = ("psum", "psum_bf16", "all_gather", "all_to_all")
+BACKENDS = ("nccl", "gloo")
 
 
 def geometry(args) -> dict:
@@ -255,12 +280,12 @@ def held_steps(geom, name, world, rows, device, extra=None, groups: int = 1):
     return out
 
 
-def single_process_references(geom: dict, rows: int, device="cuda") -> dict:
+def single_process_references(geom: dict, rows: int, device="cuda", world: int = 2) -> dict:
     """:func:`held_steps` unsharded, in this process (no process group),
-    for each kind of :data:`REFERENCE_KINDS`, with the kind's initial
-    parameters under ``"init"``."""
+    for each kind of :func:`reference_kinds` of a ``world``-rank job, with
+    the kind's initial parameters under ``"init"``."""
     out = {}
-    for kind, (extra, groups) in REFERENCE_KINDS.items():
+    for kind, (extra, groups) in reference_kinds(world).items():
         out[kind] = held_steps(geom, None, 1, rows, device, extra, groups)
         cfg = config(geom, None, 1, dtype=torch.float32, dropout=0.0, extra=extra)
         out[kind]["init"] = {k: v.detach().cpu() for k, v in bert.BertForPreTraining(
@@ -274,8 +299,9 @@ class CommTimer:
     """Times every call of the collectives' transport functions (the
     all-reduce, the ring shift, the all-to-all and the all-gather, host
     staging included), each between two synchronisations of the device,
-    while ``on``; ``by_name`` splits the seconds by function (``_shift``:
-    the ring's and the pipeline's hand-offs)."""
+    while ``on``; ``by_name`` splits the seconds by function (``_shift``: the ring's and
+    the pipeline's hand-offs). The synchronisations are the timer's cost:
+    they stop each rank at every collective."""
 
     NAMES = ("_all_reduce", "_shift", "_a2a", "_gather")
 
@@ -307,9 +333,11 @@ class CommTimer:
         return timed
 
 
-def timed_steps(geom, name, world, rows, device, n_steps, timer) -> dict:
+def timed_steps(geom, name, world, rows, device, n_steps, timer, plain_steps: int = 0) -> dict:
     """``n_steps`` bf16 steps with dropout 0.1: flash launches, ms and the
-    collectives' ms of each step, and the losses."""
+    collectives' ms of each step, and the losses; then ``plain_steps`` more
+    with the timer off (``step_ms_plain``: the step without its
+    synchronisations)."""
     cfg = config(geom, name, world, dtype=torch.bfloat16, dropout=0.1)
     _, state, step, _ = build(cfg, device)
     batch = fixed_batch(cfg, rows, device)
@@ -332,7 +360,17 @@ def timed_steps(geom, name, world, rows, device, n_steps, timer) -> dict:
         comm_ms.append(timer.seconds * 1e3)
         shift_ms.append(timer.by_name["_shift"] * 1e3)
         launches.append({k: fm.LAUNCHES[k] - before[k] for k in FLASH})
+    plain_ms = []
+    for _ in range(plain_steps):
+        timer._sync()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        losses.append(float(m["loss"]))
+        timer._sync()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
     return {"launches": launches, "step_ms": step_ms, "comm_ms": comm_ms,
+            "step_ms_plain": plain_ms,
+            "step_ms_plain_median": statistics.median(plain_ms) if plain_ms else None,
             "ppermute_ms": shift_ms, "collective_calls": timer.calls, "losses": losses,
             "moe_aux": aux, "step_ms_median": statistics.median(step_ms[1:] or step_ms),
             "comm_ms_median": statistics.median(comm_ms[1:] or comm_ms),
@@ -404,6 +442,25 @@ def collectives_check(rank: int, world: int, device) -> dict:
             "host_staged": sorted(coll.GLOO_HOST_STAGED)}
 
 
+def backend_flag(argv: list[str]) -> str | None:
+    """Take ``--backend NAME`` out of ``argv`` (in place) and return NAME,
+    None when it is absent; a name but :data:`BACKENDS` exits 2."""
+    p = argparse.ArgumentParser(prog="torch_mp_train.py", add_help=False,
+                                allow_abbrev=False)
+    p.add_argument("--backend", choices=BACKENDS)
+    args, rest = p.parse_known_args(argv)
+    argv[:] = rest
+    return args.backend
+
+
+def _pin_backend(backend: str | None) -> None:
+    """Make the CLI's ``initialize_runtime`` start its group on ``backend``
+    (None: its own default)."""
+    if backend is not None:
+        mesh_lib.initialize_runtime = functools.partial(mesh_lib.initialize_runtime,
+                                                        backend=backend)
+
+
 def run_cli(argv: list[str]) -> int:
     from distributed_tensorflow_tpu_torch.cli import train as cli
 
@@ -411,27 +468,37 @@ def run_cli(argv: list[str]) -> int:
     cli.PRESETS["bert_base_l512"] = dataclasses.replace(
         base, name="bert_base_l512", build=cli._build_bert_workload(
             dict(max_position=512, dropout_rate=0.1, dtype=torch.bfloat16)))
-    mesh_lib.initialize_runtime = functools.partial(mesh_lib.initialize_runtime,
-                                                    backend="gloo")
+    _pin_backend(backend_flag(argv))
     return cli.main(argv)
 
 
 def run_serve(argv: list[str]) -> int:
     from distributed_tensorflow_tpu_torch.cli import serve as cli
     from distributed_tensorflow_tpu_torch.serve import engine as engine_mod
+    from distributed_tensorflow_tpu_torch.serve import group as group_mod
 
+    gate = None
+    if "--comm-timer-file" in argv:
+        i = argv.index("--comm-timer-file")
+        gate = Path(argv[i + 1])
+        del argv[i:i + 2]
     log = None
     if "--launch-log" in argv:
         i = argv.index("--launch-log")
-        log = Path(argv[i + 1])
+        rank = os.environ.get("RANK") or (
+            argv[argv.index("--process-id") + 1] if "--process-id" in argv else "0")
+        log = Path(argv[i + 1].replace("{rank}", rank))
         del argv[i:i + 2]
+        Path(f"{log}.pid").write_text(str(os.getpid()))
     cli.PRESETS["bert_base_l512_f32"] = cli.ServePreset(
         "bert_base_l512_f32", bert_kwargs=dict(max_position=512, dropout_rate=0.1,
                                                dtype=torch.float32))
     cli.PRESETS["lm_base_f32"] = cli.ServePreset(
         "lm_base_f32", causal_kwargs=dict(max_position=128, dtype=torch.float32))
-    mesh_lib.initialize_runtime = functools.partial(mesh_lib.initialize_runtime,
-                                                    backend="gloo")
+    _pin_backend(backend_flag(argv))
+    # SIGUSR1 prints every thread's stack to the rank's log (where a stuck
+    # rank waits).
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     timer = CommTimer(torch.device("cuda" if torch.cuda.is_available() else "cpu"))
     engines = []
     start = engine_mod._AotEngine._start_group
@@ -444,6 +511,16 @@ def run_serve(argv: list[str]) -> int:
         start(engine)
 
     engine_mod._AotEngine._start_group = started
+    if gate is not None:
+        # The gate is read once a cell, as each rank takes the cell from
+        # the control channel: a cell's collectives are timed while it
+        # exists.
+        for name in ("_send", "_recv"):
+            def gated(group, *args, _channel=getattr(group_mod.ServingGroup, name)):
+                timer.on = gate.exists()
+                return _channel(group, *args)
+
+            setattr(group_mod.ServingGroup, name, gated)
     rc = cli.main(argv)
     if log is not None:
         group = engines[-1].group if engines else None
@@ -467,6 +544,12 @@ def main(argv=None) -> int:
     p.add_argument("--port", type=int, required=True)
     p.add_argument("--out", required=True)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--backend", choices=BACKENDS, default=None,
+                   help="the process group's backend (default: NCCL on a card, gloo on "
+                        "the CPU; gloo for several ranks on one card)")
+    p.add_argument("--rows", type=int, default=ROWS, help="the fixed global batch")
+    p.add_argument("--plain-steps", type=int, default=0,
+                   help="steps after the timed ones with the collectives' timer off")
     for flag in ("layers", "hidden", "heads", "vocab", "seq-len"):
         p.add_argument(f"--{flag}", type=int, default=0)
     args = p.parse_args(argv)
@@ -474,9 +557,11 @@ def main(argv=None) -> int:
     out_dir = Path(args.out)
     t0 = time.perf_counter()
     device = mesh_lib.initialize_runtime(f"127.0.0.1:{args.port}", args.world, args.rank,
-                                         device=args.device, backend="gloo", timeout_s=120)
+                                         device=args.device, backend=args.backend,
+                                         timeout_s=120)
     timer = CommTimer(device)
-    result = {"rank": args.rank, "init_s": time.perf_counter() - t0}
+    result = {"rank": args.rank, "init_s": time.perf_counter() - t0,
+              "backend": dist.get_backend(), "device": str(device), "rows": args.rows}
     t0 = time.perf_counter()
     result["collectives"] = collectives_check(args.rank, args.world, device)
     result["collectives"]["seconds"] = time.perf_counter() - t0
@@ -486,10 +571,11 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         axes = {a: args.world if n == -1 else n for a, n in CONFIGS[name][0].items()}
         mesh_lib.build_mesh(axes)
-        held = held_steps(geom, name, args.world, ROWS, device)
+        held = held_steps(geom, name, args.world, args.rows, device)
         torch.save(held["fp32"], out_dir / f"params_{name}_rank{args.rank}.pt")
         rec = {"held_bf16": held["bf16"]}
-        rec.update(timed_steps(geom, name, args.world, ROWS, device, steps(name), timer))
+        rec.update(timed_steps(geom, name, args.world, args.rows, device, steps(name), timer,
+                               args.plain_steps))
         rec["seconds"] = time.perf_counter() - t0
         result["configs"][name] = rec
         if device.type == "cuda":

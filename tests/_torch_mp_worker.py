@@ -85,7 +85,19 @@ torch, numpy and the port, and saves its results to
   LM: a stream exported mid-generation from the one process is adopted by
   the group (``into_group``), and one exported from the group is adopted
   by the one process (``out_of_group``), each with the one process's
-  uninterrupted stream as its reference.
+  uninterrupted stream as its reference;
+- ``axis4_train`` (4 ranks, ``tests/test_torch_axis4.py``): one Adam step
+  of the :data:`MP_GEOM` BERT under each of :data:`AXIS4_RUNS`, every
+  layout on one axis of 4 (TP, Ulysses, the ring with its einsum and
+  flash inners, EP under the four dispatches, PP), with the gathered
+  parameters and whether the axis's group is the world group;
+- ``axis4_serve`` (4 ranks, the same test): the :data:`SERVE_BERT_GEOM`
+  BERT served under each of :data:`AXIS4_SERVE` (TP 4, EP 4, PP 4), then
+  the :data:`CAUSAL4_GEOM` causal LM's mixed requests over a ``{"model":
+  4}`` serving group;
+- ``stuck_follower`` (2 ranks, ``tests/test_torch_causal_tp.py``): a
+  serving group whose follower lives but never takes a cell; the leader's
+  two cells and how each failed.
 """
 
 from __future__ import annotations
@@ -718,8 +730,9 @@ def tiled_batch(step: int, dp: int, base_rows: int = 2, tile: int = 4) -> dict:
                                for s in np.split(v, dp)]) for k, v in small.items()}
 
 
-def moe_pp_batches(name: str):
-    """This rank's batches of a ``mp_moe_pp`` run (on its active mesh)."""
+def moe_pp_batches(name: str, runs: dict = MOE_PP_RUNS):
+    """This rank's batches of a ``mp_moe_pp`` run (or of another job's
+    ``runs``, laid out alike) on its active mesh."""
     from distributed_tensorflow_tpu_torch.data.text import (
         SyntheticMLM,
         SyntheticMLMConfig,
@@ -727,7 +740,7 @@ def moe_pp_batches(name: str):
     )
     from distributed_tensorflow_tpu_torch.parallel.mesh import active_mesh, process_rows
 
-    spec, _, kind = MOE_PP_RUNS[name]
+    spec, _, kind = runs[name]
     if kind == "tiled":
         def tiled():
             step = 0
@@ -1332,6 +1345,141 @@ def job_migrate_tp(rank: int, world: int, ports: list[int], argv, out_dir: Path)
     return out
 
 
+# axis4_train's runs: one axis of 4 spanning the job (its group is the world
+# group), the MP_GEOM BERT (4 layers under the pipeline: one a stage) with
+# its fields beside it, and the batch layout of MOE_PP_RUNS. 4 heads and an
+# FFN of 128 split 1 and 32 a rank under TP; 8 experts 2 a rank under EP.
+_EP4 = dict(moe_experts=8, expert_axis="expert", expert_parallel=4)
+AXIS4_RUNS = {
+    "tp": ({"model": 4}, dict(model_axis="model", model_parallel=4), "plain"),
+    "ulysses": ({"seq": 4}, dict(seq_axis="seq", sp_impl="ulysses"), "seq"),
+    "ring": ({"seq": 4}, dict(seq_axis="seq"), "seq"),
+    "ring_flash": ({"seq": 4}, dict(seq_axis="seq", attn_impl="flash"), "seq"),
+    "ep_replicated": ({"expert": 4}, dict(_EP4), "plain"),
+    "ep_alltoall": ({"expert": 4}, dict(_EP4, moe_capacity_factor=16.0,
+                                        moe_dispatch="alltoall"), "plain"),
+    "ep_sharded": ({"expert": 4}, dict(_EP4, moe_dispatch="sharded"), "expert_sharded"),
+    "ep_sharded_top2": ({"expert": 4}, dict(_EP4, moe_dispatch="sharded", moe_topk=2),
+                        "expert_sharded"),
+    "pp": ({"pipeline": 4}, dict(num_layers=4, pipeline_axis="pipeline", pipeline_parallel=4,
+                                 pipeline_microbatches=4), "plain"),
+}
+AXIS4_STEPS = 1
+# axis4_serve's layouts (SERVE_BERT_GEOM; MoE at a capacity factor of the
+# expert count, as serve_mesh's), and the causal LM's TP 4 geometry.
+AXIS4_SERVE = {
+    "tp": ({"model": 4}, {}, None),
+    "ep": ({"expert": 4}, dict(moe_experts=8, moe_topk=1, moe_capacity_factor=8.0), None),
+    "pp": ({"pipeline": 4}, dict(num_layers=4, pipeline_parallel=4), None),
+}
+CAUSAL4_GEOM = dict(CAUSAL_TP_GEOM, num_heads=4)
+
+
+def causal4_params() -> dict:
+    """The seeded global state dict of the :data:`CAUSAL4_GEOM` LM."""
+    from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLM, CausalLMConfig
+
+    model = CausalLM(CausalLMConfig(**CAUSAL4_GEOM), device="cpu")
+    return seeded_state(model.state_dict(), 7, 0.15)
+
+
+def job_stuck_follower(rank: int, world: int, ports: list[int], argv, out_dir: Path) -> dict:
+    """A serving group whose follower stays alive but never takes a cell:
+    the leader's broadcast of a 64 MB operand (more than the sockets
+    buffer) must raise within the job's collective timeout (2 s here), and
+    the next cell at once."""
+    import os
+
+    from distributed_tensorflow_tpu_torch.parallel.mesh import build_mesh
+    from distributed_tensorflow_tpu_torch.serve.group import ServingGroup
+
+    initialize_runtime(f"127.0.0.1:{ports[0]}", world, rank, device="cpu", timeout_s=2)
+    group = ServingGroup(build_mesh({"model": 2}))
+    if rank:
+        time.sleep(8)
+        os._exit(3)  # no results: it took no cell
+    group.start()
+    big = torch.zeros(64 << 20, dtype=torch.uint8)
+    out = {"errors": [], "seconds": []}
+    for _ in range(2):
+        t0 = time.monotonic()
+        try:
+            group.issue("cell", (big,), lambda x: None)
+            out["errors"].append(None)
+        except Exception as e:  # the group's failure, recorded for the test
+            out["errors"].append(f"{type(e).__name__}: {e}")
+        out["seconds"].append(time.monotonic() - t0)
+    torch.save(out, out_dir / f"stuck_follower_rank{rank}.pt")
+    os._exit(0)
+
+
+def job_axis4_train(rank: int, world: int, ports: list[int], argv, out_dir: Path) -> dict:
+    import torch.distributed as dist
+
+    from distributed_tensorflow_tpu_torch.models import bert
+    from distributed_tensorflow_tpu_torch.parallel.mesh import axis_group, build_mesh
+    from distributed_tensorflow_tpu_torch.train import create_train_state, make_train_step
+    from distributed_tensorflow_tpu_torch.train.state import Transform
+
+    initialize_runtime(f"127.0.0.1:{ports[0]}", world, rank, device="cpu", timeout_s=60)
+    tx = Transform(lambda p: torch.optim.Adam(list(p.values()), lr=MP_LR, betas=(0.9, 0.999),
+                                              eps=1e-8), lambda c: MP_LR)
+    out = {}
+    for name, (spec, over, kind) in AXIS4_RUNS.items():
+        mesh = build_mesh(spec)
+        model = bert.BertForPreTraining(bert.BertConfig(**{**MP_GEOM, **over}), device="cpu",
+                                        seed=0)
+        params = dict(model.named_parameters())
+        specs = bert.bert_param_specs(
+            params, "model" if "model_axis" in over else None,
+            "expert" if "expert_axis" in over else None,
+            "pipeline" if "pipeline_axis" in over else None)
+        state = create_train_state(params, tx)
+        step = make_train_step(bert.make_bert_pretraining_loss(model), tx, param_specs=specs,
+                               batch_axes=("expert",) if kind == "expert_sharded" else ())
+        batches = moe_pp_batches(name, AXIS4_RUNS)
+        metrics = []
+        for _ in range(AXIS4_STEPS):
+            state, m = step(state, next(batches), torch.Generator().manual_seed(1))
+            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm", "moe_aux") if k in m})
+        out[name] = {"metrics": metrics, "params": _gathered(state.params, specs, mesh),
+                     "world_group": axis_group(mesh, tuple(spec)) is dist.group.WORLD}
+    shutdown_runtime()
+    return out
+
+
+def job_axis4_serve(rank: int, world: int, ports: list[int], argv, out_dir: Path) -> dict:
+    from distributed_tensorflow_tpu_torch.models.causal_lm import CausalLM, CausalLMConfig
+    from distributed_tensorflow_tpu_torch.parallel.mesh import build_mesh
+    from distributed_tensorflow_tpu_torch.serve import BertInferenceEngine, CausalLMEngine
+
+    initialize_runtime(f"127.0.0.1:{ports[0]}", world, rank, device="cpu", timeout_s=60)
+    out = {}
+    for name, (spec, over, wd) in AXIS4_SERVE.items():
+        mesh = build_mesh(spec)
+        model, params = serve_bert(over)
+        engine = BertInferenceEngine(model, params, "cpu", mesh=mesh, weight_dtype=wd,
+                                     **SERVE_ENGINE_KW)
+        if rank:
+            assert engine.follow() == 0
+            continue
+        payloads = serve_payloads()
+        out[name] = {"layout": engine.layout, "mesh_info": engine.mesh_info(),
+                     "moe_dispatch": engine.model.cfg.moe_dispatch,
+                     "results": {n: engine.run_batch(payloads[:n]) for n in (1, 4)}}
+        engine.close()
+    engine = CausalLMEngine(CausalLM(CausalLMConfig(**CAUSAL4_GEOM), device="cpu"),
+                            causal4_params(), "cpu", mesh=build_mesh({"model": 4}),
+                            **CAUSAL_TP_KW)
+    if rank:
+        assert engine.follow() == 0
+    else:
+        out["causal"] = _lm_streams(engine, mixed_requests())
+        engine.close()
+    shutdown_runtime()
+    return out
+
+
 def main() -> int:
     job, rank, world, out_dir, ports = sys.argv[1:6]
     argv = json.loads(sys.argv[6]) if len(sys.argv) > 6 else None
@@ -1339,12 +1487,14 @@ def main() -> int:
     ports = [int(p) for p in ports.split(",")]
     torch.set_num_threads(1)
     if job in ("dropout", "chaos", "elastic", "mp_attn", "mp_bert", "mp_moe", "mp_pipe",
-               "mp_moe_pp", "serve_mesh", "causal_tp", "migrate_tp"):
+               "mp_moe_pp", "serve_mesh", "causal_tp", "migrate_tp", "axis4_train",
+               "axis4_serve", "stuck_follower"):
         job_fn = {"dropout": job_dropout, "chaos": job_chaos, "elastic": job_elastic,
                   "mp_attn": job_mp_attn, "mp_bert": job_mp_bert, "mp_moe": job_mp_moe,
                   "mp_pipe": job_mp_pipe, "mp_moe_pp": job_mp_moe_pp,
                   "serve_mesh": job_serve_mesh, "causal_tp": job_causal_tp,
-                  "migrate_tp": job_migrate_tp}[job]
+                  "migrate_tp": job_migrate_tp, "axis4_train": job_axis4_train,
+                  "axis4_serve": job_axis4_serve, "stuck_follower": job_stuck_follower}[job]
         out = job_fn(rank, world, ports, argv, out_dir)
     else:
         out = {"collectives": job_collectives, "cli": job_cli}[job](rank, world, ports, argv)

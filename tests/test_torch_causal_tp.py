@@ -272,3 +272,16 @@ def test_a_dead_follower_fails_the_leader(ranks):
     assert first is not None
     assert second is not None and "serving group broken" in second
     assert outs[1] is None  # the follower exited with code 3
+
+
+def test_a_follower_that_takes_no_cell_fails_the_leader_within_the_timeout(tmp_path):
+    """The leader's broadcast waits at most the job's collective timeout:
+    a follower that lives but never takes the next cell (over NCCL, one
+    SIGKILLed mid-decode left the leader waiting in the control channel
+    for good) makes the cell raise within it, and the next one at once."""
+    out = _launch(tmp_path, "stuck_follower", world=2, codes=(0, 3))[0]
+    first, second = out["errors"]
+    assert first is not None and "timed out" in first.lower()
+    assert out["seconds"][0] < 15
+    assert second is not None and "serving group broken" in second
+    assert out["seconds"][1] < 1

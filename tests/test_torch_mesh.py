@@ -8,15 +8,25 @@ CPU devices; a port rank holds one mesh position, so its
 ``local_batch_size`` is the JAX package's per-device shard of the batch.
 ``initialize_runtime`` runs one process without cluster arguments or
 markers and raises for a declared or detected cluster that cannot form
-(a 2 s timeout; no group is left behind).
+(a 2 s timeout; no group is left behind). Launching: ``cli.train`` under
+torchrun (``python -m torch.distributed.run --nproc-per-node 2``) reads
+the launcher's environment; a rank's card is ``LOCAL_RANK``, else its rank
+modulo the card count; ``scripts/torch_mp_train.py --backend`` takes nccl
+or gloo, defaults to ``initialize_runtime``'s choice and refuses any other
+name.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import itertools
 import math
+import os
 import socket
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -167,3 +177,74 @@ def test_initialize_runtime_raises_for_a_detected_cluster_without_a_peer(no_clus
         no_cluster_env.setenv(var, value)
     with pytest.raises(RuntimeError):
         pmesh.initialize_runtime(device="cpu", timeout_s=2)
+
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_cli_train_under_torchrun_reads_the_launchers_environment(tmp_path):
+    """``cli.train --config mnist_lenet --device cpu`` as two processes of
+    torchrun: each rank's group comes from the launcher's environment (no
+    cluster flags), rank 0 logs the two-rank job and both ranks train."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+         "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
+         "-m", "distributed_tensorflow_tpu_torch.cli.train", "--config", "mnist_lenet",
+         "--device", "cpu", "--steps", "2", "--global-batch", "8", "--log-every", "1"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    log = proc.stdout + proc.stderr
+    assert proc.returncode == 0, log[-4000:]
+    groups = sorted(ln.split("process group: ", 1)[1] for ln in log.splitlines()
+                    if "process group: " in ln)
+    assert groups == [f"backend=gloo world=2 rank={r} device=cpu" for r in range(2)]
+    assert "mesh={'data': 2} layout=dp2" in log
+    assert len([ln for ln in log.splitlines() if "train.loop: step" in ln]) == 2
+
+
+def test_rank_device_maps_local_rank_then_rank_modulo_cards(monkeypatch):
+    """``device="cuda"`` is ``cuda:<LOCAL_RANK>`` under a launcher, else
+    ``cuda:<rank % device_count>``; an indexed card or the CPU is kept."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    assert [pmesh._rank_device("cuda", r) for r in range(6)] == [
+        torch.device("cuda", r % 4) for r in range(6)]
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert pmesh._rank_device("cuda", 0) == torch.device("cuda", 3)
+    assert pmesh._rank_device("cuda:2", 0) == torch.device("cuda", 2)
+    assert pmesh._rank_device("cpu", 5) == torch.device("cpu")
+
+
+def _mp_train():
+    spec = importlib.util.spec_from_file_location(
+        "torch_mp_train", ROOT / "scripts" / "torch_mp_train.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_mp_train_backend_flag_defaults_and_refuses_unknown_names(capsys):
+    """``--backend`` in every mode of ``scripts/torch_mp_train.py``: absent,
+    the group's backend is ``initialize_runtime``'s default (None here);
+    nccl or gloo is taken out of the CLI's arguments; another name exits
+    2, as it does in the layouts' own parser."""
+    mp = _mp_train()
+    argv = ["--config", "bert_base", "--steps", "2"]
+    assert mp.backend_flag(argv) is None and argv == ["--config", "bert_base", "--steps", "2"]
+    for name in mp.BACKENDS:
+        argv = ["--config", "bert_base", "--backend", name, "--steps", "2"]
+        assert mp.backend_flag(argv) == name
+        assert argv == ["--config", "bert_base", "--steps", "2"]
+    with pytest.raises(SystemExit) as e:
+        mp.backend_flag(["--backend", "mpi"])
+    assert e.value.code == 2
+    assert "invalid choice: 'mpi'" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        mp.main(["--world", "1", "--rank", "0", "--port", "1", "--out", "x",
+                 "--backend", "ucc"])
+    assert e.value.code == 2
+    assert mp.BACKENDS == ("nccl", "gloo")
